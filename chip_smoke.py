@@ -21,19 +21,39 @@ non-zero and prints no result line):
    the inverse pipeline;
 5. per-block path: the same DDIM run over 2 of the conditions through
    mega_denoise_ensemble(stack=False), i.e. fused_core_block, held against
-   the main path's draws.
+   the main path's draws;
+6. slab kernels: slab_attention's CUDA forward and backward at the
+   encoder's training shape (B=256, L=147, C=256, 4 heads), at B=4 with
+   8 heads (dh=32) and at an odd L, held against the plain version
+   (1e-4 * max(1, max|plain|)), timed beside the plain version and
+   F.scaled_dot_product_attention (the yardstick; the port never calls
+   it);
+7. training path: V5E8_DP's model and train settings in float32 on one
+   card (full-width CondUNet, attn_slab=True, batch 256, condition
+   4693 x 14). (a) 5 train_steps on the kernel path against the same 5 on
+   the plain path (and a plain-vs-plain run that sets the tolerance),
+   one slab forward and backward launch per step, ms per step, and a
+   torch.profiler breakdown of one step; one step from non-zero weights
+   as well. (b) ertdx_torch.train.train for 2
+   epochs on 400 examples into a temporary directory, its best and last
+   checkpoints read back through the port's reader.
 
 The last line of stdout is {"ok": true, "device": {...}}. The build goes
-to build/ertdx_torch_kernels/; nothing else is written.
+to build/ertdx_torch_kernels/; phase 7's checkpoints go to a temporary
+directory that is removed; nothing else is written.
 """
 from __future__ import annotations
 
+import copy
+import dataclasses
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -48,6 +68,10 @@ SEED = 0
 # (kernel, conditions, members): the configs[3] shapes, then R=10
 KERNEL_CASES = [("fused_core_stack", 8, 1000), ("fused_core_stack", 8, 10),
                 ("fused_core_block", 2, 1000), ("fused_core_block", 2, 10)]
+# (B, L, C, heads): the encoder's training shape first, then dh=32 and an
+# odd L
+SLAB_CASES = [(256, 147, 256, 4), (4, 147, 256, 8), (3, 61, 128, 2)]
+TRAIN_STEPS = 5
 
 
 def log(msg: str) -> None:
@@ -65,8 +89,10 @@ def card_line() -> str:
         check=True).stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
-    """Median CUDA-event time of one call, over `reps` calls."""
+def time_ms(fn, reps: int = 10, warmup: int = 2, run: int = 5) -> float:
+    """Median over `reps` samples of the CUDA-event time of one call, each
+    sample the mean of `run` calls launched back to back, so that the
+    host's launch work overlaps the device's."""
     for _ in range(warmup):
         fn()
     times = []
@@ -74,10 +100,11 @@ def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(run):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / run)
     return statistics.median(times)
 
 
@@ -170,6 +197,379 @@ def check_kernels(cb, dev) -> dict:
     return results
 
 
+def check_slab(sa, dev) -> dict:
+    """Phase 6: the slab kernels against their plain version, timed."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    results = {}
+    for b, l, c, nh in SLAB_CASES:
+        dh = c // nh
+        if not sa.slab_attention_ok(b, l, c, nh):
+            raise RuntimeError(f"slab gate refuses B={b} L={l} C={c} "
+                               f"H={nh}")
+        qkv = torch.randn(b, l, 3 * c, generator=gen, device=dev)
+        do = torch.randn(b, l, c, generator=gen, device=dev)
+        got = sa.slab_attention_fwd(qkv, nh)
+        dgot = sa.slab_attention_bwd(qkv, do, nh)
+        torch.cuda.synchronize()
+        want = sa.reference_slab_attention(qkv, nh)
+        dwant = sa.reference_slab_attention_backward(qkv, do, nh)
+        torch.cuda.synchronize()
+        for name, g, w in (("slab_attention_fwd", got, want),
+                           ("slab_attention_bwd", dgot, dwant)):
+            if not torch.isfinite(g).all():
+                raise RuntimeError(f"{name} B={b} L={l}: non-finite")
+            err = float((g - w).abs().max())
+            scale = float(w.abs().max())
+            tol = 1e-4 * max(1.0, scale)
+            log(f"{name} B={b} L={l} C={c} H={nh}: max_abs_err={err:.3e} "
+                f"max|plain|={scale:.4f} tol={tol:.3e}")
+            if not err <= tol:
+                raise RuntimeError(f"{name} B={b} L={l}: error {err} > "
+                                   f"{tol}")
+            entry = results.setdefault(name, {"max_abs_err": 0.0})
+            entry["max_abs_err"] = max(entry["max_abs_err"], err)
+        if (b, l, c, nh) != SLAB_CASES[0]:
+            continue
+
+        def heads(z):
+            return z.reshape(b, l, nh, dh).transpose(1, 2)
+
+        def sdpa(z):
+            q, k, v = z.split(c, dim=-1)
+            out = F.scaled_dot_product_attention(heads(q), heads(k),
+                                                 heads(v))
+            return out.transpose(1, 2).reshape(b, l, c)
+
+        def backward_of(fn):
+            z = qkv.detach().requires_grad_(True)
+            out = fn(z)
+            return lambda: torch.autograd.grad(out, z, do,
+                                               retain_graph=True)
+
+        def sdpa_fwd_bwd():
+            z = qkv.detach().requires_grad_(True)
+            sdpa(z).backward(do)
+
+        with torch.no_grad():
+            fwd_ms = time_ms(lambda: sa.slab_attention_fwd(qkv, nh))
+            fwd_plain = time_ms(lambda: sa.reference_slab_attention(qkv,
+                                                                    nh))
+            fwd_lib = time_ms(lambda: sdpa(qkv))
+        bwd_ms = time_ms(lambda: sa.slab_attention_bwd(qkv, do, nh))
+        bwd_plain = time_ms(backward_of(
+            lambda z: sa.reference_slab_attention(z, nh)))
+        bwd_lib = time_ms(backward_of(sdpa))
+        fwd_bwd_lib = time_ms(sdpa_fwd_bwd)
+        prod = b * nh * l * l * dh
+        io = {"fwd": 4 * (b * l * 3 * c + b * l * c),
+              "bwd": 4 * (2 * b * l * 3 * c + b * l * c)}
+        for name, flops, nbytes, ms, plain_ms, lib_ms in (
+                ("slab_attention_fwd", 4 * prod, io["fwd"], fwd_ms,
+                 fwd_plain, fwd_lib),
+                ("slab_attention_bwd", 10 * prod, io["bwd"], bwd_ms,
+                 bwd_plain, bwd_lib)):
+            bound_ms, bound_by = bound(flops, nbytes)
+            results[name].update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                 bound_ms=bound_ms, bound_by=bound_by,
+                                 shape=f"B={b} L={l} C={c} H={nh}")
+            log(f"{name} B={b} L={l} C={c} H={nh}: kernel {ms:.4f} ms, "
+                f"plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, bound "
+                f"{bound_ms:.4f} ms ({bound_by}: {flops:.3e} flops, "
+                f"{nbytes:.3e} bytes), achieved "
+                f"{flops / ms / 1e9:.2f} TFLOP/s")
+        log(f"resident blocks per SM at L={l}, dh={dh} (256 threads "
+            f"each): {sa.blocks_per_sm(l, dh)}")
+        log(f"SDPA forward+backward (one call each, reshapes included): "
+            f"{fwd_bwd_lib:.4f} ms; slab kernels forward+backward "
+            f"{fwd_ms + bwd_ms:.4f} ms")
+    return results
+
+
+def train_cfg(configs):
+    """V5E8_DP's model and train settings, float32, one device."""
+    cfg = configs.V5E8_DP
+    return dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, dtype="float32"),
+        mesh=configs.MeshConfig())
+
+
+def _grads(model) -> dict:
+    return {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+
+
+def _run_steps(train, model, opt, batches, alpha_bar, lr, sa=None):
+    """The train steps on `batches`; per-step loss, ms, launches and the
+    first step's gradients."""
+    losses, times, counts, g1 = [], [], [], None
+    for x0, cond, t, noise in batches:
+        if sa is not None:
+            before = dict(sa.launches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = train.train_step(model, opt, x0, cond, t, noise,
+                                alpha_bar=alpha_bar, lr=lr)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+        if sa is not None:
+            counts.append({k: sa.launches[k] - before[k]
+                           for k in sa.launches})
+        if g1 is None:
+            g1 = _grads(model)
+    return losses, times, counts, g1
+
+
+def _compare_grads(tag, got, want) -> float:
+    worst = 0.0
+    for name, w in want.items():
+        err = float((got[name] - w).abs().max())
+        tol = 1e-4 * max(1.0, float(w.abs().max()))
+        worst = max(worst, err / tol)
+        if not err <= tol:
+            raise RuntimeError(f"{tag}: gradient of {name} differs by "
+                               f"{err:.3e} > {tol:.3e}")
+    return worst
+
+
+def _param_diffs(a, b) -> torch.Tensor:
+    return torch.cat([(pa.detach() - pb.detach()).abs().reshape(-1)
+                      for pa, pb in zip(a.parameters(), b.parameters())])
+
+
+KERNEL_GROUPS = (("slab attention (this port)", ("slab_",)),
+                 ("convolution", ("conv", "implicit", "fprop", "dgrad",
+                                  "wgrad", "winograd")),
+                 ("matrix product", ("gemm", "cutlass", "cublas")),
+                 ("reduction, norm, softmax", ("reduce", "norm", "softmax")),
+                 ("elementwise", ("elementwise", "vectorized", "copy",
+                                  "fill", "cat")))
+
+
+def profile_step(train, model, opt, batch, alpha_bar, lr) -> None:
+    """Where one train step's device time goes: torch.profiler's kernel
+    records, summed by name and by rough group, and the device's idle
+    share of the step's wall time (profiler overhead included)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    x0, cond, t, noise = batch
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        train.train_step(model, opt, x0, cond, t, noise,
+                         alpha_bar=alpha_bar, lr=lr)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    if not kernels:
+        log("profile: the profiler recorded no device time; breakdown "
+            "not measured")
+        return
+    by_name: dict = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    busy = sum(by_name.values())
+    groups = {name: 0.0 for name, _ in KERNEL_GROUPS}
+    groups["other"] = 0.0
+    for name, us in by_name.items():
+        low = name.lower()
+        key = next((g for g, keys in KERNEL_GROUPS
+                    if any(k in low for k in keys)), "other")
+        groups[key] += us
+    log(f"profile of one kernel-path train step: {len(kernels)} kernel "
+        f"launches, device busy {busy / 1e3:.3f} ms of {wall_us / 1e3:.3f} "
+        f"ms wall (idle share {1 - busy / wall_us:.3f})")
+    for name, us in sorted(groups.items(), key=lambda kv: -kv[1]):
+        log(f"  group {name}: {us / 1e3:.3f} ms ({100 * us / busy:.1f} %)")
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
+        log(f"  kernel {us / 1e3:8.3f} ms  {name[:110]}")
+
+
+def check_training(sa, dev, card) -> dict:
+    """Phase 7 (a): kernel path against plain path, 5 train steps."""
+    from ertdx_torch import configs, train
+    from ertdx_torch.diffusion import schedule_from_config
+    from ertdx_torch.models import build_model
+    from ertdx_torch.utils.weights import flax_shapes, params_from_jax
+
+    cfg = train_cfg(configs)
+    mcfg, tcfg = cfg.model, cfg.train
+    log(f"training config: {mcfg.name} D={mcfg.hidden_dim} "
+        f"base_width={mcfg.base_width} depth={mcfg.depth} "
+        f"heads={mcfg.num_heads} blocks={mcfg.num_blocks} "
+        f"attn_slab={mcfg.attn_slab} dtype={mcfg.dtype} batch="
+        f"{tcfg.batch_size} lr={tcfg.lr} condition {mcfg.cond_length} x "
+        f"{mcfg.cond_channels}")
+    kernel = build_model(mcfg, dev, generator=torch.Generator()
+                         .manual_seed(SEED + 7))
+    plain = copy.deepcopy(kernel)
+    plain.encoder.attn.slab = False
+    plain2 = copy.deepcopy(plain)
+    alpha_bar = schedule_from_config(cfg.diffusion).alpha_bar.to(dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    b, p = tcfg.batch_size, mcfg.param_dim
+    batches = [(torch.randn(b, p, generator=gen, device=dev),
+                torch.rand(b, mcfg.cond_length, mcfg.cond_channels,
+                           generator=gen, device=dev),
+                torch.randint(0, cfg.diffusion.T, (b,), generator=gen,
+                              device=dev),
+                torch.randn(b, p, generator=gen, device=dev))
+               for _ in range(TRAIN_STEPS)]
+    lr = train.make_lr(tcfg, TRAIN_STEPS)
+
+    # plain vs plain first: it sets the tolerance of what follows
+    pl, p_ms, _, pg = _run_steps(train, plain,
+                                 train.create_optimizer(plain, lr), batches,
+                                 alpha_bar, lr)
+    pl2, _, _, pg2 = _run_steps(train, plain2,
+                                train.create_optimizer(plain2, lr), batches,
+                                alpha_bar, lr)
+    pp_loss = max(abs(a - c) for a, c in zip(pl, pl2))
+    pp_grad = max(float((pg[n] - pg2[n]).abs().max()) for n in pg)
+    pp = _param_diffs(plain, plain2)
+    pp_share = float((pp > 1e-5).float().mean())
+    log(f"plain vs plain: max|dloss|={pp_loss:.3e} max|dgrad|="
+        f"{pp_grad:.3e} max|dparam|={float(pp.max()):.3e} share of "
+        f"params > 1e-5: {pp_share:.3e}")
+
+    torch.cuda.reset_peak_memory_stats()
+    sa.reset_launches()
+    kl, k_ms, counts, kg = _run_steps(train, kernel,
+                                      train.create_optimizer(kernel, lr),
+                                      batches, alpha_bar, lr, sa)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"kernel path: losses {kl}; slab launches per step {counts}")
+    for step, cnt in enumerate(counts):
+        if cnt != {"slab_attention_fwd": 1, "slab_attention_bwd": 1}:
+            raise RuntimeError(f"train step {step + 1}: slab launches "
+                               f"{cnt}, expected one forward and one "
+                               "backward")
+    loss_tol = max(1e-5, 10 * pp_loss)
+    for step, (a, c) in enumerate(zip(kl, pl)):
+        if not abs(a - c) <= loss_tol * max(1.0, abs(c)):
+            raise RuntimeError(f"train step {step + 1}: loss {a} vs plain "
+                               f"{c}, tolerance {loss_tol:.1e}")
+    worst = _compare_grads("step 1", kg, pg)
+    kp = _param_diffs(kernel, plain)
+    k_share = float((kp > 1e-5).float().mean())
+    flip_bound = 2 * tcfg.lr * TRAIN_STEPS
+    log(f"kernel vs plain: max|dloss|="
+        f"{max(abs(a - c) for a, c in zip(kl, pl)):.3e} (tol "
+        f"{loss_tol:.1e} x max(1, loss)); step-1 gradients worst "
+        f"err/tol {worst:.3f}; params after {TRAIN_STEPS} steps "
+        f"max|d|={float(kp.max()):.3e} (bound {flip_bound:.1e}), share > "
+        f"1e-5 {k_share:.3e} (limit max(1e-3, 2 x plain-vs-plain))")
+    if not (float(kp.max()) <= flip_bound + 1e-6
+            and k_share <= max(1e-3, 2 * pp_share)):
+        raise RuntimeError("kernel-path parameters disagree with the "
+                           "plain path")
+
+    # one step from non-zero weights: every projection carries gradient
+    rng = np.random.default_rng(SEED + 9)
+    tree = random_flax_tree(flax_shapes(kernel), rng)
+    nz_k, nz_p = copy.deepcopy(kernel), copy.deepcopy(plain)
+    params_from_jax(nz_k, tree)
+    params_from_jax(nz_p, tree)
+    sa.reset_launches()
+    (lk,), _, _, gk = _run_steps(train, nz_k,
+                                 train.create_optimizer(nz_k, lr),
+                                 batches[:1], alpha_bar, lr)
+    (lp,), _, _, gp = _run_steps(train, nz_p,
+                                 train.create_optimizer(nz_p, lr),
+                                 batches[:1], alpha_bar, lr)
+    worst_nz = _compare_grads("non-zero weights", gk, gp)
+    log(f"non-zero weights: loss {lk:.6f} vs plain {lp:.6f}; gradients "
+        f"worst err/tol {worst_nz:.3f}")
+    if not abs(lk - lp) <= loss_tol * max(1.0, abs(lp)):
+        raise RuntimeError("non-zero weights: loss disagrees")
+
+    profile_step(train, kernel, train.create_optimizer(kernel, lr),
+                 batches[0], alpha_bar, lr)
+    k_step = statistics.median(k_ms[1:])
+    p_step = statistics.median(p_ms[1:])
+    log(f"ms per train step (median of steps 2-{TRAIN_STEPS}; {card}): "
+        f"kernel path {k_step:.3f}, plain path {p_step:.3f}; peak memory "
+        f"{peak / 2**20:.1f} MiB; step times kernel {k_ms} plain {p_ms}")
+    return {"kernel_step_ms": k_step, "plain_step_ms": p_step}
+
+
+def check_train_entry(sa, dev) -> dict:
+    """Phase 7 (b): train() for 2 epochs, checkpoints read back."""
+    from ertdx_torch import configs, train
+    from ertdx_torch.data import prepare_dataset
+    from ertdx_torch.doe import SurrogateDataGenerator
+    from ertdx_torch.utils import checkpoint as ckpt_lib
+    from ertdx_torch.utils.weights import params_from_jax
+
+    cfg = train_cfg(configs)
+    mcfg = cfg.model
+    n = 400
+    params_phys = SurrogateDataGenerator(seed=SEED).generate_training_samples(
+        n, "lhs")
+    ert = np.random.default_rng(SEED + 10).normal(
+        50.0, 10.0, size=(n, mcfg.cond_length, mcfg.cond_channels))
+    ds = prepare_dataset(params_phys[..., None], ert)
+    tmp = tempfile.mkdtemp(prefix="ertdx_torch_ckpt_")
+    try:
+        cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+            cfg.train, num_epochs=2, step_checkpoint_every=1,
+            checkpoint_dir=tmp))
+        sa.reset_launches()
+        t0 = time.perf_counter()
+        res = train.train(cfg, ds, device=dev, logger=lambda d: log(
+            f"train(): {d}"))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = dict(sa.launches)
+        steps = res.state.step
+        log(f"train(): 2 epochs, {steps} steps in {seconds:.3f} s "
+            f"({res.steps_per_sec:.3f} steps/s), best epoch "
+            f"{res.best_epoch + 1}, val {res.val_history}; slab launches "
+            f"{counts}")
+        n_val_batches = -(-int(0.1 * n) // cfg.train.batch_size)
+        want = {"slab_attention_fwd": steps + 2 * n_val_batches,
+                "slab_attention_bwd": steps}
+        if counts != want:
+            raise RuntimeError(f"train(): slab launches {counts}, expected "
+                               f"{want}")
+        if not np.isfinite(res.train_history + res.val_history).all():
+            raise RuntimeError("train(): non-finite loss")
+
+        best, meta, scalers = train.load_best_model(tmp, cfg, device=dev)
+        tree, _, _ = ckpt_lib.restore_checkpoint(os.path.join(tmp, "last"))
+        last = copy.deepcopy(res.state.model)
+        params_from_jax(last, tree["params"])
+        x = torch.from_numpy(ds.params_u[:8]).to(dev)
+        cond = torch.from_numpy(ds.conditions[:8]).to(dev)
+        t = torch.arange(8, device=dev) * 60
+        with torch.no_grad():
+            trained = res.state.model(x, t, cond)
+            from_last = last(x, t, cond)
+            from_best = best.model(x, t, cond)
+        d_last = float((from_last - trained).abs().max())
+        same = all(torch.equal(a, b) for a, b in
+                   zip(last.parameters(), res.state.model.parameters()))
+        if not (same and d_last <= 1e-5
+                and torch.isfinite(from_best).all()):
+            raise RuntimeError(f"checkpoint read back differs: params "
+                               f"equal {same}, outputs {d_last}")
+        d_best = float((from_best - trained).abs().max())
+        log(f"checkpoints: last restores the trained parameters bit for "
+            f"bit (outputs max|d|={d_last:.3e}); best (epoch "
+            f"{meta['epoch']}) restores, max|d| vs the final model "
+            f"{d_best:.3e}, step {best.step}, scalers {sorted(scalers)}")
+        if res.best_epoch == 1 and not d_best <= 1e-5:
+            raise RuntimeError("best checkpoint of the last epoch differs "
+                               "from the trained model")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return counts
+
+
 def random_flax_tree(shapes, rng) -> dict:
     """A flax-layout tree of non-zero numpy leaves at init-like scales."""
     out = {}
@@ -202,6 +602,7 @@ def main() -> int:
                                              mega_weights)
         from ertdx_torch.ops import _build
         from ertdx_torch.ops import core_block as cb
+        from ertdx_torch.ops import slab_attn as sa
         from ertdx_torch.params import ParameterSpace
         from ertdx_torch.transforms import MinMaxScaler
         from ertdx_torch.utils.weights import flax_shapes, params_from_jax
@@ -330,19 +731,40 @@ def main() -> int:
         raise RuntimeError("per-block path disagrees with the main path")
     phase("per-block path", t0)
 
+    # 6. slab attention kernels against their plain version
+    t0 = time.perf_counter()
+    slab = check_slab(sa, dev)
+    phase("slab kernels", t0)
+
+    # 7. training path: (a) train steps, kernel vs plain; (b) train()
+    t0 = time.perf_counter()
+    step_ms = check_training(sa, dev, card)
+    train_launches = check_train_entry(sa, dev)
+    share = (slab["slab_attention_fwd"]["ms"]
+             + slab["slab_attention_bwd"]["ms"]) / step_ms["kernel_step_ms"]
+    log(f"slab kernels' share of the kernel-path train step: "
+        f"{100 * share:.2f} %")
+    phase("training path", t0)
+
     launches = {"fused_core_stack": main_launches["fused_core_stack"],
-                "fused_core_block": block_launches["fused_core_block"]}
+                "fused_core_block": block_launches["fused_core_block"],
+                **train_launches}
     replaces = {"fused_core_stack": "ertdx/ops/core_block.py:440",
-                "fused_core_block": "ertdx/ops/core_block.py:281"}
+                "fused_core_block": "ertdx/ops/core_block.py:281",
+                "slab_attention_fwd": "ertdx/ops/slab_attn.py:147",
+                "slab_attention_bwd": "ertdx/ops/slab_attn.py:184"}
+    sources = {"fused_core_stack": "ertdx_torch/csrc/core_block.cu",
+               "fused_core_block": "ertdx_torch/csrc/core_block.cu",
+               "slab_attention_fwd": "ertdx_torch/csrc/slab_attn.cu",
+               "slab_attention_bwd": "ertdx_torch/csrc/slab_attn.cu"}
     line = {"kernels": [
-        {"name": name, "route": "cuda",
-         "source": "ertdx_torch/csrc/core_block.cu",
+        {"name": name, "route": "cuda", "source": sources[name],
          "replaces": replaces[name], "launches": launches[name],
          "max_abs_err": r["max_abs_err"], "ms": r["ms"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-         "bound_by": r["bound_by"], "library_ms": None,
+         "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
          "shape": r["shape"]}
-        for name, r in results.items()]}
+        for name, r in {**results, **slab}.items()]}
     log(f"[phase] total: {time.perf_counter() - t_all:.3f} s")
     log(json.dumps(line))
     log(card_line())

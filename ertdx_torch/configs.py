@@ -2,8 +2,10 @@
 
 The field names and defaults match the JAX package so that a checkpoint's
 `meta.json` config echo means the same thing to both packages
-(ertdx/configs.py:13-200). Only the presets this slice serves are here:
-FULL_CONDITIONAL (configs[2]) and DDIM_ENSEMBLE (configs[3]).
+(ertdx/configs.py:13-200). Only the presets the port runs are here:
+FULL_CONDITIONAL (configs[2]), DDIM_ENSEMBLE (configs[3]) and V5E8_DP
+(configs[4], the throughput training preset; the port trains it in
+float32 on one device: build it with dtype="float32" and MeshConfig()).
 """
 from __future__ import annotations
 
@@ -42,7 +44,7 @@ class ModelConfig:
                                    # (models/mega.py, ops/core_block.py)
     ensemble_mega_accurate: bool = False  # no effect in the port yet
     attn_flash_min_logits: int = 0
-    attn_slab: bool = False
+    attn_slab: bool = False        # encoder slab attention (ops/slab_attn.py)
     dtype: str = "float32"         # the port computes in float32 only
     uncond_prob: float = 0.0       # classifier-free guidance dropout
     parameterization: str = "eps"  # "eps" | "v"
@@ -113,4 +115,51 @@ DDIM_ENSEMBLE = ExperimentConfig(
                         ddim_steps=50),
 )
 
-PRESETS = {c.name: c for c in (FULL_CONDITIONAL, DDIM_ENSEMBLE)}
+# configs[4]: data-parallel b256 training with the encoder's slab
+# attention (ertdx/configs.py:312-320). bfloat16 and the 8-way mesh are
+# the JAX preset's; the port refuses bf16 (build_model) and runs one
+# device, so it trains this preset with dtype="float32", MeshConfig().
+V5E8_DP = ExperimentConfig(
+    name="v5e8_dp",
+    model=dataclasses.replace(ModelConfig(), name="condunet",
+                              dtype="bfloat16", attn_slab=True),
+    train=dataclasses.replace(TrainConfig(), batch_size=256),
+    sample=SampleConfig(uncertainty_samples=1000, sampler="ddim",
+                        ddim_steps=50),
+    mesh=MeshConfig(data=8, model=1),
+)
+
+PRESETS = {c.name: c for c in (FULL_CONDITIONAL, DDIM_ENSEMBLE, V5E8_DP)}
+
+
+def split_seed_of(tcfg: TrainConfig) -> int:
+    """The seed of the train/val/test split: split_seed when set, else
+    the training seed (ertdx/configs.py:210-215)."""
+    return tcfg.seed if tcfg.split_seed is None else int(tcfg.split_seed)
+
+
+def _fields_from_dict(dc, d):
+    """A frozen config from a (possibly partial) dict over `dc`. JSON
+    turns tuples into lists; no field is list-typed, so lists become
+    tuples again."""
+    vals = {f.name: (tuple(d[f.name]) if isinstance(d[f.name], list)
+                     else d[f.name])
+            for f in dataclasses.fields(dc) if f.name in d}
+    return dataclasses.replace(dc, **vals) if vals else dc
+
+
+def experiment_from_dict(d: dict, base: "ExperimentConfig | None" = None
+                         ) -> ExperimentConfig:
+    """ExperimentConfig from a (possibly partial) nested dict over `base`:
+    the inverse of dataclasses.asdict for a checkpoint's config echo
+    (ertdx/configs.py:239-258)."""
+    base = base or ExperimentConfig()
+    return dataclasses.replace(
+        base,
+        diffusion=_fields_from_dict(base.diffusion, d.get("diffusion", {})),
+        model=_fields_from_dict(base.model, d.get("model", {})),
+        train=_fields_from_dict(base.train, d.get("train", {})),
+        sample=_fields_from_dict(base.sample, d.get("sample", {})),
+        mesh=_fields_from_dict(base.mesh, d.get("mesh", {})),
+        name=d.get("name", base.name),
+    )

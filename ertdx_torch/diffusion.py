@@ -1,4 +1,5 @@
-"""Diffusion core on torch tensors: schedules, conversions, the DDIM sampler.
+"""Diffusion core on torch tensors: schedules, noising, training targets,
+conversions, the DDIM sampler.
 
 Mirrors ertdx/diffusion.py:52-202 and :255-322. The JAX samplers draw their
 randomness from threefry keys; here `sample_ddim` takes a
@@ -59,6 +60,42 @@ def schedule_from_config(dcfg) -> DiffusionSchedule:
     """The schedule a DiffusionConfig describes."""
     return get_diffusion_schedule(dcfg.T, dcfg.beta_start, dcfg.beta_end,
                                   kind=dcfg.schedule)
+
+
+def q_sample(x0, t, noise, alpha_bar):
+    """Forward noising x_t = sqrt(abar_t) x0 + sqrt(1 - abar_t) eps
+    (ertdx/diffusion.py:96-105). x0, noise (B, D); t (B,) int."""
+    ab = alpha_bar[t][:, None]
+    return torch.sqrt(ab) * x0 + torch.sqrt(1.0 - ab) * noise
+
+
+def v_from_eps_x0(eps, x0, abar_t):
+    """The velocity target v = alpha_t eps - sigma_t x0."""
+    return torch.sqrt(abar_t) * eps - torch.sqrt(1.0 - abar_t) * x0
+
+
+def prediction_target(x0, noise, t, alpha_bar, parameterization: str):
+    """The regression target: `noise` itself for "eps", the velocity for
+    "v" (ertdx/diffusion.py:138-152)."""
+    if parameterization == "eps":
+        return noise
+    if parameterization == "v":
+        return v_from_eps_x0(noise, x0, alpha_bar[t][:, None])
+    raise ValueError(f"unknown parameterization {parameterization!r} "
+                     "(expected 'eps' or 'v')")
+
+
+def min_snr_weight(t, alpha_bar, parameterization: str, gamma: float):
+    """Per-example min-SNR-gamma weight (ertdx/diffusion.py:155-181):
+    min(SNR, gamma) / SNR for "eps", min(SNR, gamma) / (SNR + 1) for "v",
+    with SNR = abar_t / (1 - abar_t)."""
+    snr = alpha_bar[t] / (1.0 - alpha_bar[t])
+    if parameterization == "eps":
+        return torch.clamp(snr, max=gamma) / snr
+    if parameterization == "v":
+        return torch.clamp(snr, max=gamma) / (snr + 1.0)
+    raise ValueError(f"unknown parameterization {parameterization!r} "
+                     "(expected 'eps' or 'v')")
 
 
 def eps_from_v(v, x, abar_t):

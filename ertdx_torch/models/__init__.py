@@ -2,39 +2,51 @@
 
 This slice ports the flagship `condunet`. The other models of the JAX
 package (`refmlp`, configs[0]; `uncondmlp`, configs[1]) are ROADMAP.md
-queue 1 item 7 and raise here.
+queue 1 item 4 and raise here.
 """
 from __future__ import annotations
 
+from typing import Optional
+
+import torch
+
 from .. import resolve_device
 from ..configs import ModelConfig
-from .condunet import CondUNet
+from .condunet import CondUNet, init_params
 
 
-def build_model(cfg: ModelConfig, device=None) -> CondUNet:
+def build_model(cfg: ModelConfig, device=None,
+                generator: Optional[torch.Generator] = None) -> CondUNet:
     """The model `cfg` names, on `device` (CUDA unless "cpu" is asked
-    for). Weights are PyTorch's default init; load trained or seeded
-    weights with `ertdx_torch.utils.weights.params_from_jax`."""
+    for), initialised as flax initialises the JAX model (`init_params`)
+    from `generator` (a CPU torch.Generator; seed 0 when none is given).
+    Load trained weights with `ertdx_torch.utils.weights.params_from_jax`
+    or `ertdx_torch.train.load_best_model`."""
     dev = resolve_device(device)
     if cfg.name != "condunet":
         raise NotImplementedError(
             f"model {cfg.name!r} is not ported yet (ROADMAP.md queue 1 "
-            "item 7: the other models)")
+            "item 4: the other models)")
     if cfg.dtype != "float32":
         raise NotImplementedError(
-            f"dtype {cfg.dtype!r}: the port computes in float32 only")
+            f"dtype {cfg.dtype!r}: the port computes in float32 only "
+            "(ROADMAP.md queue 1 item 8: bf16 models)")
     if cfg.uncond_prob > 0.0:
         raise NotImplementedError(
             "classifier-free guidance (uncond_prob > 0) is not ported yet "
-            "(ROADMAP.md: samplers and guidance)")
-    return CondUNet(param_dim=cfg.param_dim, hidden_dim=cfg.hidden_dim,
-                    cond_channels=cfg.cond_channels,
-                    base_width=cfg.base_width, depth=cfg.depth,
-                    num_heads=cfg.num_heads, core_heads=cfg.core_heads,
-                    num_blocks=cfg.num_blocks,
-                    ensemble_mega=cfg.ensemble_mega,
-                    ensemble_mega_accurate=cfg.ensemble_mega_accurate,
-                    parameterization=cfg.parameterization).to(dev)
+            "(ROADMAP.md queue 1 item 2: samplers and guidance)")
+    model = CondUNet(param_dim=cfg.param_dim, hidden_dim=cfg.hidden_dim,
+                     cond_channels=cfg.cond_channels,
+                     base_width=cfg.base_width, depth=cfg.depth,
+                     num_heads=cfg.num_heads, core_heads=cfg.core_heads,
+                     num_blocks=cfg.num_blocks,
+                     ensemble_mega=cfg.ensemble_mega,
+                     ensemble_mega_accurate=cfg.ensemble_mega_accurate,
+                     parameterization=cfg.parameterization,
+                     attn_slab=cfg.attn_slab)
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    return init_params(model, generator).to(dev)
 
 
-__all__ = ["CondUNet", "build_model"]
+__all__ = ["CondUNet", "build_model", "init_params"]

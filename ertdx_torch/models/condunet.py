@@ -17,8 +17,13 @@ like. The contracts the JAX code fixes, and how this file keeps them:
 * Ensemble chains are condition-major: chain = b * R + r.
 
 Attention here is the plain path of ertdx/ops/attention.py:36-47
-(matmul, softmax, matmul); the fused-core CUDA kernels serve the sampling
-hot path through models/mega.py instead.
+(matmul, softmax, matmul), except that with `attn_slab` the encoder's
+self-attention reads the fused QKV slab through ops/slab_attn.py (the
+CUDA kernels on the card), with the JAX dispatch rule. The fused-core
+CUDA kernels serve the sampling hot path through models/mega.py.
+
+`init_params` draws a fresh model the way flax initialises the JAX
+CondUNet; the modules' own constructors keep PyTorch's default init.
 """
 from __future__ import annotations
 
@@ -29,10 +34,16 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.slab_attn import slab_attention
 from .common import get_timestep_embedding
 
 LN_EPS = 1e-6          # flax nn.LayerNorm default
 GN_EPS = 1e-5
+FLASH_MIN_LEN = 1024   # SelfAttention1D.pallas_min_len in the JAX model
+
+
+def pad128(length: int) -> int:
+    return -(-length // 128) * 128
 
 
 def same_pad(x: torch.Tensor, kernel: int, stride: int) -> torch.Tensor:
@@ -100,18 +111,25 @@ class ResBlock1D(nn.Module):
 
 
 class SelfAttention1D(nn.Module):
-    """Pre-norm multi-head self-attention with a residual."""
+    """Pre-norm multi-head self-attention with a residual. With `slab`,
+    short unmasked sequences go through the packed-head slab attention,
+    as ertdx/models/condunet.py:146-149 dispatches; same parameters."""
 
-    def __init__(self, channels: int, num_heads: int):
+    def __init__(self, channels: int, num_heads: int, slab: bool = False):
         super().__init__()
         self.num_heads = num_heads
+        self.slab = slab
         self.norm = nn.LayerNorm(channels, eps=LN_EPS)
         self.qkv = nn.Linear(channels, 3 * channels, bias=False)
         self.out = nn.Linear(channels, channels)
 
     def forward(self, x):
         b, l, c = x.shape
-        q, k, v = self.qkv(self.norm(x)).chunk(3, dim=-1)
+        qkv = self.qkv(self.norm(x))
+        if (self.slab and c % self.num_heads == 0
+                and pad128(l) < FLASH_MIN_LEN):
+            return x + self.out(slab_attention(qkv, self.num_heads))
+        q, k, v = qkv.chunk(3, dim=-1)
 
         def heads(z):
             return z.reshape(b, l, self.num_heads, -1).transpose(1, 2)
@@ -125,7 +143,7 @@ class ConditionEncoder(nn.Module):
 
     def __init__(self, cond_channels: int = 14, hidden_dim: int = 128,
                  base_width: int = 64, depth: int = 3, num_heads: int = 4,
-                 patch: int = 8):
+                 patch: int = 8, attn_slab: bool = False):
         super().__init__()
         self.patch = patch
         w0 = 2 * base_width
@@ -138,7 +156,7 @@ class ConditionEncoder(nn.Module):
             self.downs.append(Conv1dSame(w, w_next, 3, stride=2))
             self.res.append(ResBlock1D(w_next, w_next))
             w = w_next
-        self.attn = SelfAttention1D(w, num_heads)
+        self.attn = SelfAttention1D(w, num_heads, slab=attn_slab)
         self.res_out = ResBlock1D(w, w)
         self.tokens = nn.Linear(w, hidden_dim)
         self.pool = nn.Linear(hidden_dim, hidden_dim)
@@ -228,7 +246,7 @@ class CondUNet(nn.Module):
                  core_heads: int = 1, num_blocks: int = 4,
                  ensemble_mega: bool = True,
                  ensemble_mega_accurate: bool = False,
-                 parameterization: str = "eps"):
+                 parameterization: str = "eps", attn_slab: bool = False):
         super().__init__()
         self.param_dim = param_dim
         self.hidden_dim = hidden_dim
@@ -240,7 +258,8 @@ class CondUNet(nn.Module):
         self.ensemble_mega_accurate = ensemble_mega_accurate
         self.parameterization = parameterization
         self.encoder = ConditionEncoder(cond_channels, hidden_dim,
-                                        base_width, depth, num_heads, patch)
+                                        base_width, depth, num_heads, patch,
+                                        attn_slab)
         self.lift = nn.Linear(1, hidden_dim)
         self.pos_emb = nn.Parameter(
             0.02 * torch.randn(param_dim, hidden_dim))
@@ -273,3 +292,53 @@ class CondUNet(nn.Module):
     def forward(self, x, t, condition):
         return self.denoise_ensemble(x, t, self.encode_condition(condition),
                                      1)
+
+
+# flax: variance_scaling(1, "fan_in", "truncated_normal") divides by the
+# standard deviation of a unit normal truncated to [-2, 2]
+_TRUNC_STD = 0.87962566103423978
+# leaves flax initialises to zero (ertdx/models/condunet.py:257, 328, 344,
+# 350, 432): AdaLN projections, attention output projections, MLP output
+# and the head
+_ZERO_KERNELS = ("ada1.proj", "ada2.proj", "ada3.proj", "self_out",
+                 "cross_out", "mlp_out")
+_NORMS = (GNSiLU, nn.LayerNorm)
+
+
+def _lecun_normal(shape, fan_in: int, generator: torch.Generator):
+    """flax lecun_normal: N(0, 1/fan_in) truncated to +-2 sigma, rescaled
+    so that the draw's standard deviation is sqrt(1/fan_in)."""
+    std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+    lo = 0.5 * (1.0 + math.erf(-2.0 / math.sqrt(2.0)))
+    u = torch.rand(shape, generator=generator, dtype=torch.float64)
+    u = (2.0 * lo - 1.0) + u * (2.0 - 4.0 * lo)   # in (erf(-2/sqrt2), ...)
+    return (torch.erfinv(u) * math.sqrt(2.0) * std).to(torch.float32)
+
+
+@torch.no_grad()
+def init_params(model: CondUNet, generator: torch.Generator) -> CondUNet:
+    """Initialise `model` in place as flax initialises the JAX CondUNet, in
+    distribution: lecun-normal Dense and Conv kernels (Conv fan_in is
+    k * c_in), zero biases, zero AdaLN / output projections and head,
+    unit norm scales, pos_emb from N(0, 0.02^2). Draws on the CPU from
+    `generator`, in named_parameters order, then copies to the model's
+    device. Returns the model."""
+    for mod_name, mod in model.named_modules():
+        if isinstance(mod, _NORMS):
+            mod.weight.fill_(1.0)
+            mod.bias.zero_()
+        elif isinstance(mod, (nn.Linear, nn.Conv1d)):
+            zero = mod_name == "head" or (
+                mod_name.startswith("blocks.")
+                and mod_name.split(".", 2)[2] in _ZERO_KERNELS)
+            if zero:
+                mod.weight.zero_()
+            else:
+                w = mod.weight
+                fan_in = w.shape[1] * (w.shape[2] if w.dim() == 3 else 1)
+                w.copy_(_lecun_normal(tuple(w.shape), fan_in, generator))
+            if mod.bias is not None:
+                mod.bias.zero_()
+    model.pos_emb.copy_(0.02 * torch.randn(
+        tuple(model.pos_emb.shape), generator=generator))
+    return model

@@ -1,12 +1,14 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
-At first use, `load()` compiles every `ertdx_torch/csrc/*.cu` into one
-shared library with a plain C interface:
+At first use, `load()` compiles each `ertdx_torch/csrc/*.cu` to an object
+file, one nvcc process per source, all started together:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -c
          -Xcompiler -fPIC -Xptxas -v
 
-into `build/ertdx_torch_kernels/<hash>/` at the root of the checkout,
+then links the objects into one shared library with a plain C interface
+(`nvcc -shared`), in `build/ertdx_torch_kernels/<hash>/` at the root of
+the checkout,
 where <hash> covers the sources and the flags: an unchanged tree loads
 the library it already built, a changed one builds anew. No source
 includes PyTorch's headers, and neither ninja nor
@@ -26,16 +28,20 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / \
     "ertdx_torch_kernels"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-c", "-Xcompiler", "-fPIC",
+                           "-Xptxas", "-v"]
 LIB_NAME = "libertdx_torch_kernels.so"
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C signatures of csrc/core_block.cu (pointers and the stream as void*)
+# C signatures of csrc/*.cu (pointers and the stream as void*)
 SIGNATURES = {
     "ertdx_core_stack": [_P] * 22 + [_I] * 5 + [_P],
     "ertdx_core_block": [_P] * 15 + [_I] * 4 + [_P],
+    "ertdx_slab_fwd": [_P] * 2 + [_I] * 4 + [_P],
+    "ertdx_slab_bwd": [_P] * 5 + [_I] * 4 + [_P],
+    "ertdx_slab_blocks_per_sm": [_I, _I, _P],
 }
 
 
@@ -71,30 +77,49 @@ def source_hash() -> str:
     return h.hexdigest()[:16]
 
 
+def _run_all(cmds) -> tuple:
+    """Run the commands concurrently; raise with the output of any that
+    fails. Returns their joined output."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    outs = [proc.communicate()[0] for proc in procs]
+    for cmd, proc, out in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): "
+                               f"{' '.join(cmd)}\n{out}")
+    return "\n".join(out.strip() for out in outs if out.strip())
+
+
 def _build(out_dir: Path) -> tuple:
+    nvcc = _nvcc()
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f".{LIB_NAME}.{os.getpid()}"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *map(str, sorted(CSRC.glob("*.cu")))]
+    tag = os.getpid()
+    sources = sorted(CSRC.glob("*.cu"))
+    objs = [out_dir / f".{src.stem}.{tag}.o" for src in sources]
+    tmp = out_dir / f".{LIB_NAME}.{tag}"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    try:
+        report = _run_all([[nvcc, *NVCC_FLAGS, "-o", str(obj), str(src)]
+                           for src, obj in zip(sources, objs)])
+        _run_all([[nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+                   *map(str, objs)]])
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): "
-                           f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
-    report = (proc.stdout + proc.stderr).strip()
     (out_dir / "ptxas.txt").write_text(report)
     os.replace(tmp, out_dir / LIB_NAME)
     return report, seconds
 
 
 def load() -> Kernels:
-    """The kernels' library: built at first use, then cached per source
-    hash (in this process and on disk)."""
+    """The kernels' library: built at first use, then cached on disk per
+    source hash. Within a process the first library loaded is returned
+    without hashing the sources again: every kernel launch calls this."""
+    if _loaded:
+        return _loaded["lib"]
     key = source_hash()
-    if key in _loaded:
-        return _loaded[key]
     out_dir = BUILD_ROOT / key
     path = out_dir / LIB_NAME
     if path.exists():
@@ -108,5 +133,5 @@ def load() -> Kernels:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    _loaded[key] = Kernels(lib, path, report, seconds)
-    return _loaded[key]
+    _loaded["lib"] = Kernels(lib, path, report, seconds)
+    return _loaded["lib"]

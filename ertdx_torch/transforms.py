@@ -80,6 +80,19 @@ class MinMaxScaler:
         scale, shift = self._scale_shift(y)
         return (y - shift) / scale
 
+    def state_dict(self) -> dict:
+        """numpy state with the JAX scaler's keys (scalers.npz)."""
+        return {
+            "data_min": np.asarray(self.data_min),
+            "data_max": np.asarray(self.data_max),
+            "feature_range": np.asarray(self.feature_range,
+                                        dtype=np.float64),
+        }
+
+    @classmethod
+    def from_state_dict(cls, d: dict) -> "MinMaxScaler":
+        fr = tuple(float(v) for v in np.asarray(d["feature_range"]))
+        return cls(np.asarray(d["data_min"]), np.asarray(d["data_max"]), fr)
 
 
 def param_bounds_mask(param: Array, limits) -> Array:

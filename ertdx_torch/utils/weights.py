@@ -1,8 +1,9 @@
-"""Carry a JAX CondUNet parameter tree into the port's modules.
+"""Carry CondUNet parameters and Adam state between the port and JAX.
 
 `params_from_jax(model, tree)` takes the flax tree as nested dicts of
 numpy arrays (`variables["params"]` of ertdx's CondUNet) and copies each
-leaf into the matching torch parameter:
+leaf into the matching torch parameter; `params_to_jax(model)` is its
+inverse. The layouts:
 
 * Dense kernel (in, out) -> Linear weight (out, in), transposed;
 * Conv kernel (k, in, out) -> Conv1d weight (out, in, k);
@@ -15,6 +16,12 @@ creation order; the core block's follow ertdx/models/mega.py:19-22, 52-64
 Dense_3 cross-kv, Dense_4 cross-out, Dense_5/Dense_6 MLP). A tree leaf
 left unused, a parameter left without a leaf, or a shape that disagrees
 raises.
+
+`adam_state_to_jax` / `adam_state_from_jax` map torch Adam's per-parameter
+`exp_avg`, `exp_avg_sq` and `step` to and from optax's adam state as
+flax serializes it: {"0": {"count", "mu", "nu"}, "1": {...}}, where "1"
+is the learning-rate stage, empty for a constant lr and {"count"} for a
+schedule or warmup (ertdx/train.py:85-107).
 """
 from __future__ import annotations
 
@@ -87,9 +94,32 @@ def flax_shapes(model: torch.nn.Module) -> dict:
     return tree
 
 
-def params_from_jax(model: torch.nn.Module, tree) -> torch.nn.Module:
-    """Load a flax CondUNet parameter tree into `model`, in place, and
-    return the model."""
+def named_to_jax(model: torch.nn.Module, named: dict) -> dict:
+    """Per-parameter tensors {torch name: tensor shaped like the
+    parameter} -> a flax-layout tree of float32 numpy arrays (kernels
+    transposed back)."""
+    tree: dict = {}
+    for name, param in model.named_parameters():
+        path = flax_path(name, model.depth)
+        arr = named[name].detach().to("cpu", torch.float32).numpy()
+        if path[-1] == "kernel":
+            arr = arr.transpose()
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = np.ascontiguousarray(arr)
+    return tree
+
+
+def params_to_jax(model: torch.nn.Module) -> dict:
+    """The model's parameters as a flax CondUNet tree (the inverse of
+    `params_from_jax`)."""
+    return named_to_jax(model, dict(model.named_parameters()))
+
+
+def named_from_jax(model: torch.nn.Module, tree) -> dict:
+    """A flax-layout tree -> {torch name: float32 CPU tensor shaped like
+    the parameter}. Raises on a missing or unused leaf or a wrong shape."""
     flat = dict(_flatten(tree))
     want = {name: flax_path(name, model.depth)
             for name, _ in model.named_parameters()}
@@ -98,16 +128,56 @@ def params_from_jax(model: torch.nn.Module, tree) -> torch.nn.Module:
     if missing or unused:
         raise KeyError(f"parameter tree does not match the model: missing "
                        f"{missing}, unused {unused}")
+    out = {}
+    for name, param in model.named_parameters():
+        path = want[name]
+        arr = np.asarray(flat[path])
+        if path[-1] == "kernel":
+            arr = arr.transpose()
+        if tuple(arr.shape) != tuple(param.shape):
+            raise ValueError(f"{'/'.join(path)}: tree gives {arr.shape}, "
+                             f"model has {tuple(param.shape)}")
+        out[name] = torch.from_numpy(np.array(arr, dtype=np.float32,
+                                              order="C"))
+    return out
+
+
+def adam_state_to_jax(opt: torch.optim.Optimizer, model: torch.nn.Module,
+                      schedule: bool) -> dict:
+    """torch Adam's state for `model`'s parameters -> optax's adam state
+    tree. Moments that do not exist yet (no step taken) are zeros."""
+    named = dict(model.named_parameters())
+    mu, nu, count = {}, {}, 0
+    for name, param in named.items():
+        st = opt.state.get(param, {})
+        mu[name] = st.get("exp_avg", torch.zeros_like(param))
+        nu[name] = st.get("exp_avg_sq", torch.zeros_like(param))
+        if "step" in st:
+            count = int(st["step"])
+    count_arr = np.asarray(count, dtype=np.int32)
+    return {"0": {"count": count_arr, "mu": named_to_jax(model, mu),
+                  "nu": named_to_jax(model, nu)},
+            "1": {"count": count_arr.copy()} if schedule else {}}
+
+
+def adam_state_from_jax(opt: torch.optim.Optimizer, model: torch.nn.Module,
+                        tree: dict) -> None:
+    """Load optax's adam state tree into torch Adam's state, in place."""
+    count = int(np.asarray(tree["0"]["count"]))
+    mu = named_from_jax(model, tree["0"]["mu"])
+    nu = named_from_jax(model, tree["0"]["nu"])
+    for name, param in model.named_parameters():
+        opt.state[param] = {
+            "step": torch.tensor(float(count), dtype=torch.float32),
+            "exp_avg": mu[name].to(param.device),
+            "exp_avg_sq": nu[name].to(param.device)}
+
+
+def params_from_jax(model: torch.nn.Module, tree) -> torch.nn.Module:
+    """Load a flax CondUNet parameter tree into `model`, in place, and
+    return the model."""
+    named = named_from_jax(model, tree)
     with torch.no_grad():
         for name, param in model.named_parameters():
-            path = want[name]
-            arr = np.asarray(flat[path])
-            if path[-1] == "kernel":
-                arr = arr.transpose()
-            if tuple(arr.shape) != tuple(param.shape):
-                raise ValueError(f"{'/'.join(path)}: tree gives "
-                                 f"{arr.shape}, model has "
-                                 f"{tuple(param.shape)}")
-            param.copy_(torch.from_numpy(np.ascontiguousarray(arr))
-                        .to(param.dtype))
+            param.copy_(named[name].to(param.dtype))
     return model

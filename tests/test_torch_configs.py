@@ -21,7 +21,8 @@ def test_config_fields_and_defaults_match(name):
     assert dataclasses.asdict(ours()) == dataclasses.asdict(theirs())
 
 
-@pytest.mark.parametrize("preset", ["FULL_CONDITIONAL", "DDIM_ENSEMBLE"])
+@pytest.mark.parametrize("preset", ["FULL_CONDITIONAL", "DDIM_ENSEMBLE",
+                                    "V5E8_DP"])
 def test_presets_match(preset):
     assert dataclasses.asdict(getattr(configs, preset)) == \
         dataclasses.asdict(getattr(jconfigs, preset))
@@ -39,3 +40,16 @@ def test_parameter_space_matches():
         np.testing.assert_array_equal(a, b)
     pm = np.random.default_rng(0).uniform(ours.lo, ours.hi, size=(5, 29))
     np.testing.assert_array_equal(ours.contains(pm), theirs.contains(pm))
+
+
+def test_split_seed_and_config_echo_match():
+    for kw in ({}, {"split_seed": 7}):
+        assert configs.split_seed_of(configs.TrainConfig(**kw)) == \
+            jconfigs.split_seed_of(jconfigs.TrainConfig(**kw))
+    echo = {"model": {"name": "condunet", "attn_slab": True},
+            "train": {"split": [0.7, 0.2], "lr_schedule": "cosine"},
+            "sample": {"temperature": [1.0, 2.0]}, "name": "x"}
+    assert dataclasses.asdict(configs.experiment_from_dict(echo)) == \
+        dataclasses.asdict(jconfigs.experiment_from_dict(echo))
+    base = configs.V5E8_DP
+    assert configs.experiment_from_dict({}, base) == base

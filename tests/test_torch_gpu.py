@@ -112,3 +112,44 @@ def test_posterior_ensemble_runs_on_the_kernel(cuda):
                                         x_T=x_t)
     np.testing.assert_allclose(u.cpu().numpy(), u_plain.cpu().numpy(),
                                atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("b,l,c,nh", [
+    (3, 147, 256, 4),    # the encoder's deepest stage, ragged last tile
+    (2, 65, 256, 8),     # dh=32, one row past a tile
+    (2, 1, 64, 1),       # a single token
+    (1, 256, 128, 2),    # the longest L the kernels take
+])
+def test_slab_kernels_match_plain(cuda, b, l, c, nh):
+    from ertdx_torch.ops import slab_attn as sa
+
+    g = torch.Generator(device=cuda).manual_seed(b * 100 + l)
+    qkv = torch.randn(b, l, 3 * c, generator=g, device=cuda)
+    do = torch.randn(b, l, c, generator=g, device=cuda)
+    sa.reset_launches()
+    z = qkv.clone().requires_grad_(True)
+    out = sa.slab_attention(z, nh)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert sa.launches == {"slab_attention_fwd": 1, "slab_attention_bwd": 1}
+    want = sa.reference_slab_attention(qkv, nh)
+    dwant = sa.reference_slab_attention_backward(qkv, do, nh)
+    assert float((out.detach() - want).abs().max()) <= \
+        1e-4 * max(1.0, float(want.abs().max()))
+    assert float((z.grad - dwant).abs().max()) <= \
+        1e-4 * max(1.0, float(dwant.abs().max()))
+
+
+def test_slab_gate_false_runs_the_plain_version(cuda):
+    from ertdx_torch.ops import slab_attn as sa
+
+    sa.reset_launches()
+    qkv = torch.randn(2, 300, 3 * 64, device=cuda)     # L > 256
+    out = sa.slab_attention(qkv, 1)
+    assert sa.launches["slab_attention_fwd"] == 0
+    assert torch.allclose(out, sa.reference_slab_attention(qkv, 1))
+    with pytest.raises(ValueError, match="do not take"):
+        sa.slab_attention_fwd(qkv, 1)
+    with pytest.raises(TypeError, match="float32"):
+        sa.slab_attention_fwd(torch.randn(2, 8, 192, device=cuda,
+                                          dtype=torch.float64), 1)

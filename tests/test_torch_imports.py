@@ -55,7 +55,11 @@ def test_port_imports_without_jax_and_friends():
                  "ertdx_torch.transforms", "ertdx_torch.diffusion",
                  "ertdx_torch.sample", "ertdx_torch.models.condunet",
                  "ertdx_torch.models.mega", "ertdx_torch.ops.core_block",
-                 "ertdx_torch.ops._build", "ertdx_torch.utils.weights"):
+                 "ertdx_torch.ops._build", "ertdx_torch.utils.weights",
+                 "ertdx_torch.ops.slab_attn", "ertdx_torch.train",
+                 "ertdx_torch.data", "ertdx_torch.doe",
+                 "ertdx_torch.utils.checkpoint",
+                 "ertdx_torch.utils.msgpack_lite"):
         assert name in imported
 
 

@@ -22,12 +22,14 @@ def numpy_tree(tree):
 
 
 def make_pair(*, p=29, d=32, cond_channels=4, cond_len=96, base_width=16,
-              depth=2, num_heads=2, num_blocks=2, seed=0, scale=0.05):
+              depth=2, num_heads=2, num_blocks=2, seed=0, scale=0.05,
+              attn_slab=False, parameterization="eps"):
     """(flax model, numpy params, torch model on the CPU)."""
     fm = FlaxCondUNet(param_dim=p, hidden_dim=d, cond_channels=cond_channels,
                       base_width=base_width, depth=depth,
                       num_heads=num_heads, core_heads=1,
-                      num_blocks=num_blocks)
+                      num_blocks=num_blocks, attn_slab=attn_slab,
+                      parameterization=parameterization)
     variables = fm.init(jax.random.key(seed), jnp.zeros((1, p)),
                         jnp.zeros((1,), jnp.int32),
                         jnp.zeros((1, cond_len, cond_channels)))
@@ -38,7 +40,8 @@ def make_pair(*, p=29, d=32, cond_channels=4, cond_len=96, base_width=16,
     tm = TorchCondUNet(param_dim=p, hidden_dim=d,
                        cond_channels=cond_channels, base_width=base_width,
                        depth=depth, num_heads=num_heads, core_heads=1,
-                       num_blocks=num_blocks)
+                       num_blocks=num_blocks, attn_slab=attn_slab,
+                       parameterization=parameterization)
     params_from_jax(tm, params)
     return fm, params, tm
 
