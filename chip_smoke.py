@@ -36,7 +36,23 @@ non-zero and prints no result line):
    torch.profiler breakdown of one step; one step from non-zero weights
    as well. (b) ertdx_torch.train.train for 2
    epochs on 400 examples into a temporary directory, its best and last
-   checkpoints read back through the port's reader.
+   checkpoints read back through the port's reader;
+8. ensemble kernels: block_self_attention and folded_cross_attention at
+   the per-block path's shapes (N=2000 chains of P=29; B=2 conditions of
+   Lq=29,000 folded queries against Lk=147 keys; D=128), at a small and at
+   an odd shape, held against the plain version (1e-4 * max(1,
+   max|plain|)), timed beside the plain version and
+   F.scaled_dot_product_attention with one head (the yardstick);
+9. the rest of serving: DDIM_ENSEMBLE's CondUNet with uncond_prob=0.1, a
+   v-parameterisation and ensemble_pallas=True, random weights (null
+   context included) through params_from_jax, 2 conditions x 1000
+   members, i.e. 2000 chains, below the fused-core threshold, so the
+   per-block path runs on the ensemble kernels: (a) pd-4 guided at 2.0,
+   (b) DPM++-15 unguided, (c) ancestral over T=500 guided at 2.0 on the
+   interval (0, 0.5), each with exact launch counts and held against the
+   same run with ensemble_pallas=False from the same draws (max |du|,
+   |dmean|, |dstd| <= 1e-3); (d) posterior_over_dataset over 3 conditions
+   in batches of 2 (pd-4, inverse on the device).
 
 The last line of stdout is {"ok": true, "device": {...}}. The build goes
 to build/ertdx_torch_kernels/; phase 7's checkpoints go to a temporary
@@ -72,6 +88,11 @@ KERNEL_CASES = [("fused_core_stack", 8, 1000), ("fused_core_stack", 8, 10),
 # odd L
 SLAB_CASES = [(256, 147, 256, 4), (4, 147, 256, 8), (3, 61, 128, 2)]
 TRAIN_STEPS = 5
+# (N, P, D) and (B, Lq, Lk, D): the per-block path's shapes first (2
+# conditions x 1000 members), then a small and an odd one
+SELF_CASES = [(2000, 29, 128), (16, 29, 128), (7, 17, 64)]
+CROSS_CASES = [(2, 29000, 147, 128), (1, 116, 147, 128), (3, 13, 61, 64)]
+SERVE_CONDS, SERVE_MEMBERS = 2, 1000
 
 
 def log(msg: str) -> None:
@@ -287,6 +308,204 @@ def check_slab(sa, dev) -> dict:
     return results
 
 
+def check_ensemble(ea, dev) -> dict:
+    """Phase 8: the ensemble kernels against their plain version, timed
+    at the per-block path's shapes. q, k and v are chunks of one fused
+    projection, as the model passes them."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 80)
+    results = {}
+    cases = ([("block_self_attention", c) for c in SELF_CASES]
+             + [("folded_cross_attention", c) for c in CROSS_CASES])
+    for name, case in cases:
+        if name == "block_self_attention":
+            n, p, d = case
+            if not ea.block_self_ok(n, p, d):
+                raise RuntimeError(f"self gate refuses {case}")
+            q, k, v = torch.randn(n, p, 3 * d, generator=gen,
+                                  device=dev).chunk(3, dim=-1)
+            kernel = lambda: ea.block_self_attention_fwd(q, k, v)
+            flops, nbytes = 4 * n * p * p * d, 4 * (4 * n * p * d)
+            shape = f"N={n} P={p} D={d}"
+        else:
+            b, lq, lk, d = case
+            if not ea.folded_cross_ok(b, lq, lk, d):
+                raise RuntimeError(f"cross gate refuses {case}")
+            q = torch.randn(b, lq, d, generator=gen, device=dev)
+            k, v = torch.randn(b, lk, 2 * d, generator=gen,
+                               device=dev).chunk(2, dim=-1)
+            kernel = lambda: ea.folded_cross_attention_fwd(q, k, v)
+            flops = 4 * b * lq * lk * d
+            nbytes = 4 * (2 * b * lq * d + 2 * b * lk * d)
+            shape = f"B={b} Lq={lq} Lk={lk} D={d}"
+        plain = lambda: ea.reference_attention(q, k, v)
+        with torch.no_grad():
+            got = kernel()
+            torch.cuda.synchronize()
+            want = plain()
+            torch.cuda.synchronize()
+        if not torch.isfinite(got).all():
+            raise RuntimeError(f"{name} {shape}: non-finite output")
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        tol = 1e-4 * max(1.0, scale)
+        log(f"{name} {shape}: max_abs_err={err:.3e} max|plain|={scale:.4f} "
+            f"tol={tol:.3e}")
+        if not err <= tol:
+            raise RuntimeError(f"{name} {shape}: error {err} > {tol}")
+        entry = results.setdefault(name, {"max_abs_err": 0.0})
+        entry["max_abs_err"] = max(entry["max_abs_err"], err)
+        if case not in (SELF_CASES[0], CROSS_CASES[0]):
+            continue
+        sdpa = lambda: F.scaled_dot_product_attention(
+            q[:, None], k[:, None], v[:, None])[:, 0]
+        with torch.no_grad():
+            lib_err = float((sdpa() - want).abs().max())
+            ms = time_ms(kernel)
+            plain_ms = time_ms(plain)
+            lib_ms = time_ms(sdpa)
+            records, _ = kernel_records(lambda: [kernel() for _ in range(10)])
+            dev_ms = sum(e.time_range.elapsed_us() for e in records) / 10e3
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(20):
+                kernel()
+            host_us = (time.perf_counter() - t0) / 20 * 1e6
+            torch.cuda.synchronize()
+        bound_ms, bound_by = bound(flops, nbytes)
+        entry.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                     bound_ms=bound_ms, bound_by=bound_by, shape=shape)
+        log(f"{name} {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"SDPA {lib_ms:.4f} ms (max|d| vs plain {lib_err:.2e}), bound "
+            f"{bound_ms:.4f} ms ({bound_by}: {flops:.3e} flops, "
+            f"{nbytes:.3e} bytes), achieved {flops / ms / 1e9:.2f} TFLOP/s; "
+            f"profiler device time {dev_ms:.4f} ms a launch, host time "
+            f"{host_us:.1f} us a wrapper call")
+    return results
+
+
+def set_ensemble_pallas(model, on: bool) -> None:
+    for blk in model.blocks:
+        blk.ensemble_pallas = on
+
+
+def check_serving(ea, cb, dev, card) -> int:
+    """Phase 9: the guided v-model on the per-block path, every sampler;
+    returns the ensemble kernels' launches over its kernel-path runs."""
+    from ertdx_torch import configs, sample
+    from ertdx_torch.configs import SampleConfig
+    from ertdx_torch.diffusion import schedule_from_config
+    from ertdx_torch.models import build_model
+    from ertdx_torch.models.mega import MIN_TOTAL_CHAINS
+    from ertdx_torch.params import ParameterSpace
+    from ertdx_torch.transforms import MinMaxScaler
+    from ertdx_torch.utils.weights import flax_shapes, params_from_jax
+
+    cfg = configs.DDIM_ENSEMBLE
+    mcfg = dataclasses.replace(cfg.model, uncond_prob=0.1,
+                               parameterization="v", ensemble_pallas=True)
+    model = build_model(mcfg, device=dev).eval()
+    rng = np.random.default_rng(SEED + 90)
+    params_from_jax(model, random_flax_tree(flax_shapes(model), rng))
+    b, r, p = SERVE_CONDS, SERVE_MEMBERS, mcfg.param_dim
+    if b * r >= MIN_TOTAL_CHAINS or b * r < mcfg.ensemble_min_chains:
+        raise RuntimeError("phase 9 must run the per-block ensemble path")
+    log(f"serving model: D={mcfg.hidden_dim} blocks={mcfg.num_blocks} "
+        f"uncond_prob={mcfg.uncond_prob} parameterization="
+        f"{mcfg.parameterization} ensemble_pallas={mcfg.ensemble_pallas} "
+        f"(min chains {mcfg.ensemble_min_chains}); {b} conditions x {r} "
+        f"members; null_vec max|.| "
+        f"{float(model.null_vec.detach().abs().max()):.3f}")
+    schedule = schedule_from_config(cfg.diffusion)
+    big_t = schedule.num_steps
+    cond = torch.from_numpy(rng.standard_normal(
+        (3, mcfg.cond_length, mcfg.cond_channels)).astype(np.float32)
+    ).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 91)
+    x_T = torch.randn(b * r, p, generator=gen, device=dev)
+    noise = torch.randn(big_t, b * r, p, generator=gen, device=dev)
+    with torch.no_grad():            # library set-up outside the timings
+        model.encode_condition(cond[:1])
+    nb = mcfg.num_blocks
+    runs = [("(a) pd-4, guidance 2.0",
+             SampleConfig(sampler="pd", pd_steps=4, guidance_scale=2.0),
+             {"x_T": x_T}, 2 * 4),
+            ("(b) DPM++-15, unguided",
+             SampleConfig(sampler="dpmpp", dpmpp_steps=15), {"x_T": x_T},
+             15),
+            (f"(c) ancestral T={big_t}, guidance 2.0 on (0, 0.5)",
+             SampleConfig(guidance_scale=2.0, guidance_interval=(0.0, 0.5)),
+             {"x_T": x_T, "noise": noise}, big_t + big_t // 2)]
+    total = 0
+    for tag, scfg, draws, calls in runs:
+        torch.cuda.synchronize()
+        ea.reset_launches()
+        cb.reset_launches()
+        t0 = time.perf_counter()
+        u = sample.posterior_ensemble(model, cond[:b], schedule, r, scfg,
+                                      device=dev, **draws)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        counts = dict(ea.launches)
+        want = {name: calls * nb for name in ea.launches}
+        if counts != want or any(cb.launches.values()):
+            raise RuntimeError(f"{tag}: launches {counts} (fused core "
+                               f"{dict(cb.launches)}), expected {want}")
+        total += calls * nb
+        set_ensemble_pallas(model, False)
+        t1 = time.perf_counter()
+        u_plain = sample.posterior_ensemble(model, cond[:b], schedule, r,
+                                            scfg, device=dev, **draws)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t1
+        set_ensemble_pallas(model, True)
+        if tuple(u.shape) != (r, b, p) or not torch.isfinite(u).all():
+            raise RuntimeError(f"{tag}: wrong shape or non-finite draws")
+        du = float((u - u_plain).abs().max())
+        dmean = float((u.mean(0) - u_plain.mean(0)).abs().max())
+        dstd = float((u.std(0) - u_plain.std(0)).abs().max())
+        log(f"{tag}: {calls} denoiser calls, launches {counts}; kernel path "
+            f"{run_s:.3f} s ({run_s / calls * 1e3:.3f} ms per denoiser "
+            f"call), plain path {plain_s:.3f} s ({plain_s / calls * 1e3:.3f} "
+            f"ms per call; {card}); max|du|={du:.3e} max|dmean|={dmean:.3e} "
+            f"max|dstd|={dstd:.3e} max|u|={float(u_plain.abs().max()):.4f}")
+        if not (du <= 1e-3 and dmean <= 1e-3 and dstd <= 1e-3):
+            raise RuntimeError(f"{tag}: kernel path disagrees with the plain "
+                               "path")
+
+    with torch.no_grad():
+        ctx = model.encode_condition(cond[:b])
+        t_mid = torch.full((b * r,), big_t // 2, device=dev)
+        for on in (True, False):
+            set_ensemble_pallas(model, on)
+            device_profile(lambda: model.denoise_ensemble(x_T, t_mid, ctx, r),
+                           f"one per-block denoiser call, ensemble_pallas="
+                           f"{on}")
+        set_ensemble_pallas(model, True)
+
+    space = ParameterSpace()
+    scaler = MinMaxScaler.fit(space.plims.T)
+    ea.reset_launches()
+    t0 = time.perf_counter()
+    phys, mask = sample.posterior_over_dataset(
+        model, cond, schedule, scaler, n_realizations=r, batch_size=b,
+        scfg=SampleConfig(sampler="pd", pd_steps=4), space=space,
+        device_inverse=True,
+        generator=torch.Generator(device=dev).manual_seed(SEED + 92),
+        device=dev)
+    run_s = time.perf_counter() - t0
+    counts = dict(ea.launches)
+    want = {name: 2 * 4 * nb for name in ea.launches}   # 2 batches
+    log(f"(d) posterior_over_dataset, 3 conditions in batches of {b}: pred "
+        f"{phys.shape}, valid {mask.shape}, valid fraction "
+        f"{float(mask.mean()):.6f}, {run_s:.3f} s, launches {counts}")
+    if (phys.shape != (r, 3, p) or mask.shape != (r, 3)
+            or not np.isfinite(phys).all() or counts != want):
+        raise RuntimeError("posterior_over_dataset: bad output or launches")
+    return total + 2 * 4 * nb
+
+
 def train_cfg(configs):
     """V5E8_DP's model and train settings, float32, one device."""
     cfg = configs.V5E8_DP
@@ -339,6 +558,8 @@ def _param_diffs(a, b) -> torch.Tensor:
 
 
 KERNEL_GROUPS = (("slab attention (this port)", ("slab_",)),
+                 ("ensemble attention (this port)", ("block_self_kernel",
+                                                     "folded_cross_kernel")),
                  ("convolution", ("conv", "implicit", "fprop", "dgrad",
                                   "wgrad", "winograd")),
                  ("matrix product", ("gemm", "cutlass", "cublas")),
@@ -347,27 +568,31 @@ KERNEL_GROUPS = (("slab attention (this port)", ("slab_",)),
                                   "fill", "cat")))
 
 
-def profile_step(train, model, opt, batch, alpha_bar, lr) -> None:
-    """Where one train step's device time goes: torch.profiler's kernel
-    records, summed by name and by rough group, and the device's idle
-    share of the step's wall time (profiler overhead included)."""
+def kernel_records(fn) -> list:
+    """The device kernels torch.profiler records while fn runs (synchronised
+    at the end), and the wall time in microseconds."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    x0, cond, t, noise = batch
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        train.train_step(model, opt, x0, cond, t, noise,
-                         alpha_bar=alpha_bar, lr=lr)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False)]
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)], wall_us
+
+
+def device_profile(fn, label: str) -> None:
+    """Where fn's device time goes: torch.profiler's kernel records, summed
+    by name and by rough group, and the device's idle share of fn's wall
+    time (profiler overhead included)."""
+    kernels, wall_us = kernel_records(fn)
     if not kernels:
-        log("profile: the profiler recorded no device time; breakdown "
-            "not measured")
+        log(f"profile of {label}: the profiler recorded no device time; "
+            "breakdown not measured")
         return
     by_name: dict = {}
     for e in kernels:
@@ -380,13 +605,21 @@ def profile_step(train, model, opt, batch, alpha_bar, lr) -> None:
         key = next((g for g, keys in KERNEL_GROUPS
                     if any(k in low for k in keys)), "other")
         groups[key] += us
-    log(f"profile of one kernel-path train step: {len(kernels)} kernel "
-        f"launches, device busy {busy / 1e3:.3f} ms of {wall_us / 1e3:.3f} "
-        f"ms wall (idle share {1 - busy / wall_us:.3f})")
+    log(f"profile of {label}: {len(kernels)} kernel launches, device busy "
+        f"{busy / 1e3:.3f} ms of {wall_us / 1e3:.3f} ms wall (idle share "
+        f"{1 - busy / wall_us:.3f})")
     for name, us in sorted(groups.items(), key=lambda kv: -kv[1]):
         log(f"  group {name}: {us / 1e3:.3f} ms ({100 * us / busy:.1f} %)")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
         log(f"  kernel {us / 1e3:8.3f} ms  {name[:110]}")
+
+
+def profile_step(train, model, opt, batch, alpha_bar, lr) -> None:
+    """Where one kernel-path train step's device time goes."""
+    x0, cond, t, noise = batch
+    device_profile(lambda: train.train_step(model, opt, x0, cond, t, noise,
+                                            alpha_bar=alpha_bar, lr=lr),
+                   "one kernel-path train step")
 
 
 def check_training(sa, dev, card) -> dict:
@@ -602,6 +835,7 @@ def main() -> int:
                                              mega_weights)
         from ertdx_torch.ops import _build
         from ertdx_torch.ops import core_block as cb
+        from ertdx_torch.ops import ensemble_attn as ea
         from ertdx_torch.ops import slab_attn as sa
         from ertdx_torch.params import ParameterSpace
         from ertdx_torch.transforms import MinMaxScaler
@@ -746,17 +980,33 @@ def main() -> int:
         f"{100 * share:.2f} %")
     phase("training path", t0)
 
+    # 8. ensemble attention kernels against their plain version
+    t0 = time.perf_counter()
+    ensemble = check_ensemble(ea, dev)
+    phase("ensemble kernels", t0)
+
+    # 9. the rest of serving on the per-block path
+    t0 = time.perf_counter()
+    serve_launches = check_serving(ea, cb, dev, card)
+    phase("serving path", t0)
+
     launches = {"fused_core_stack": main_launches["fused_core_stack"],
                 "fused_core_block": block_launches["fused_core_block"],
-                **train_launches}
+                **train_launches,
+                "block_self_attention": serve_launches,
+                "folded_cross_attention": serve_launches}
     replaces = {"fused_core_stack": "ertdx/ops/core_block.py:440",
                 "fused_core_block": "ertdx/ops/core_block.py:281",
                 "slab_attention_fwd": "ertdx/ops/slab_attn.py:147",
-                "slab_attention_bwd": "ertdx/ops/slab_attn.py:184"}
+                "slab_attention_bwd": "ertdx/ops/slab_attn.py:184",
+                "block_self_attention": "ertdx/ops/ensemble_attn.py:151",
+                "folded_cross_attention": "ertdx/ops/ensemble_attn.py:262"}
     sources = {"fused_core_stack": "ertdx_torch/csrc/core_block.cu",
                "fused_core_block": "ertdx_torch/csrc/core_block.cu",
                "slab_attention_fwd": "ertdx_torch/csrc/slab_attn.cu",
-               "slab_attention_bwd": "ertdx_torch/csrc/slab_attn.cu"}
+               "slab_attention_bwd": "ertdx_torch/csrc/slab_attn.cu",
+               "block_self_attention": "ertdx_torch/csrc/ensemble_attn.cu",
+               "folded_cross_attention": "ertdx_torch/csrc/ensemble_attn.cu"}
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": sources[name],
          "replaces": replaces[name], "launches": launches[name],
@@ -764,7 +1014,7 @@ def main() -> int:
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
          "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
          "shape": r["shape"]}
-        for name, r in {**results, **slab}.items()]}
+        for name, r in {**results, **slab, **ensemble}.items()]}
     log(f"[phase] total: {time.perf_counter() - t_all:.3f} s")
     log(json.dumps(line))
     log(card_line())

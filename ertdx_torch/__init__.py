@@ -2,9 +2,13 @@
 
 A package of its own beside the JAX reference (`ertdx/`): it imports
 `torch` and never `jax`, `flax`, `optax`, `msgpack` or `ertdx`. Module
-names mirror `ertdx/`. This slice serves the configs[3] posterior
-ensemble (CondUNet, DDIM-50, 1000 members per condition) through the
-two hand-written fused-core CUDA kernels in `csrc/core_block.cu`.
+names mirror `ertdx/`. It serves posterior ensembles with every sampler
+of the JAX package (ancestral, DDIM, pd, DPM-Solver++), with and without
+classifier-free guidance, on the fused-core kernels of
+`csrc/core_block.cu` or, below their chain threshold, on the per-block
+path with the ensemble-attention kernels of `csrc/ensemble_attn.cu`; and
+it trains the CondUNet with the encoder's slab attention kernels of
+`csrc/slab_attn.cu`.
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; without a card and without that argument they raise.

@@ -1,8 +1,9 @@
 """Model registry: `build_model` for the port's denoisers.
 
-This slice ports the flagship `condunet`. The other models of the JAX
-package (`refmlp`, configs[0]; `uncondmlp`, configs[1]) are ROADMAP.md
-queue 1 item 4 and raise here.
+The port has the flagship `condunet`, with the guidance null context
+when `uncond_prob > 0`. The other models of the JAX package (`refmlp`,
+configs[0]; `uncondmlp`, configs[1]) are ROADMAP.md queue 1 item 6 and
+raise here, as do bf16 models (item 4).
 """
 from __future__ import annotations
 
@@ -26,15 +27,11 @@ def build_model(cfg: ModelConfig, device=None,
     if cfg.name != "condunet":
         raise NotImplementedError(
             f"model {cfg.name!r} is not ported yet (ROADMAP.md queue 1 "
-            "item 4: the other models)")
+            "item 6: the other models)")
     if cfg.dtype != "float32":
         raise NotImplementedError(
             f"dtype {cfg.dtype!r}: the port computes in float32 only "
-            "(ROADMAP.md queue 1 item 8: bf16 models)")
-    if cfg.uncond_prob > 0.0:
-        raise NotImplementedError(
-            "classifier-free guidance (uncond_prob > 0) is not ported yet "
-            "(ROADMAP.md queue 1 item 2: samplers and guidance)")
+            "(ROADMAP.md queue 1 item 4: bf16 models)")
     model = CondUNet(param_dim=cfg.param_dim, hidden_dim=cfg.hidden_dim,
                      cond_channels=cfg.cond_channels,
                      base_width=cfg.base_width, depth=cfg.depth,
@@ -43,7 +40,9 @@ def build_model(cfg: ModelConfig, device=None,
                      ensemble_mega=cfg.ensemble_mega,
                      ensemble_mega_accurate=cfg.ensemble_mega_accurate,
                      parameterization=cfg.parameterization,
-                     attn_slab=cfg.attn_slab)
+                     attn_slab=cfg.attn_slab, uncond_prob=cfg.uncond_prob,
+                     ensemble_pallas=cfg.ensemble_pallas,
+                     ensemble_min_chains=cfg.ensemble_min_chains)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     return init_params(model, generator).to(dev)

@@ -18,9 +18,12 @@ like. The contracts the JAX code fixes, and how this file keeps them:
 
 Attention here is the plain path of ertdx/ops/attention.py:36-47
 (matmul, softmax, matmul), except that with `attn_slab` the encoder's
-self-attention reads the fused QKV slab through ops/slab_attn.py (the
-CUDA kernels on the card), with the JAX dispatch rule. The fused-core
-CUDA kernels serve the sampling hot path through models/mega.py.
+self-attention reads the fused QKV slab through ops/slab_attn.py, and
+with `ensemble_pallas` the core's attention at ensemble chain counts goes
+through ops/ensemble_attn.py (the CUDA kernels on the card), each with
+the JAX dispatch rule. The fused-core CUDA kernels serve the sampling hot
+path through models/mega.py. With `uncond_prob > 0` the model carries
+the learned null context of classifier-free guidance.
 
 `init_params` draws a fresh model the way flax initialises the JAX
 CondUNet; the modules' own constructors keep PyTorch's default init.
@@ -34,6 +37,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.ensemble_attn import block_self_attention, folded_cross_attention
 from ..ops.slab_attn import slab_attention
 from .common import get_timestep_embedding
 
@@ -194,11 +198,21 @@ class CoreBlock(nn.Module):
     """AdaLN-conditioned [self-attention, cross-attention to the condition
     tokens, MLP]. With fold > 1 the (B*fold, P, D) chains are condition-
     major and cross-attention folds them into the query length, so the
-    condition's K/V are computed once per condition, never tiled."""
+    condition's K/V are computed once per condition, never tiled.
 
-    def __init__(self, dim: int, num_heads: int = 1):
+    `ensemble_pallas` sends both attentions through ops/ensemble_attn.py
+    when the block has one head, fold > 1 and at least
+    `ensemble_min_chains` chains (ertdx/models/condunet.py:315-340); those
+    ops run their CUDA kernels where their shape gate takes the tensors
+    and the plain version elsewhere. Same parameters either way."""
+
+    def __init__(self, dim: int, num_heads: int = 1,
+                 ensemble_pallas: bool = False,
+                 ensemble_min_chains: int = 1024):
         super().__init__()
         self.num_heads = num_heads
+        self.ensemble_pallas = ensemble_pallas
+        self.ensemble_min_chains = ensemble_min_chains
         self.ada1, self.ada2, self.ada3 = AdaLN(dim), AdaLN(dim), AdaLN(dim)
         self.qkv = nn.Linear(dim, 3 * dim, bias=False)
         self.self_out = nn.Linear(dim, dim)
@@ -219,9 +233,14 @@ class CoreBlock(nn.Module):
 
     def forward(self, x, cond_tokens, cvec, fold: int = 1):
         b, p, d = x.shape
+        fused = (self.ensemble_pallas and self.num_heads == 1 and fold > 1
+                 and b >= self.ensemble_min_chains)
         q, k, v = self.qkv(self.ada1(x, cvec)).chunk(3, dim=-1)
-        a = self._unheads(attention(self._heads(q), self._heads(k),
-                                    self._heads(v)))
+        if fused:
+            a = block_self_attention(q, k, v)
+        else:
+            a = self._unheads(attention(self._heads(q), self._heads(k),
+                                        self._heads(v)))
         x = x + self.self_out(a)
 
         q = self.cross_q(self.ada2(x, cvec))
@@ -229,8 +248,11 @@ class CoreBlock(nn.Module):
         if fold > 1:
             q = q.reshape(bc, fold * p, d)   # condition-major: a view
         k, v = self.cross_kv(cond_tokens).chunk(2, dim=-1)
-        a = self._unheads(attention(self._heads(q), self._heads(k),
-                                    self._heads(v))).reshape(b, p, d)
+        if fused:
+            a = folded_cross_attention(q, k, v).reshape(b, p, d)
+        else:
+            a = self._unheads(attention(self._heads(q), self._heads(k),
+                                        self._heads(v))).reshape(b, p, d)
         x = x + self.cross_out(a)
 
         h = F.gelu(self.mlp_in(self.ada3(x, cvec)), approximate="tanh")
@@ -246,7 +268,9 @@ class CondUNet(nn.Module):
                  core_heads: int = 1, num_blocks: int = 4,
                  ensemble_mega: bool = True,
                  ensemble_mega_accurate: bool = False,
-                 parameterization: str = "eps", attn_slab: bool = False):
+                 parameterization: str = "eps", attn_slab: bool = False,
+                 uncond_prob: float = 0.0, ensemble_pallas: bool = False,
+                 ensemble_min_chains: int = 1024):
         super().__init__()
         self.param_dim = param_dim
         self.hidden_dim = hidden_dim
@@ -257,6 +281,7 @@ class CondUNet(nn.Module):
         self.ensemble_mega = ensemble_mega
         self.ensemble_mega_accurate = ensemble_mega_accurate
         self.parameterization = parameterization
+        self.uncond_prob = uncond_prob
         self.encoder = ConditionEncoder(cond_channels, hidden_dim,
                                         base_width, depth, num_heads, patch,
                                         attn_slab)
@@ -266,12 +291,31 @@ class CondUNet(nn.Module):
         self.time_mlp1 = nn.Linear(hidden_dim, hidden_dim)
         self.time_mlp2 = nn.Linear(hidden_dim, hidden_dim)
         self.blocks = nn.ModuleList(
-            [CoreBlock(hidden_dim, core_heads) for _ in range(num_blocks)])
+            [CoreBlock(hidden_dim, core_heads, ensemble_pallas,
+                       ensemble_min_chains) for _ in range(num_blocks)])
         self.out_norm = nn.LayerNorm(hidden_dim, eps=LN_EPS)
         self.head = nn.Linear(hidden_dim, 1)
+        if uncond_prob > 0.0:
+            # one learned null token broadcast over the condition tokens,
+            # and a null conditioning vector (ertdx/models/condunet.py:
+            # 433-446); they exist only when the model was trained with
+            # condition dropout
+            self.null_token = nn.Parameter(0.02 * torch.randn(hidden_dim))
+            self.null_vec = nn.Parameter(torch.zeros(hidden_dim))
 
     def encode_condition(self, condition):
         return self.encoder(condition)
+
+    def drop_condition(self, cond_ctx, drop: torch.Tensor):
+        """Replace the dropped examples' context with the learned null
+        context (ertdx/models/condunet.py:447-460). drop: (B,) bool; all
+        True gives the unconditional branch of guided sampling. Needs
+        uncond_prob > 0 at construction."""
+        tokens, vec = cond_ctx
+        nt = self.null_token.to(tokens.dtype)[None, None, :]
+        nv = self.null_vec.to(vec.dtype)[None, :]
+        return (torch.where(drop[:, None, None], nt, tokens),
+                torch.where(drop[:, None], nv, vec))
 
     def embed_time(self, t: torch.Tensor) -> torch.Tensor:
         emb = get_timestep_embedding(t, self.hidden_dim)
@@ -320,9 +364,9 @@ def init_params(model: CondUNet, generator: torch.Generator) -> CondUNet:
     """Initialise `model` in place as flax initialises the JAX CondUNet, in
     distribution: lecun-normal Dense and Conv kernels (Conv fan_in is
     k * c_in), zero biases, zero AdaLN / output projections and head,
-    unit norm scales, pos_emb from N(0, 0.02^2). Draws on the CPU from
-    `generator`, in named_parameters order, then copies to the model's
-    device. Returns the model."""
+    unit norm scales, pos_emb and null_token from N(0, 0.02^2), null_vec
+    zero. Draws on the CPU from `generator`, in named_parameters order,
+    then copies to the model's device. Returns the model."""
     for mod_name, mod in model.named_modules():
         if isinstance(mod, _NORMS):
             mod.weight.fill_(1.0)
@@ -341,4 +385,8 @@ def init_params(model: CondUNet, generator: torch.Generator) -> CondUNet:
                 mod.bias.zero_()
     model.pos_emb.copy_(0.02 * torch.randn(
         tuple(model.pos_emb.shape), generator=generator))
+    if model.uncond_prob > 0.0:
+        model.null_token.copy_(0.02 * torch.randn(
+            tuple(model.null_token.shape), generator=generator))
+        model.null_vec.zero_()
     return model

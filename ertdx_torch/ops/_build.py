@@ -35,6 +35,7 @@ LIB_NAME = "libertdx_torch_kernels.so"
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_long
 # C signatures of csrc/*.cu (pointers and the stream as void*)
 SIGNATURES = {
     "ertdx_core_stack": [_P] * 22 + [_I] * 5 + [_P],
@@ -42,6 +43,8 @@ SIGNATURES = {
     "ertdx_slab_fwd": [_P] * 2 + [_I] * 4 + [_P],
     "ertdx_slab_bwd": [_P] * 5 + [_I] * 4 + [_P],
     "ertdx_slab_blocks_per_sm": [_I, _I, _P],
+    "ertdx_block_self_attn": [_P] * 4 + [_L] * 3 + [_I] * 3 + [_P],
+    "ertdx_folded_cross_attn": [_P] * 4 + [_L] * 3 + [_I] * 4 + [_P],
 }
 
 

@@ -22,9 +22,10 @@ Random draws come from torch.Generators seeded from the config's seed,
 not from JAX's threefry keys: the same seed gives other numbers than the
 JAX package. Tests hand both packages the same t and eps.
 
-Not ported in this slice (they raise NotImplementedError): CFG condition
-dropout (uncond_prob > 0) and the flat optimizer layout; see ROADMAP.md
-queue 1 item 1.
+Not ported yet (they raise NotImplementedError): training with CFG
+condition dropout (uncond_prob > 0; ROADMAP.md queue 1 item 1) and the
+flat optimizer layout (item 2). `load_best_model` restores a guided
+model, whose null context the sampler uses.
 """
 from __future__ import annotations
 
@@ -248,15 +249,21 @@ def _seed(*words: int) -> int:
         1, np.uint64)[0] >> np.uint64(1))
 
 
+def _refuse_flat_optimizer(tcfg) -> None:
+    if tcfg.flat_optimizer:
+        raise NotImplementedError(
+            "flat_optimizer is a JAX optimizer-state layout, not ported "
+            "(ROADMAP.md queue 1 item 2)")
+
+
 def _unported(tcfg, mcfg) -> None:
+    """What `train` cannot do yet. Restoring a guided model works; training
+    one needs the condition dropout, which is not ported."""
     if mcfg.uncond_prob > 0.0:
         raise NotImplementedError(
             "CFG condition dropout (uncond_prob > 0) is not ported yet "
             "(ROADMAP.md queue 1 item 1)")
-    if tcfg.flat_optimizer:
-        raise NotImplementedError(
-            "flat_optimizer is a JAX optimizer-state layout, not ported "
-            "(ROADMAP.md queue 1 item 1)")
+    _refuse_flat_optimizer(tcfg)
 
 
 def train(cfg: ExperimentConfig, dataset: data_lib.ERTDataset,
@@ -431,7 +438,7 @@ def load_best_model(checkpoint_dir: str, cfg: ExperimentConfig,
              "train": {k: v for k, v in saved.get("train", {}).items()
                        if k in _TRAIN_LAYOUT_FIELDS}},
             base=cfg)
-    _unported(cfg.train, cfg.model)
+    _refuse_flat_optimizer(cfg.train)
     model = build_model(cfg.model, device)
     tree, meta, scalers = ckpt_lib.restore_checkpoint(
         Path(checkpoint_dir) / "best")

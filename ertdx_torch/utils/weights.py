@@ -8,7 +8,8 @@ inverse. The layouts:
 * Dense kernel (in, out) -> Linear weight (out, in), transposed;
 * Conv kernel (k, in, out) -> Conv1d weight (out, in, k);
 * LayerNorm / GroupNorm `scale`, `bias` -> `weight`, `bias`;
-* `pos_emb` as it is.
+* `pos_emb`, and the guidance null context `null_token` and `null_vec`,
+  as they are.
 
 Both kernel cases reverse the axes. The flax names come from @nn.compact
 creation order; the core block's follow ertdx/models/mega.py:19-22, 52-64
@@ -40,12 +41,15 @@ _RES = {"norm1": "GNSiLU_0", "conv1": "Conv_0", "norm2": "GNSiLU_1",
 _ATTN = {"norm": "LayerNorm_0", "qkv": "Dense_0", "out": "Dense_1"}
 _ENC = {"stem": "Dense_0", "tokens": "Dense_1", "pool": "Dense_2"}
 _NORMS = {"norm", "norm1", "norm2", "out_norm"}
+# parameters of the CondUNet itself, named alike in both packages; the
+# null context exists only with uncond_prob > 0
+_TOP_LEVEL = {"pos_emb", "null_token", "null_vec"}
 
 
 def flax_path(name: str, depth: int) -> tuple:
     """The flax tree path of the torch parameter `name` of a CondUNet."""
-    if name == "pos_emb":
-        return ("pos_emb",)
+    if name in _TOP_LEVEL:
+        return (name,)
     *mod, leaf = name.split(".")
     fleaf = {"weight": "scale" if mod[-1] in _NORMS else "kernel",
              "bias": "bias"}[leaf]

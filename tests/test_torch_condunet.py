@@ -7,6 +7,8 @@ of their own: SAME padding, GroupNorm+SiLU, the timestep embedding.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -124,6 +126,15 @@ def test_build_model_configs3_and_refusals():
     assert (m.param_dim, m.hidden_dim, m.num_blocks, m.core_heads) == \
         (29, 128, 4, 1)
     assert len(m.encoder.downs) == 2
+    assert not hasattr(m, "null_token")
+    # a guided model builds, with its null context and the ensemble knobs
+    g = build_model(dataclasses.replace(
+        DDIM_ENSEMBLE.model, uncond_prob=0.1, ensemble_pallas=True,
+        ensemble_min_chains=64), device="cpu")
+    assert g.uncond_prob == 0.1 and g.null_token.shape == (128,)
+    assert float(g.null_token.detach().std()) > 0 and not g.null_vec.any()
+    assert all(b.ensemble_pallas and b.ensemble_min_chains == 64
+               for b in g.blocks)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(ModelConfig(name="refmlp"), device="cpu")
     with pytest.raises(NotImplementedError, match="float32"):

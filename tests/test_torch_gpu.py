@@ -153,3 +153,119 @@ def test_slab_gate_false_runs_the_plain_version(cuda):
     with pytest.raises(TypeError, match="float32"):
         sa.slab_attention_fwd(torch.randn(2, 8, 192, device=cuda,
                                           dtype=torch.float64), 1)
+
+
+def _ensemble_inputs(dev, shape_q, shape_kv, seed, fused=True):
+    """q, k, v on the card; with `fused` they are row-strided chunks of
+    one projection, as the model passes them."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if fused and shape_q == shape_kv:
+        return torch.randn(*shape_q[:-1], 3 * shape_q[-1], generator=g,
+                           device=dev).chunk(3, dim=-1)
+    q = torch.randn(*shape_q, generator=g, device=dev)
+    if fused:
+        k, v = torch.randn(*shape_kv[:-1], 2 * shape_kv[-1], generator=g,
+                           device=dev).chunk(2, dim=-1)
+    else:
+        k, v = (torch.randn(*shape_kv, generator=g, device=dev)
+                for _ in range(2))
+    return q, k, v
+
+
+@pytest.mark.parametrize("n,p,d,fused", [
+    (2000, 29, 128, True),     # the per-block path's shape
+    (5, 32, 128, False),       # every lane a key
+    (7, 1, 64, True),          # one token
+    (3, 17, 64, False),
+])
+def test_block_self_kernel_matches_plain(cuda, n, p, d, fused):
+    from ertdx_torch.ops import ensemble_attn as ea
+
+    q, k, v = _ensemble_inputs(cuda, (n, p, d), (n, p, d), n + p, fused)
+    ea.reset_launches()
+    got = ea.block_self_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert ea.launches["block_self_attention"] == 1
+    want = ea.reference_attention(q, k, v)
+    assert float((got - want).abs().max()) <= \
+        1e-4 * max(1.0, float(want.abs().max()))
+
+
+@pytest.mark.parametrize("b,lq,lk,d,fused", [
+    (2, 29 * 1000, 147, 128, True),   # the per-block path's shape
+    (1, 13, 256, 64, False),          # the most keys; a ragged row group
+    (3, 1, 1, 128, True),
+    (2, 29 * 7, 61, 128, False),
+])
+def test_folded_cross_kernel_matches_plain(cuda, b, lq, lk, d, fused):
+    from ertdx_torch.ops import ensemble_attn as ea
+
+    q, k, v = _ensemble_inputs(cuda, (b, lq, d), (b, lk, d), lq + lk, fused)
+    ea.reset_launches()
+    got = ea.folded_cross_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert ea.launches["folded_cross_attention"] == 1
+    want = ea.reference_attention(q, k, v)
+    assert float((got - want).abs().max()) <= \
+        1e-4 * max(1.0, float(want.abs().max()))
+
+
+def test_ensemble_gate_false_runs_the_plain_version(cuda):
+    from ertdx_torch.ops import ensemble_attn as ea
+
+    ea.reset_launches()
+    q = torch.randn(4, 33, 128, device=cuda)          # P > 32
+    out = ea.block_self_attention(q, q, q)
+    qc, kc = torch.randn(1, 40, 128, device=cuda), \
+        torch.randn(1, 300, 128, device=cuda)         # Lk > 256
+    outc = ea.folded_cross_attention(qc, kc, kc)
+    assert ea.launches == {"block_self_attention": 0,
+                           "folded_cross_attention": 0}
+    assert torch.allclose(out, ea.reference_attention(q, q, q))
+    assert torch.allclose(outc, ea.reference_attention(qc, kc, kc))
+
+
+def test_ensemble_kernels_refuse_what_they_do_not_take(cuda):
+    from ertdx_torch.ops import ensemble_attn as ea
+
+    q = torch.randn(4, 33, 128, device=cuda)
+    with pytest.raises(ValueError, match="does not take"):
+        ea.block_self_attention_fwd(q, q, q)
+    q = torch.randn(4, 29, 128, device=cuda)
+    with pytest.raises(TypeError, match="float32"):
+        ea.block_self_attention_fwd(q.double(), q.double(), q.double())
+    with pytest.raises(ValueError, match="stride"):
+        bad = torch.randn(4, 128, 29, device=cuda).transpose(1, 2)
+        ea.block_self_attention_fwd(q, bad, q)
+    with pytest.raises(ValueError, match="CUDA"):
+        ea.folded_cross_attention_fwd(q, q.cpu(), q)
+
+
+def test_per_block_path_runs_on_the_ensemble_kernels(cuda):
+    """A guided pd run below the fused-core threshold goes through the
+    ensemble kernels: 2 passes x 2 steps x 2 blocks launches of each."""
+    from ertdx_torch import sample
+    from ertdx_torch.configs import SampleConfig
+    from ertdx_torch.diffusion import get_diffusion_schedule
+    from ertdx_torch.models.condunet import CondUNet
+    from ertdx_torch.ops import ensemble_attn as ea
+
+    torch.manual_seed(0)
+    model = CondUNet(cond_channels=4, base_width=16, depth=2, num_heads=2,
+                     num_blocks=2, uncond_prob=0.1, ensemble_pallas=True,
+                     ensemble_min_chains=64).to(cuda)
+    cond = torch.randn(2, 96, 4, device=cuda)
+    scfg = SampleConfig(sampler="pd", pd_steps=2, guidance_scale=2.0)
+    sch = get_diffusion_schedule(20)
+    x_t = torch.randn(2 * 100, 29, device=cuda)
+    ea.reset_launches()
+    u = sample.posterior_ensemble(model, cond, sch, 100, scfg, x_T=x_t)
+    torch.cuda.synchronize()
+    assert ea.launches == {"block_self_attention": 8,
+                           "folded_cross_attention": 8}
+    for blk in model.blocks:
+        blk.ensemble_pallas = False
+    u_plain = sample.posterior_ensemble(model, cond, sch, 100, scfg,
+                                        x_T=x_t)
+    np.testing.assert_allclose(u.cpu().numpy(), u_plain.cpu().numpy(),
+                               atol=1e-4, rtol=1e-4)

@@ -57,6 +57,7 @@ def test_port_imports_without_jax_and_friends():
                  "ertdx_torch.models.mega", "ertdx_torch.ops.core_block",
                  "ertdx_torch.ops._build", "ertdx_torch.utils.weights",
                  "ertdx_torch.ops.slab_attn", "ertdx_torch.train",
+                 "ertdx_torch.ops.ensemble_attn",
                  "ertdx_torch.data", "ertdx_torch.doe",
                  "ertdx_torch.utils.checkpoint",
                  "ertdx_torch.utils.msgpack_lite"):

@@ -152,17 +152,45 @@ def test_transforms_match_jax():
 
 
 def test_sampler_refusals():
-    _, _, tm = make_pair(num_blocks=1)
+    """The configurations JAX refuses raise the same ValueError in the
+    port (ertdx/sample.py:104-174): an unknown sampler, truncate_steps
+    off the ancestral chain, guidance on a model without the null
+    context, a bad guidance interval, an interval with guidance_scale 1;
+    and a temperature of the wrong length."""
+    fm, params, tm = make_pair(num_blocks=1)
     sch = diffusion.get_diffusion_schedule(T)
-    cond = torch.zeros(1, 96, 4)
-    for scfg in (SampleConfig(sampler="ancestral"),
-                 SampleConfig(sampler="ddim", guidance_scale=2.0)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            sample.posterior_ensemble(tm, cond, sch, 2, scfg, device="cpu")
+    jsch = jdiff.get_diffusion_schedule(T)
+    cond = np.zeros((1, 96, 4), np.float32)
+    cases = [(dict(sampler="euler"), None, "unknown sampler"),
+             (dict(sampler="ddim"), 5, "truncate_steps"),
+             (dict(sampler="pd", guidance_scale=2.0), None, "uncond_prob"),
+             (dict(sampler="ddim", guidance_interval=(0.2, 0.6)), None,
+              "nothing to schedule")]
+    for kw, trunc, match in cases:
+        with pytest.raises(ValueError, match=match):
+            jsample.posterior_ensemble(fm, params, jnp.asarray(cond), jsch,
+                                       jax.random.key(0), 2,
+                                       JaxSampleConfig(**kw),
+                                       truncate_steps=trunc)
+        with pytest.raises(ValueError, match=match):
+            sample.posterior_ensemble(tm, t32(cond), sch, 2,
+                                      SampleConfig(**kw),
+                                      truncate_steps=trunc, device="cpu")
+    gfm, gparams, gtm = make_pair(num_blocks=1, uncond_prob=0.1)
+    for interval in ((0.5, 0.5), (-0.1, 0.5), (0.2, 1.5)):
+        kw = dict(sampler="ddim", guidance_scale=2.0,
+                  guidance_interval=interval)
+        with pytest.raises(ValueError, match="guidance_interval"):
+            jsample.posterior_ensemble(gfm, gparams, jnp.asarray(cond),
+                                       jsch, jax.random.key(0), 2,
+                                       JaxSampleConfig(**kw))
+        with pytest.raises(ValueError, match="guidance_interval"):
+            sample.posterior_ensemble(gtm, t32(cond), sch, 2,
+                                      SampleConfig(**kw), device="cpu")
     with pytest.raises(ValueError, match="temperature"):
         sample.posterior_ensemble(
-            tm, cond, sch, 2, SampleConfig(sampler="ddim",
-                                           temperature=(1.0, 2.0)),
+            tm, t32(cond), sch, 2, SampleConfig(sampler="ddim",
+                                                temperature=(1.0, 2.0)),
             device="cpu")
 
 

@@ -23,13 +23,18 @@ def numpy_tree(tree):
 
 def make_pair(*, p=29, d=32, cond_channels=4, cond_len=96, base_width=16,
               depth=2, num_heads=2, num_blocks=2, seed=0, scale=0.05,
-              attn_slab=False, parameterization="eps"):
-    """(flax model, numpy params, torch model on the CPU)."""
+              attn_slab=False, parameterization="eps", uncond_prob=0.0,
+              ensemble_pallas=False, ensemble_min_chains=1024):
+    """(flax model, numpy params, torch model on the CPU). With
+    uncond_prob > 0 both carry the guidance null context (perturbed, so
+    null_vec is non-zero)."""
+    knobs = dict(attn_slab=attn_slab, parameterization=parameterization,
+                 uncond_prob=uncond_prob, ensemble_pallas=ensemble_pallas,
+                 ensemble_min_chains=ensemble_min_chains)
     fm = FlaxCondUNet(param_dim=p, hidden_dim=d, cond_channels=cond_channels,
                       base_width=base_width, depth=depth,
                       num_heads=num_heads, core_heads=1,
-                      num_blocks=num_blocks, attn_slab=attn_slab,
-                      parameterization=parameterization)
+                      num_blocks=num_blocks, **knobs)
     variables = fm.init(jax.random.key(seed), jnp.zeros((1, p)),
                         jnp.zeros((1,), jnp.int32),
                         jnp.zeros((1, cond_len, cond_channels)))
@@ -40,8 +45,7 @@ def make_pair(*, p=29, d=32, cond_channels=4, cond_len=96, base_width=16,
     tm = TorchCondUNet(param_dim=p, hidden_dim=d,
                        cond_channels=cond_channels, base_width=base_width,
                        depth=depth, num_heads=num_heads, core_heads=1,
-                       num_blocks=num_blocks, attn_slab=attn_slab,
-                       parameterization=parameterization)
+                       num_blocks=num_blocks, **knobs)
     params_from_jax(tm, params)
     return fm, params, tm
 
