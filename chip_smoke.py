@@ -52,7 +52,29 @@ non-zero and prints no result line):
    interval (0, 0.5), each with exact launch counts and held against the
    same run with ensemble_pallas=False from the same draws (max |du|,
    |dmean|, |dstd| <= 1e-3); (d) posterior_over_dataset over 3 conditions
-   in batches of 2 (pd-4, inverse on the device).
+   in batches of 2 (pd-4, inverse on the device);
+10. GN and fused-conv kernels: groupnorm_silu's and gn_silu_conv3's CUDA
+   forward and backward at the fused encoder arm's shapes (GN at the
+   stem, (256, 587, 128); the fused conv at (256, 294, 256 -> 256) and
+   (256, 147, 256 -> 256)), at the stem-width conv (256, 587, 128 ->
+   128, as pallas_conv=True runs it), a 128 -> 256 conv and odd shapes,
+   each output (dx, dgamma, dbeta, dW, db) held against the plain version
+   (1e-4 * max(1, max|plain|)), timed (CUDA events and profiler device
+   time) beside the plain version and the unfused library composition
+   (F.group_norm + F.silu, + F.conv1d; cuDNN and TF32 off), a yardstick
+   only: no single PyTorch call computes either function;
+11. the fused-encoder training arm: V5E8_DP as phase 7 with pallas_gn=True
+   and pallas_conv_min_width=256, random weights from a seed through
+   params_from_jax. (a) 5 train_steps against the same 5 with every
+   kernel switched off (plain-vs-plain first, phase 7's rule), exactly
+   2/2/6/6 GN forward/backward and fused-conv forward/backward launches
+   and one slab forward and backward per step, ms per step of both paths
+   and a profile of one step of each. (b) train() for 2 epochs on 400
+   examples with uncond_prob=0.1, ema_decay=0.999 and
+   flat_optimizer=True, launches equal to the rule per forward and step,
+   then train(resume=True) for a third epoch; its last checkpoint read
+   back through the port's reader (forward bit for bit, flat Adam state
+   exact) and load_best_model.
 
 The last line of stdout is {"ok": true, "device": {...}}. The build goes
 to build/ertdx_torch_kernels/; phase 7's checkpoints go to a temporary
@@ -93,6 +115,14 @@ TRAIN_STEPS = 5
 SELF_CASES = [(2000, 29, 128), (16, 29, 128), (7, 17, 64)]
 CROSS_CASES = [(2, 29000, 147, 128), (1, 116, 147, 128), (3, 13, 61, 64)]
 SERVE_CONDS, SERVE_MEMBERS = 2, 1000
+# (B, L, C) of the GN kernels and (B, L, C, Cout) of the fused conv: the
+# fused encoder arm's shapes first (the stem's GN; the 256-wide ResBlocks
+# at L=294 and 147), then the stem-width conv, a 128 -> 256 conv and odd
+# shapes; the first case of each is the one in the kernels line
+GN_CASES = [(256, 587, 128), (3, 61, 72)]
+CONV_CASES = [(256, 294, 256, 256), (256, 147, 256, 256),
+              (256, 587, 128, 128), (256, 294, 128, 256), (3, 61, 64, 72)]
+GROUPS = 8
 
 
 def log(msg: str) -> None:
@@ -557,7 +587,10 @@ def _param_diffs(a, b) -> torch.Tensor:
                       for pa, pb in zip(a.parameters(), b.parameters())])
 
 
-KERNEL_GROUPS = (("slab attention (this port)", ("slab_",)),
+KERNEL_GROUPS = (("GN and fused conv (this port)",
+                  ("gn_silu_", "gn_stats_", "tap3_gemm_", "conv_dw_",
+                   "sum_rows_")),
+                 ("slab attention (this port)", ("slab_",)),
                  ("ensemble attention (this port)", ("block_self_kernel",
                                                      "folded_cross_kernel")),
                  ("convolution", ("conv", "implicit", "fprop", "dgrad",
@@ -803,6 +836,377 @@ def check_train_entry(sa, dev) -> dict:
     return counts
 
 
+def check_gn_conv(gn, cv, dev, card) -> dict:
+    """Phase 10: the GN and fused-conv kernels, forward and backward,
+    against their plain versions, timed at the large shapes."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 100)
+    eps = 1e-5
+
+    def rnd(*shape, scale=1.0, shift=0.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale + shift
+
+    def lib_gn(x, gamma, beta):        # (B, C, L) view in and out
+        return F.silu(F.group_norm(x.transpose(1, 2), GROUPS, gamma, beta,
+                                   eps))
+
+    def grad_of(fn, ins, g):
+        leaves = [t.detach().requires_grad_(True) for t in ins]
+        out = fn(*leaves)
+        return lambda: torch.autograd.grad(out, leaves, g,
+                                           retain_graph=True)
+
+    results = {}
+    cases = ([("gn", c) for c in GN_CASES]
+             + [("conv", c) for c in CONV_CASES])
+    for kind, case in cases:
+        if kind == "gn":
+            b, l, c = case
+            cout = c
+            x = rnd(b, l, c, scale=2.0, shift=0.5)
+            ins = (x, rnd(c, scale=0.3, shift=1.0), rnd(c, scale=0.3))
+            dy = rnd(b, l, c)
+            names = ("groupnorm_silu_fwd", "groupnorm_silu_bwd")
+            fwd = lambda: gn.groupnorm_silu_fwd(*ins, GROUPS)
+            bwd = lambda: gn.groupnorm_silu_bwd(*ins, dy, GROUPS)
+            plain = lambda *a: gn.reference_groupnorm_silu(*a, GROUPS)
+            lib = lambda xx, ga, be: lib_gn(xx, ga, be).transpose(1, 2)
+            grads = ("dx", "dgamma", "dbeta")
+            n = b * l * c
+            # ~10 operations a value forward (two statistics passes,
+            # normalise, affine, SiLU), ~30 backward; bytes: x (and dy)
+            # read once, y (dx) written once
+            work = {names[0]: (10 * n, 4 * (2 * n + 2 * c)),
+                    names[1]: (30 * n, 4 * (3 * n + 4 * c))}
+            shape = f"B={b} L={l} C={c}"
+        else:
+            b, l, c, cout = case
+            x = rnd(b, l, c)
+            ins = (x, rnd(c, scale=0.3, shift=1.0), rnd(c, scale=0.3),
+                   rnd(3, c, cout, scale=1.0 / math.sqrt(3 * c)),
+                   rnd(cout, scale=0.3))
+            dy = rnd(b, l, cout)
+            names = ("gn_silu_conv3_fwd", "gn_silu_conv3_bwd")
+            fwd = lambda: cv.gn_silu_conv3_fwd(*ins, GROUPS)
+            bwd = lambda: cv.gn_silu_conv3_bwd(*ins[:4], dy, GROUPS)
+            plain = lambda *a: cv.reference_gn_silu_conv3(*a, GROUPS)
+            # explicit pad and contiguous weight: with padding=1 cuDNN
+            # picked FFT algorithms at L=147 (200 ms a backward)
+            lib = lambda xx, ga, be, ww, bb: F.conv1d(
+                F.pad(lib_gn(xx, ga, be), (1, 1)),
+                ww.permute(2, 1, 0).contiguous(), bb).transpose(1, 2)
+            grads = ("dx", "dgamma", "dbeta", "dW", "db")
+            prod = 2 * b * l * 3 * c * cout
+            nx, ny, nw = b * l * c, b * l * cout, 3 * c * cout
+            work = {names[0]: (prod, 4 * (nx + 2 * c + nw + cout + ny)),
+                    names[1]: (2 * prod, 4 * (nx + ny + 2 * c + nw
+                                              + nx + 2 * c + nw + cout))}
+            shape = f"B={b} L={l} C={c} Cout={cout}"
+        got = fwd()
+        dgot = bwd()
+        torch.cuda.synchronize()
+        want = plain(*ins)
+        dwant = grad_of(plain, ins, dy)()
+        torch.cuda.synchronize()
+        checks = [(names[0], "y", got, want)] + [
+            (names[1], g, a, w) for g, a, w in zip(grads, dgot, dwant)]
+        for name, out, a, w in checks:
+            if a.shape != w.shape or not torch.isfinite(a).all():
+                raise RuntimeError(f"{name} {shape} {out}: wrong shape or "
+                                   "non-finite")
+            err = float((a - w).abs().max())
+            scale = float(w.abs().max())
+            tol = 1e-4 * max(1.0, scale)
+            log(f"{name} {shape} {out}: max_abs_err={err:.3e} "
+                f"max|plain|={scale:.4f} tol={tol:.3e}")
+            if not err <= tol:
+                raise RuntimeError(f"{name} {shape} {out}: error {err} > "
+                                   f"{tol}")
+            entry = results.setdefault(name, {"max_abs_err": 0.0})
+            entry["max_abs_err"] = max(entry["max_abs_err"], err)
+        if b < 256:
+            continue
+        lib_err = float((lib(*ins) - want).abs().max())
+        timed = {names[0]: (fwd, lambda: plain(*ins), lambda: lib(*ins)),
+                 names[1]: (bwd, grad_of(plain, ins, dy),
+                            grad_of(lib, ins, dy))}
+        for name, (kernel, plain_fn, lib_fn) in timed.items():
+            with torch.no_grad() if name == names[0] else \
+                    torch.enable_grad():
+                ms = time_ms(kernel)
+                plain_ms = time_ms(plain_fn)
+                lib_ms = time_ms(lib_fn)
+                records, _ = kernel_records(
+                    lambda: [kernel() for _ in range(10)])
+            dev_ms = sum(e.time_range.elapsed_us() for e in records) / 10e3
+            flops, nbytes = work[name]
+            bound_ms, bound_by = bound(flops, nbytes)
+            log(f"{name} {shape}: kernel {ms:.4f} ms (profiler device "
+                f"{dev_ms:.4f} ms), "
+                f"plain {plain_ms:.4f} ms, library composition "
+                f"{lib_ms:.4f} ms (its forward vs plain: max|d| "
+                f"{lib_err:.2e}), bound "
+                f"{bound_ms:.4f} ms ({bound_by}: {flops:.3e} flops, "
+                f"{nbytes:.3e} bytes), achieved {flops / ms / 1e9:.2f} "
+                f"TFLOP/s, {nbytes / ms / 1e9:.1f} GB/s; {card}")
+            entry = results[name]
+            if "ms" not in entry:       # the first large case: the path's
+                entry.update(ms=ms, plain_ms=plain_ms, library_ms=None,
+                             composition_ms=lib_ms, device_ms=dev_ms,
+                             bound_ms=bound_ms, bound_by=bound_by,
+                             shape=shape)
+    return results
+
+
+class _Counts:
+    """The launch counts of several ops modules as one `launches` dict."""
+
+    def __init__(self, *mods):
+        self.mods = mods
+
+    @property
+    def launches(self) -> dict:
+        return {k: v for mod in self.mods for k, v in mod.launches.items()}
+
+    def reset_launches(self) -> None:
+        for mod in self.mods:
+            mod.reset_launches()
+
+
+def fused_arm_cfg(configs):
+    """Phase 11's configuration: phase 7's with the fused-encoder arm of
+    benchmarks/train_stack.py (pallas_gn, pallas_conv_min_width=256)."""
+    cfg = train_cfg(configs)
+    return dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, pallas_gn=True, pallas_conv_min_width=256))
+
+
+def set_kernels(model, on: bool) -> None:
+    """Every kernel switch of the encoder: use_pallas of the GN and fused
+    conv modules, and the slab attention."""
+    for mod in model.modules():
+        if hasattr(mod, "use_pallas"):
+            mod.use_pallas = on
+    model.encoder.attn.slab = on
+
+
+def check_fused_training(counts, dev, card) -> dict:
+    """Phase 11 (a): the fused arm's kernel path against its plain path,
+    5 train steps."""
+    from ertdx_torch import configs, train
+    from ertdx_torch.diffusion import schedule_from_config
+    from ertdx_torch.models import build_model
+    from ertdx_torch.models.condunet import FusedGNConv, GNSiLU
+    from ertdx_torch.utils.weights import flax_shapes, params_from_jax
+
+    cfg = fused_arm_cfg(configs)
+    mcfg, tcfg = cfg.model, cfg.train
+    kernel = build_model(mcfg, dev, generator=torch.Generator()
+                         .manual_seed(SEED + 110))
+    params_from_jax(kernel, random_flax_tree(
+        flax_shapes(kernel), np.random.default_rng(SEED + 111)))
+    fused = [m for m in kernel.modules() if isinstance(m, FusedGNConv)]
+    gns = [m for m in kernel.modules() if isinstance(m, GNSiLU)]
+    log(f"fused-encoder arm: pallas_gn={mcfg.pallas_gn} "
+        f"pallas_conv_min_width={mcfg.pallas_conv_min_width}: "
+        f"{len(fused)} FusedGNConv "
+        f"({sorted({tuple(m.kernel.shape[1:]) for m in fused})}), "
+        f"{len(gns)} GNSiLU on the GN kernels, attn_slab={mcfg.attn_slab}, "
+        f"batch {tcfg.batch_size}, condition {mcfg.cond_length} x "
+        f"{mcfg.cond_channels}")
+    if len(fused) != 6 or len(gns) != 2 or not all(m.use_pallas
+                                                   for m in gns):
+        raise RuntimeError("the fused arm's encoder is not 6 fused convs "
+                           "and 2 GN pairs")
+    plain = copy.deepcopy(kernel)
+    set_kernels(plain, False)
+    plain2 = copy.deepcopy(plain)
+    alpha_bar = schedule_from_config(cfg.diffusion).alpha_bar.to(dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 112)
+    b, p = tcfg.batch_size, mcfg.param_dim
+    batches = [(torch.randn(b, p, generator=gen, device=dev),
+                torch.rand(b, mcfg.cond_length, mcfg.cond_channels,
+                           generator=gen, device=dev),
+                torch.randint(0, cfg.diffusion.T, (b,), generator=gen,
+                              device=dev),
+                torch.randn(b, p, generator=gen, device=dev))
+               for _ in range(TRAIN_STEPS)]
+    lr = train.make_lr(tcfg, TRAIN_STEPS)
+
+    pl, p_ms, _, pg = _run_steps(train, plain,
+                                 train.create_optimizer(plain, lr), batches,
+                                 alpha_bar, lr)
+    pl2, _, _, pg2 = _run_steps(train, plain2,
+                                train.create_optimizer(plain2, lr), batches,
+                                alpha_bar, lr)
+    pp_loss = max(abs(a - c) for a, c in zip(pl, pl2))
+    pp = _param_diffs(plain, plain2)
+    pp_share = float((pp > 1e-5).float().mean())
+    log(f"fused arm, plain vs plain: max|dloss|={pp_loss:.3e} max|dgrad|="
+        f"{max(float((pg[n] - pg2[n]).abs().max()) for n in pg):.3e} "
+        f"max|dparam|={float(pp.max()):.3e} share > 1e-5: {pp_share:.3e}")
+
+    counts.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    kl, k_ms, per_step, kg = _run_steps(train, kernel,
+                                        train.create_optimizer(kernel, lr),
+                                        batches, alpha_bar, lr, counts)
+    peak = torch.cuda.max_memory_allocated()
+    want = {"groupnorm_silu_fwd": 2, "groupnorm_silu_bwd": 2,
+            "gn_silu_conv3_fwd": 6, "gn_silu_conv3_bwd": 6,
+            "slab_attention_fwd": 1, "slab_attention_bwd": 1}
+    log(f"fused arm, kernel path: losses {kl}; launches per step "
+        f"{per_step}")
+    for step, cnt in enumerate(per_step):
+        if cnt != want:
+            raise RuntimeError(f"fused arm step {step + 1}: launches {cnt}, "
+                               f"expected {want}")
+    loss_tol = max(1e-5, 10 * pp_loss)
+    for step, (a, c) in enumerate(zip(kl, pl)):
+        if not abs(a - c) <= loss_tol * max(1.0, abs(c)):
+            raise RuntimeError(f"fused arm step {step + 1}: loss {a} vs "
+                               f"plain {c}, tolerance {loss_tol:.1e}")
+    worst = _compare_grads("fused arm step 1", kg, pg)
+    kp = _param_diffs(kernel, plain)
+    k_share = float((kp > 1e-5).float().mean())
+    flip_bound = 2 * tcfg.lr * TRAIN_STEPS
+    log(f"fused arm, kernel vs plain: max|dloss|="
+        f"{max(abs(a - c) for a, c in zip(kl, pl)):.3e} (tol {loss_tol:.1e}"
+        f" x max(1, loss)); step-1 gradients worst err/tol {worst:.3f}; "
+        f"params after {TRAIN_STEPS} steps max|d|={float(kp.max()):.3e} "
+        f"(bound {flip_bound:.1e}), share > 1e-5 {k_share:.3e} (limit "
+        f"max(1e-3, 2 x plain-vs-plain))")
+    if not (float(kp.max()) <= flip_bound + 1e-6
+            and k_share <= max(1e-3, 2 * pp_share)):
+        raise RuntimeError("fused arm: kernel-path parameters disagree "
+                           "with the plain path")
+
+    for model, label in ((kernel, "kernel"), (plain, "plain")):
+        x0, cond, t, noise = batches[0]
+        opt = train.create_optimizer(model, lr)
+        device_profile(lambda: train.train_step(model, opt, x0, cond, t,
+                                                noise, alpha_bar=alpha_bar,
+                                                lr=lr),
+                       f"one fused-arm train step, {label} path")
+    k_step = statistics.median(k_ms[1:])
+    p_step = statistics.median(p_ms[1:])
+    log(f"fused arm ms per train step (median of steps 2-{TRAIN_STEPS}; "
+        f"{card}): kernel path {k_step:.3f}, plain path {p_step:.3f}; "
+        f"peak memory {peak / 2**20:.1f} MiB; step times kernel {k_ms} "
+        f"plain {p_ms}")
+    return {"kernel_step_ms": k_step, "plain_step_ms": p_step}
+
+
+def check_fused_train_entry(counts, dev, card) -> dict:
+    """Phase 11 (b): train() of the fused arm with guidance dropout, EMA
+    and the flat optimizer for 2 epochs, resumed for a third; the last
+    checkpoint read back."""
+    from ertdx_torch import configs, train
+    from ertdx_torch.data import prepare_dataset
+    from ertdx_torch.doe import SurrogateDataGenerator
+    from ertdx_torch.utils import checkpoint as ckpt_lib
+    from ertdx_torch.utils.weights import (adam_state_from_jax,
+                                           params_from_jax)
+
+    cfg = fused_arm_cfg(configs)
+    mcfg = dataclasses.replace(cfg.model, uncond_prob=0.1)
+    n = 400
+    params_phys = SurrogateDataGenerator(
+        seed=SEED + 1).generate_training_samples(n, "lhs")
+    ert = np.random.default_rng(SEED + 113).normal(
+        50.0, 10.0, size=(n, mcfg.cond_length, mcfg.cond_channels))
+    ds = prepare_dataset(params_phys[..., None], ert)
+    tmp = tempfile.mkdtemp(prefix="ertdx_torch_fused_")
+    try:
+        def run(epochs, resume):
+            run_cfg = dataclasses.replace(cfg, model=mcfg,
+                                          train=dataclasses.replace(
+                cfg.train, num_epochs=epochs, step_checkpoint_every=1,
+                ema_decay=0.999, flat_optimizer=True, checkpoint_dir=tmp))
+            counts.reset_launches()
+            t0 = time.perf_counter()
+            res = train.train(run_cfg, ds, device=dev, resume=resume,
+                              logger=lambda d: log(f"train(): {d}"))
+            torch.cuda.synchronize()
+            return run_cfg, res, dict(counts.launches), \
+                time.perf_counter() - t0
+
+        def rule(steps, forwards):
+            return {"groupnorm_silu_fwd": 2 * forwards,
+                    "groupnorm_silu_bwd": 2 * steps,
+                    "gn_silu_conv3_fwd": 6 * forwards,
+                    "gn_silu_conv3_bwd": 6 * steps,
+                    "slab_attention_fwd": forwards,
+                    "slab_attention_bwd": steps}
+
+        bsz = cfg.train.batch_size
+        per_epoch = -(-int(0.8 * n) // bsz)
+        val_batches = -(-int(0.1 * n) // bsz)
+        _, res, got, seconds = run(2, False)
+        steps = res.state.step
+        want = rule(steps, steps + 2 * val_batches)
+        log(f"train() fused arm, uncond_prob={mcfg.uncond_prob}, EMA 0.999, "
+            f"flat optimizer: 2 epochs, {steps} steps in {seconds:.3f} s "
+            f"({res.steps_per_sec:.3f} steps/s; {card}), val "
+            f"{res.val_history}; "
+            f"rule per forward (train or eval) 2 GN and 6 conv forwards and "
+            f"one slab forward, per train step 2 GN and 6 conv backwards "
+            f"and one slab backward, {steps} steps + 2 x {val_batches} eval "
+            f"batches -> {want}; counted {got}")
+        if steps != 2 * per_epoch or got != want:
+            raise RuntimeError("train() fused arm: launches differ from "
+                               "the rule")
+        if not np.isfinite(res.train_history + res.val_history).all():
+            raise RuntimeError("train() fused arm: non-finite loss")
+
+        cfg3, res3, got3, seconds3 = run(3, True)
+        want3 = rule(per_epoch, per_epoch + val_batches)
+        log(f"train(resume=True) to 3 epochs: {seconds3:.3f} s ({card}), "
+            f"train "
+            f"history {res3.train_history}, step {res3.state.step}; "
+            f"launches {got3} (one epoch by the rule: {want3})")
+        if (res3.train_history[:2] != res.train_history or got3 != want3
+                or res3.state.step != 3 * per_epoch):
+            raise RuntimeError("train(resume=True) did not continue the run")
+
+        tree, meta, _ = ckpt_lib.restore_checkpoint(os.path.join(tmp,
+                                                                 "last"))
+        trained = res3.state.model
+        last = copy.deepcopy(trained)
+        params_from_jax(last, tree["params"])
+        opt = train.create_optimizer(last, res3.state.lr)
+        adam_state_from_jax(opt, last, tree["opt_state"], flat=True)
+        adam_same = all(
+            torch.equal(opt.state[a]["exp_avg"],
+                        res3.state.opt.state[b]["exp_avg"])
+            and torch.equal(opt.state[a]["exp_avg_sq"],
+                            res3.state.opt.state[b]["exp_avg_sq"])
+            for a, b in zip(last.parameters(), trained.parameters()))
+        x = torch.from_numpy(ds.params_u[:8]).to(dev)
+        cond = torch.from_numpy(ds.conditions[:8]).to(dev)
+        t = torch.arange(8, device=dev) * 60
+        best, bmeta, _ = train.load_best_model(tmp, cfg3, device=dev)
+        with torch.no_grad():
+            out = trained(x, t, cond)
+            from_last = last(x, t, cond)
+            from_best = best.model(x, t, cond)
+        log(f"last checkpoint (epoch {meta['epoch']}): forward bit for bit "
+            f"{torch.equal(out, from_last)}, flat Adam state exact "
+            f"{adam_same}, flat mu {tree['opt_state']['0']['mu'].shape}; "
+            f"best (epoch {bmeta['epoch']}) restores through "
+            f"load_best_model, step {best.step}, EMA "
+            f"{best.ema_params is not None}, max|d| vs the final model "
+            f"{float((from_best - out).abs().max()):.3e}")
+        if not (meta["epoch"] == 3 and torch.equal(out, from_last)
+                and adam_same and torch.isfinite(from_best).all()
+                and best.ema_params is not None):
+            raise RuntimeError("fused arm: checkpoint read back differs")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {k: v for k, v in got.items() if not k.startswith("slab_")}
+
+
 def random_flax_tree(shapes, rng) -> dict:
     """A flax-layout tree of non-zero numpy leaves at init-like scales."""
     out = {}
@@ -813,7 +1217,7 @@ def random_flax_tree(shapes, rng) -> dict:
             fan_in = int(np.prod(val[:-1]))
             out[key] = (rng.standard_normal(val) / math.sqrt(fan_in)
                         ).astype(np.float32)
-        elif key == "scale":
+        elif key in ("scale", "gn_scale"):
             out[key] = (1.0 + 0.1 * rng.standard_normal(val)
                         ).astype(np.float32)
         else:
@@ -834,8 +1238,10 @@ def main() -> int:
         from ertdx_torch.models.mega import (mega_denoise_ensemble,
                                              mega_weights)
         from ertdx_torch.ops import _build
+        from ertdx_torch.ops import conv as cv
         from ertdx_torch.ops import core_block as cb
         from ertdx_torch.ops import ensemble_attn as ea
+        from ertdx_torch.ops import groupnorm as gn
         from ertdx_torch.ops import slab_attn as sa
         from ertdx_torch.params import ParameterSpace
         from ertdx_torch.transforms import MinMaxScaler
@@ -990,23 +1396,50 @@ def main() -> int:
     serve_launches = check_serving(ea, cb, dev, card)
     phase("serving path", t0)
 
+    # 10. GN and fused-conv kernels against their plain versions
+    t0 = time.perf_counter()
+    gnconv = check_gn_conv(gn, cv, dev, card)
+    phase("GN and fused-conv kernels", t0)
+
+    # 11. the fused-encoder training arm: (a) steps, (b) train() + resume
+    t0 = time.perf_counter()
+    counts = _Counts(gn, cv, sa)
+    fused_ms = check_fused_training(counts, dev, card)
+    fused_launches = check_fused_train_entry(counts, dev, card)
+    share = sum(gnconv[k]["ms"] * n for k, n in (
+        ("groupnorm_silu_fwd", 2), ("groupnorm_silu_bwd", 2))) / \
+        fused_ms["kernel_step_ms"]
+    log(f"GN kernels' share of the fused-arm step by their phase-10 times: "
+        f"{100 * share:.2f} % (the fused convs run at two lengths; the "
+        f"profile above has their device time)")
+    phase("fused-encoder training arm", t0)
+
     launches = {"fused_core_stack": main_launches["fused_core_stack"],
                 "fused_core_block": block_launches["fused_core_block"],
                 **train_launches,
                 "block_self_attention": serve_launches,
-                "folded_cross_attention": serve_launches}
+                "folded_cross_attention": serve_launches,
+                **fused_launches}
     replaces = {"fused_core_stack": "ertdx/ops/core_block.py:440",
                 "fused_core_block": "ertdx/ops/core_block.py:281",
                 "slab_attention_fwd": "ertdx/ops/slab_attn.py:147",
                 "slab_attention_bwd": "ertdx/ops/slab_attn.py:184",
                 "block_self_attention": "ertdx/ops/ensemble_attn.py:151",
-                "folded_cross_attention": "ertdx/ops/ensemble_attn.py:262"}
+                "folded_cross_attention": "ertdx/ops/ensemble_attn.py:262",
+                "groupnorm_silu_fwd": "ertdx/ops/groupnorm.py:47",
+                "groupnorm_silu_bwd": "ertdx/ops/groupnorm.py:95",
+                "gn_silu_conv3_fwd": "ertdx/ops/conv.py:49",
+                "gn_silu_conv3_bwd": "ertdx/ops/conv.py:109"}
     sources = {"fused_core_stack": "ertdx_torch/csrc/core_block.cu",
                "fused_core_block": "ertdx_torch/csrc/core_block.cu",
                "slab_attention_fwd": "ertdx_torch/csrc/slab_attn.cu",
                "slab_attention_bwd": "ertdx_torch/csrc/slab_attn.cu",
                "block_self_attention": "ertdx_torch/csrc/ensemble_attn.cu",
-               "folded_cross_attention": "ertdx_torch/csrc/ensemble_attn.cu"}
+               "folded_cross_attention": "ertdx_torch/csrc/ensemble_attn.cu",
+               "groupnorm_silu_fwd": "ertdx_torch/csrc/groupnorm.cu",
+               "groupnorm_silu_bwd": "ertdx_torch/csrc/groupnorm.cu",
+               "gn_silu_conv3_fwd": "ertdx_torch/csrc/gn_conv.cu",
+               "gn_silu_conv3_bwd": "ertdx_torch/csrc/gn_conv.cu"}
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": sources[name],
          "replaces": replaces[name], "launches": launches[name],
@@ -1014,7 +1447,7 @@ def main() -> int:
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
          "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
          "shape": r["shape"]}
-        for name, r in {**results, **slab, **ensemble}.items()]}
+        for name, r in {**results, **slab, **ensemble, **gnconv}.items()]}
     log(f"[phase] total: {time.perf_counter() - t_all:.3f} s")
     log(json.dumps(line))
     log(card_line())

@@ -8,7 +8,9 @@ classifier-free guidance, on the fused-core kernels of
 `csrc/core_block.cu` or, below their chain threshold, on the per-block
 path with the ensemble-attention kernels of `csrc/ensemble_attn.cu`; and
 it trains the CondUNet with the encoder's slab attention kernels of
-`csrc/slab_attn.cu`.
+`csrc/slab_attn.cu` and, in the fused-encoder arm (`pallas_gn`,
+`pallas_conv_min_width`), the GroupNorm+SiLU and GN+SiLU+conv3 kernels of
+`csrc/groupnorm.cu` and `csrc/gn_conv.cu`.
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; without a card and without that argument they raise.

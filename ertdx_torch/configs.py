@@ -34,10 +34,12 @@ class ModelConfig:
     num_heads: int = 4             # encoder attention heads
     core_heads: int = 1            # denoiser-core attention heads
     num_blocks: int = 4
-    use_pallas: bool = True        # TPU kernel switches of the JAX
-    pallas_gn: bool = False        # package; kept so config echoes
-    pallas_conv: bool = False      # round-trip. The port's encoder runs
-    pallas_conv_min_width: int = 0  # plain PyTorch whatever they say.
+    use_pallas: bool = True        # kept so config echoes round-trip
+    pallas_gn: bool = False        # encoder GN+SiLU on ops/groupnorm.py
+    pallas_conv: bool = False      # fuse GN+SiLU+conv3 in every ResBlock
+    pallas_conv_min_width: int = 0  # ... or in those this wide and wider
+                                   # (ops/conv.py; either changes the
+                                   # parameter tree, as in JAX)
     ensemble_pallas: bool = False
     ensemble_min_chains: int = 1024
     ensemble_mega: bool = True     # fused-core ensemble sampling

@@ -1,9 +1,11 @@
 """Model registry: `build_model` for the port's denoisers.
 
 The port has the flagship `condunet`, with the guidance null context
-when `uncond_prob > 0`. The other models of the JAX package (`refmlp`,
-configs[0]; `uncondmlp`, configs[1]) are ROADMAP.md queue 1 item 6 and
-raise here, as do bf16 models (item 4).
+when `uncond_prob > 0` and the encoder's GN and fused GN+conv kernels
+under `pallas_gn`, `pallas_conv` and `pallas_conv_min_width`. The other
+models of the JAX package (`refmlp`, configs[0]; `uncondmlp`, configs[1])
+are ROADMAP.md queue 1 item 4 and raise here, as do bf16 models (item
+2).
 """
 from __future__ import annotations
 
@@ -27,11 +29,11 @@ def build_model(cfg: ModelConfig, device=None,
     if cfg.name != "condunet":
         raise NotImplementedError(
             f"model {cfg.name!r} is not ported yet (ROADMAP.md queue 1 "
-            "item 6: the other models)")
+            "item 4: the other models)")
     if cfg.dtype != "float32":
         raise NotImplementedError(
             f"dtype {cfg.dtype!r}: the port computes in float32 only "
-            "(ROADMAP.md queue 1 item 4: bf16 models)")
+            "(ROADMAP.md queue 1 item 2: bf16 models)")
     model = CondUNet(param_dim=cfg.param_dim, hidden_dim=cfg.hidden_dim,
                      cond_channels=cfg.cond_channels,
                      base_width=cfg.base_width, depth=cfg.depth,
@@ -42,7 +44,9 @@ def build_model(cfg: ModelConfig, device=None,
                      parameterization=cfg.parameterization,
                      attn_slab=cfg.attn_slab, uncond_prob=cfg.uncond_prob,
                      ensemble_pallas=cfg.ensemble_pallas,
-                     ensemble_min_chains=cfg.ensemble_min_chains)
+                     ensemble_min_chains=cfg.ensemble_min_chains,
+                     pallas_gn=cfg.pallas_gn, pallas_conv=cfg.pallas_conv,
+                     pallas_conv_min_width=cfg.pallas_conv_min_width)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     return init_params(model, generator).to(dev)

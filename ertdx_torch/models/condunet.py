@@ -21,9 +21,13 @@ Attention here is the plain path of ertdx/ops/attention.py:36-47
 self-attention reads the fused QKV slab through ops/slab_attn.py, and
 with `ensemble_pallas` the core's attention at ensemble chain counts goes
 through ops/ensemble_attn.py (the CUDA kernels on the card), each with
-the JAX dispatch rule. The fused-core CUDA kernels serve the sampling hot
-path through models/mega.py. With `uncond_prob > 0` the model carries
-the learned null context of classifier-free guidance.
+the JAX dispatch rule. The encoder's GroupNorm+SiLU goes through
+ops/groupnorm.py with `pallas_gn`, and its ResBlocks at or above
+`pallas_conv_min_width` channels (all, with `pallas_conv`) fuse GN+SiLU
+with the following conv through ops/conv.py. The fused-core CUDA kernels
+serve the sampling hot path through models/mega.py. With
+`uncond_prob > 0` the model carries the learned null context of
+classifier-free guidance.
 
 `init_params` draws a fresh model the way flax initialises the JAX
 CondUNet; the modules' own constructors keep PyTorch's default init.
@@ -37,7 +41,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.conv import gn_silu_conv3, reference_gn_silu_conv3
 from ..ops.ensemble_attn import block_self_attention, folded_cross_attention
+from ..ops.groupnorm import (check_groups, groupnorm_silu,
+                             reference_groupnorm_silu)
 from ..ops.slab_attn import slab_attention
 from .common import get_timestep_embedding
 
@@ -76,41 +83,76 @@ def attention(q, k, v):
 
 
 class GNSiLU(nn.Module):
-    """GroupNorm (statistics over L and the channels of a group) + SiLU."""
+    """GroupNorm (statistics over L and the channels of a group) + SiLU.
+    With `use_pallas` a CUDA input goes through the fused kernels of
+    ops/groupnorm.py (ertdx/models/condunet.py:47-60); the plain version
+    is the CPU path and the path with use_pallas off."""
 
-    def __init__(self, channels: int, num_groups: int = 8):
+    def __init__(self, channels: int, num_groups: int = 8,
+                 use_pallas: bool = True):
         super().__init__()
-        if channels % num_groups:
-            raise ValueError(f"channels {channels} not divisible by "
-                             f"num_groups {num_groups}")
+        check_groups(channels, num_groups)
         self.num_groups = num_groups
+        self.use_pallas = use_pallas
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x):
-        b, l, c = x.shape
-        xg = x.reshape(b, l, self.num_groups, c // self.num_groups)
-        mean = xg.mean(dim=(1, 3), keepdim=True)
-        var = xg.var(dim=(1, 3), unbiased=False, keepdim=True)
-        xn = ((xg - mean) * torch.rsqrt(var + GN_EPS)).reshape(b, l, c)
-        return F.silu(xn * self.weight + self.bias)
+        fn = groupnorm_silu if self.use_pallas else reference_groupnorm_silu
+        return fn(x, self.weight, self.bias, self.num_groups, GN_EPS)
+
+
+class FusedGNConv(nn.Module):
+    """GroupNorm + SiLU + k=3 "SAME" conv as one op, ops/conv.py's fused
+    kernels on a CUDA input with `use_pallas` (ertdx/models/condunet.py:
+    62-82). Its parameters keep the flax names and layouts: gn_scale,
+    gn_bias (C,), kernel (3, C, Cout), bias (Cout,)."""
+
+    def __init__(self, cin: int, features: int, num_groups: int = 8,
+                 use_pallas: bool = True):
+        super().__init__()
+        check_groups(cin, num_groups)
+        self.num_groups = num_groups
+        self.use_pallas = use_pallas
+        self.gn_scale = nn.Parameter(torch.ones(cin))
+        self.gn_bias = nn.Parameter(torch.zeros(cin))
+        self.kernel = nn.Parameter(torch.empty(3, cin, features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        nn.init.normal_(self.kernel, std=(3 * cin) ** -0.5)
+
+    def forward(self, x):
+        fn = gn_silu_conv3 if self.use_pallas else reference_gn_silu_conv3
+        return fn(x, self.gn_scale, self.gn_bias, self.kernel, self.bias,
+                  self.num_groups, GN_EPS)
 
 
 class ResBlock1D(nn.Module):
-    """[GN+SiLU, conv3] x 2 with a residual (1x1 conv when widths differ)."""
+    """[GN+SiLU, conv3] x 2 with a residual (1x1 conv when widths differ).
+    With `pallas_conv` each pair is one FusedGNConv, which changes the
+    parameter tree as in JAX (ertdx/models/condunet.py:84-111); otherwise
+    `pallas_gn` sends the GNSiLU pairs through the fused GN kernels."""
 
-    def __init__(self, cin: int, features: int, num_groups: int = 8):
+    def __init__(self, cin: int, features: int, num_groups: int = 8,
+                 pallas_gn: bool = False, pallas_conv: bool = False):
         super().__init__()
-        self.norm1 = GNSiLU(cin, num_groups)
-        self.conv1 = Conv1dSame(cin, features, 3)
-        self.norm2 = GNSiLU(features, num_groups)
-        self.conv2 = Conv1dSame(features, features, 3)
+        self.pallas_conv = pallas_conv
+        if pallas_conv:
+            self.fused1 = FusedGNConv(cin, features, num_groups)
+            self.fused2 = FusedGNConv(features, features, num_groups)
+        else:
+            self.norm1 = GNSiLU(cin, num_groups, pallas_gn)
+            self.conv1 = Conv1dSame(cin, features, 3)
+            self.norm2 = GNSiLU(features, num_groups, pallas_gn)
+            self.conv2 = Conv1dSame(features, features, 3)
         self.skip = (None if cin == features
                      else Conv1dSame(cin, features, 1))
 
     def forward(self, x):
-        h = self.conv1(self.norm1(x))
-        h = self.conv2(self.norm2(h))
+        if self.pallas_conv:
+            h = self.fused2(self.fused1(x))
+        else:
+            h = self.conv1(self.norm1(x))
+            h = self.conv2(self.norm2(h))
         return (x if self.skip is None else self.skip(x)) + h
 
 
@@ -143,27 +185,46 @@ class SelfAttention1D(nn.Module):
 
 
 class ConditionEncoder(nn.Module):
-    """ERT (B, L, C) -> cond tokens (B, Lc, D) and cond vector (B, D)."""
+    """ERT (B, L, C) -> cond tokens (B, Lc, D) and cond vector (B, D).
+
+    A ResBlock whose output width is at least `pallas_conv_min_width` (or
+    every ResBlock, with `pallas_conv`) fuses its GN+SiLU+conv pairs
+    (FusedGNConv, another parameter tree); the others run GNSiLU + conv,
+    through the GN kernels with `pallas_gn`
+    (ertdx/models/condunet.py:211-238)."""
 
     def __init__(self, cond_channels: int = 14, hidden_dim: int = 128,
                  base_width: int = 64, depth: int = 3, num_heads: int = 4,
-                 patch: int = 8, attn_slab: bool = False):
+                 patch: int = 8, attn_slab: bool = False,
+                 pallas_gn: bool = False, pallas_conv: bool = False,
+                 pallas_conv_min_width: int = 0):
         super().__init__()
         self.patch = patch
+        self.pallas_conv = pallas_conv
+        self.pallas_conv_min_width = pallas_conv_min_width
+
+        def res(width):
+            return ResBlock1D(width, width, pallas_gn=pallas_gn,
+                              pallas_conv=self._conv_fused(width))
+
         w0 = 2 * base_width
         self.stem = nn.Linear(patch * cond_channels, w0)
-        self.res = nn.ModuleList([ResBlock1D(w0, w0)])
+        self.res = nn.ModuleList([res(w0)])
         self.downs = nn.ModuleList()
         w = w0
         for i in range(depth - 1):
             w_next = min(w0 * 2 ** (i + 1), 4 * base_width)
             self.downs.append(Conv1dSame(w, w_next, 3, stride=2))
-            self.res.append(ResBlock1D(w_next, w_next))
+            self.res.append(res(w_next))
             w = w_next
         self.attn = SelfAttention1D(w, num_heads, slab=attn_slab)
-        self.res_out = ResBlock1D(w, w)
+        self.res_out = res(w)
         self.tokens = nn.Linear(w, hidden_dim)
         self.pool = nn.Linear(hidden_dim, hidden_dim)
+
+    def _conv_fused(self, width: int) -> bool:
+        return self.pallas_conv or (self.pallas_conv_min_width > 0
+                                    and width >= self.pallas_conv_min_width)
 
     def forward(self, condition) -> Tuple[torch.Tensor, torch.Tensor]:
         b, l, c = condition.shape
@@ -270,7 +331,8 @@ class CondUNet(nn.Module):
                  ensemble_mega_accurate: bool = False,
                  parameterization: str = "eps", attn_slab: bool = False,
                  uncond_prob: float = 0.0, ensemble_pallas: bool = False,
-                 ensemble_min_chains: int = 1024):
+                 ensemble_min_chains: int = 1024, pallas_gn: bool = False,
+                 pallas_conv: bool = False, pallas_conv_min_width: int = 0):
         super().__init__()
         self.param_dim = param_dim
         self.hidden_dim = hidden_dim
@@ -284,7 +346,8 @@ class CondUNet(nn.Module):
         self.uncond_prob = uncond_prob
         self.encoder = ConditionEncoder(cond_channels, hidden_dim,
                                         base_width, depth, num_heads, patch,
-                                        attn_slab)
+                                        attn_slab, pallas_gn, pallas_conv,
+                                        pallas_conv_min_width)
         self.lift = nn.Linear(1, hidden_dim)
         self.pos_emb = nn.Parameter(
             0.02 * torch.randn(param_dim, hidden_dim))
@@ -362,14 +425,22 @@ def _lecun_normal(shape, fan_in: int, generator: torch.Generator):
 @torch.no_grad()
 def init_params(model: CondUNet, generator: torch.Generator) -> CondUNet:
     """Initialise `model` in place as flax initialises the JAX CondUNet, in
-    distribution: lecun-normal Dense and Conv kernels (Conv fan_in is
-    k * c_in), zero biases, zero AdaLN / output projections and head,
+    distribution: lecun-normal Dense, Conv and FusedGNConv kernels (Conv
+    fan_in is k * c_in), zero biases, zero AdaLN / output projections and
+    head,
     unit norm scales, pos_emb and null_token from N(0, 0.02^2), null_vec
     zero. Draws on the CPU from `generator`, in named_parameters order,
     then copies to the model's device. Returns the model."""
     for mod_name, mod in model.named_modules():
         if isinstance(mod, _NORMS):
             mod.weight.fill_(1.0)
+            mod.bias.zero_()
+        elif isinstance(mod, FusedGNConv):
+            mod.gn_scale.fill_(1.0)
+            mod.gn_bias.zero_()
+            k = mod.kernel
+            k.copy_(_lecun_normal(tuple(k.shape), k.shape[0] * k.shape[1],
+                                  generator))
             mod.bias.zero_()
         elif isinstance(mod, (nn.Linear, nn.Conv1d)):
             zero = mod_name == "head" or (

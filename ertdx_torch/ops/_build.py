@@ -13,7 +13,9 @@ where <hash> covers the sources and the flags: an unchanged tree loads
 the library it already built, a changed one builds anew. No source
 includes PyTorch's headers, and neither ninja nor
 `torch.utils.cpp_extension` is used. A failed build raises with nvcc's
-output; nothing falls back to the plain versions.
+output; nothing falls back to the plain versions. `check_cuda` and
+`raise_on` are the argument and launch-error checks the kernel wrappers
+share.
 """
 from __future__ import annotations
 
@@ -24,6 +26,8 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / \
@@ -36,8 +40,13 @@ LIB_NAME = "libertdx_torch_kernels.so"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_long
+_F = ctypes.c_float
 # C signatures of csrc/*.cu (pointers and the stream as void*)
 SIGNATURES = {
+    "ertdx_gn_silu_fwd": [_P] * 4 + [_I] * 4 + [_F, _P],
+    "ertdx_gn_silu_bwd": [_P] * 7 + [_I] * 4 + [_F, _P],
+    "ertdx_gn_conv3_fwd": [_P] * 7 + [_I] * 5 + [_F, _P],
+    "ertdx_gn_conv3_bwd": [_P] * 12 + [_I] * 6 + [_F, _P],
     "ertdx_core_stack": [_P] * 22 + [_I] * 5 + [_P],
     "ertdx_core_block": [_P] * 15 + [_I] * 4 + [_P],
     "ertdx_slab_fwd": [_P] * 2 + [_I] * 4 + [_P],
@@ -138,3 +147,24 @@ def load() -> Kernels:
         fn.restype = ctypes.c_int
     _loaded["lib"] = Kernels(lib, path, report, seconds)
     return _loaded["lib"]
+
+
+def check_cuda(name: str, t: torch.Tensor, shape) -> None:
+    """What the kernels take: a contiguous float32 CUDA tensor of the
+    expected shape; raises otherwise."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: the kernel takes CUDA tensors, got "
+                         f"{t.device}")
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name}: the kernel takes float32, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, the kernel "
+                         f"expects {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: the kernel takes contiguous tensors")
+
+
+def raise_on(rc: int, name: str) -> None:
+    """Raise if a launch returned a CUDA error code."""
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")

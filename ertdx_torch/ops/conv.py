@@ -1,0 +1,179 @@
+"""Fused GroupNorm + SiLU + Conv1d(k=3): wrappers, plain version, launch
+counts.
+
+`gn_silu_conv3` ports the TPU kernels of ertdx/ops/conv.py
+(`_gn_silu_conv3_kernel` :49-82, `_gn_silu_conv3_bwd_kernel` :109-180)
+to the hand-written CUDA kernels of csrc/gn_conv.cu:
+
+    x     (B, L, C)       C divisible by num_groups
+    w     (3, C, Cout)    the flax kernel layout (tap, in, out)
+    bias  (Cout,)
+    y     (B, L, Cout)    conv3_SAME(silu(GN(x)), w) + bias
+    backward              dx, dgamma, dbeta, dW (3, C, Cout), db (Cout,),
+                          all summed over the batch in the kernels
+
+On CUDA tensors the forward and backward launch their kernels (the
+kernels take Cout a multiple of 4 and B up to 65535; the wrapper raises
+on anything else); on CPU tensors both are the plain version under
+autograd. A failed build or launch raises: nothing falls back. Channels
+not divisible by the groups raise ValueError on every device, as in JAX
+(:237-243). `launches` counts kernel launches only.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from . import _build
+from .groupnorm import check_groups, reference_groupnorm_silu
+
+launches = {"gn_silu_conv3_fwd": 0, "gn_silu_conv3_bwd": 0}
+MAX_BATCH = 65535          # the GEMM grid's z dimension
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def reference_gn_silu_conv3(x, gamma, beta, w, bias, num_groups: int,
+                            eps: float = 1e-5) -> torch.Tensor:
+    """The plain version (ertdx/ops/conv.py:39-46): GN+SiLU, then a k=3
+    stride-1 "SAME" conv (one zero row each side) and the bias."""
+    h = reference_groupnorm_silu(x, gamma, beta, num_groups, eps)
+    # contiguous operands, padded as models/condunet.Conv1dSame pads: with
+    # the permuted weight view cuDNN picked FFT algorithms that took
+    # 200 ms for one backward at (256, 147, 256) on an H100
+    y = F.conv1d(F.pad(h.transpose(1, 2), (1, 1)),
+                 w.permute(2, 1, 0).contiguous(), bias)
+    return y.transpose(1, 2)
+
+
+def reference_gn_silu_conv3_backward(x, gamma, beta, w, bias, g,
+                                     num_groups: int, eps: float = 1e-5):
+    """(dx, dgamma, dbeta, dW, db) of the plain version by autograd."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True)
+                  for t in (x, gamma, beta, w, bias)]
+        out = reference_gn_silu_conv3(*leaves, num_groups, eps)
+        return torch.autograd.grad(out, leaves, g)
+
+
+def _checked(x, gamma, beta, w, num_groups, bias=None, g=None):
+    if x.dim() != 3 or w.dim() != 3:
+        raise ValueError(f"x (B, L, C) and w (3, C, Cout) expected, got "
+                         f"{tuple(x.shape)} and {tuple(w.shape)}")
+    b, l, c = x.shape
+    cout = w.shape[-1]
+    check_groups(c, num_groups)
+    if cout % 4 or b > MAX_BATCH:
+        raise ValueError(f"the fused conv kernels take Cout a multiple of 4 "
+                         f"and B <= {MAX_BATCH}, got Cout={cout}, B={b}")
+    _build.check_cuda("x", x, (b, l, c))
+    _build.check_cuda("gamma", gamma, (c,))
+    _build.check_cuda("beta", beta, (c,))
+    _build.check_cuda("w", w, (3, c, cout))
+    extra = []
+    if bias is not None:
+        _build.check_cuda("bias", bias, (cout,))
+        extra.append(bias)
+    if g is not None:
+        _build.check_cuda("g", g, (b, l, cout))
+        extra.append(g)
+    if any(t.device != x.device for t in (gamma, beta, w, *extra)):
+        raise ValueError("all tensors must lie on one CUDA device")
+    return b, l, c, cout
+
+
+def gn_silu_conv3_fwd(x, gamma, beta, w, bias, num_groups: int,
+                      eps: float = 1e-5) -> torch.Tensor:
+    """The forward kernels: (B, L, C) -> (B, L, Cout). Two launches on the
+    current stream (statistics, then the fused GEMM), counted as one."""
+    b, l, c, cout = _checked(x, gamma, beta, w, num_groups, bias=bias)
+    out = torch.empty(b, l, cout, device=x.device, dtype=torch.float32)
+    stats = torch.empty(b, num_groups, 2, device=x.device,
+                        dtype=torch.float32)
+    lib = _build.load().lib
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.ertdx_gn_conv3_fwd(x.data_ptr(), gamma.data_ptr(),
+                                    beta.data_ptr(), w.data_ptr(),
+                                    bias.data_ptr(), out.data_ptr(),
+                                    stats.data_ptr(), b, l, c, cout,
+                                    num_groups, eps, stream)
+    _build.raise_on(rc, "gn_silu_conv3_fwd")
+    launches["gn_silu_conv3_fwd"] += 1
+    return out
+
+
+def dw_splits(b: int, c: int, cout: int, sms: int) -> int:
+    """How many ways the dW reduction splits the batch rows: as many
+    blocks as fit on the card at once (two per SM at the kernel's
+    register count), never a second wave, at most one split per batch
+    row."""
+    tiles = -(-c // 64) * -(-cout // 64)
+    return max(1, min(b, 2 * sms // tiles))
+
+
+def gn_silu_conv3_bwd(x, gamma, beta, w, g, num_groups: int,
+                      eps: float = 1e-5):
+    """The backward kernels: (dx, dgamma, dbeta, dW, db) for upstream
+    gradient g (B, L, Cout). Six launches on the current stream
+    (statistics, dW partials, their sum, dh, the GN backward and its sum
+    over B), counted as one backward."""
+    b, l, c, cout = _checked(x, gamma, beta, w, num_groups, g=g)
+    dev = x.device
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    splits = dw_splits(b, c, cout, sms)
+    nw = 3 * c * cout + cout
+
+    def empty(*shape):
+        return torch.empty(*shape, device=dev, dtype=torch.float32)
+
+    dx, dgb, dwb = empty(b, l, c), empty(2, c), empty(nw)
+    stats, dh = empty(b, num_groups, 2), empty(b, l, c)
+    part_w, part_gn = empty(splits, nw), empty(b, 2, c)
+    lib = _build.load().lib
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.ertdx_gn_conv3_bwd(
+            x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w.data_ptr(),
+            g.data_ptr(), dx.data_ptr(), dgb.data_ptr(), dwb.data_ptr(),
+            stats.data_ptr(), dh.data_ptr(), part_w.data_ptr(),
+            part_gn.data_ptr(), b, l, c, cout, num_groups, splits, eps,
+            stream)
+    _build.raise_on(rc, "gn_silu_conv3_bwd")
+    launches["gn_silu_conv3_bwd"] += 1
+    return (dx, dgb[0], dgb[1], dwb[:3 * c * cout].view(3, c, cout),
+            dwb[3 * c * cout:])
+
+
+class _GNSiLUConv3(torch.autograd.Function):
+    """Forward and backward on the CUDA kernels."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, w, bias, num_groups, eps):
+        ctx.num_groups, ctx.eps = num_groups, eps
+        ctx.save_for_backward(x, gamma, beta, w)
+        return gn_silu_conv3_fwd(x, gamma, beta, w, bias, num_groups, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, gamma, beta, w = ctx.saved_tensors
+        grads = gn_silu_conv3_bwd(x, gamma, beta, w, g.contiguous(),
+                                  ctx.num_groups, ctx.eps)
+        return (*grads, None, None)
+
+
+def gn_silu_conv3(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                  w: torch.Tensor, bias: torch.Tensor, num_groups: int,
+                  eps: float = 1e-5) -> torch.Tensor:
+    """conv3_SAME(silu(GN(x)), w) + bias with a gradient: the CUDA kernels
+    on a CUDA tensor, the plain version on a CPU tensor."""
+    check_groups(x.shape[-1], num_groups)
+    if x.device.type == "cpu":
+        return reference_gn_silu_conv3(x, gamma, beta, w, bias, num_groups,
+                                       eps)
+    return _GNSiLUConv3.apply(x.contiguous(), gamma.contiguous(),
+                              beta.contiguous(), w.contiguous(),
+                              bias.contiguous(), num_groups, eps)

@@ -155,11 +155,6 @@ def _same_device(tensors) -> None:
         raise ValueError("the kernel's tensors must share one CUDA device")
 
 
-def _raise_on(rc: int, name: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
-
-
 def fused_core_stack(x, mods, k, v, ws, lift_w, lift_b, pos_emb, on_scale,
                      on_bias, head_w, head_b, *, p: int, chunk: int,
                      accurate: bool = False):
@@ -203,7 +198,7 @@ def fused_core_stack(x, mods, k, v, ws, lift_w, lift_b, pos_emb, on_scale,
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.ertdx_core_stack(*(t.data_ptr() for t in tensors),
                                   out.data_ptr(), b, r, p, nb, lk, stream)
-    _raise_on(rc, "fused_core_stack")
+    _build.raise_on(rc, "fused_core_stack")
     launches["fused_core_stack"] += 1
     return out
 
@@ -238,6 +233,6 @@ def fused_core_block(x3, mods, k, v, w, *, p: int, chunk: int,
         stream = torch.cuda.current_stream(x3.device).cuda_stream
         rc = lib.ertdx_core_block(*(t.data_ptr() for t in tensors),
                                   out.data_ptr(), b, r, p, lk, stream)
-    _raise_on(rc, "fused_core_block")
+    _build.raise_on(rc, "fused_core_block")
     launches["fused_core_block"] += 1
     return out

@@ -108,11 +108,6 @@ def _check_cuda(name: str, t: torch.Tensor, shape, device) -> int:
     return _row_stride(name, t)
 
 
-def _raise_on(rc: int, name: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
-
-
 def block_self_attention_fwd(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor) -> torch.Tensor:
     """The self-attention kernel: q, k, v (N, P, D) -> (N, P, D). One
@@ -130,7 +125,7 @@ def block_self_attention_fwd(q: torch.Tensor, k: torch.Tensor,
         rc = lib.ertdx_block_self_attn(q.data_ptr(), k.data_ptr(),
                                        v.data_ptr(), out.data_ptr(), *lds,
                                        n, p, d, stream)
-    _raise_on(rc, "block_self_attention")
+    _build.raise_on(rc, "block_self_attention")
     launches["block_self_attention"] += 1
     return out
 
@@ -154,7 +149,7 @@ def folded_cross_attention_fwd(q: torch.Tensor, k: torch.Tensor,
         rc = lib.ertdx_folded_cross_attn(q.data_ptr(), k.data_ptr(),
                                          v.data_ptr(), out.data_ptr(), ldq,
                                          ldk, ldv, b, lq, lk, d, stream)
-    _raise_on(rc, "folded_cross_attention")
+    _build.raise_on(rc, "folded_cross_attention")
     launches["folded_cross_attention"] += 1
     return out
 

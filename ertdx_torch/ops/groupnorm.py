@@ -1,0 +1,143 @@
+"""Fused GroupNorm + SiLU: wrappers, plain version, launch counts.
+
+`groupnorm_silu` ports the TPU kernels of ertdx/ops/groupnorm.py
+(`_gn_silu_kernel` :47-76, `_gn_silu_bwd_kernel` :95-131) to the
+hand-written CUDA kernels of csrc/groupnorm.cu:
+
+    x  (B, L, C)  feature-last, C divisible by num_groups
+    y  (B, L, C)  silu(gamma * GN(x) + beta), statistics per (row, group)
+                  over L and the group's channels, eps inside the rsqrt
+    backward      dx (B, L, C), dgamma and dbeta (C,) summed over B
+
+On CUDA tensors the forward launches the forward kernel and the backward
+the backward kernels; on CPU tensors both are the plain version under
+autograd. A failed build or launch raises: nothing falls back. Channels
+not divisible by the groups raise ValueError on every device, as in JAX
+(:176-182). `launches` counts kernel launches only.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from . import _build
+
+launches = {"groupnorm_silu_fwd": 0, "groupnorm_silu_bwd": 0}
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def check_groups(channels: int, num_groups: int) -> None:
+    if channels % num_groups:
+        raise ValueError(f"channels {channels} not divisible by "
+                         f"num_groups {num_groups}")
+
+
+def reference_groupnorm_silu(x: torch.Tensor, gamma: torch.Tensor,
+                             beta: torch.Tensor, num_groups: int,
+                             eps: float = 1e-5) -> torch.Tensor:
+    """The plain version (ertdx/ops/groupnorm.py:24-34): statistics over
+    (L, C/G) per row and group, biased variance, then affine and SiLU."""
+    b, l, c = x.shape
+    check_groups(c, num_groups)
+    xg = x.reshape(b, l, num_groups, c // num_groups)
+    mean = xg.mean(dim=(1, 3), keepdim=True)
+    var = xg.var(dim=(1, 3), unbiased=False, keepdim=True)
+    xn = ((xg - mean) * torch.rsqrt(var + eps)).reshape(b, l, c)
+    return F.silu(xn * gamma + beta)
+
+
+def reference_groupnorm_silu_backward(x, gamma, beta, g, num_groups: int,
+                                      eps: float = 1e-5):
+    """(dx, dgamma, dbeta) of the plain version by autograd."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in (x, gamma, beta)]
+        out = reference_groupnorm_silu(*leaves, num_groups, eps)
+        return torch.autograd.grad(out, leaves, g)
+
+
+def _checked(x, gamma, beta, num_groups, extra=()):
+    if x.dim() != 3:
+        raise ValueError(f"x: expected (B, L, C), got {tuple(x.shape)}")
+    b, l, c = x.shape
+    check_groups(c, num_groups)
+    _build.check_cuda("x", x, (b, l, c))
+    _build.check_cuda("gamma", gamma, (c,))
+    _build.check_cuda("beta", beta, (c,))
+    for name, t in extra:
+        _build.check_cuda(name, t, (b, l, c))
+    if any(t.device != x.device for t in (gamma, beta, *(t for _, t in
+                                                          extra))):
+        raise ValueError("all tensors must lie on one CUDA device")
+    return b, l, c
+
+
+def groupnorm_silu_fwd(x, gamma, beta, num_groups: int,
+                       eps: float = 1e-5) -> torch.Tensor:
+    """The forward kernel: (B, L, C) -> (B, L, C). One launch on the
+    current stream."""
+    b, l, c = _checked(x, gamma, beta, num_groups)
+    out = torch.empty_like(x)
+    lib = _build.load().lib
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.ertdx_gn_silu_fwd(x.data_ptr(), gamma.data_ptr(),
+                                   beta.data_ptr(), out.data_ptr(), b, l, c,
+                                   num_groups, eps, stream)
+    _build.raise_on(rc, "groupnorm_silu_fwd")
+    launches["groupnorm_silu_fwd"] += 1
+    return out
+
+
+def groupnorm_silu_bwd(x, gamma, beta, g, num_groups: int,
+                       eps: float = 1e-5):
+    """The backward kernels: (dx, dgamma, dbeta) for upstream gradient g
+    (B, L, C). Two launches on the current stream (the per-(row, group)
+    pass, then the sum over B), counted as one backward."""
+    b, l, c = _checked(x, gamma, beta, num_groups, (("g", g),))
+    dx = torch.empty_like(x)
+    part = torch.empty(b, 2, c, device=x.device, dtype=torch.float32)
+    dgb = torch.empty(2, c, device=x.device, dtype=torch.float32)
+    lib = _build.load().lib
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.ertdx_gn_silu_bwd(x.data_ptr(), gamma.data_ptr(),
+                                   beta.data_ptr(), g.data_ptr(),
+                                   dx.data_ptr(), part.data_ptr(),
+                                   dgb.data_ptr(), b, l, c, num_groups, eps,
+                                   stream)
+    _build.raise_on(rc, "groupnorm_silu_bwd")
+    launches["groupnorm_silu_bwd"] += 1
+    return dx, dgb[0], dgb[1]
+
+
+class _GroupNormSiLU(torch.autograd.Function):
+    """Forward and backward on the CUDA kernels."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, num_groups, eps):
+        ctx.num_groups, ctx.eps = num_groups, eps
+        ctx.save_for_backward(x, gamma, beta)
+        return groupnorm_silu_fwd(x, gamma, beta, num_groups, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, gamma, beta = ctx.saved_tensors
+        dx, dgamma, dbeta = groupnorm_silu_bwd(x, gamma, beta,
+                                               g.contiguous(),
+                                               ctx.num_groups, ctx.eps)
+        return dx, dgamma, dbeta, None, None
+
+
+def groupnorm_silu(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                   num_groups: int, eps: float = 1e-5) -> torch.Tensor:
+    """silu(GroupNorm(x)) with a gradient: the CUDA kernels on a CUDA
+    tensor, the plain version on a CPU tensor."""
+    check_groups(x.shape[-1], num_groups)
+    if x.device.type == "cpu":
+        return reference_groupnorm_silu(x, gamma, beta, num_groups, eps)
+    return _GroupNormSiLU.apply(x.contiguous(), gamma.contiguous(),
+                                beta.contiguous(), num_groups, eps)

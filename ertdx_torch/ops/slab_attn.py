@@ -78,19 +78,6 @@ def reference_slab_attention_backward(qkv: torch.Tensor, do: torch.Tensor,
         return torch.autograd.grad(out, z, do)[0]
 
 
-def _check_cuda(name: str, t: torch.Tensor, shape) -> None:
-    if t.device.type != "cuda":
-        raise ValueError(f"{name}: the kernel takes CUDA tensors, got "
-                         f"{t.device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: the kernel takes float32, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: shape {tuple(t.shape)}, the kernel "
-                         f"expects {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: the kernel takes contiguous tensors")
-
-
 def _dims(qkv: torch.Tensor, num_heads: int):
     b, l, c3 = qkv.shape
     if c3 % 3:
@@ -102,23 +89,18 @@ def _dims(qkv: torch.Tensor, num_heads: int):
     return b, l, c, c // num_heads
 
 
-def _raise_on(rc: int, name: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
-
-
 def slab_attention_fwd(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     """The forward kernel: (B, L, 3C) -> (B, L, C). One launch on the
     current stream."""
     b, l, c, dh = _dims(qkv, num_heads)
-    _check_cuda("qkv", qkv, (b, l, 3 * c))
+    _build.check_cuda("qkv", qkv, (b, l, 3 * c))
     out = torch.empty(b, l, c, device=qkv.device, dtype=qkv.dtype)
     lib = _build.load().lib
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
         rc = lib.ertdx_slab_fwd(qkv.data_ptr(), out.data_ptr(), b, l,
                                 num_heads, dh, stream)
-    _raise_on(rc, "slab_attention_fwd")
+    _build.raise_on(rc, "slab_attention_fwd")
     launches["slab_attention_fwd"] += 1
     return out
 
@@ -129,8 +111,8 @@ def slab_attention_bwd(qkv: torch.Tensor, do: torch.Tensor,
     (B, L, 3C). Two launches on the current stream (dQ, then dK/dV),
     counted as one backward."""
     b, l, c, dh = _dims(qkv, num_heads)
-    _check_cuda("qkv", qkv, (b, l, 3 * c))
-    _check_cuda("do", do, (b, l, c))
+    _build.check_cuda("qkv", qkv, (b, l, 3 * c))
+    _build.check_cuda("do", do, (b, l, c))
     if do.device != qkv.device:
         raise ValueError("qkv and do must share one CUDA device")
     dqkv = torch.empty_like(qkv)
@@ -143,7 +125,7 @@ def slab_attention_bwd(qkv: torch.Tensor, do: torch.Tensor,
                                 dqkv.data_ptr(), scratch[0].data_ptr(),
                                 scratch[1].data_ptr(), b, l, num_heads, dh,
                                 stream)
-    _raise_on(rc, "slab_attention_bwd")
+    _build.raise_on(rc, "slab_attention_bwd")
     launches["slab_attention_bwd"] += 1
     return dqkv
 
@@ -153,7 +135,7 @@ def blocks_per_sm(l: int, dh: int) -> dict:
     CUDA occupancy calculator (needs a card)."""
     out = (ctypes.c_int * 3)()
     rc = _build.load().lib.ertdx_slab_blocks_per_sm(l, dh, out)
-    _raise_on(rc, "slab occupancy query")
+    _build.raise_on(rc, "slab occupancy query")
     return dict(zip(("fwd", "bwd_dq", "bwd_dkv"), out))
 
 

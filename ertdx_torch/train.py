@@ -14,18 +14,21 @@ t ~ U{0..T-1} and eps ~ N(0, I) (or take them from the caller), noise x0
 with `q_sample`, regress the model output on the eps or v target with the
 MSE (weighted by `w` over padded rows, min-SNR weighted when asked for),
 one Adam update (lr 1e-4, betas (0.9, 0.999), eps 1e-8: the update of
-optax.adam) and, with ema_decay > 0, the EMA of the parameters. The
-encoder's slab attention runs on its CUDA kernels when the model has
-`attn_slab` and lies on the card.
+optax.adam) and, with ema_decay > 0, the EMA of the parameters. A model
+with uncond_prob > 0 trains for classifier-free guidance: each example's
+encoded condition is replaced by the learned null context with
+probability uncond_prob (ertdx/train.py:120-141; evaluation drops
+nothing). The encoder's slab attention, GN+SiLU and fused GN+SiLU+conv
+run on their CUDA kernels when the model asks for them and lies on the
+card.
 
 Random draws come from torch.Generators seeded from the config's seed,
 not from JAX's threefry keys: the same seed gives other numbers than the
-JAX package. Tests hand both packages the same t and eps.
-
-Not ported yet (they raise NotImplementedError): training with CFG
-condition dropout (uncond_prob > 0; ROADMAP.md queue 1 item 1) and the
-flat optimizer layout (item 2). `load_best_model` restores a guided
-model, whose null context the sampler uses.
+JAX package. Tests hand both packages the same t, eps and drop mask.
+Every draw of an epoch comes from a generator seeded by (seed, epoch), so
+`train(..., resume=True)` from the `last` checkpoint continues the run
+that went straight through. `flat_optimizer` changes only how the Adam
+moments are saved (one flat vector each, as optax.flatten keeps them).
 """
 from __future__ import annotations
 
@@ -151,14 +154,31 @@ def _draws(x0, t, noise, T: int, generator):
     return t.to(device=x0.device, dtype=torch.int64), noise.to(x0.device)
 
 
+def _predict(model, x_noisy, t, cond, drop):
+    """The model output; with a drop mask (B,) bool, the dropped examples
+    see the null context (ertdx/train.py:129-140)."""
+    if drop is None:
+        return model(x_noisy, t, cond)
+    if getattr(model, "uncond_prob", 0.0) <= 0.0:
+        raise ValueError("a condition drop mask needs a model with "
+                         "uncond_prob > 0 (the null context)")
+    ctx = model.drop_condition(model.encode_condition(cond),
+                               drop.to(device=cond.device, dtype=torch.bool))
+    return model.denoise_ensemble(x_noisy, t, ctx, 1)
+
+
 def train_step(model, opt, x0, cond, t=None, noise=None, w=None, *,
                alpha_bar, lr: Optional[LR] = None, generator=None,
                parameterization: str = "eps",
                loss_weighting: str = "none", snr_gamma: float = 5.0,
-               ema: Optional[dict] = None, ema_decay: float = 0.0):
+               ema: Optional[dict] = None, ema_decay: float = 0.0,
+               drop: Optional[torch.Tensor] = None):
     """One optimizer step on the batch (x0 (B, P), cond (B, L, C)).
 
-    t and noise are drawn from `generator` unless given. With w=None the
+    t and noise are drawn from `generator` unless given. A model with
+    uncond_prob > 0 drops each example's condition with that probability:
+    `drop` (B,) bool gives the mask, else it is drawn from `generator`
+    after t and noise. With w=None the
     loss is the unweighted mean((out - target)^2); with w (B,) it is the
     padded-batch weighted mean. min-SNR weighting applies to this (train)
     loss only. `lr` (a float or a schedule) sets the step's learning rate
@@ -167,10 +187,14 @@ def train_step(model, opt, x0, cond, t=None, noise=None, w=None, *,
     (a detached 0-d tensor)."""
     alpha_bar = alpha_bar.to(x0.device)
     t, noise = _draws(x0, t, noise, alpha_bar.shape[0], generator)
+    uncond_prob = getattr(model, "uncond_prob", 0.0)
+    if drop is None and uncond_prob > 0.0:
+        drop = torch.rand(x0.shape[0], generator=generator,
+                          device=x0.device) < uncond_prob
     x_noisy = q_sample(x0, t, noise, alpha_bar)
     target = prediction_target(x0, noise, t, alpha_bar, parameterization)
     opt.zero_grad(set_to_none=True)
-    out = model(x_noisy, t, cond)
+    out = _predict(model, x_noisy, t, cond, drop)
     if loss_weighting == "none":
         loss = (torch.mean((out - target) ** 2) if w is None
                 else weighted_eps_mse(out, target, w))
@@ -212,13 +236,15 @@ def eval_step(model, x0, cond, w, *, alpha_bar, generator=None,
 
 @dataclasses.dataclass
 class TrainState:
-    """The model, its optimizer, the lr (float or schedule) and, with EMA,
-    the averaged parameters {torch name: tensor}."""
+    """The model, its optimizer, the lr (float or schedule), with EMA the
+    averaged parameters {torch name: tensor}, and whether checkpoints
+    keep the Adam moments flat (flat_optimizer)."""
 
     model: torch.nn.Module
     opt: torch.optim.Adam
     lr: LR
     ema_params: Optional[dict] = None
+    flat_optimizer: bool = False
 
     @property
     def step(self) -> int:
@@ -249,37 +275,36 @@ def _seed(*words: int) -> int:
         1, np.uint64)[0] >> np.uint64(1))
 
 
-def _refuse_flat_optimizer(tcfg) -> None:
-    if tcfg.flat_optimizer:
-        raise NotImplementedError(
-            "flat_optimizer is a JAX optimizer-state layout, not ported "
-            "(ROADMAP.md queue 1 item 2)")
-
-
-def _unported(tcfg, mcfg) -> None:
-    """What `train` cannot do yet. Restoring a guided model works; training
-    one needs the condition dropout, which is not ported."""
-    if mcfg.uncond_prob > 0.0:
-        raise NotImplementedError(
-            "CFG condition dropout (uncond_prob > 0) is not ported yet "
-            "(ROADMAP.md queue 1 item 1)")
-    _refuse_flat_optimizer(tcfg)
+def _restore(state: TrainState, tree: dict) -> None:
+    """Load a checkpoint's params, Adam state and EMA into `state`."""
+    model = state.model
+    params_from_jax(model, tree["params"])
+    adam_state_from_jax(state.opt, model, tree["opt_state"],
+                        flat=state.flat_optimizer)
+    if "ema_params" in tree:
+        dev = next(model.parameters()).device
+        state.ema_params = {name: val.to(dev) for name, val in
+                            named_from_jax(model,
+                                           tree["ema_params"]).items()}
 
 
 def train(cfg: ExperimentConfig, dataset: data_lib.ERTDataset,
           checkpoint_dir: Optional[str] = None, device=None,
-          logger: Optional[Callable[[dict], None]] = None) -> TrainResult:
+          logger: Optional[Callable[[dict], None]] = None,
+          resume: bool = False) -> TrainResult:
     """Train `cfg`'s model on `dataset` with best-val checkpointing.
 
     Runs on the CUDA device unless device="cpu". Each epoch trains over
     the shuffled train split, then evaluates the validation split; an
     epoch whose validation loss beats the best so far writes
     `<checkpoint_dir>/best`, and `step_checkpoint_every` writes `last`.
+    With `resume` and a `<checkpoint_dir>/last` checkpoint, training
+    continues from it (params, Adam state, EMA, epoch, best-val and
+    histories, ertdx/train.py:569-590); without one it starts fresh.
     `epochs_per_dispatch` only changes how the JAX package dispatches;
     the port computes the same epochs one at a time. `logger` receives
-    one dict per logged epoch."""
+    one dict per logged epoch (and one on resuming)."""
     tcfg = cfg.train
-    _unported(tcfg, cfg.model)
     dev = resolve_device(device)
     checkpoint_dir = checkpoint_dir or tcfg.checkpoint_dir
 
@@ -291,7 +316,8 @@ def train(cfg: ExperimentConfig, dataset: data_lib.ERTDataset,
     bsz = tcfg.batch_size
     steps_per_epoch = -(-len(train_idx) // bsz)
     lr = make_lr(tcfg, steps_per_epoch * tcfg.num_epochs)
-    state = TrainState(model, create_optimizer(model, lr), lr)
+    state = TrainState(model, create_optimizer(model, lr), lr,
+                       flat_optimizer=tcfg.flat_optimizer)
     if tcfg.ema_decay > 0.0:
         state.ema_params = {name: p.detach().clone()
                             for name, p in model.named_parameters()}
@@ -315,7 +341,19 @@ def train(cfg: ExperimentConfig, dataset: data_lib.ERTDataset,
     best_val, best_epoch = float("inf"), -1
     train_hist, val_hist = [], []
     step_count, step_time = 0, 0.0
-    for epoch in range(tcfg.num_epochs):
+    start_epoch = 0
+    last = Path(checkpoint_dir) / "last" if checkpoint_dir else None
+    if resume and last and (last / "state.msgpack").exists():
+        tree, meta, _ = ckpt_lib.restore_checkpoint(last)
+        _restore(state, tree)
+        start_epoch = int(meta.get("epoch", 0))
+        best_val = float(meta.get("best_val_loss", float("inf")))
+        best_epoch = int(meta.get("best_epoch", -1))
+        train_hist = list(meta.get("train_history", []))
+        val_hist = list(meta.get("val_history", []))
+        if logger:
+            logger({"resumed_from_epoch": start_epoch, "best_val": best_val})
+    for epoch in range(start_epoch, tcfg.num_epochs):
         t0 = time.perf_counter()
         model.train()
         order = np.random.default_rng(np.random.SeedSequence(
@@ -396,7 +434,8 @@ def _state_tree(state: TrainState) -> dict:
     model = state.model
     tree = {"params": params_to_jax(model),
             "opt_state": adam_state_to_jax(state.opt, model,
-                                           schedule=callable(state.lr)),
+                                           schedule=callable(state.lr),
+                                           flat=state.flat_optimizer),
             "step": np.asarray(state.step, dtype=np.int32)}
     if state.ema_params is not None:
         tree["ema_params"] = named_to_jax(model, state.ema_params)
@@ -438,18 +477,12 @@ def load_best_model(checkpoint_dir: str, cfg: ExperimentConfig,
              "train": {k: v for k, v in saved.get("train", {}).items()
                        if k in _TRAIN_LAYOUT_FIELDS}},
             base=cfg)
-    _refuse_flat_optimizer(cfg.train)
     model = build_model(cfg.model, device)
     tree, meta, scalers = ckpt_lib.restore_checkpoint(
         Path(checkpoint_dir) / "best")
-    params_from_jax(model, tree["params"])
     # the lr's horizon does not change the state layout, so 1 will do
     lr = make_lr(cfg.train, 1)
-    opt = create_optimizer(model, lr)
-    adam_state_from_jax(opt, model, tree["opt_state"])
-    ema = None
-    if "ema_params" in tree:
-        ema = {name: val.to(next(model.parameters()).device)
-               for name, val in named_from_jax(model,
-                                               tree["ema_params"]).items()}
-    return TrainState(model, opt, lr, ema), meta, scalers
+    state = TrainState(model, create_optimizer(model, lr), lr,
+                       flat_optimizer=cfg.train.flat_optimizer)
+    _restore(state, tree)
+    return state, meta, scalers

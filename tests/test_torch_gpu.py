@@ -24,6 +24,8 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
+    # the fused conv's plain version is a cuDNN conv1d, TF32 by default
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -269,3 +271,123 @@ def test_per_block_path_runs_on_the_ensemble_kernels(cuda):
                                         x_T=x_t)
     np.testing.assert_allclose(u.cpu().numpy(), u_plain.cpu().numpy(),
                                atol=1e-4, rtol=1e-4)
+
+
+def _close(got, want):
+    tol = 1e-4 * max(1.0, float(want.abs().max()))
+    err = float((got - want).abs().max())
+    assert err <= tol, (err, tol)
+
+
+@pytest.mark.parametrize("b,l,c", [(2, 37, 16), (3, 61, 72), (4, 587, 128)])
+def test_groupnorm_kernels_match_plain(cuda, b, l, c):
+    from ertdx_torch.ops import groupnorm as gn
+
+    g = torch.Generator(device=cuda).manual_seed(b * l + c)
+    x = 2 * torch.randn(b, l, c, generator=g, device=cuda) + 0.5
+    gamma = 1 + 0.3 * torch.randn(c, generator=g, device=cuda)
+    beta = 0.3 * torch.randn(c, generator=g, device=cuda)
+    dy = torch.randn(b, l, c, generator=g, device=cuda)
+    gn.reset_launches()
+    got = gn.groupnorm_silu_fwd(x, gamma, beta, 8)
+    dgot = gn.groupnorm_silu_bwd(x, gamma, beta, dy, 8)
+    torch.cuda.synchronize()
+    assert gn.launches == {"groupnorm_silu_fwd": 1, "groupnorm_silu_bwd": 1}
+    _close(got, gn.reference_groupnorm_silu(x, gamma, beta, 8))
+    for a, w in zip(dgot, gn.reference_groupnorm_silu_backward(
+            x, gamma, beta, dy, 8)):
+        _close(a, w)
+    again = gn.groupnorm_silu_bwd(x, gamma, beta, dy, 8)
+    assert all(torch.equal(a, w) for a, w in zip(dgot, again))
+
+
+@pytest.mark.parametrize("b,l,c,cout", [
+    (2, 37, 16, 16), (3, 61, 64, 72), (2, 1, 8, 4), (2, 2, 16, 8),
+    (4, 147, 256, 256), (2, 294, 128, 256)])
+def test_conv_kernels_match_plain(cuda, b, l, c, cout):
+    from ertdx_torch.ops import conv as cv
+
+    g = torch.Generator(device=cuda).manual_seed(b * l + c + cout)
+    x = torch.randn(b, l, c, generator=g, device=cuda)
+    gamma = 1 + 0.3 * torch.randn(c, generator=g, device=cuda)
+    beta = 0.3 * torch.randn(c, generator=g, device=cuda)
+    w = torch.randn(3, c, cout, generator=g, device=cuda) / math.sqrt(3 * c)
+    bias = torch.randn(cout, generator=g, device=cuda)
+    dy = torch.randn(b, l, cout, generator=g, device=cuda)
+    cv.reset_launches()
+    got = cv.gn_silu_conv3_fwd(x, gamma, beta, w, bias, 8)
+    dgot = cv.gn_silu_conv3_bwd(x, gamma, beta, w, dy, 8)
+    torch.cuda.synchronize()
+    assert cv.launches == {"gn_silu_conv3_fwd": 1, "gn_silu_conv3_bwd": 1}
+    _close(got, cv.reference_gn_silu_conv3(x, gamma, beta, w, bias, 8))
+    want = cv.reference_gn_silu_conv3_backward(x, gamma, beta, w, bias, dy,
+                                               8)
+    for a, wt in zip(dgot, want):
+        assert a.shape == wt.shape
+        _close(a, wt)
+    again = cv.gn_silu_conv3_bwd(x, gamma, beta, w, dy, 8)
+    assert all(torch.equal(a, wt) for a, wt in zip(dgot, again))
+
+
+def test_gn_conv_kernels_refuse_what_they_do_not_take(cuda):
+    from ertdx_torch.ops import conv as cv
+    from ertdx_torch.ops import groupnorm as gn
+
+    x = torch.randn(2, 9, 16, device=cuda)
+    one = torch.ones(16, device=cuda)
+    with pytest.raises(ValueError, match="not divisible"):
+        gn.groupnorm_silu(torch.randn(2, 9, 12, device=cuda),
+                          torch.ones(12, device=cuda),
+                          torch.ones(12, device=cuda), 8)
+    with pytest.raises(TypeError, match="float32"):
+        gn.groupnorm_silu_fwd(x.double(), one.double(), one.double(), 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        gn.groupnorm_silu_fwd(x, one.cpu(), one, 8)
+    w = torch.randn(3, 16, 6, device=cuda)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        cv.gn_silu_conv3_fwd(x, one, one, w, torch.zeros(6, device=cuda), 8)
+    with pytest.raises(ValueError, match="contiguous"):
+        w = torch.randn(3, 8, 16, device=cuda).transpose(1, 2)
+        cv.gn_silu_conv3_fwd(x, one, one, w, torch.zeros(8, device=cuda), 8)
+
+
+def test_fused_encoder_trains_on_the_gn_kernels(cuda):
+    """A small CondUNet with pallas_gn and pallas_conv_min_width: one train
+    step launches each GN kernel twice (the stem's two GNSiLU) and each
+    conv kernel four times (two fused ResBlocks), and agrees with the same
+    step with every use_pallas off."""
+    import copy
+
+    from ertdx_torch import train
+    from ertdx_torch.diffusion import get_diffusion_schedule
+    from ertdx_torch.models.condunet import CondUNet, init_params
+    from ertdx_torch.ops import conv as cv
+    from ertdx_torch.ops import groupnorm as gn
+
+    model = init_params(CondUNet(cond_channels=4, base_width=16, depth=2,
+                                 num_heads=2, num_blocks=2, pallas_gn=True,
+                                 pallas_conv_min_width=64),
+                        torch.Generator().manual_seed(0)).to(cuda)
+    plain = copy.deepcopy(model)
+    for mod in plain.modules():
+        if hasattr(mod, "use_pallas"):
+            mod.use_pallas = False
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x0 = torch.randn(8, 29, generator=g, device=cuda)
+    cond = torch.randn(8, 96, 4, generator=g, device=cuda)
+    t = torch.randint(0, 50, (8,), generator=g, device=cuda)
+    noise = torch.randn(8, 29, generator=g, device=cuda)
+    ab = get_diffusion_schedule(50).alpha_bar
+    gn.reset_launches()
+    cv.reset_launches()
+    losses = [train.train_step(m, train.create_optimizer(m, 1e-4), x0, cond,
+                               t, noise, alpha_bar=ab, lr=1e-4)
+              for m in (model, plain)]
+    torch.cuda.synchronize()
+    assert gn.launches == {"groupnorm_silu_fwd": 2, "groupnorm_silu_bwd": 2}
+    assert cv.launches == {"gn_silu_conv3_fwd": 4, "gn_silu_conv3_bwd": 4}
+    assert abs(float(losses[0]) - float(losses[1])) <= 1e-5 * max(
+        1.0, float(losses[1]))
+    for (name, a), (_, b) in zip(model.named_parameters(),
+                                 plain.named_parameters()):
+        _close(a.grad, b.grad)

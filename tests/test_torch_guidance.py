@@ -279,12 +279,34 @@ def test_guided_student_matches_jax():
                                rtol=1e-4)
 
 
-def test_training_a_guided_model_is_still_refused():
-    """Restoring and sampling a guided model works; training one needs the
-    condition dropout, which is not ported (ROADMAP.md queue 1 item 1)."""
+def test_training_a_guided_model_is_still_refused(tmp_path):
+    """The refusal is lifted: `train` now trains a guided model with
+    condition dropout (ROADMAP.md's former queue 1 item 1), and its learned
+    null context moves (from the third step on: the head and the output
+    and AdaLN projections start at zero). Step parity with JAX's dropout
+    is in tests/test_torch_train.py."""
+    from ertdx_torch import data
+    from ertdx_torch.doe import SurrogateDataGenerator
+    from ertdx_torch.models import build_model
+
+    n = 24
+    params_phys = SurrogateDataGenerator(seed=1).generate_training_samples(
+        n, "lhs")
+    ert = np.random.default_rng(1).normal(50.0, 10.0, size=(n, 40, 4))
+    ds = data.prepare_dataset(params_phys[..., None], ert)
     cfg = dataclasses.replace(
         configs.FULL_CONDITIONAL,
-        model=dataclasses.replace(configs.FULL_CONDITIONAL.model,
-                                  uncond_prob=0.1))
-    with pytest.raises(NotImplementedError, match="queue 1 item 1"):
-        train.train(cfg, None, device="cpu")
+        diffusion=configs.DiffusionConfig(T=20),
+        model=dataclasses.replace(
+            configs.FULL_CONDITIONAL.model, uncond_prob=0.5, hidden_dim=16,
+            cond_length=40, cond_channels=4, base_width=8, depth=2,
+            num_heads=2, num_blocks=1),
+        train=dataclasses.replace(configs.FULL_CONDITIONAL.train,
+                                  num_epochs=2, batch_size=8, lr=1e-2))
+    res = train.train(cfg, ds, checkpoint_dir=str(tmp_path), device="cpu")
+    init = build_model(cfg.model, "cpu", generator=torch.Generator()
+                       .manual_seed(train._seed(cfg.train.seed, 0)))
+    assert np.isfinite(res.train_history).all()
+    for name in ("null_token", "null_vec"):
+        moved = getattr(res.state.model, name) - getattr(init, name)
+        assert float(moved.detach().abs().max()) > 1e-3, name

@@ -58,6 +58,7 @@ def test_port_imports_without_jax_and_friends():
                  "ertdx_torch.ops._build", "ertdx_torch.utils.weights",
                  "ertdx_torch.ops.slab_attn", "ertdx_torch.train",
                  "ertdx_torch.ops.ensemble_attn",
+                 "ertdx_torch.ops.groupnorm", "ertdx_torch.ops.conv",
                  "ertdx_torch.data", "ertdx_torch.doe",
                  "ertdx_torch.utils.checkpoint",
                  "ertdx_torch.utils.msgpack_lite"):

@@ -17,6 +17,12 @@
 * `init_params` against flax's initialisers: the zero leaves are exactly
   zero, norm scales one, and each kernel's standard deviation within 5 %
   of lecun's.
+* Guided (CFG) and EMA train steps against `make_train_step` with
+  uncond_prob > 0 or ema_decay > 0: JAX's drop mask,
+  bernoulli(fold_in(key, 13)), is handed to the port; loss, gradients
+  and parameters as above, the EMA as the parameters.
+  (tests/test_torch_resume.py has `train(resume=True)` and the
+  flat-optimizer and fused-conv checkpoints.)
 """
 from __future__ import annotations
 
@@ -229,3 +235,70 @@ def test_init_params_follow_flax():
     for (_, a), (_, b) in zip(tm.named_parameters(),
                               again.named_parameters()):
         assert torch.equal(a, b)
+
+
+def _jax_cfg_loss(fm, jsch):
+    """JAX's train loss with condition dropout (ertdx/train.py:129-140)
+    on given draws; drop all False is the unguided loss."""
+    def jloss(p, x0, cond, t, noise, drop):
+        xn = jdiff.q_sample(x0, t, noise, jsch.alpha_bar)
+        ctx = fm.apply({"params": p}, cond, method="encode_condition")
+        if fm.uncond_prob > 0.0:
+            ctx = fm.apply({"params": p}, ctx, drop,
+                           method="drop_condition")
+        out = fm.apply({"params": p}, xn, t, ctx, method="denoise")
+        return jnp.mean((out - noise) ** 2)
+    return jax.jit(jax.grad(jloss))
+
+
+@pytest.mark.parametrize("uncond_prob,ema_decay", [(0.5, 0.0), (0.0, 0.9)])
+def test_guided_and_ema_steps_match_ertdx(uncond_prob, ema_decay):
+    """One step: JAX's make_train_step with its own draws (t, eps and,
+    guided, the mask bernoulli(fold_in(key, 13))) against the port's
+    train_step given the same draws."""
+    fm, params, tm = make_pair(seed=13, num_blocks=1,
+                               uncond_prob=uncond_prob)
+    jsch = jdiff.get_diffusion_schedule(T)
+    jstep = jtrain.make_train_step(fm.apply, jsch, donate=False,
+                                   ema_decay=ema_decay,
+                                   uncond_prob=uncond_prob)
+    jparams = jax.tree_util.tree_map(jnp.asarray, params)
+    state = jtrain.TrainState.create(
+        apply_fn=fm.apply, params=jparams, tx=optax.adam(LR),
+        ema_params=jax.tree_util.tree_map(jnp.copy, jparams)
+        if ema_decay else None)
+    opt = train.create_optimizer(tm, LR)
+    ema = ({n: p.detach().clone() for n, p in tm.named_parameters()}
+           if ema_decay else None)
+    x0, cond = _batch(200)
+    key = jax.random.key(41)
+    t, noise = _jax_draws(key, *x0.shape)
+    drop = np.array(jax.random.bernoulli(jax.random.fold_in(key, 13),
+                                         0.5, (x0.shape[0],)))
+    if uncond_prob:      # both branches of the dropout are exercised
+        assert 0 < drop.sum() < drop.size
+    gwant = _jax_cfg_loss(fm, jsch)(
+        state.params, *(jnp.asarray(a) for a in (x0, cond, t, noise, drop)))
+    state, jl = jstep(state, jnp.asarray(x0), jnp.asarray(cond), None, key)
+    loss = train.train_step(
+        tm, opt, t32(x0), t32(cond), torch.from_numpy(t).long(), t32(noise),
+        alpha_bar=diffusion.get_diffusion_schedule(T).alpha_bar, lr=LR,
+        ema=ema, ema_decay=ema_decay,
+        drop=torch.from_numpy(drop) if uncond_prob else None)
+    np.testing.assert_allclose(float(loss), float(jl), rtol=1e-5)
+    _close_per_leaf(_grads_of(tm), gwant, 1e-4)
+    _params_close(named_to_jax(tm, dict(tm.named_parameters())),
+                  state.params, gwant, 1)
+    if ema_decay:
+        _params_close(named_to_jax(tm, ema), state.ema_params, gwant, 1)
+
+
+def test_drop_mask_needs_the_null_context():
+    tm = CondUNet(cond_channels=4, base_width=16, depth=2, num_heads=2,
+                  num_blocks=1)
+    x0, cond = _batch(1)
+    with pytest.raises(ValueError, match="uncond_prob"):
+        train.train_step(tm, train.create_optimizer(tm, LR), t32(x0),
+                         t32(cond), drop=torch.ones(4, dtype=torch.bool),
+                         alpha_bar=diffusion.get_diffusion_schedule(
+                             T).alpha_bar)
