@@ -76,9 +76,33 @@ non-zero and prints no result line):
    back through the port's reader (forward bit for bit, flat Adam state
    exact) and load_best_model.
 
+12. flash attention kernels: flash_attention's CUDA forward, dQ and dK/dV
+   at the encoder's flash shape (B=256, H=4, L=147 padded to 256 with the
+   pad keys masked, Dh=64), the length gate's (8, 4, 1024, 64), Dh=128
+   and 256, and a batch row whose keys are all masked, each output held
+   against the plain version (1e-4 * max(1, max|plain|)), reruns
+   bit-identical, timed (CUDA events and profiler device time) beside the
+   plain version and F.scaled_dot_product_attention on the same padded,
+   masked operands (the yardstick; the port never calls it);
+13. the flash-encoder arm: V5E8_DP as phase 7 with attn_slab=False and
+   attn_flash_min_logits=1, random weights through params_from_jax.
+   (a) 5 train_steps against the same 5 with the encoder attention's
+   use_pallas off (plain-vs-plain first), exactly one flash forward, dQ
+   and dK/dV launch per step, a profile of one step of each path;
+   (b) train() for 2 epochs on 400 examples, launches by the epoch grid;
+   (c) a configs[3] posterior ensemble (8 conditions x 1000 members,
+   DDIM-50) from that checkpoint: one flash forward per call, draws
+   within 1e-3 of the all-plain path;
+14. distillation of phase 13's checkpoint as an eps teacher: the first
+   batch's loss and gradients on the kernel path against the plain path,
+   then distill() with a conversion stage and one halving (8 -> 4), one
+   epoch each, 2 flash forwards, 1 dQ and 1 dK/dV per step and 2 forwards
+   per val batch; the student read back and sampled by sample_pd (pd-4,
+   2 x 1000 chains), draws within 1e-3 of the plain path.
+
 The last line of stdout is {"ok": true, "device": {...}}. The build goes
-to build/ertdx_torch_kernels/; phase 7's checkpoints go to a temporary
-directory that is removed; nothing else is written.
+to build/ertdx_torch_kernels/; the checkpoints of phases 7, 11, 13 and 14
+go to temporary directories that are removed; nothing else is written.
 """
 from __future__ import annotations
 
@@ -123,6 +147,13 @@ GN_CASES = [(256, 587, 128), (3, 61, 72)]
 CONV_CASES = [(256, 294, 256, 256), (256, 147, 256, 256),
               (256, 587, 128, 128), (256, 294, 128, 256), (3, 61, 64, 72)]
 GROUPS = 8
+# (B, H, L, Dh, valid keys, batch rows with every key masked) of the flash
+# kernels: the encoder's flash arm (L=147 padded to 256), the length
+# gate's shape, Dh 128 and 256, and an all-masked batch row; the first is
+# the one in the kernels line
+FLASH_CASES = [(256, 4, 256, 64, 147, ()), (8, 4, 1024, 64, 1024, ()),
+               (2, 4, 256, 128, 200, ()), (2, 4, 256, 256, 256, ()),
+               (3, 2, 128, 64, 100, (1,))]
 
 
 def log(msg: str) -> None:
@@ -959,6 +990,145 @@ def check_gn_conv(gn, cv, dev, card) -> dict:
     return results
 
 
+def check_flash(at, dev, card) -> dict:
+    """Phase 12: the flash kernels (forward, dQ, dK/dV) against their
+    plain versions at every case, reruns bit-identical, timed at the
+    encoder's flash shape beside SDPA on the same padded and masked
+    operands (a yardstick: the port never calls it)."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 120)
+    results = {}
+    for b, h, l, d, valid, dead in FLASH_CASES:
+        shape = f"B={b} H={h} L={l} Dh={d} valid={valid} dead rows={dead}"
+        q, k, v, do = (torch.randn(b, h, l, d, generator=gen, device=dev)
+                       for _ in range(4))
+        mask = torch.zeros(b, l, device=dev)
+        mask[:, :valid] = 1.0
+        for row in dead:
+            mask[row] = 0.0
+        out, lse = at.flash_attention_fwd(q, k, v, mask)
+        dq, delta = at.flash_attention_bwd_dq(q, k, v, mask, out, lse, do)
+        dk, dv = at.flash_attention_bwd_dkv(q, k, v, mask, lse, delta, do)
+        torch.cuda.synchronize()
+        w_out, w_lse = at.reference_flash_forward(q, k, v, mask)
+        w_dq, w_delta = at.reference_flash_backward_dq(q, k, v, mask, w_out,
+                                                       w_lse, do)
+        w_dk, w_dv = at.reference_flash_backward_dkv(q, k, v, mask, w_lse,
+                                                     w_delta, do)
+        live = mask.amax(dim=1) > 0
+        checks = [("flash_attention_fwd", "out", out, w_out),
+                  ("flash_attention_fwd", "out vs reference_attention", out,
+                   at.reference_attention(q, k, v, mask)),
+                  ("flash_attention_fwd", "lse (rows with a valid key)",
+                   lse[live], w_lse[live]),
+                  ("flash_attention_bwd_dq", "dq", dq, w_dq),
+                  ("flash_attention_bwd_dq", "delta", delta, w_delta),
+                  ("flash_attention_bwd_dkv", "dk", dk, w_dk),
+                  ("flash_attention_bwd_dkv", "dv", dv, w_dv)]
+        for name, what, a, w in checks:
+            if a.shape != w.shape or not torch.isfinite(a).all():
+                raise RuntimeError(f"{name} {shape} {what}: wrong shape or "
+                                   "non-finite")
+            err = float((a - w).abs().max())
+            scale = float(w.abs().max())
+            tol = 1e-4 * max(1.0, scale)
+            log(f"{name} {shape} {what}: max_abs_err={err:.3e} "
+                f"max|plain|={scale:.4f} tol={tol:.3e}")
+            if not err <= tol:
+                raise RuntimeError(f"{name} {shape} {what}: error {err} > "
+                                   f"{tol}")
+            entry = results.setdefault(name, {"max_abs_err": 0.0})
+            entry["max_abs_err"] = max(entry["max_abs_err"], err)
+        if dead and not (lse[~live] == -1e30).all():
+            raise RuntimeError("all-masked rows: lse is not -1e30")
+        again = (at.flash_attention_fwd(q, k, v, mask)[0],
+                 at.flash_attention_bwd_dq(q, k, v, mask, out, lse, do)[0],
+                 *at.flash_attention_bwd_dkv(q, k, v, mask, lse, delta, do))
+        same = [torch.equal(a, w) for a, w in zip(again, (out, dq, dk, dv))]
+        log(f"flash {shape}: reruns bit-identical (out, dq, dk, dv) {same}")
+        if not all(same):
+            raise RuntimeError(f"flash {shape}: reruns differ")
+        if (b, h, l, d, valid, dead) != FLASH_CASES[0]:
+            continue
+
+        bias = torch.where(mask > 0, 0.0, -1e30)[:, None, None, :]
+
+        def sdpa(q_, k_, v_):
+            return F.scaled_dot_product_attention(q_, k_, v_, attn_mask=bias)
+
+        def sdpa_backward():
+            leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+            o = sdpa(*leaves)
+            return lambda: torch.autograd.grad(o, leaves, do,
+                                               retain_graph=True)
+
+        sdpa_err = float((sdpa(q, k, v) - w_out).abs().max())
+        timed = {
+            "flash_attention_fwd": (
+                lambda: at.flash_attention_fwd(q, k, v, mask),
+                lambda: at.reference_flash_forward(q, k, v, mask),
+                lambda: sdpa(q, k, v)),
+            "flash_attention_bwd_dq": (
+                lambda: at.flash_attention_bwd_dq(q, k, v, mask, out, lse,
+                                                  do),
+                lambda: at.reference_flash_backward_dq(q, k, v, mask, out,
+                                                       lse, do), None),
+            "flash_attention_bwd_dkv": (
+                lambda: at.flash_attention_bwd_dkv(q, k, v, mask, lse,
+                                                   delta, do),
+                lambda: at.reference_flash_backward_dkv(q, k, v, mask, lse,
+                                                        delta, do), None)}
+        prod = b * h * l * l * d           # one L x L x Dh product, in FMAs
+        prod_valid = b * h * valid * valid * d
+        n_qkv, n_row = b * h * l * d, b * h * l
+        # operations: 2 per FMA; the forward has 2 products (S, PV), dQ 3
+        # (S, dP, dS K), dK/dV 4 (S, dP, P^T dO, dS^T Q). Bytes: each
+        # input read once, each output written once. The unpadded bound
+        # counts the valid rows and keys only, and the backward's five
+        # products once: 3 for dQ (S, dP, dS K), 2 for dK/dV (P^T dO,
+        # dS^T Q)
+        work = {"flash_attention_fwd": (
+                    2, 2, 4 * (4 * n_qkv + n_row + b * l)),
+                "flash_attention_bwd_dq": (
+                    3, 3, 4 * (6 * n_qkv + 2 * n_row + b * l)),
+                "flash_attention_bwd_dkv": (
+                    4, 2, 4 * (6 * n_qkv + 2 * n_row + b * l))}
+        for name, (kernel, plain_fn, lib_fn) in timed.items():
+            with torch.no_grad():
+                ms = time_ms(kernel)
+                plain_ms = time_ms(plain_fn)
+                lib_ms = time_ms(lib_fn) if lib_fn else None
+                records, _ = kernel_records(
+                    lambda: [kernel() for _ in range(10)])
+            dev_ms = sum(e.time_range.elapsed_us() for e in records) / 10e3
+            n_prod, n_prod_needed, nbytes = work[name]
+            flops = 2 * n_prod * prod
+            bound_ms, bound_by = bound(flops, nbytes)
+            unpadded_ms, _ = bound(2 * n_prod_needed * prod_valid,
+                                   nbytes * valid / l)
+            log(f"{name} {shape}: kernel {ms:.4f} ms (profiler device "
+                f"{dev_ms:.4f} ms), plain {plain_ms:.4f} ms, SDPA "
+                f"{'%.4f ms' % lib_ms if lib_ms else 'none (no one call)'}, "
+                f"bound {bound_ms:.4f} ms ({bound_by}: {flops:.3e} flops, "
+                f"{nbytes:.3e} bytes; on the {valid} valid rows and keys, "
+                f"{n_prod_needed} products, {unpadded_ms:.4f} ms), achieved "
+                f"{flops / ms / 1e9:.2f} TFLOP/s; {card}")
+            results[name].update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                 device_ms=dev_ms, bound_ms=bound_ms,
+                                 bound_by=bound_by,
+                                 bound_unpadded_ms=unpadded_ms, shape=shape)
+        bwd_lib = time_ms(sdpa_backward())
+        bwd_ms = (results["flash_attention_bwd_dq"]["ms"]
+                  + results["flash_attention_bwd_dkv"]["ms"])
+        bwd_bound, _ = bound(2 * 5 * prod, 4 * (7 * n_qkv + n_row + b * l))
+        log(f"flash backward (dQ + dK/dV) {bwd_ms:.4f} ms against one SDPA "
+            f"backward {bwd_lib:.4f} ms on the same operands (SDPA forward "
+            f"vs plain max|d| {sdpa_err:.2e}); the backward's bound with "
+            f"the five products counted once {bwd_bound:.4f} ms; {card}")
+    return results
+
+
 class _Counts:
     """The launch counts of several ops modules as one `launches` dict."""
 
@@ -994,8 +1164,7 @@ def set_kernels(model, on: bool) -> None:
 def check_fused_training(counts, dev, card) -> dict:
     """Phase 11 (a): the fused arm's kernel path against its plain path,
     5 train steps."""
-    from ertdx_torch import configs, train
-    from ertdx_torch.diffusion import schedule_from_config
+    from ertdx_torch import configs
     from ertdx_torch.models import build_model
     from ertdx_torch.models.condunet import FusedGNConv, GNSiLU
     from ertdx_torch.utils.weights import flax_shapes, params_from_jax
@@ -1021,9 +1190,27 @@ def check_fused_training(counts, dev, card) -> dict:
                            "and 2 GN pairs")
     plain = copy.deepcopy(kernel)
     set_kernels(plain, False)
+    want = {"groupnorm_silu_fwd": 2, "groupnorm_silu_bwd": 2,
+            "gn_silu_conv3_fwd": 6, "gn_silu_conv3_bwd": 6,
+            "slab_attention_fwd": 1, "slab_attention_bwd": 1}
+    return compare_train_paths("fused arm", cfg, kernel, plain, counts,
+                               want, SEED + 112, card)
+
+
+def compare_train_paths(label, cfg, kernel, plain, counts, want, seed,
+                        card) -> dict:
+    """TRAIN_STEPS b256 train steps of `kernel` against the same steps of
+    `plain` under phase 7's rules (plain vs plain first: it sets the
+    tolerance), exactly `want` launches (by `counts`) a step, and a
+    profile of one step of each path; returns the ms per step of both."""
+    from ertdx_torch import train
+    from ertdx_torch.diffusion import schedule_from_config
+
+    mcfg, tcfg = cfg.model, cfg.train
+    dev = next(kernel.parameters()).device
     plain2 = copy.deepcopy(plain)
     alpha_bar = schedule_from_config(cfg.diffusion).alpha_bar.to(dev)
-    gen = torch.Generator(device=dev).manual_seed(SEED + 112)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     b, p = tcfg.batch_size, mcfg.param_dim
     batches = [(torch.randn(b, p, generator=gen, device=dev),
                 torch.rand(b, mcfg.cond_length, mcfg.cond_channels,
@@ -1043,7 +1230,7 @@ def check_fused_training(counts, dev, card) -> dict:
     pp_loss = max(abs(a - c) for a, c in zip(pl, pl2))
     pp = _param_diffs(plain, plain2)
     pp_share = float((pp > 1e-5).float().mean())
-    log(f"fused arm, plain vs plain: max|dloss|={pp_loss:.3e} max|dgrad|="
+    log(f"{label}, plain vs plain: max|dloss|={pp_loss:.3e} max|dgrad|="
         f"{max(float((pg[n] - pg2[n]).abs().max()) for n in pg):.3e} "
         f"max|dparam|={float(pp.max()):.3e} share > 1e-5: {pp_share:.3e}")
 
@@ -1053,25 +1240,21 @@ def check_fused_training(counts, dev, card) -> dict:
                                         train.create_optimizer(kernel, lr),
                                         batches, alpha_bar, lr, counts)
     peak = torch.cuda.max_memory_allocated()
-    want = {"groupnorm_silu_fwd": 2, "groupnorm_silu_bwd": 2,
-            "gn_silu_conv3_fwd": 6, "gn_silu_conv3_bwd": 6,
-            "slab_attention_fwd": 1, "slab_attention_bwd": 1}
-    log(f"fused arm, kernel path: losses {kl}; launches per step "
-        f"{per_step}")
+    log(f"{label}, kernel path: losses {kl}; launches per step {per_step}")
     for step, cnt in enumerate(per_step):
         if cnt != want:
-            raise RuntimeError(f"fused arm step {step + 1}: launches {cnt}, "
+            raise RuntimeError(f"{label} step {step + 1}: launches {cnt}, "
                                f"expected {want}")
     loss_tol = max(1e-5, 10 * pp_loss)
     for step, (a, c) in enumerate(zip(kl, pl)):
         if not abs(a - c) <= loss_tol * max(1.0, abs(c)):
-            raise RuntimeError(f"fused arm step {step + 1}: loss {a} vs "
+            raise RuntimeError(f"{label} step {step + 1}: loss {a} vs "
                                f"plain {c}, tolerance {loss_tol:.1e}")
-    worst = _compare_grads("fused arm step 1", kg, pg)
+    worst = _compare_grads(f"{label} step 1", kg, pg)
     kp = _param_diffs(kernel, plain)
     k_share = float((kp > 1e-5).float().mean())
     flip_bound = 2 * tcfg.lr * TRAIN_STEPS
-    log(f"fused arm, kernel vs plain: max|dloss|="
+    log(f"{label}, kernel vs plain: max|dloss|="
         f"{max(abs(a - c) for a, c in zip(kl, pl)):.3e} (tol {loss_tol:.1e}"
         f" x max(1, loss)); step-1 gradients worst err/tol {worst:.3f}; "
         f"params after {TRAIN_STEPS} steps max|d|={float(kp.max()):.3e} "
@@ -1079,19 +1262,19 @@ def check_fused_training(counts, dev, card) -> dict:
         f"max(1e-3, 2 x plain-vs-plain))")
     if not (float(kp.max()) <= flip_bound + 1e-6
             and k_share <= max(1e-3, 2 * pp_share)):
-        raise RuntimeError("fused arm: kernel-path parameters disagree "
+        raise RuntimeError(f"{label}: kernel-path parameters disagree "
                            "with the plain path")
 
-    for model, label in ((kernel, "kernel"), (plain, "plain")):
+    for model, path in ((kernel, "kernel"), (plain, "plain")):
         x0, cond, t, noise = batches[0]
         opt = train.create_optimizer(model, lr)
         device_profile(lambda: train.train_step(model, opt, x0, cond, t,
                                                 noise, alpha_bar=alpha_bar,
                                                 lr=lr),
-                       f"one fused-arm train step, {label} path")
+                       f"one {label} train step, {path} path")
     k_step = statistics.median(k_ms[1:])
     p_step = statistics.median(p_ms[1:])
-    log(f"fused arm ms per train step (median of steps 2-{TRAIN_STEPS}; "
+    log(f"{label} ms per train step (median of steps 2-{TRAIN_STEPS}; "
         f"{card}): kernel path {k_step:.3f}, plain path {p_step:.3f}; "
         f"peak memory {peak / 2**20:.1f} MiB; step times kernel {k_ms} "
         f"plain {p_ms}")
@@ -1207,6 +1390,260 @@ def check_fused_train_entry(counts, dev, card) -> dict:
     return {k: v for k, v in got.items() if not k.startswith("slab_")}
 
 
+FLASH_WANT = {"flash_attention_fwd": 1, "flash_attention_bwd_dq": 1,
+              "flash_attention_bwd_dkv": 1}
+
+
+def flash_arm_cfg(configs):
+    """Phases 13-14's configuration: phase 7's with the slab off and the
+    batch-aware flash gate at 1, the arm of benchmarks/train_attn.py."""
+    cfg = train_cfg(configs)
+    return dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, attn_slab=False, attn_flash_min_logits=1))
+
+
+def plain_attention(model):
+    """A copy of `model` whose encoder attention runs its plain version
+    (use_pallas off, as ModelConfig.use_pallas=False builds it)."""
+    plain = copy.deepcopy(model)
+    plain.encoder.attn.use_pallas = False
+    return plain
+
+
+def check_flash_training(at, dev, card) -> dict:
+    """Phase 13 (a): the flash arm's kernel path against its plain path,
+    5 b256 train steps under phase 7's rules."""
+    from ertdx_torch import configs
+    from ertdx_torch.models import build_model
+    from ertdx_torch.utils.weights import flax_shapes, params_from_jax
+
+    cfg = flash_arm_cfg(configs)
+    mcfg, tcfg = cfg.model, cfg.train
+    kernel = build_model(mcfg, dev, generator=torch.Generator()
+                         .manual_seed(SEED + 130))
+    params_from_jax(kernel, random_flax_tree(
+        flax_shapes(kernel), np.random.default_rng(SEED + 131)))
+    attn = kernel.encoder.attn
+    log(f"flash arm: attn_slab={attn.slab} use_pallas={attn.use_pallas} "
+        f"flash_min_logits={attn.flash_min_logits} heads={attn.num_heads}, "
+        f"batch {tcfg.batch_size}, condition {mcfg.cond_length} x "
+        f"{mcfg.cond_channels}")
+    if attn.slab or not attn.use_pallas or attn.flash_min_logits != 1:
+        raise RuntimeError("the flash arm's encoder attention is not gated "
+                           "to the flash kernels")
+    return compare_train_paths("flash arm", cfg, kernel,
+                               plain_attention(kernel), at, FLASH_WANT,
+                               SEED + 132, card)
+
+
+def check_flash_train_entry(at, ckdir, dev, card):
+    """Phase 13 (b): train() of the flash arm for 2 epochs into `ckdir`,
+    which phase 14 distills; launches by the epoch grid. Returns the
+    dataset and the counts."""
+    from ertdx_torch import configs, train
+    from ertdx_torch.data import prepare_dataset
+    from ertdx_torch.doe import SurrogateDataGenerator
+
+    cfg = flash_arm_cfg(configs)
+    mcfg = cfg.model
+    n = 400
+    params_phys = SurrogateDataGenerator(
+        seed=SEED + 2).generate_training_samples(n, "lhs")
+    ert = np.random.default_rng(SEED + 133).normal(
+        50.0, 10.0, size=(n, mcfg.cond_length, mcfg.cond_channels))
+    ds = prepare_dataset(params_phys[..., None], ert)
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, num_epochs=2, checkpoint_dir=ckdir))
+    at.reset_launches()
+    t0 = time.perf_counter()
+    res = train.train(cfg, ds, device=dev, logger=lambda d: log(
+        f"train(): {d}"))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    got = dict(at.launches)
+    steps = res.state.step
+    val_batches = -(-int(0.1 * n) // cfg.train.batch_size)
+    want = {"flash_attention_fwd": steps + 2 * val_batches,
+            "flash_attention_bwd_dq": steps,
+            "flash_attention_bwd_dkv": steps}
+    log(f"train() flash arm: 2 epochs, {steps} steps in {seconds:.3f} s "
+        f"({res.steps_per_sec:.3f} steps/s; {card}), val "
+        f"{res.val_history}; rule: one flash forward per forward (train "
+        f"or eval), one dQ and one dK/dV per step, {steps} steps + 2 x "
+        f"{val_batches} eval batches -> {want}; counted {got}")
+    if steps != 2 * -(-int(0.8 * n) // cfg.train.batch_size) or got != want:
+        raise RuntimeError("train() flash arm: launches differ from the "
+                           "rule")
+    if not np.isfinite(res.train_history + res.val_history).all():
+        raise RuntimeError("train() flash arm: non-finite loss")
+    return ds, got
+
+
+def check_flash_serving(at, cb, ckdir, dev, card) -> None:
+    """Phase 13 (c): a configs[3] posterior ensemble (DDIM-50, 8
+    conditions x 1000 members on the fused core) from phase 13's trained
+    flash-arm model: one flash forward per call (the condition is encoded
+    once), draws within 1e-3 of the all-plain path."""
+    from ertdx_torch import configs, sample, train
+    from ertdx_torch.diffusion import schedule_from_config
+
+    cfg = flash_arm_cfg(configs)
+    state, _, _ = train.load_best_model(ckdir, cfg, device=dev)
+    model = state.model.eval()
+    plain = plain_attention(model)
+    plain.ensemble_mega = False
+    scfg = configs.DDIM_ENSEMBLE.sample
+    schedule = schedule_from_config(cfg.diffusion)
+    n_cond, n_real = 8, scfg.uncertainty_samples
+    gen = torch.Generator(device=dev).manual_seed(SEED + 134)
+    cond = torch.rand(n_cond, cfg.model.cond_length, cfg.model.cond_channels,
+                      generator=gen, device=dev)
+    x_T = torch.randn(n_cond * n_real, cfg.model.param_dim, generator=gen,
+                      device=dev)
+    at.reset_launches()
+    cb.reset_launches()
+    t0 = time.perf_counter()
+    u = sample.posterior_ensemble(model, cond, schedule, n_real, scfg,
+                                  x_T=x_T, device=dev)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    got = {**at.launches, **cb.launches}
+    t0 = time.perf_counter()
+    u_plain = sample.posterior_ensemble(plain, cond, schedule, n_real, scfg,
+                                        x_T=x_T, device=dev)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    du = float((u - u_plain).abs().max())
+    dmean = float((u.mean(0) - u_plain.mean(0)).abs().max())
+    dstd = float((u.std(0) - u_plain.std(0)).abs().max())
+    log(f"flash-arm ensemble ({n_cond} x {n_real}, DDIM-{scfg.ddim_steps}):"
+        f" {run_s:.3f} s kernel path, {plain_s:.3f} s plain ({card}); "
+        f"launches {got}; max|du|={du:.3e} max|dmean|={dmean:.3e} "
+        f"max|dstd|={dstd:.3e}")
+    if got["flash_attention_fwd"] != 1 or got["flash_attention_bwd_dq"] or \
+            got["fused_core_stack"] != scfg.ddim_steps:
+        raise RuntimeError("flash-arm ensemble: launches differ (one flash "
+                           "forward and one fused-core launch a step)")
+    if not (torch.isfinite(u).all() and du <= 1e-3 and dmean <= 1e-3
+            and dstd <= 1e-3):
+        raise RuntimeError("flash-arm ensemble disagrees with the plain "
+                           "path")
+
+
+def check_distill(at, ckdir, ds, dev, card) -> dict:
+    """Phase 14: progressive distillation of phase 13's flash-arm eps
+    teacher at full width: (a) the first batch's loss and gradients on
+    the kernel path against the plain path; (b) distill() with a
+    conversion stage and one halving (8 -> 4), one epoch each, with exact
+    launch counts; (c) the student read back and served by sample_pd
+    (pd-4), draws within 1e-3 of the plain path."""
+    from ertdx_torch import configs, distill, sample, train
+    from ertdx_torch.diffusion import schedule_from_config
+
+    cfg = flash_arm_cfg(configs)
+    schedule = schedule_from_config(cfg.diffusion)
+    bsz = cfg.train.batch_size
+    state, _, _ = train.load_best_model(ckdir, cfg, device=dev)
+    teacher = distill._frozen(state.model)
+    student = copy.deepcopy(state.model)
+    student.parameterization = "v"
+    fns = distill.make_distill_epoch(schedule, 4, "eps", device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 140)
+    x0 = torch.from_numpy(ds.params_u[:bsz]).to(dev)
+    cond = torch.from_numpy(ds.conditions[:bsz]).to(dev)
+    i = torch.randint(0, 4, (bsz,), generator=gen, device=dev)
+    noise = torch.randn(x0.shape, generator=gen, device=dev)
+    out = {}
+    for label, (stu, tea) in (("kernel", (student, teacher)),
+                              ("plain", (plain_attention(student),
+                                         plain_attention(teacher)))):
+        at.reset_launches()
+        stu.zero_grad(set_to_none=True)
+        loss = fns.batch_loss(stu, tea, x0, cond, i, noise)
+        loss.backward()
+        torch.cuda.synchronize()
+        out[label] = (float(loss.detach()), _grads(stu), dict(at.launches))
+    (lk, gk, ck), (lp, gp, cp) = out["kernel"], out["plain"]
+    worst = _compare_grads("distill batch 1", gk, gp)
+    log(f"distill batch 1: loss {lk:.6f} kernel vs {lp:.6f} plain; "
+        f"gradients worst err/tol {worst:.3f}; launches kernel {ck}, plain "
+        f"{cp}")
+    if not abs(lk - lp) <= 1e-5 * max(1.0, abs(lp)):
+        raise RuntimeError("distill batch 1: loss disagrees")
+    if ck != {**FLASH_WANT, "flash_attention_fwd": 2} or sum(cp.values()):
+        raise RuntimeError("distill batch 1: launches differ (2 flash "
+                           "forwards, 1 dQ, 1 dK/dV on the kernel path; "
+                           "none on the plain path)")
+
+    tmp = tempfile.mkdtemp(prefix="ertdx_torch_student_")
+    try:
+        dcfg = distill.DistillConfig(target_steps=4, start_steps=8,
+                                     epochs_per_stage=1, convert_epochs=1,
+                                     batch_size=bsz, seed=SEED)
+        at.reset_launches()
+        t0 = time.perf_counter()
+        res = distill.distill(cfg, dcfg, ds, ckdir, out_dir=tmp, device=dev,
+                              logger=lambda d: log(f"distill(): {d}"))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        got = dict(at.launches)
+        n = len(ds)
+        steps = 2 * -(-int(0.8 * n) // bsz)        # two stages of one epoch
+        val_batches = 2 * -(-int(0.1 * n) // bsz)
+        want = {"flash_attention_fwd": 2 * steps + 2 * val_batches,
+                "flash_attention_bwd_dq": steps,
+                "flash_attention_bwd_dkv": steps}
+        stages = [(s.kind, s.student_steps) for s in res.stages]
+        log(f"distill(): stages {stages} in {seconds:.3f} s ({card}), "
+            f"losses {[s.losses for s in res.stages]}, val "
+            f"{[s.val_losses for s in res.stages]}; rule: 2 flash forwards "
+            f"(teacher and student encoders), 1 dQ and 1 dK/dV per step, 2 "
+            f"forwards per val batch; {steps} steps, {val_batches} val "
+            f"batches -> {want}; counted {got}")
+        if stages != [("convert", 8), ("halve", 4)] or got != want:
+            raise RuntimeError("distill(): stages or launches differ")
+        if not all(np.isfinite(s.losses + s.val_losses).all()
+                   for s in res.stages):
+            raise RuntimeError("distill(): non-finite loss")
+
+        saved = configs.experiment_from_dict(train.saved_config(tmp))
+        # the echo as the base: the flash gate is a dispatch knob, not a
+        # layout field
+        st, meta, _ = train.load_best_model(tmp, saved, device=dev)
+        model = st.model.eval()
+        plain = plain_attention(model)
+        scfg = saved.sample
+        n_cond, n_real = 2, 1000
+        g2 = torch.Generator(device=dev).manual_seed(SEED + 141)
+        x_T = torch.randn(n_cond * n_real, cfg.model.param_dim,
+                          generator=g2, device=dev)
+        cond2 = cond[:n_cond]
+        at.reset_launches()
+        u = sample.posterior_ensemble(model, cond2, schedule, n_real, scfg,
+                                      x_T=x_T, device=dev)
+        torch.cuda.synchronize()
+        got_s = dict(at.launches)
+        u_plain = sample.posterior_ensemble(plain, cond2, schedule, n_real,
+                                            scfg, x_T=x_T, device=dev)
+        du = float((u - u_plain).abs().max())
+        log(f"student (echo: sampler {scfg.sampler}, pd_steps "
+            f"{scfg.pd_steps}, parameterization "
+            f"{saved.model.parameterization}, meta epoch {meta['epoch']}): "
+            f"u {tuple(u.shape)}, launches {got_s}, max|du| vs plain "
+            f"{du:.3e}")
+        if (scfg.sampler, scfg.pd_steps, saved.model.parameterization) != \
+                ("pd", 4, "v") or got_s != {**FLASH_WANT,
+                                            "flash_attention_bwd_dq": 0,
+                                            "flash_attention_bwd_dkv": 0}:
+            raise RuntimeError("student: echo or launches differ")
+        if not (torch.isfinite(u).all() and du <= 1e-3):
+            raise RuntimeError("student: draws non-finite or off the plain "
+                               "path")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return got
+
+
 def random_flax_tree(shapes, rng) -> dict:
     """A flax-layout tree of non-zero numpy leaves at init-like scales."""
     out = {}
@@ -1238,6 +1675,7 @@ def main() -> int:
         from ertdx_torch.models.mega import (mega_denoise_ensemble,
                                              mega_weights)
         from ertdx_torch.ops import _build
+        from ertdx_torch.ops import attention as at
         from ertdx_torch.ops import conv as cv
         from ertdx_torch.ops import core_block as cb
         from ertdx_torch.ops import ensemble_attn as ea
@@ -1414,12 +1852,38 @@ def main() -> int:
         f"profile above has their device time)")
     phase("fused-encoder training arm", t0)
 
+    # 12. flash attention kernels against their plain versions
+    t0 = time.perf_counter()
+    flash = check_flash(at, dev, card)
+    phase("flash kernels", t0)
+
+    # 13. the flash arm: (a) steps, (b) train(), (c) a configs[3] ensemble;
+    # 14. distillation of phase 13's checkpoint
+    ckdir = tempfile.mkdtemp(prefix="ertdx_torch_flash_")
+    try:
+        t0 = time.perf_counter()
+        flash_ms = check_flash_training(at, dev, card)
+        flash_ds, flash_launches = check_flash_train_entry(at, ckdir, dev,
+                                                           card)
+        check_flash_serving(at, cb, ckdir, dev, card)
+        share = sum(flash[k]["ms"] for k in FLASH_WANT) / \
+            flash_ms["kernel_step_ms"]
+        log(f"flash kernels' share of the flash-arm step by their phase-12 "
+            f"times: {100 * share:.2f} %")
+        phase("flash-encoder arm", t0)
+
+        t0 = time.perf_counter()
+        check_distill(at, ckdir, flash_ds, dev, card)
+        phase("distillation", t0)
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+
     launches = {"fused_core_stack": main_launches["fused_core_stack"],
                 "fused_core_block": block_launches["fused_core_block"],
                 **train_launches,
                 "block_self_attention": serve_launches,
                 "folded_cross_attention": serve_launches,
-                **fused_launches}
+                **fused_launches, **flash_launches}
     replaces = {"fused_core_stack": "ertdx/ops/core_block.py:440",
                 "fused_core_block": "ertdx/ops/core_block.py:281",
                 "slab_attention_fwd": "ertdx/ops/slab_attn.py:147",
@@ -1429,7 +1893,10 @@ def main() -> int:
                 "groupnorm_silu_fwd": "ertdx/ops/groupnorm.py:47",
                 "groupnorm_silu_bwd": "ertdx/ops/groupnorm.py:95",
                 "gn_silu_conv3_fwd": "ertdx/ops/conv.py:49",
-                "gn_silu_conv3_bwd": "ertdx/ops/conv.py:109"}
+                "gn_silu_conv3_bwd": "ertdx/ops/conv.py:109",
+                "flash_attention_fwd": "ertdx/ops/attention.py:53",
+                "flash_attention_bwd_dq": "ertdx/ops/attention.py:146",
+                "flash_attention_bwd_dkv": "ertdx/ops/attention.py:178"}
     sources = {"fused_core_stack": "ertdx_torch/csrc/core_block.cu",
                "fused_core_block": "ertdx_torch/csrc/core_block.cu",
                "slab_attention_fwd": "ertdx_torch/csrc/slab_attn.cu",
@@ -1439,15 +1906,20 @@ def main() -> int:
                "groupnorm_silu_fwd": "ertdx_torch/csrc/groupnorm.cu",
                "groupnorm_silu_bwd": "ertdx_torch/csrc/groupnorm.cu",
                "gn_silu_conv3_fwd": "ertdx_torch/csrc/gn_conv.cu",
-               "gn_silu_conv3_bwd": "ertdx_torch/csrc/gn_conv.cu"}
+               "gn_silu_conv3_bwd": "ertdx_torch/csrc/gn_conv.cu",
+               **{name: "ertdx_torch/csrc/flash_attn.cu"
+                  for name in FLASH_WANT}}
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": sources[name],
          "replaces": replaces[name], "launches": launches[name],
          "max_abs_err": r["max_abs_err"], "ms": r["ms"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
          "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
+         **({"bound_unpadded_ms": r["bound_unpadded_ms"]}
+            if "bound_unpadded_ms" in r else {}),
          "shape": r["shape"]}
-        for name, r in {**results, **slab, **ensemble, **gnconv}.items()]}
+        for name, r in {**results, **slab, **ensemble, **gnconv,
+                        **flash}.items()]}
     log(f"[phase] total: {time.perf_counter() - t_all:.3f} s")
     log(json.dumps(line))
     log(card_line())

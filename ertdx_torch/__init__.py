@@ -10,7 +10,10 @@ path with the ensemble-attention kernels of `csrc/ensemble_attn.cu`; and
 it trains the CondUNet with the encoder's slab attention kernels of
 `csrc/slab_attn.cu` and, in the fused-encoder arm (`pallas_gn`,
 `pallas_conv_min_width`), the GroupNorm+SiLU and GN+SiLU+conv3 kernels of
-`csrc/groupnorm.cu` and `csrc/gn_conv.cu`.
+`csrc/groupnorm.cu` and `csrc/gn_conv.cu`, or, in the flash arm
+(`attn_flash_min_logits`), the flash attention kernels of
+`csrc/flash_attn.cu`. `distill.py` distills a trained model into a
+few-step student for the pd sampler.
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; without a card and without that argument they raise.

@@ -34,7 +34,8 @@ class ModelConfig:
     num_heads: int = 4             # encoder attention heads
     core_heads: int = 1            # denoiser-core attention heads
     num_blocks: int = 4
-    use_pallas: bool = True        # kept so config echoes round-trip
+    use_pallas: bool = True        # False: the encoder's slab and flash
+                                   # attention run their plain versions
     pallas_gn: bool = False        # encoder GN+SiLU on ops/groupnorm.py
     pallas_conv: bool = False      # fuse GN+SiLU+conv3 in every ResBlock
     pallas_conv_min_width: int = 0  # ... or in those this wide and wider
@@ -45,7 +46,9 @@ class ModelConfig:
     ensemble_mega: bool = True     # fused-core ensemble sampling
                                    # (models/mega.py, ops/core_block.py)
     ensemble_mega_accurate: bool = False  # no effect in the port yet
-    attn_flash_min_logits: int = 0
+    attn_flash_min_logits: int = 0  # encoder flash attention (ops/
+                                    # attention.py) once b h lp^2 reaches
+                                    # it; 0 = only at lp >= 1024
     attn_slab: bool = False        # encoder slab attention (ops/slab_attn.py)
     dtype: str = "float32"         # the port computes in float32 only
     uncond_prob: float = 0.0       # classifier-free guidance dropout

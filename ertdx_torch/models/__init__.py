@@ -1,11 +1,12 @@
 """Model registry: `build_model` for the port's denoisers.
 
 The port has the flagship `condunet`, with the guidance null context
-when `uncond_prob > 0` and the encoder's GN and fused GN+conv kernels
-under `pallas_gn`, `pallas_conv` and `pallas_conv_min_width`. The other
-models of the JAX package (`refmlp`, configs[0]; `uncondmlp`, configs[1])
-are ROADMAP.md queue 1 item 4 and raise here, as do bf16 models (item
-2).
+when `uncond_prob > 0`, the encoder's GN and fused GN+conv kernels
+under `pallas_gn`, `pallas_conv` and `pallas_conv_min_width`, and its
+slab or flash attention kernels under `use_pallas` with `attn_slab` or
+`attn_flash_min_logits`. The other models of the JAX package (`refmlp`,
+configs[0]; `uncondmlp`, configs[1]) are ROADMAP.md queue 1 item 3 and
+raise here, as do bf16 models (item 1).
 """
 from __future__ import annotations
 
@@ -29,11 +30,11 @@ def build_model(cfg: ModelConfig, device=None,
     if cfg.name != "condunet":
         raise NotImplementedError(
             f"model {cfg.name!r} is not ported yet (ROADMAP.md queue 1 "
-            "item 4: the other models)")
+            "item 3: the other models)")
     if cfg.dtype != "float32":
         raise NotImplementedError(
             f"dtype {cfg.dtype!r}: the port computes in float32 only "
-            "(ROADMAP.md queue 1 item 2: bf16 models)")
+            "(ROADMAP.md queue 1 item 1: bf16 models)")
     model = CondUNet(param_dim=cfg.param_dim, hidden_dim=cfg.hidden_dim,
                      cond_channels=cfg.cond_channels,
                      base_width=cfg.base_width, depth=cfg.depth,
@@ -46,7 +47,9 @@ def build_model(cfg: ModelConfig, device=None,
                      ensemble_pallas=cfg.ensemble_pallas,
                      ensemble_min_chains=cfg.ensemble_min_chains,
                      pallas_gn=cfg.pallas_gn, pallas_conv=cfg.pallas_conv,
-                     pallas_conv_min_width=cfg.pallas_conv_min_width)
+                     pallas_conv_min_width=cfg.pallas_conv_min_width,
+                     use_pallas=cfg.use_pallas,
+                     flash_min_logits=cfg.attn_flash_min_logits)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     return init_params(model, generator).to(dev)

@@ -17,8 +17,10 @@ like. The contracts the JAX code fixes, and how this file keeps them:
 * Ensemble chains are condition-major: chain = b * R + r.
 
 Attention here is the plain path of ertdx/ops/attention.py:36-47
-(matmul, softmax, matmul), except that with `attn_slab` the encoder's
-self-attention reads the fused QKV slab through ops/slab_attn.py, and
+(matmul, softmax, matmul), except that with `use_pallas` the encoder's
+self-attention reads the fused QKV slab through ops/slab_attn.py
+(`attn_slab`) or runs the flash kernels of ops/attention.py on the
+padded, masked sequence (the length gate, or `flash_min_logits`), and
 with `ensemble_pallas` the core's attention at ensemble chain counts goes
 through ops/ensemble_attn.py (the CUDA kernels on the card), each with
 the JAX dispatch rule. The encoder's GroupNorm+SiLU goes through
@@ -41,11 +43,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.attention import flash_attention, reference_attention
 from ..ops.conv import gn_silu_conv3, reference_gn_silu_conv3
 from ..ops.ensemble_attn import block_self_attention, folded_cross_attention
 from ..ops.groupnorm import (check_groups, groupnorm_silu,
                              reference_groupnorm_silu)
-from ..ops.slab_attn import slab_attention
+from ..ops.slab_attn import reference_slab_attention, slab_attention
 from .common import get_timestep_embedding
 
 LN_EPS = 1e-6          # flax nn.LayerNorm default
@@ -157,14 +160,23 @@ class ResBlock1D(nn.Module):
 
 
 class SelfAttention1D(nn.Module):
-    """Pre-norm multi-head self-attention with a residual. With `slab`,
-    short unmasked sequences go through the packed-head slab attention,
-    as ertdx/models/condunet.py:146-149 dispatches; same parameters."""
+    """Pre-norm multi-head self-attention with a residual, dispatched as
+    ertdx/models/condunet.py:146-174 dispatches it; same parameters on
+    every path. With `slab` and `use_pallas`, short unmasked sequences go
+    through the packed-head slab attention. Otherwise, with `use_pallas`,
+    the flash kernels engage when the padded length lp reaches
+    FLASH_MIN_LEN or, with `flash_min_logits` > 0, when b h lp^2
+    reaches it: q, k and v are zero-padded to lp, the pad keys masked and
+    the output sliced back to l. Without them (or with `use_pallas` off)
+    the plain attention runs on the raw length."""
 
-    def __init__(self, channels: int, num_heads: int, slab: bool = False):
+    def __init__(self, channels: int, num_heads: int, slab: bool = False,
+                 use_pallas: bool = True, flash_min_logits: int = 0):
         super().__init__()
         self.num_heads = num_heads
         self.slab = slab
+        self.use_pallas = use_pallas
+        self.flash_min_logits = flash_min_logits
         self.norm = nn.LayerNorm(channels, eps=LN_EPS)
         self.qkv = nn.Linear(channels, 3 * channels, bias=False)
         self.out = nn.Linear(channels, channels)
@@ -174,13 +186,31 @@ class SelfAttention1D(nn.Module):
         qkv = self.qkv(self.norm(x))
         if (self.slab and c % self.num_heads == 0
                 and pad128(l) < FLASH_MIN_LEN):
-            return x + self.out(slab_attention(qkv, self.num_heads))
+            fn = slab_attention if self.use_pallas else \
+                reference_slab_attention
+            return x + self.out(fn(qkv, self.num_heads))
         q, k, v = qkv.chunk(3, dim=-1)
 
         def heads(z):
             return z.reshape(b, l, self.num_heads, -1).transpose(1, 2)
 
-        a = attention(heads(q), heads(k), heads(v))
+        q, k, v = heads(q), heads(k), heads(v)
+        lp = pad128(l)
+        pallas_ok = self.use_pallas and (
+            lp >= FLASH_MIN_LEN
+            or (self.flash_min_logits > 0
+                and b * self.num_heads * lp * lp >= self.flash_min_logits))
+        if not pallas_ok:
+            a = reference_attention(q, k, v)
+        else:
+            mask = None
+            if lp != l:
+                # pad only for the kernels: the plain path keeps the raw
+                # length
+                q, k, v = (F.pad(z, (0, 0, 0, lp - l)) for z in (q, k, v))
+                mask = F.pad(torch.ones(b, l, device=x.device,
+                                        dtype=x.dtype), (0, lp - l))
+            a = flash_attention(q, k, v, mask)[:, :, :l]
         return x + self.out(a.transpose(1, 2).reshape(b, l, c))
 
 
@@ -197,7 +227,8 @@ class ConditionEncoder(nn.Module):
                  base_width: int = 64, depth: int = 3, num_heads: int = 4,
                  patch: int = 8, attn_slab: bool = False,
                  pallas_gn: bool = False, pallas_conv: bool = False,
-                 pallas_conv_min_width: int = 0):
+                 pallas_conv_min_width: int = 0, use_pallas: bool = True,
+                 flash_min_logits: int = 0):
         super().__init__()
         self.patch = patch
         self.pallas_conv = pallas_conv
@@ -217,7 +248,9 @@ class ConditionEncoder(nn.Module):
             self.downs.append(Conv1dSame(w, w_next, 3, stride=2))
             self.res.append(res(w_next))
             w = w_next
-        self.attn = SelfAttention1D(w, num_heads, slab=attn_slab)
+        self.attn = SelfAttention1D(w, num_heads, slab=attn_slab,
+                                    use_pallas=use_pallas,
+                                    flash_min_logits=flash_min_logits)
         self.res_out = res(w)
         self.tokens = nn.Linear(w, hidden_dim)
         self.pool = nn.Linear(hidden_dim, hidden_dim)
@@ -332,7 +365,8 @@ class CondUNet(nn.Module):
                  parameterization: str = "eps", attn_slab: bool = False,
                  uncond_prob: float = 0.0, ensemble_pallas: bool = False,
                  ensemble_min_chains: int = 1024, pallas_gn: bool = False,
-                 pallas_conv: bool = False, pallas_conv_min_width: int = 0):
+                 pallas_conv: bool = False, pallas_conv_min_width: int = 0,
+                 use_pallas: bool = True, flash_min_logits: int = 0):
         super().__init__()
         self.param_dim = param_dim
         self.hidden_dim = hidden_dim
@@ -347,7 +381,8 @@ class CondUNet(nn.Module):
         self.encoder = ConditionEncoder(cond_channels, hidden_dim,
                                         base_width, depth, num_heads, patch,
                                         attn_slab, pallas_gn, pallas_conv,
-                                        pallas_conv_min_width)
+                                        pallas_conv_min_width, use_pallas,
+                                        flash_min_logits)
         self.lift = nn.Linear(1, hidden_dim)
         self.pos_emb = nn.Parameter(
             0.02 * torch.randn(param_dim, hidden_dim))

@@ -54,6 +54,9 @@ SIGNATURES = {
     "ertdx_slab_blocks_per_sm": [_I, _I, _P],
     "ertdx_block_self_attn": [_P] * 4 + [_L] * 3 + [_I] * 3 + [_P],
     "ertdx_folded_cross_attn": [_P] * 4 + [_L] * 3 + [_I] * 4 + [_P],
+    "ertdx_flash_fwd": [_P] * 6 + [_I] * 5 + [_F, _P],
+    "ertdx_flash_bwd_dq": [_P] * 9 + [_I] * 5 + [_F, _P],
+    "ertdx_flash_bwd_dkv": [_P] * 9 + [_I] * 5 + [_F, _P],
 }
 
 

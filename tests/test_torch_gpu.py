@@ -391,3 +391,179 @@ def test_fused_encoder_trains_on_the_gn_kernels(cuda):
     for (name, a), (_, b) in zip(model.named_parameters(),
                                  plain.named_parameters()):
         _close(a.grad, b.grad)
+
+
+# (B, H, L, Dh, valid keys, rows with every key masked): the encoder's
+# flash shape (147 of 256 keys valid), the length gate's, Dh 128 and 256,
+# and batch rows whose keys are all masked
+FLASH_CASES = [(256, 4, 256, 64, 147, ()), (8, 4, 1024, 64, 1024, ()),
+               (2, 2, 256, 128, 200, ()), (2, 2, 256, 256, 256, ()),
+               (3, 2, 128, 64, 100, (1,)), (2, 1, 256, 256, 147, (0,))]
+
+
+def _flash_inputs(dev, b, h, l, d, valid, dead, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v, do = (torch.randn(b, h, l, d, generator=g, device=dev)
+                   for _ in range(4))
+    mask = torch.zeros(b, l, device=dev)
+    mask[:, :valid] = 1.0
+    for row in dead:
+        mask[row] = 0.0
+    return q, k, v, do, mask
+
+
+@pytest.mark.parametrize("b,h,l,d,valid,dead", FLASH_CASES)
+def test_flash_kernels_match_plain(cuda, b, h, l, d, valid, dead):
+    from ertdx_torch.ops import attention as at
+
+    q, k, v, do, mask = _flash_inputs(cuda, b, h, l, d, valid, dead,
+                                      b * l + d)
+    at.reset_launches()
+    out, lse = at.flash_attention_fwd(q, k, v, mask)
+    grads = at.flash_attention_bwd(q, k, v, mask, out, lse, do)
+    torch.cuda.synchronize()
+    assert at.launches == {"flash_attention_fwd": 1,
+                           "flash_attention_bwd_dq": 1,
+                           "flash_attention_bwd_dkv": 1}
+    want, want_lse = at.reference_flash_forward(q, k, v, mask)
+    _close(out, want)
+    _close(out, at.reference_attention(q, k, v, mask))
+    live = mask.amax(dim=1) > 0
+    _close(lse[live], want_lse[live])
+    assert (lse[~live] == -1e30).all()
+    for a, w in zip(grads, at.reference_flash_backward(q, k, v, mask, want,
+                                                       want_lse, do)):
+        _close(a, w)
+    again = at.flash_attention_bwd(q, k, v, mask, out, lse, do)
+    assert all(torch.equal(a, w) for a, w in zip(grads, again))
+    assert torch.equal(out, at.flash_attention_fwd(q, k, v, mask)[0])
+
+
+def test_flash_attention_autograd_on_the_kernels(cuda):
+    from ertdx_torch.ops import attention as at
+
+    q, k, v, do, mask = _flash_inputs(cuda, 4, 4, 256, 64, 147, (), 3)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    at.reset_launches()
+    out = at.flash_attention(*leaves, mask)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert at.launches == {"flash_attention_fwd": 1,
+                           "flash_attention_bwd_dq": 1,
+                           "flash_attention_bwd_dkv": 1}
+    want, lse = at.reference_flash_forward(q, k, v, mask)
+    _close(out.detach(), want)
+    for leaf, w in zip(leaves, at.reference_flash_backward(q, k, v, mask,
+                                                           want, lse, do)):
+        _close(leaf.grad, w)
+
+
+def test_flash_gate_false_runs_the_plain_version(cuda):
+    from ertdx_torch.ops import attention as at
+
+    at.reset_launches()
+    q = torch.randn(2, 2, 147, 64, device=cuda)        # L % 128 != 0
+    at._warned.discard((147, 147, 64))
+    with pytest.warns(UserWarning, match="not a shape the CUDA kernels"):
+        out = at.flash_attention(q, q, q)
+    off = at.flash_attention(torch.randn(1, 1, 128, 64, device=cuda),
+                             torch.randn(1, 1, 128, 64, device=cuda),
+                             torch.randn(1, 1, 128, 64, device=cuda),
+                             use_pallas=False)
+    assert sum(at.launches.values()) == 0
+    assert torch.allclose(out, at.reference_attention(q, q, q))
+    assert off.shape == (1, 1, 128, 64)
+    with pytest.raises(ValueError, match="do not take"):
+        at.flash_attention_fwd(q, q, q)
+    with pytest.raises(TypeError, match="float32"):
+        x = torch.randn(1, 1, 128, 64, device=cuda, dtype=torch.float64)
+        at.flash_attention_fwd(x, x, x)
+
+
+def test_flash_arm_trains_on_the_flash_kernels(cuda):
+    """A small CondUNet with attn_flash_min_logits=1: one train step
+    launches the flash forward, dQ and dK/dV once each and agrees with the
+    same step with use_pallas off, which launches none of the encoder's
+    attention kernels (slab included, though attn_slab is on there)."""
+    import copy
+
+    from ertdx_torch import train
+    from ertdx_torch.diffusion import get_diffusion_schedule
+    from ertdx_torch.models.condunet import CondUNet, init_params
+    from ertdx_torch.ops import attention as at
+    from ertdx_torch.ops import slab_attn as sa
+
+    # one encoder head of width 64: a width the kernels take
+    model = init_params(CondUNet(cond_channels=4, base_width=16, depth=2,
+                                 num_heads=1, num_blocks=2,
+                                 flash_min_logits=1),
+                        torch.Generator().manual_seed(0)).to(cuda)
+    plain = copy.deepcopy(model)
+    plain.encoder.attn.use_pallas = False
+    plain.encoder.attn.slab = True
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x0 = torch.randn(8, 29, generator=g, device=cuda)
+    cond = torch.randn(8, 96, 4, generator=g, device=cuda)
+    t = torch.randint(0, 50, (8,), generator=g, device=cuda)
+    noise = torch.randn(8, 29, generator=g, device=cuda)
+    ab = get_diffusion_schedule(50).alpha_bar
+    losses, counts = [], []
+    for m in (model, plain):
+        at.reset_launches()
+        sa.reset_launches()
+        losses.append(train.train_step(m, train.create_optimizer(m, 1e-4),
+                                       x0, cond, t, noise, alpha_bar=ab,
+                                       lr=1e-4))
+        torch.cuda.synchronize()
+        counts.append({**at.launches, **sa.launches})
+    assert counts[0] == {"flash_attention_fwd": 1,
+                         "flash_attention_bwd_dq": 1,
+                         "flash_attention_bwd_dkv": 1,
+                         "slab_attention_fwd": 0, "slab_attention_bwd": 0}
+    assert sum(counts[1].values()) == 0
+    assert abs(float(losses[0]) - float(losses[1])) <= 1e-5 * max(
+        1.0, float(losses[1]))
+    for (name, a), (_, b) in zip(model.named_parameters(),
+                                 plain.named_parameters()):
+        _close(a.grad, b.grad)
+
+
+def test_flash_gate_on_a_head_width_the_kernels_refuse_warns(cuda):
+    """An encoder whose flash gate holds at a head width the kernels do
+    not take (2 heads of 16) runs the plain version on the card, as JAX
+    does, launches nothing and says so."""
+    from ertdx_torch.models.condunet import SelfAttention1D
+    from ertdx_torch.ops import attention as at
+
+    attn = SelfAttention1D(32, 2, flash_min_logits=1).to(cuda)
+    x = torch.randn(2, 147, 32, device=cuda)
+    at.reset_launches()
+    at._warned.discard((256, 256, 16))
+    with pytest.warns(UserWarning, match="Dh=16"):
+        got = attn(x)
+    torch.cuda.synchronize()
+    assert sum(at.launches.values()) == 0
+    attn.use_pallas = False
+    _close(got.detach(), attn(x).detach())
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_flash_cross_attention_on_the_kernels(cuda, masked):
+    """Dh=40 pads to 64 with q rescaled, Lq=1100 and Lk=147 pad to 1152 and
+    256: one forward launch, the plain attention's values."""
+    from ertdx_torch.ops import attention as at
+
+    g = torch.Generator(device=cuda).manual_seed(7 + masked)
+    q = torch.randn(2, 2, 1100, 40, generator=g, device=cuda)
+    k, v = (torch.randn(2, 2, 147, 40, generator=g, device=cuda)
+            for _ in range(2))
+    mask = None
+    if masked:
+        mask = torch.ones(2, 147, device=cuda)
+        mask[0, 100:] = 0.0
+    at.reset_launches()
+    got = at.flash_cross_attention(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert at.launches["flash_attention_fwd"] == 1
+    assert got.shape == q.shape
+    _close(got, at.reference_attention(q, k, v, mask))

@@ -61,7 +61,8 @@ def test_port_imports_without_jax_and_friends():
                  "ertdx_torch.ops.groupnorm", "ertdx_torch.ops.conv",
                  "ertdx_torch.data", "ertdx_torch.doe",
                  "ertdx_torch.utils.checkpoint",
-                 "ertdx_torch.utils.msgpack_lite"):
+                 "ertdx_torch.utils.msgpack_lite",
+                 "ertdx_torch.ops.attention", "ertdx_torch.distill"):
         assert name in imported
 
 
