@@ -22,12 +22,13 @@ non-zero and prints no result line):
 5. per-block path: the same DDIM run over 2 of the conditions through
    mega_denoise_ensemble(stack=False), i.e. fused_core_block, held against
    the main path's draws;
-6. slab kernels: slab_attention's CUDA forward and backward at the
-   encoder's training shape (B=256, L=147, C=256, 4 heads), at B=4 with
-   8 heads (dh=32) and at an odd L, held against the plain version
-   (1e-4 * max(1, max|plain|)), timed beside the plain version and
+6. slab kernels: slab_attention's CUDA forward and backward (the
+   backward on 3xTF32 tensor cores) at the encoder's training shape
+   (B=256, L=147, C=256, 4 heads), at B=4 with 8 heads (dh=32) and at an
+   odd L, held against the plain version (1e-4 * max(1, max|plain|)),
+   reruns bit-identical, timed beside the plain version and
    F.scaled_dot_product_attention (the yardstick; the port never calls
-   it);
+   it), with the profiler's kernel names of both backwards (SDPA's route);
 7. training path: V5E8_DP's model and train settings in float32 on one
    card (full-width CondUNet, attn_slab=True, batch 256, condition
    4693 x 14). (a) 5 train_steps on the kernel path against the same 5 on
@@ -77,13 +78,17 @@ non-zero and prints no result line):
    exact) and load_best_model.
 
 12. flash attention kernels: flash_attention's CUDA forward, dQ and dK/dV
-   at the encoder's flash shape (B=256, H=4, L=147 padded to 256 with the
-   pad keys masked, Dh=64), the length gate's (8, 4, 1024, 64), Dh=128
-   and 256, and a batch row whose keys are all masked, each output held
-   against the plain version (1e-4 * max(1, max|plain|)), reruns
-   bit-identical, timed (CUDA events and profiler device time) beside the
-   plain version and F.scaled_dot_product_attention on the same padded,
-   masked operands (the yardstick; the port never calls it);
+   (the backward on 3xTF32 tensor cores, skipping key tiles that are all
+   padding) at the encoder's flash shape (B=256, H=4, L=147 padded to 256
+   with the pad keys masked, Dh=64), the length gate's (8, 4, 1024, 64),
+   Dh=128 and 256, and batch rows whose keys are all masked (one of them
+   at the flash arm's head width with padded key tiles), each output held
+   against the plain version (1e-4 * max(1, max|plain|)), the skipped key
+   rows' dK and dV exactly 0, reruns bit-identical, timed (CUDA events and
+   profiler device time) beside the plain version and
+   F.scaled_dot_product_attention on the same padded, masked operands
+   (the yardstick; the port never calls it), with the share of key tiles
+   skipped and SDPA's kernel names;
 13. the flash-encoder arm: V5E8_DP as phase 7 with attn_slab=False and
    attn_flash_min_logits=1, random weights through params_from_jax.
    (a) 5 train_steps against the same 5 with the encoder attention's
@@ -100,7 +105,13 @@ non-zero and prints no result line):
    per val batch; the student read back and sampled by sample_pd (pd-4,
    2 x 1000 chains), draws within 1e-3 of the plain path.
 
-The last line of stdout is {"ok": true, "device": {...}}. The build goes
+Every kernel's entry in the kernels line has `bound_ms`, the least time
+the card could take: the bytes at 3.35 TB/s or the operations at the
+fastest fp32-class rate, 3xTF32 on the tensor cores for matrix products
+(the fp32 pipe for GroupNorm, which has none); for the flash kernels
+only the keys the mask needs. Beside it `bound_tc_ms` (the 3xTF32 time;
+null for GroupNorm) and `bound_fp32_ms` (the fp32 pipe's). The last line of
+stdout is {"ok": true, "device": {...}}. The build goes
 to build/ertdx_torch_kernels/; the checkpoints of phases 7, 11, 13 and 14
 go to temporary directories that are removed; nothing else is written.
 """
@@ -122,8 +133,9 @@ import numpy as np
 import torch
 
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W): fp32 outside the
-# tensor cores, and HBM3 bandwidth
+# tensor cores, TF32 on them, and HBM3 bandwidth
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 494.7e12
 PEAK_BYTES_PER_S = 3.35e12
 P, D, NB, LK = 29, 128, 4, 147
 SEED = 0
@@ -153,7 +165,7 @@ GROUPS = 8
 # the one in the kernels line
 FLASH_CASES = [(256, 4, 256, 64, 147, ()), (8, 4, 1024, 64, 1024, ()),
                (2, 4, 256, 128, 200, ()), (2, 4, 256, 256, 256, ()),
-               (3, 2, 128, 64, 100, (1,))]
+               (3, 2, 128, 64, 100, (1,)), (2, 4, 256, 64, 147, (1,))]
 
 
 def log(msg: str) -> None:
@@ -213,10 +225,40 @@ def core_inputs(gen, b: int, r: int, nb: int, dev):
             "head_b": rnd(1, 1, scale=0.1)}
 
 
-def bound(flops: float, nbytes: float) -> tuple:
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+def bound(flops: float, nbytes: float, products: bool = True) -> dict:
+    """The least time, in ms, the card could take to do `flops`
+    operations and move `nbytes`: the larger of the bytes at the memory
+    rate and the operations at the card's fastest fp32-class rate for
+    them. For matrix products that is 3xTF32 on the tensor cores (three
+    TF32 products each, 495 / 3 TFLOP/s), faster than the fp32 pipe's 67;
+    for other work, the fp32 pipe. `bound_tc_ms` is the 3xTF32 time (None
+    without products), `bound_fp32_ms` the fp32 pipe's."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    t_fp32 = flops / PEAK_FP32_FLOPS * 1e3
+    t_tc = 3 * flops / PEAK_TF32_FLOPS * 1e3 if products else None
+    t_ops = min(t_fp32, t_tc) if products else t_fp32
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bound_tc_ms": None if t_tc is None else max(t_tc, t_bytes),
+            "bound_fp32_ms": max(t_fp32, t_bytes)}
+
+
+def bound_text(b: dict, flops: float, nbytes: float) -> str:
+    return (f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}: {flops:.3e} "
+            f"flops, {nbytes:.3e} bytes; fp32 pipe {b['bound_fp32_ms']:.4f}"
+            f" ms)")
+
+
+def kernel_names(fn) -> str:
+    """The device kernels fn launches, by name with their device time:
+    which route a library call takes."""
+    records, _ = kernel_records(fn)
+    by_name: dict = {}
+    for e in records:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    return "; ".join(f"{name[:100]} {us / 1e3:.4f} ms"
+                     for name, us in sorted(by_name.items(),
+                                            key=lambda kv: -kv[1]))
 
 
 def check_kernels(cb, dev) -> dict:
@@ -268,14 +310,12 @@ def check_kernels(cb, dev) -> dict:
             with torch.no_grad():
                 ms = time_ms(kernel)
                 plain_ms = time_ms(plain)
-            bound_ms, bound_by = bound(flops, nbytes)
-            entry.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                         bound_by=bound_by, flops=flops, bytes=nbytes,
-                         shape=f"B={b} R={r}")
+            bd = bound(flops, nbytes)
+            entry.update(ms=ms, plain_ms=plain_ms, **bd, flops=flops,
+                         bytes=nbytes, shape=f"B={b} R={r}")
             log(f"{name} B={b} R={r}: kernel {ms:.3f} ms, plain "
-                f"{plain_ms:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}: "
-                f"{flops:.3e} flops, {nbytes:.3e} bytes), achieved "
-                f"{flops / ms / 1e9:.2f} TFLOP/s")
+                f"{plain_ms:.3f} ms, {bound_text(bd, flops, nbytes)}, "
+                f"achieved {flops / ms / 1e9:.2f} TFLOP/s")
     return results
 
 
@@ -312,6 +352,12 @@ def check_slab(sa, dev) -> dict:
                                    f"{tol}")
             entry = results.setdefault(name, {"max_abs_err": 0.0})
             entry["max_abs_err"] = max(entry["max_abs_err"], err)
+        same = [torch.equal(sa.slab_attention_fwd(qkv, nh), got),
+                torch.equal(sa.slab_attention_bwd(qkv, do, nh), dgot)]
+        log(f"slab B={b} L={l} C={c} H={nh}: reruns bit-identical (out, "
+            f"dqkv) {same}")
+        if not all(same):
+            raise RuntimeError(f"slab B={b} L={l}: reruns differ")
         if (b, l, c, nh) != SLAB_CASES[0]:
             continue
 
@@ -352,15 +398,17 @@ def check_slab(sa, dev) -> dict:
                  fwd_plain, fwd_lib),
                 ("slab_attention_bwd", 10 * prod, io["bwd"], bwd_ms,
                  bwd_plain, bwd_lib)):
-            bound_ms, bound_by = bound(flops, nbytes)
+            bd = bound(flops, nbytes)
             results[name].update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                                 bound_ms=bound_ms, bound_by=bound_by,
-                                 shape=f"B={b} L={l} C={c} H={nh}")
+                                 **bd, shape=f"B={b} L={l} C={c} H={nh}")
             log(f"{name} B={b} L={l} C={c} H={nh}: kernel {ms:.4f} ms, "
-                f"plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, bound "
-                f"{bound_ms:.4f} ms ({bound_by}: {flops:.3e} flops, "
-                f"{nbytes:.3e} bytes), achieved "
+                f"plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, "
+                f"{bound_text(bd, flops, nbytes)}, achieved "
                 f"{flops / ms / 1e9:.2f} TFLOP/s")
+        log("slab backward's kernels, profiler device time a call: "
+            + kernel_names(lambda: sa.slab_attention_bwd(qkv, do, nh)))
+        log("SDPA's route, forward and backward (profiler kernel names, "
+            "device time): " + kernel_names(sdpa_fwd_bwd))
         log(f"resident blocks per SM at L={l}, dh={dh} (256 threads "
             f"each): {sa.blocks_per_sm(l, dh)}")
         log(f"SDPA forward+backward (one call each, reshapes included): "
@@ -434,13 +482,13 @@ def check_ensemble(ea, dev) -> dict:
                 kernel()
             host_us = (time.perf_counter() - t0) / 20 * 1e6
             torch.cuda.synchronize()
-        bound_ms, bound_by = bound(flops, nbytes)
-        entry.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                     bound_ms=bound_ms, bound_by=bound_by, shape=shape)
+        bd = bound(flops, nbytes)
+        entry.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **bd,
+                     shape=shape)
         log(f"{name} {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"SDPA {lib_ms:.4f} ms (max|d| vs plain {lib_err:.2e}), bound "
-            f"{bound_ms:.4f} ms ({bound_by}: {flops:.3e} flops, "
-            f"{nbytes:.3e} bytes), achieved {flops / ms / 1e9:.2f} TFLOP/s; "
+            f"SDPA {lib_ms:.4f} ms (max|d| vs plain {lib_err:.2e}), "
+            f"{bound_text(bd, flops, nbytes)}, achieved "
+            f"{flops / ms / 1e9:.2f} TFLOP/s; "
             f"profiler device time {dev_ms:.4f} ms a launch, host time "
             f"{host_us:.1f} us a wrapper call")
     return results
@@ -618,10 +666,37 @@ def _param_diffs(a, b) -> torch.Tensor:
                       for pa, pb in zip(a.parameters(), b.parameters())])
 
 
+def _log_param_gaps(label, kernel, plain, g1_kernel, g1_plain,
+                    n: int = 3) -> None:
+    """Where the two paths' parameters end furthest apart after the steps:
+    the entry, the gap, and its gradient on both paths at step 1 and at
+    the last step (still in .grad), beside the leaf's largest step-1
+    gradient. Adam moves an entry by about lr a step whatever the size of
+    its gradient, so an entry whose gradient is near 0 and differs in
+    sign between the paths ends up to 2 lr a step apart: a gap there is
+    a sign flip, where one at a large gradient would be a gradient
+    error."""
+    rows = []
+    for (name, a), b in zip(kernel.named_parameters(), plain.parameters()):
+        d = (a.detach() - b.detach()).abs().reshape(-1)
+        i = int(d.argmax())
+        rows.append((float(d[i]), name, i, a, b))
+    for gap, name, i, a, b in sorted(rows, key=lambda r: -r[0])[:n]:
+        def at(t):
+            return float(t.reshape(-1)[i])
+        log(f"{label}: parameter gap {gap:.3e} at {name} {tuple(a.shape)} "
+            f"entry {i}: gradient at step 1 kernel {at(g1_kernel[name]):.3e}"
+            f" plain {at(g1_plain[name]):.3e}, at the last step kernel "
+            f"{at(a.grad):.3e} plain {at(b.grad):.3e}; the leaf's largest "
+            f"|step-1 gradient| {float(g1_plain[name].abs().max()):.3e}")
+
+
 KERNEL_GROUPS = (("GN and fused conv (this port)",
                   ("gn_silu_", "gn_stats_", "tap3_gemm_", "conv_dw_",
                    "sum_rows_")),
                  ("slab attention (this port)", ("slab_",)),
+                 ("flash attention (this port)",
+                  ("(anonymous namespace)::flash_",)),
                  ("ensemble attention (this port)", ("block_self_kernel",
                                                      "folded_cross_kernel")),
                  ("convolution", ("conv", "implicit", "fprop", "dgrad",
@@ -760,6 +835,7 @@ def check_training(sa, dev, card) -> dict:
         f"err/tol {worst:.3f}; params after {TRAIN_STEPS} steps "
         f"max|d|={float(kp.max()):.3e} (bound {flip_bound:.1e}), share > "
         f"1e-5 {k_share:.3e} (limit max(1e-3, 2 x plain-vs-plain))")
+    _log_param_gaps("kernel vs plain", kernel, plain, kg, pg)
     if not (float(kp.max()) <= flip_bound + 1e-6
             and k_share <= max(1e-3, 2 * pp_share)):
         raise RuntimeError("kernel-path parameters disagree with the "
@@ -972,20 +1048,20 @@ def check_gn_conv(gn, cv, dev, card) -> dict:
                     lambda: [kernel() for _ in range(10)])
             dev_ms = sum(e.time_range.elapsed_us() for e in records) / 10e3
             flops, nbytes = work[name]
-            bound_ms, bound_by = bound(flops, nbytes)
+            # GroupNorm does no matrix product
+            bd = bound(flops, nbytes,
+                       products=not name.startswith("groupnorm"))
             log(f"{name} {shape}: kernel {ms:.4f} ms (profiler device "
                 f"{dev_ms:.4f} ms), "
                 f"plain {plain_ms:.4f} ms, library composition "
                 f"{lib_ms:.4f} ms (its forward vs plain: max|d| "
-                f"{lib_err:.2e}), bound "
-                f"{bound_ms:.4f} ms ({bound_by}: {flops:.3e} flops, "
-                f"{nbytes:.3e} bytes), achieved {flops / ms / 1e9:.2f} "
-                f"TFLOP/s, {nbytes / ms / 1e9:.1f} GB/s; {card}")
+                f"{lib_err:.2e}), {bound_text(bd, flops, nbytes)}, achieved "
+                f"{flops / ms / 1e9:.2f} TFLOP/s, {nbytes / ms / 1e6:.1f} "
+                f"GB/s; {card}")
             entry = results[name]
             if "ms" not in entry:       # the first large case: the path's
                 entry.update(ms=ms, plain_ms=plain_ms, library_ms=None,
-                             composition_ms=lib_ms, device_ms=dev_ms,
-                             bound_ms=bound_ms, bound_by=bound_by,
+                             composition_ms=lib_ms, device_ms=dev_ms, **bd,
                              shape=shape)
     return results
 
@@ -1042,6 +1118,18 @@ def check_flash(at, dev, card) -> dict:
             entry["max_abs_err"] = max(entry["max_abs_err"], err)
         if dead and not (lse[~live] == -1e30).all():
             raise RuntimeError("all-masked rows: lse is not -1e30")
+        # key rows the backward skips (all padding, in a live batch row)
+        # hold exactly 0 in dK and dV
+        tiles = at.bwd_tiles(d)
+        tile = tiles["dkv_warp_keys"]
+        pad = (mask.reshape(b, l // tile, tile).amax(dim=2) <= 0) \
+            & live[:, None]
+        pad = pad.repeat_interleave(tile, dim=1)[:, None, :, None]
+        skipped_nonzero = int(((dk != 0) & pad).sum() + ((dv != 0) & pad).sum())
+        log(f"flash {shape}: dK, dV entries of skipped key rows that are "
+            f"not 0: {skipped_nonzero} of {2 * int(pad.sum()) * h * d}")
+        if skipped_nonzero:
+            raise RuntimeError(f"flash {shape}: skipped key rows not zero")
         again = (at.flash_attention_fwd(q, k, v, mask)[0],
                  at.flash_attention_bwd_dq(q, k, v, mask, out, lse, do)[0],
                  *at.flash_attention_bwd_dkv(q, k, v, mask, lse, delta, do))
@@ -1079,21 +1167,24 @@ def check_flash(at, dev, card) -> dict:
                                                    delta, do),
                 lambda: at.reference_flash_backward_dkv(q, k, v, mask, lse,
                                                         delta, do), None)}
-        prod = b * h * l * l * d           # one L x L x Dh product, in FMAs
-        prod_valid = b * h * valid * valid * d
-        n_qkv, n_row = b * h * l * d, b * h * l
-        # operations: 2 per FMA; the forward has 2 products (S, PV), dQ 3
-        # (S, dP, dS K), dK/dV 4 (S, dP, P^T dO, dS^T Q). Bytes: each
-        # input read once, each output written once. The unpadded bound
-        # counts the valid rows and keys only, and the backward's five
-        # products once: 3 for dQ (S, dP, dS K), 2 for dK/dV (P^T dO,
-        # dS^T Q)
+        # the work this run's mask needs: every query row against the keys
+        # that count, a batch row's valid keys (the rest have p = 0), or
+        # all of them where it has none (p = 1 there). Operations: 2 per
+        # FMA of the products each kernel needs for its outputs, the
+        # forward 2 (S, PV), dQ 3 (S, dP, dS K), dK/dV 4 (S, dP, P^T dO,
+        # dS^T Q). Bytes: each input read once, K and V on those keys
+        # only; each output written once (dK and dV in full: the padded
+        # rows' zeros too)
+        n_valid = mask.gt(0).sum(dim=1)
+        keys = int(torch.where(n_valid > 0, n_valid, l).sum())
+        prod = h * l * keys * d       # one Lq x keys x Dh product, in FMAs
+        n_q, n_kv, n_row = b * h * l * d, h * keys * d, b * h * l
         work = {"flash_attention_fwd": (
-                    2, 2, 4 * (4 * n_qkv + n_row + b * l)),
+                    2, 4 * (2 * n_q + 2 * n_kv + n_row + b * l)),
                 "flash_attention_bwd_dq": (
-                    3, 3, 4 * (6 * n_qkv + 2 * n_row + b * l)),
+                    3, 4 * (4 * n_q + 2 * n_kv + 2 * n_row + b * l)),
                 "flash_attention_bwd_dkv": (
-                    4, 2, 4 * (6 * n_qkv + 2 * n_row + b * l))}
+                    4, 4 * (4 * n_q + 2 * n_kv + 2 * n_row + b * l))}
         for name, (kernel, plain_fn, lib_fn) in timed.items():
             with torch.no_grad():
                 ms = time_ms(kernel)
@@ -1102,30 +1193,40 @@ def check_flash(at, dev, card) -> dict:
                 records, _ = kernel_records(
                     lambda: [kernel() for _ in range(10)])
             dev_ms = sum(e.time_range.elapsed_us() for e in records) / 10e3
-            n_prod, n_prod_needed, nbytes = work[name]
+            n_prod, nbytes = work[name]
             flops = 2 * n_prod * prod
-            bound_ms, bound_by = bound(flops, nbytes)
-            unpadded_ms, _ = bound(2 * n_prod_needed * prod_valid,
-                                   nbytes * valid / l)
+            bd = bound(flops, nbytes)
             log(f"{name} {shape}: kernel {ms:.4f} ms (profiler device "
                 f"{dev_ms:.4f} ms), plain {plain_ms:.4f} ms, SDPA "
                 f"{'%.4f ms' % lib_ms if lib_ms else 'none (no one call)'}, "
-                f"bound {bound_ms:.4f} ms ({bound_by}: {flops:.3e} flops, "
-                f"{nbytes:.3e} bytes; on the {valid} valid rows and keys, "
-                f"{n_prod_needed} products, {unpadded_ms:.4f} ms), achieved "
-                f"{flops / ms / 1e9:.2f} TFLOP/s; {card}")
+                f"{bound_text(bd, flops, nbytes)} on {keys} of {b * l} "
+                f"keys, achieved {flops / ms / 1e9:.2f} TFLOP/s; {card}")
             results[name].update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                                 device_ms=dev_ms, bound_ms=bound_ms,
-                                 bound_by=bound_by,
-                                 bound_unpadded_ms=unpadded_ms, shape=shape)
+                                 device_ms=dev_ms, **bd, shape=shape)
         bwd_lib = time_ms(sdpa_backward())
         bwd_ms = (results["flash_attention_bwd_dq"]["ms"]
                   + results["flash_attention_bwd_dkv"]["ms"])
-        bwd_bound, _ = bound(2 * 5 * prod, 4 * (7 * n_qkv + n_row + b * l))
+        # dQ, dK and dV together: S, dP, dS K, P^T dO, dS^T Q once each
+        bwd_bd = bound(2 * 5 * prod,
+                       4 * (6 * n_q + 2 * n_kv + n_row + b * l))
         log(f"flash backward (dQ + dK/dV) {bwd_ms:.4f} ms against one SDPA "
             f"backward {bwd_lib:.4f} ms on the same operands (SDPA forward "
             f"vs plain max|d| {sdpa_err:.2e}); the backward's bound with "
-            f"the five products counted once {bwd_bound:.4f} ms; {card}")
+            f"the five products counted once {bwd_bd['bound_ms']:.4f} ms "
+            f"(fp32 pipe {bwd_bd['bound_fp32_ms']:.4f} ms); {card}")
+        live_keys = mask[live]
+        for what, tile in (("dQ key tiles", tiles["dq_key_tile"]),
+                           ("dK/dV key rows of a warp",
+                            tiles["dkv_warp_keys"])):
+            empty = live_keys.reshape(-1, l // tile, tile).amax(dim=2) <= 0
+            log(f"flash backward at {shape}: {what} ({tile} keys) skipped "
+                f"as all padding: {float(empty.float().mean()):.4f} of them")
+        def sdpa_fwd_bwd():
+            leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+            torch.autograd.grad(sdpa(*leaves), leaves, do)
+
+        log("SDPA's route, forward and backward (profiler kernel names, "
+            "device time): " + kernel_names(sdpa_fwd_bwd))
     return results
 
 
@@ -1260,6 +1361,7 @@ def compare_train_paths(label, cfg, kernel, plain, counts, want, seed,
         f"params after {TRAIN_STEPS} steps max|d|={float(kp.max()):.3e} "
         f"(bound {flip_bound:.1e}), share > 1e-5 {k_share:.3e} (limit "
         f"max(1e-3, 2 x plain-vs-plain))")
+    _log_param_gaps(f"{label}, kernel vs plain", kernel, plain, kg, pg)
     if not (float(kp.max()) <= flip_bound + 1e-6
             and k_share <= max(1e-3, 2 * pp_share)):
         raise RuntimeError(f"{label}: kernel-path parameters disagree "
@@ -1914,10 +2016,9 @@ def main() -> int:
          "replaces": replaces[name], "launches": launches[name],
          "max_abs_err": r["max_abs_err"], "ms": r["ms"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-         "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
-         **({"bound_unpadded_ms": r["bound_unpadded_ms"]}
-            if "bound_unpadded_ms" in r else {}),
-         "shape": r["shape"]}
+         "bound_by": r["bound_by"], "bound_tc_ms": r["bound_tc_ms"],
+         "bound_fp32_ms": r["bound_fp32_ms"],
+         "library_ms": r.get("library_ms"), "shape": r["shape"]}
         for name, r in {**results, **slab, **ensemble, **gnconv,
                         **flash}.items()]}
     log(f"[phase] total: {time.perf_counter() - t_all:.3f} s")

@@ -1,4 +1,5 @@
-// Packed-head slab attention, forward and backward (sm_90a, fp32 FMA).
+// Packed-head slab attention, forward and backward (sm_90a; the forward
+// on fp32 FMA, the backward on 3xTF32 tensor cores).
 //
 // Replaces the TPU kernels of ertdx/ops/slab_attn.py:
 //   * slab_fwd_kernel            <- _slab_fwd_kernel (:147-168)
@@ -16,41 +17,57 @@
 // What bounds it on an H100: operations. At the encoder's training shape
 // (B=256, L=147, C=256, H=4, dh=64) the forward does 4 B H L^2 dh = 5.7
 // GFLOP against 154 MB of traffic, the backward 10 B H L^2 dh = 14.2 GFLOP
-// against 270 MB: 0.085 and 0.211 ms at 67 TFLOP/s fp32.
+// against 270 MB: 0.085 and 0.211 ms at 67 TFLOP/s fp32; the backward's
+// products as 3xTF32 are 42.6 GFLOP, 0.086 ms at 495 TFLOP/s.
 //
 // What the design does about it, and what it changes from the TPU kernel:
 //   * Exact per-head attention. The TPU's block-diagonal head groups
 //     (_packed_kv, _diag_blocks) exist only to fill 128 MXU lanes and are
 //     not carried over: no masked logits are computed.
-//   * Grid: one CUDA block per (batch row, head, tile of 64 rows); 3,072
-//     blocks at the training shape. Each block holds the two L x dh
-//     operands it streams over (K and V, or Q and dO) in shared memory,
-//     rows padded to dh+1 floats so that 32 lanes reading 32 rows hit 32
-//     banks.
-//   * The inner loops are bound by shared-memory bandwidth (128 bytes per
-//     clock per SM), not by the FMA units, so every value read from
-//     shared memory serves R = 4 rows: a warp owns 4 rows at a time, their
-//     q (or k) values sit in shared memory as [dh][4] and arrive as one
-//     16-byte broadcast, and the lanes split the L logits of all 4 rows.
-//     Warp shuffles reduce max and sum; the 4 rows' logits live in a
-//     per-warp [L][4] buffer, and the lanes then split dh for the P V-type
-//     products, each V value serving 4 rows.
-//   * The backward is two launches. A block that owned all of Q, K, V and
-//     dO of one head, plus the dK and dV accumulators, would need over
-//     220 KB of shared memory at L=147, dh=64, i.e. one block per SM. So
-//     a dQ pass (K, V resident; query rows) also writes each row's
-//     log-sum-exp and delta = rowsum(dP o P) to a (B, H, L) scratch, and a
-//     dK/dV pass (Q, dO resident; key rows) recomputes P from the
-//     log-sum-exp. Each pass owns its outputs outright: no atomics,
-//     deterministic results.
-//   * Every product is an fp32 FMA on the CUDA cores; `accurate` has no
-//     effect until a tensor-core version exists.
+//   * Forward grid: one CUDA block per (batch row, head, tile of 64 rows);
+//     3,072 blocks at the training shape. Each block holds K and V of its
+//     head in shared memory, rows padded to dh+1 floats so that 32 lanes
+//     reading 32 rows hit 32 banks. Its inner loops are bound by
+//     shared-memory bandwidth (128 bytes per clock per SM), not by the FMA
+//     units, so every value read from shared memory serves R = 4 rows: a
+//     warp owns 4 rows at a time, their q values sit in shared memory as
+//     [dh][4] and arrive as one 16-byte broadcast, and the lanes split the
+//     L logits of all 4 rows. Warp shuffles reduce max and sum; the 4
+//     rows' logits live in a per-warp [L][4] buffer, and the lanes then
+//     split dh for the P V product, each V value serving 4 rows. Its
+//     products are fp32 FMAs.
+//   * The backward is two launches, each one block per (batch row, head),
+//     so that a head's two resident operands are staged once (with 16-byte
+//     cp.async; the slab's row stride is 3C floats, 16-byte aligned since
+//     C is a multiple of 4). A dQ pass (K, V resident; query rows) also
+//     writes each row's log-sum-exp and delta = rowsum(dP o P) to a
+//     (B, H, L) scratch, and a dK/dV pass (Q, dO resident; key rows)
+//     recomputes P from the log-sum-exp. Each pass owns its outputs
+//     outright: no atomics, deterministic results. At L=147, dh=64 the
+//     passes take 104 and 88 KB of shared memory: two blocks of 4 warps
+//     an SM.
+//   * All five backward products (S, dP, dQ = dS K, dV = P^T dO, dK =
+//     dS^T Q) run on the 3xTF32 tile of tf32x3.cuh: warp-level
+//     mma.sync m16n8k8, each operand split into two TF32 halves, three
+//     MMAs a k step; fp32-class results (the TPU kernel runs
+//     Precision.HIGHEST), so `accurate` has no effect. The softmax, delta
+//     and dS are computed on the accumulator fragments in registers, and
+//     P and dS feed the next product from there. The dQ pass recomputes
+//     dP once more for delta than the TPU kernel does (dP does not fit in
+//     registers beside P at L=256): 8 products where the math has 5.
+//   * The ragged edge: L need not be a multiple of 16. Staged rows past L
+//     are zero; keys past L get -inf before the max (p = 0 exactly),
+//     queries past L get p = 0 in the dK/dV pass; rows past L are never
+//     written.
 //
 // Plain C interface for ctypes: each entry point launches on the given
 // stream and returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include "tf32x3.cuh"
 
 namespace {
 
@@ -59,7 +76,6 @@ constexpr int WARPS = THREADS / 32;
 constexpr int TILE = 64;               // rows of one block
 constexpr int R = 4;                   // rows a warp owns at a time
 constexpr int L_MAX = 256;             // longest sequence the kernels take
-constexpr int NJ = L_MAX / 32;         // logits of one row per lane, at most
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
@@ -72,10 +88,6 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
-}
-
-__device__ __forceinline__ float get(const float4& v, int r) {
-  return r == 0 ? v.x : r == 1 ? v.y : r == 2 ? v.z : v.w;
 }
 
 // Copy one head's (L, DH) third of the slab into a padded shared tile,
@@ -213,218 +225,258 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-// Backward pass 1: dQ rows, and each row's log-sum-exp and delta. A lane's
-// dP values (at most NJ per row) stay in registers while the rows' deltas
-// are reduced.
-template <int DH>
-__global__ void __launch_bounds__(THREADS)
+// The backward kernels run every product on the 3xTF32 tensor-core tile of
+// tf32x3.cuh. One block per (batch row, head) of 32 x bwd_warps(L)
+// threads; warp w takes the 16-row tiles w, w + warps, ... of the head.
+
+// Warps of a backward block at length L: at least two 16-row tiles each,
+// at most BWD_WARPS, so that two blocks fit an SM's registers at up to
+// 255 a thread.
+constexpr int BWD_WARPS = 4;
+int bwd_warps(int L) { return min(BWD_WARPS, ((L + 15) / 16 + 1) / 2); }
+
+// Key (and query) n tiles of 8 the backward pads L to: 8, 16, 20 or 32
+// (L <= 64, 128, 160, 256), so that its loops over them have a
+// compile-time count and no branch. Padded rows are zero in shared memory
+// and their keys and queries are masked.
+__host__ __device__ int bwd_tiles(int L) {
+  const int n = (L + 7) / 8;
+  return n <= 8 ? 8 : n <= 16 ? 16 : n <= 20 ? 20 : 32;
+}
+
+__host__ __device__ int Lp_of(int L) { return 8 * bwd_tiles(L); }
+
+// Backward pass 1: dQ rows, and each row's log-sum-exp and delta. K and V
+// of the head sit in shared memory ((8 NT, DH+4), zero rows past L); a
+// warp stages its 16 q rows, keeps the whole row of S (then P) in
+// registers (NT = bwd_tiles(L) n tiles of 8 keys), stages its dO rows
+// over the q rows, and recomputes dP in chunks of CH n tiles twice: once
+// for delta = rowsum(P o dP), once for dS = P o (dP - delta), which goes
+// straight from the accumulators into dQ = dS K.
+template <int DH, int NT>
+__global__ void __launch_bounds__(32 * BWD_WARPS)
     slab_bwd_dq_kernel(const float* __restrict__ qkv,
                        const float* __restrict__ dout,
                        float* __restrict__ dqkv, float* __restrict__ lse,
                        float* __restrict__ delta, int L, int H,
                        float scale) {
+  using namespace tf32x3;
   extern __shared__ __align__(16) float smem[];
-  constexpr int LD = DH + 1;
-  constexpr int U = DH / 32;
+  constexpr int LD = DH + 4, NN = DH / 8, CH = 4, Lp = 8 * NT;
   const int C = H * DH, C3 = 3 * C;
-  const Geometry g = geometry(L, H);
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float4* p = reinterpret_cast<float4*>(smem) + warp * L;   // P, then dS
-  float* qs = smem + WARPS * L * R + warp * DH * R;         // q * scale
-  float* os = smem + WARPS * L * R + WARPS * DH * R + warp * DH * R;
-  float* Ks = smem + WARPS * L * R + 2 * WARPS * DH * R;    // (L, LD)
-  float* Vs = Ks + L * LD;                                  // (L, LD)
-  const float* base = qkv + (size_t)g.b * L * C3 + g.h * DH;
-  const float* obase = dout + (size_t)g.b * L * C + g.h * DH;
-  load_head<DH>(Ks, base + C, L, C3, 1.0f);
-  load_head<DH>(Vs, base + 2 * C, L, C3, 1.0f);
+  const int warps = blockDim.x / 32, g = lane >> 2, t = lane & 3;
+  const int tiles = (L + 15) / 16;
+  float* Ks = smem;                                // (Lp, LD)
+  float* Vs = Ks + Lp * LD;                        // (Lp, LD)
+  float* W = Vs + Lp * LD + warp * 16 * LD;        // 16 q rows, then dO
+  const float* base = qkv + (size_t)b * L * C3 + h * DH;
+  const float* obase = dout + (size_t)b * L * C + h * DH;
+  stage<DH>(Ks, LD, base + C, C3, Lp, L, 0, blockDim.x);
+  stage<DH>(Vs, LD, base + 2 * C, C3, Lp, L, 0, blockDim.x);
+  cp_commit();
+  cp_wait<0>();
   __syncthreads();
 
-  const float4* qs4 = reinterpret_cast<const float4*>(qs);
-  const float4* os4 = reinterpret_cast<const float4*>(os);
-  for (int r0 = g.r0 + warp * R; r0 < g.r1; r0 += WARPS * R) {
-    const int nr = min(R, g.r1 - r0);
-    stage_rows<DH>(qs, base + (size_t)r0 * C3, nr, C3, scale, lane);
-    stage_rows<DH>(os, obase + (size_t)r0 * C, nr, C, 1.0f, lane);
-    float mx[R] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
-    float dp[NJ][R];
-#pragma unroll
-    for (int m = 0; m < NJ; ++m) {
-      const int j = lane + 32 * m;
-      if (j < L) {
-        const float* kr = Ks + j * LD;
-        const float* vr = Vs + j * LD;
-        float s[R] = {0.f, 0.f, 0.f, 0.f}, t[R] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-        for (int d = 0; d < DH; ++d) {
-          const float kd = kr[d], vd = vr[d];
-          const float4 q = qs4[d], o = os4[d];
-          s[0] = fmaf(q.x, kd, s[0]);
-          s[1] = fmaf(q.y, kd, s[1]);
-          s[2] = fmaf(q.z, kd, s[2]);
-          s[3] = fmaf(q.w, kd, s[3]);
-          t[0] = fmaf(o.x, vd, t[0]);
-          t[1] = fmaf(o.y, vd, t[1]);
-          t[2] = fmaf(o.z, vd, t[2]);
-          t[3] = fmaf(o.w, vd, t[3]);
-        }
-        p[j] = make_float4(s[0], s[1], s[2], s[3]);
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-          dp[m][r] = t[r];
-          mx[r] = fmaxf(mx[r], s[r]);
-        }
-      }
-    }
-    float sum[R] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-    for (int r = 0; r < R; ++r) mx[r] = warp_max(mx[r]);
-#pragma unroll
-    for (int m = 0; m < NJ; ++m) {
-      const int j = lane + 32 * m;
-      if (j < L) {
-        const float4 s = p[j];
-        const float4 e = make_float4(expf(s.x - mx[0]), expf(s.y - mx[1]),
-                                     expf(s.z - mx[2]), expf(s.w - mx[3]));
-        p[j] = e;
-        sum[0] += e.x;
-        sum[1] += e.y;
-        sum[2] += e.z;
-        sum[3] += e.w;
-      }
-    }
-    float inv[R], dl[R] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      sum[r] = warp_sum(sum[r]);
-      inv[r] = 1.f / sum[r];
-    }
-#pragma unroll
-    for (int m = 0; m < NJ; ++m) {
-      const int j = lane + 32 * m;
-      if (j < L) {
-        const float4 e = p[j];
-#pragma unroll
-        for (int r = 0; r < R; ++r)
-          dl[r] = fmaf(get(e, r) * inv[r], dp[m][r], dl[r]);
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < R; ++r) dl[r] = warp_sum(dl[r]);
-#pragma unroll
-    for (int m = 0; m < NJ; ++m) {
-      const int j = lane + 32 * m;
-      if (j < L) {
-        const float4 e = p[j];
-        float ds[R];
-#pragma unroll
-        for (int r = 0; r < R; ++r)
-          ds[r] = get(e, r) * inv[r] * (dp[m][r] - dl[r]);
-        p[j] = make_float4(ds[0], ds[1], ds[2], ds[3]);
-      }
-    }
+  for (int tile = warp; tile < tiles; tile += warps) {
+    const int m0 = tile * 16;
+    stage<DH>(W, LD, base + (size_t)m0 * C3, C3, 16, L - m0, warp * 32, 32);
+    cp_commit();
+    cp_wait<0>();
     __syncwarp();
-    float acc[R][U];
-    rows_times<DH>(p, Ks, L, lane, acc);
+    float p[NT][4];
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
-      if (r < nr) {
-        float* dq = dqkv + ((size_t)g.b * L + r0 + r) * C3 + g.h * DH;
+    for (int j = 0; j < NT; ++j) p[j][0] = p[j][1] = p[j][2] = p[j][3] = 0.f;
+    nt1<NT, DH>(p, W, Ks, LD, 0, 0, lane);         // S = q k^T
+    __syncwarp();                                  // q is read: load dO
+    stage<DH>(W, LD, obase + (size_t)m0 * C, C, 16, L - m0, warp * 32, 32);
+    cp_commit();
+
+    // softmax over the keys < L: -inf before the max, so p = 0 past L
+    float mx[2] = {-INFINITY, -INFINITY}, sum[2] = {0.f, 0.f};
 #pragma unroll
-        for (int u = 0; u < U; ++u) dq[lane + 32 * u] = acc[r][u] * scale;
-        if (lane == 0) {
-          const size_t row = ((size_t)g.b * H + g.h) * L + r0 + r;
-          lse[row] = mx[r] + logf(sum[r]);
-          delta[row] = dl[r];
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = 8 * j + 2 * t + (e & 1);
+        p[j][e] = key < L ? p[j][e] * scale : -INFINITY;
+        mx[e >> 1] = fmaxf(mx[e >> 1], p[j][e]);
+      }
+    mx[0] = quad_max(mx[0]);
+    mx[1] = quad_max(mx[1]);
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        p[j][e] = expf(p[j][e] - mx[e >> 1]);
+        sum[e >> 1] += p[j][e];
+      }
+    sum[0] = quad_sum(sum[0]);
+    sum[1] = quad_sum(sum[1]);
+    const float inv[2] = {1.f / sum[0], 1.f / sum[1]};
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) p[j][e] *= inv[e >> 1];
+    cp_wait<0>();
+    __syncwarp();                                  // dO is in W
+
+    // delta = rowsum(P o dP)
+    float dl[2] = {0.f, 0.f};
+#pragma unroll
+    for (int c = 0; c < NT / CH; ++c) {
+      float dp[CH][4] = {};
+      nt1<CH, DH>(dp, W, Vs, LD, 0, 8 * CH * c, lane);
+#pragma unroll
+      for (int jj = 0; jj < CH; ++jj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          dl[e >> 1] = fmaf(p[CH * c + jj][e], dp[jj][e], dl[e >> 1]);
+    }
+    dl[0] = quad_sum(dl[0]);
+    dl[1] = quad_sum(dl[1]);
+
+    // dS = P o (dP - delta), dQ = dS K
+    float acc[NN][4] = {};
+#pragma unroll
+    for (int c = 0; c < NT / CH; ++c) {
+      float dp[CH][4] = {};
+      nt1<CH, DH>(dp, W, Vs, LD, 0, 8 * CH * c, lane);
+#pragma unroll
+      for (int jj = 0; jj < CH; ++jj) {
+        const int j = CH * c + jj;
+        float ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          ds[e] = p[j][e] * (dp[jj][e] - dl[e >> 1]);
+        FragA a;
+        from_c(a, ds);
+        nn<NN>(acc, a, Ks, LD, 8 * j, 0, lane);
+      }
+    }
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = m0 + g + 8 * r;
+      if (row < L) {
+        float* dq = dqkv + ((size_t)b * L + row) * C3 + h * DH + 2 * t;
+#pragma unroll
+        for (int n = 0; n < NN; ++n)
+          *reinterpret_cast<float2*>(dq + 8 * n) = make_float2(
+              acc[n][2 * r] * scale, acc[n][2 * r + 1] * scale);
+        if (t == 0) {
+          const size_t i = ((size_t)b * H + h) * L + row;
+          lse[i] = mx[r] + logf(sum[r]);
+          delta[i] = dl[r];
         }
       }
     }
-    __syncwarp();
+    __syncwarp();                                  // W is restaged next
   }
 }
 
-// Backward pass 2: dK and dV rows, P recomputed from the log-sum-exp.
+// Backward pass 2: dK and dV rows, P recomputed from the log-sum-exp. Q
+// and dO of the head ((Lp, DH+4), Lp = 8 bwd_tiles(L), zero rows past L)
+// and its lse and delta sit in shared memory; a warp holds its 16 key rows of k and v as A fragments in
+// registers (read once from the slab) and walks the queries in chunks of
+// CH n tiles: S^T = k q^T and dP^T = v dO^T, P^T and dS^T on the
+// accumulators, then dV += P^T dO and dK += dS^T Q from them.
 template <int DH>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(32 * BWD_WARPS)
     slab_bwd_dkv_kernel(const float* __restrict__ qkv,
                         const float* __restrict__ dout,
                         float* __restrict__ dqkv,
                         const float* __restrict__ lse,
                         const float* __restrict__ delta, int L, int H,
                         float scale) {
+  using namespace tf32x3;
   extern __shared__ __align__(16) float smem[];
-  constexpr int LD = DH + 1;
-  constexpr int U = DH / 32;
+  constexpr int LD = DH + 4, NN = DH / 8, KS = DH / 8, CH = 2;
   const int C = H * DH, C3 = 3 * C;
-  const Geometry g = geometry(L, H);
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float4* p = reinterpret_cast<float4*>(smem) + warp * L;             // P
-  float4* ds = reinterpret_cast<float4*>(smem) + (WARPS + warp) * L;  // dS
-  float* ks = smem + 2 * WARPS * L * R + warp * DH * R;
-  float* vs = smem + 2 * WARPS * L * R + WARPS * DH * R + warp * DH * R;
-  float* Qs = smem + 2 * WARPS * L * R + 2 * WARPS * DH * R;  // q * scale
-  float* Os = Qs + L * LD;                                    // dO
-  float* LSE = Os + L * LD;                                   // (L)
-  float* DEL = LSE + L;                                       // (L)
-  const float* base = qkv + (size_t)g.b * L * C3 + g.h * DH;
-  const float* obase = dout + (size_t)g.b * L * C + g.h * DH;
-  const size_t row0 = ((size_t)g.b * H + g.h) * L;
-  load_head<DH>(Qs, base, L, C3, scale);
-  load_head<DH>(Os, obase, L, C, 1.0f);
-  for (int i = threadIdx.x; i < L; i += THREADS) {
-    LSE[i] = lse[row0 + i];
-    DEL[i] = delta[row0 + i];
+  const int warps = blockDim.x / 32, g = lane >> 2, t = lane & 3;
+  const int Lp = Lp_of(L), nt = Lp / 8, tiles = (L + 15) / 16;
+  float* Qs = smem;                                // (Lp, LD)
+  float* Os = Qs + Lp * LD;                        // (Lp, LD)
+  float* LSE = Os + Lp * LD;                       // (Lp)
+  float* DEL = LSE + Lp;                           // (Lp)
+  const float* base = qkv + (size_t)b * L * C3 + h * DH;
+  const float* obase = dout + (size_t)b * L * C + h * DH;
+  const size_t row0 = ((size_t)b * H + h) * L;
+  stage<DH>(Qs, LD, base, C3, Lp, L, 0, blockDim.x);
+  stage<DH>(Os, LD, obase, C, Lp, L, 0, blockDim.x);
+  cp_commit();
+  for (int i = threadIdx.x; i < Lp; i += blockDim.x) {
+    LSE[i] = i < L ? lse[row0 + i] : 0.f;
+    DEL[i] = i < L ? delta[row0 + i] : 0.f;
   }
+  cp_wait<0>();
   __syncthreads();
 
-  const float4* ks4 = reinterpret_cast<const float4*>(ks);
-  const float4* vs4 = reinterpret_cast<const float4*>(vs);
-  for (int j0 = g.r0 + warp * R; j0 < g.r1; j0 += WARPS * R) {
-    const int nr = min(R, g.r1 - j0);
-    stage_rows<DH>(ks, base + (size_t)j0 * C3 + C, nr, C3, 1.0f, lane);
-    stage_rows<DH>(vs, base + (size_t)j0 * C3 + 2 * C, nr, C3, 1.0f, lane);
-    for (int i = lane; i < L; i += 32) {
-      const float* qr = Qs + i * LD;
-      const float* orow = Os + i * LD;
-      float s[R] = {0.f, 0.f, 0.f, 0.f}, t[R] = {0.f, 0.f, 0.f, 0.f};
+  for (int tile = warp; tile < tiles; tile += warps) {
+    const int m0 = tile * 16;
+    float ka[KS][4], va[KS][4];
 #pragma unroll
-      for (int d = 0; d < DH; ++d) {
-        const float qd = qr[d], od = orow[d];
-        const float4 k = ks4[d], v = vs4[d];
-        s[0] = fmaf(qd, k.x, s[0]);
-        s[1] = fmaf(qd, k.y, s[1]);
-        s[2] = fmaf(qd, k.z, s[2]);
-        s[3] = fmaf(qd, k.w, s[3]);
-        t[0] = fmaf(od, v.x, t[0]);
-        t[1] = fmaf(od, v.y, t[1]);
-        t[2] = fmaf(od, v.z, t[2]);
-        t[3] = fmaf(od, v.w, t[3]);
-      }
-      float pr[R], dsr[R];
+    for (int ks = 0; ks < KS; ++ks)
 #pragma unroll
-      for (int r = 0; r < R; ++r) {
-        pr[r] = expf(s[r] - LSE[i]);
-        dsr[r] = pr[r] * (t[r] - DEL[i]);
+      for (int i = 0; i < 4; ++i) {
+        const int row = m0 + g + 8 * (i & 1);
+        const float* src =
+            base + (size_t)row * C3 + 8 * ks + t + 4 * (i >> 1);
+        ka[ks][i] = row < L ? src[C] : 0.f;
+        va[ks][i] = row < L ? src[2 * C] : 0.f;
       }
-      p[i] = make_float4(pr[0], pr[1], pr[2], pr[3]);
-      ds[i] = make_float4(dsr[0], dsr[1], dsr[2], dsr[3]);
+    float dk[NN][4] = {}, dv[NN][4] = {};
+    for (int j0 = 0; j0 < nt; j0 += CH) {
+      float s[CH][4] = {}, dp[CH][4] = {};
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        FragA a, a2;
+        split_a(a, ka[ks]);
+        split_a(a2, va[ks]);
+#pragma unroll
+        for (int jj = 0; jj < CH; ++jj) {
+          FragB b;
+          load_b_nt(b, Qs, LD, 8 * (j0 + jj), 8 * ks, lane);
+          mma3(s[jj], a, b);
+          load_b_nt(b, Os, LD, 8 * (j0 + jj), 8 * ks, lane);
+          mma3(dp[jj], a2, b);
+        }
+      }
+#pragma unroll
+      for (int jj = 0; jj < CH; ++jj) {
+        const int j = j0 + jj;
+        float pr[4], ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int q = 8 * j + 2 * t + (e & 1);
+          pr[e] = q < L ? expf(s[jj][e] * scale - LSE[q]) : 0.f;
+          ds[e] = pr[e] * (dp[jj][e] - DEL[q]);
+        }
+        FragA pa, da;
+        from_c(pa, pr);
+        from_c(da, ds);
+        nn<NN>(dv, pa, Os, LD, 8 * j, 0, lane);
+        nn<NN>(dk, da, Qs, LD, 8 * j, 0, lane);
+      }
     }
-    __syncwarp();
-    float dv[R][U], dk[R][U];
-    rows_times<DH>(p, Os, L, lane, dv);
-    rows_times<DH>(ds, Qs, L, lane, dk);
+
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
-      if (r < nr) {
-        float* drow = dqkv + ((size_t)g.b * L + j0 + r) * C3 + g.h * DH;
+    for (int r = 0; r < 2; ++r) {
+      const int row = m0 + g + 8 * r;
+      if (row < L) {
+        float* d = dqkv + ((size_t)b * L + row) * C3 + h * DH + 2 * t;
 #pragma unroll
-        for (int u = 0; u < U; ++u) {
-          drow[C + lane + 32 * u] = dk[r][u];
-          drow[2 * C + lane + 32 * u] = dv[r][u];
+        for (int n = 0; n < NN; ++n) {
+          *reinterpret_cast<float2*>(d + C + 8 * n) = make_float2(
+              dk[n][2 * r] * scale, dk[n][2 * r + 1] * scale);
+          *reinterpret_cast<float2*>(d + 2 * C + 8 * n) =
+              make_float2(dv[n][2 * r], dv[n][2 * r + 1]);
         }
       }
     }
-    __syncwarp();
   }
 }
 
@@ -433,13 +485,25 @@ size_t fwd_smem(int L, int DH) {
 }
 
 size_t dq_smem(int L, int DH) {
-  return sizeof(float) *
-         (WARPS * L * R + 2 * WARPS * DH * R + 2 * L * (DH + 1));
+  const int lp = Lp_of(L), ld = DH + 4;
+  return sizeof(float) * (2 * lp * ld + bwd_warps(L) * 16 * ld);
 }
 
 size_t dkv_smem(int L, int DH) {
-  return sizeof(float) *
-         (2 * WARPS * L * R + 2 * WARPS * DH * R + 2 * L * (DH + 1) + 2 * L);
+  const int lp = Lp_of(L), ld = DH + 4;
+  return sizeof(float) * (2 * lp * ld + 2 * lp);
+}
+
+// The dQ pass instantiated for L's key tiles.
+template <int DH>
+void (*dq_kernel(int L))(const float*, const float*, float*, float*, float*,
+                         int, int, float) {
+  switch (bwd_tiles(L)) {
+    case 8: return slab_bwd_dq_kernel<DH, 8>;
+    case 16: return slab_bwd_dq_kernel<DH, 16>;
+    case 20: return slab_bwd_dq_kernel<DH, 20>;
+    default: return slab_bwd_dq_kernel<DH, 32>;
+  }
 }
 
 bool shape_ok(int B, int L, int H, int DH) {
@@ -455,10 +519,10 @@ cudaError_t set_smem(K kernel, size_t bytes) {
 }
 
 template <typename K>
-int resident(K kernel, size_t bytes) {
+int resident(K kernel, int threads, size_t bytes) {
   int blocks = 0;
   if (set_smem(kernel, bytes) != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, THREADS,
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads,
                                                     bytes) != cudaSuccess)
     return -1;
   return blocks;
@@ -466,9 +530,10 @@ int resident(K kernel, size_t bytes) {
 
 template <int DH>
 void occupancy(int L, int* out) {
-  out[0] = resident(slab_fwd_kernel<DH>, fwd_smem(L, DH));
-  out[1] = resident(slab_bwd_dq_kernel<DH>, dq_smem(L, DH));
-  out[2] = resident(slab_bwd_dkv_kernel<DH>, dkv_smem(L, DH));
+  out[0] = resident(slab_fwd_kernel<DH>, THREADS, fwd_smem(L, DH));
+  out[1] = resident(dq_kernel<DH>(L), 32 * bwd_warps(L), dq_smem(L, DH));
+  out[2] = resident(slab_bwd_dkv_kernel<DH>, 32 * bwd_warps(L),
+                    dkv_smem(L, DH));
 }
 
 template <int DH>
@@ -486,17 +551,19 @@ template <int DH>
 int bwd(const float* qkv, const float* dout, float* dqkv, float* lse,
         float* delta, int B, int L, int H, cudaStream_t stream) {
   const float scale = 1.0f / sqrtf((float)DH);
+  const int threads = 32 * bwd_warps(L);
   size_t smem = dq_smem(L, DH);
-  cudaError_t err = set_smem(slab_bwd_dq_kernel<DH>, smem);
+  const auto dq = dq_kernel<DH>(L);
+  cudaError_t err = set_smem(dq, smem);
   if (err != cudaSuccess) return (int)err;
-  slab_bwd_dq_kernel<DH><<<grid_of(B, L, H), THREADS, smem, stream>>>(
-      qkv, dout, dqkv, lse, delta, L, H, scale);
+  dq<<<B * H, threads, smem, stream>>>(qkv, dout, dqkv, lse, delta, L, H,
+                                      scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   smem = dkv_smem(L, DH);
   err = set_smem(slab_bwd_dkv_kernel<DH>, smem);
   if (err != cudaSuccess) return (int)err;
-  slab_bwd_dkv_kernel<DH><<<grid_of(B, L, H), THREADS, smem, stream>>>(
+  slab_bwd_dkv_kernel<DH><<<B * H, threads, smem, stream>>>(
       qkv, dout, dqkv, lse, delta, L, H, scale);
   return (int)cudaGetLastError();
 }
@@ -520,6 +587,9 @@ int ertdx_slab_bwd(const float* qkv, const float* dout, float* dqkv,
                    float* lse, float* delta, int B, int L, int H, int DH,
                    void* stream) {
   if (!shape_ok(B, L, H, DH)) return (int)cudaErrorInvalidValue;
+  // the backward stages rows with 16-byte cp.async
+  if (((uintptr_t)qkv | (uintptr_t)dout) & 15)
+    return (int)cudaErrorMisalignedAddress;
   cudaStream_t s = (cudaStream_t)stream;
   return DH == 32 ? bwd<32>(qkv, dout, dqkv, lse, delta, B, L, H, s)
                   : bwd<64>(qkv, dout, dqkv, lse, delta, B, L, H, s);

@@ -57,6 +57,7 @@ SIGNATURES = {
     "ertdx_flash_fwd": [_P] * 6 + [_I] * 5 + [_F, _P],
     "ertdx_flash_bwd_dq": [_P] * 9 + [_I] * 5 + [_F, _P],
     "ertdx_flash_bwd_dkv": [_P] * 9 + [_I] * 5 + [_F, _P],
+    "ertdx_flash_bwd_tiles": [_I, _P],
 }
 
 
@@ -165,6 +166,23 @@ def check_cuda(name: str, t: torch.Tensor, shape) -> None:
                          f"expects {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: the kernel takes contiguous tensors")
+
+
+def check_aligned16(**tensors: torch.Tensor) -> None:
+    """What kernels that stage with 16-byte cp.async take: data that
+    starts on a 16-byte boundary; raises otherwise."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: the kernel takes 16-byte aligned "
+                             "data (contiguous16 makes a copy that is)")
+
+
+def contiguous16(t: torch.Tensor) -> torch.Tensor:
+    """t as a contiguous tensor whose data starts on a 16-byte boundary:
+    t itself where it is one, else a copy (a contiguous view may start at
+    any float of its storage)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def raise_on(rc: int, name: str) -> None:

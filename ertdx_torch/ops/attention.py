@@ -25,10 +25,15 @@ warns once per shape. `launches` counts kernel launches only.
 kernels' arithmetic from a saved (O, lse) in plain PyTorch: they are the
 kernels' oracle. With -1e30 as the bias (not -inf), a batch row whose
 keys are all masked gets the uniform mean of V, lse = -1e30, and p = 1 in
-the backward, in JAX's kernels and here alike.
+the backward, in JAX's kernels and here alike. The CUDA backward runs its
+products as 3xTF32 on the tensor cores (fp32-class, as JAX's
+Precision.HIGHEST) and skips key tiles that are all padding where the
+batch row has a valid key: p = 0 there exactly, so their dK and dV rows
+are 0 and dQ is unchanged.
 """
 from __future__ import annotations
 
+import ctypes
 import math
 import warnings
 from typing import Optional
@@ -189,6 +194,8 @@ def flash_attention_bwd_dq(q, k, v, kv_mask, out, lse, do):
     _build.check_cuda("out", out, (b, h, lq, d))
     _build.check_cuda("lse", lse, (b, h, lq))
     _build.check_cuda("do", do, (b, h, lq, d))
+    _build.check_aligned16(q=q, k=k, v=v, kv_mask=mask, out=out, lse=lse,
+                           do=do)
     dq = torch.empty_like(q)
     delta = torch.empty(b, h, lq, device=q.device, dtype=torch.float32)
     lib = _build.load().lib
@@ -212,6 +219,8 @@ def flash_attention_bwd_dkv(q, k, v, kv_mask, lse, delta, do):
     _build.check_cuda("lse", lse, (b, h, lq))
     _build.check_cuda("delta", delta, (b, h, lq))
     _build.check_cuda("do", do, (b, h, lq, d))
+    _build.check_aligned16(q=q, k=k, v=v, kv_mask=mask, lse=lse,
+                           delta=delta, do=do)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     lib = _build.load().lib
     with torch.cuda.device(q.device):
@@ -225,6 +234,16 @@ def flash_attention_bwd_dkv(q, k, v, kv_mask, lse, delta, do):
     _build.raise_on(rc, "flash_attention_bwd_dkv")
     launches["flash_attention_bwd_dkv"] += 1
     return dk, dv
+
+
+def bwd_tiles(d: int) -> dict:
+    """Keys of one skip of all-padding keys in the backward at head width
+    d: the dQ kernel's key tile and a dK/dV warp's rows (needs the built
+    kernels)."""
+    out = (ctypes.c_int * 2)()
+    rc = _build.load().lib.ertdx_flash_bwd_tiles(d, out)
+    _build.raise_on(rc, "flash backward tile query")
+    return dict(zip(("dq_key_tile", "dkv_warp_keys"), out))
 
 
 def flash_attention_bwd(q, k, v, kv_mask, out, lse, do):
@@ -247,7 +266,7 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, kv_mask, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, kv_mask, out, lse,
-                                         do.contiguous())
+                                         _build.contiguous16(do))
         return dq, dk, dv, None
 
 
@@ -262,8 +281,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if use_pallas and q.device.type == "cuda":
         if aligned(q, k):
             mask = _mask_for(kv_mask, q.shape[0], k.shape[2], q.device)
-            return _FlashAttention.apply(q.contiguous(), k.contiguous(),
-                                         v.contiguous(), mask)
+            return _FlashAttention.apply(
+                *(_build.contiguous16(t) for t in (q, k, v, mask)))
         warn_unaligned(q, k)
     return reference_attention(q, k, v, kv_mask)
 

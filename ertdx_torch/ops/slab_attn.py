@@ -17,9 +17,9 @@ device, as JAX's `_sa_fwd` (:309-314) takes its XLA reference; where it
 is true a failed build or launch raises. `launches` counts kernel
 launches only.
 
-`accurate` selects HIGHEST-precision matmuls in the TPU kernel; the CUDA
-kernels compute every product as an fp32 FMA, so it has no effect until a
-tensor-core version exists.
+`accurate` selects HIGHEST-precision matmuls in the TPU kernel. The CUDA
+forward computes its products as fp32 FMAs and the backward as 3xTF32 on
+the tensor cores (csrc/tf32x3.cuh), both fp32-class, so it has no effect.
 """
 from __future__ import annotations
 
@@ -115,6 +115,7 @@ def slab_attention_bwd(qkv: torch.Tensor, do: torch.Tensor,
     _build.check_cuda("do", do, (b, l, c))
     if do.device != qkv.device:
         raise ValueError("qkv and do must share one CUDA device")
+    _build.check_aligned16(qkv=qkv, do=do)
     dqkv = torch.empty_like(qkv)
     scratch = torch.empty(2, b, num_heads, l, device=qkv.device,
                           dtype=torch.float32)
@@ -151,7 +152,8 @@ class _SlabAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         qkv, = ctx.saved_tensors
-        return slab_attention_bwd(qkv, do.contiguous(), ctx.num_heads), None
+        return (slab_attention_bwd(qkv, _build.contiguous16(do),
+                                   ctx.num_heads), None)
 
 
 def slab_attention(qkv: torch.Tensor, num_heads: int,
@@ -159,9 +161,9 @@ def slab_attention(qkv: torch.Tensor, num_heads: int,
     """(B, L, 3C) packed QKV slab -> (B, L, C) attention output, with a
     gradient. The CUDA kernels on a CUDA tensor the gate takes; the plain
     version on a CPU tensor, or where the gate is false."""
-    del accurate   # fp32 FMA throughout; see the module docstring
+    del accurate   # fp32-class throughout; see the module docstring
     b, l, c3 = qkv.shape
     if (qkv.device.type == "cpu"
             or not slab_attention_ok(b, l, c3 // 3, num_heads)):
         return reference_slab_attention(qkv, num_heads)
-    return _SlabAttention.apply(qkv.contiguous(), num_heads)
+    return _SlabAttention.apply(_build.contiguous16(qkv), num_heads)

@@ -140,6 +140,10 @@ def test_slab_kernels_match_plain(cuda, b, l, c, nh):
         1e-4 * max(1.0, float(want.abs().max()))
     assert float((z.grad - dwant).abs().max()) <= \
         1e-4 * max(1.0, float(dwant.abs().max()))
+    # the backward owns its outputs (no atomics): reruns are bit-identical
+    again = sa.slab_attention_bwd(qkv, do, nh)
+    assert torch.equal(again, sa.slab_attention_bwd(qkv, do, nh))
+    assert torch.equal(again, z.grad)
 
 
 def test_slab_gate_false_runs_the_plain_version(cuda):
@@ -395,10 +399,12 @@ def test_fused_encoder_trains_on_the_gn_kernels(cuda):
 
 # (B, H, L, Dh, valid keys, rows with every key masked): the encoder's
 # flash shape (147 of 256 keys valid), the length gate's, Dh 128 and 256,
-# and batch rows whose keys are all masked
+# and batch rows whose keys are all masked (the last at the flash arm's
+# head width, beside a live row whose last key tiles are all padding)
 FLASH_CASES = [(256, 4, 256, 64, 147, ()), (8, 4, 1024, 64, 1024, ()),
                (2, 2, 256, 128, 200, ()), (2, 2, 256, 256, 256, ()),
-               (3, 2, 128, 64, 100, (1,)), (2, 1, 256, 256, 147, (0,))]
+               (3, 2, 128, 64, 100, (1,)), (2, 1, 256, 256, 147, (0,)),
+               (2, 4, 256, 64, 147, (1,))]
 
 
 def _flash_inputs(dev, b, h, l, d, valid, dead, seed):
@@ -437,6 +443,19 @@ def test_flash_kernels_match_plain(cuda, b, h, l, d, valid, dead):
     again = at.flash_attention_bwd(q, k, v, mask, out, lse, do)
     assert all(torch.equal(a, w) for a, w in zip(grads, again))
     assert torch.equal(out, at.flash_attention_fwd(q, k, v, mask)[0])
+    # key rows that are all padding in a live batch row: the backward
+    # skips them, and their dK and dV are exactly 0 (as p = 0 there)
+    pad = (mask.reshape(b, l // 16, 16).amax(dim=2) <= 0) & live[:, None]
+    pad = pad.repeat_interleave(16, dim=1)
+    for grad in grads[1:]:
+        assert (grad.permute(0, 2, 1, 3)[pad] == 0).all()
+    if dead:      # the dead rows keep every tile: p = 1 there, as plain
+        dq, dk, dv = grads
+        wq, wk, wv = at.reference_flash_backward(q, k, v, mask, want,
+                                                 want_lse, do)
+        for a, w in ((dq, wq), (dk, wk), (dv, wv)):
+            _close(a[~live], w[~live])
+            assert float(w[~live].abs().max()) > 0
 
 
 def test_flash_attention_autograd_on_the_kernels(cuda):
@@ -456,6 +475,54 @@ def test_flash_attention_autograd_on_the_kernels(cuda):
     for leaf, w in zip(leaves, at.reference_flash_backward(q, k, v, mask,
                                                            want, lse, do)):
         _close(leaf.grad, w)
+
+
+def _misaligned(t):
+    """t's values in a contiguous view that starts 4 bytes past a 16-byte
+    boundary of its storage."""
+    view = torch.empty(t.numel() + 1, device=t.device, dtype=t.dtype)[1:]
+    view = view.view(t.shape).copy_(t)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 4
+    return view
+
+
+def test_attention_backwards_take_misaligned_views(cuda):
+    from ertdx_torch.ops import attention as at
+    from ertdx_torch.ops import slab_attn as sa
+
+    # the backward kernels stage with 16-byte cp.async: the autograd paths
+    # copy a misaligned operand, the kernel wrappers refuse it by name
+    g = torch.Generator(device=cuda).manual_seed(11)
+    qkv = torch.randn(2, 147, 3 * 256, generator=g, device=cuda)
+    do = torch.randn(2, 147, 256, generator=g, device=cuda)
+    sa.reset_launches()
+    z = _misaligned(qkv).requires_grad_(True)
+    sa.slab_attention(z, 4).backward(_misaligned(do))
+    torch.cuda.synchronize()
+    assert sa.launches == {"slab_attention_fwd": 1, "slab_attention_bwd": 1}
+    _close(z.grad, sa.reference_slab_attention_backward(qkv, do, 4))
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        sa.slab_attention_bwd(_misaligned(qkv), do, 4)
+
+    q, k, v, do, mask = _flash_inputs(cuda, 2, 4, 256, 64, 147, (), 5)
+    leaves = [_misaligned(t).requires_grad_(True) for t in (q, k, v)]
+    at.reset_launches()
+    at.flash_attention(*leaves, _misaligned(mask)).backward(_misaligned(do))
+    torch.cuda.synchronize()
+    assert at.launches == {"flash_attention_fwd": 1,
+                           "flash_attention_bwd_dq": 1,
+                           "flash_attention_bwd_dkv": 1}
+    want, lse = at.reference_flash_forward(q, k, v, mask)
+    for leaf, w in zip(leaves, at.reference_flash_backward(q, k, v, mask,
+                                                           want, lse, do)):
+        _close(leaf.grad, w)
+    out, lse = at.flash_attention_fwd(q, k, v, mask)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        at.flash_attention_bwd_dq(q, k, v, mask, out, lse, _misaligned(do))
+    dq, delta = at.flash_attention_bwd_dq(q, k, v, mask, out, lse, do)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        at.flash_attention_bwd_dkv(q, _misaligned(k), v, mask, lse, delta,
+                                   do)
 
 
 def test_flash_gate_false_runs_the_plain_version(cuda):
