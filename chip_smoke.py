@@ -8,7 +8,10 @@ non-zero and prints no result line):
 
 1. device: the card's name and power limit;
 2. build: nvcc compiles ertdx_torch/csrc/*.cu (ertdx_torch/ops/_build.py)
-   and prints ptxas' register and shared-memory report;
+   and prints ptxas' register and shared-memory report; `cuobjdump -sass`
+   of the library counts each attention kernel's HMMA.1688.F32.TF32
+   instructions and fails if one has none (the slab and flash kernels run
+   their products on the tensor cores);
 3. kernels: fused_core_stack and fused_core_block at full width (D=128,
    nb=4, P=29, Lk=147), every weight non-zero, held against their plain
    PyTorch versions (max abs error <= 1e-4 * max(1, max|plain|)) and timed
@@ -22,13 +25,14 @@ non-zero and prints no result line):
 5. per-block path: the same DDIM run over 2 of the conditions through
    mega_denoise_ensemble(stack=False), i.e. fused_core_block, held against
    the main path's draws;
-6. slab kernels: slab_attention's CUDA forward and backward (the
-   backward on 3xTF32 tensor cores) at the encoder's training shape
+6. slab kernels: slab_attention's CUDA forward and backward (both on
+   3xTF32 tensor cores) at the encoder's training shape
    (B=256, L=147, C=256, 4 heads), at B=4 with 8 heads (dh=32) and at an
    odd L, held against the plain version (1e-4 * max(1, max|plain|)),
    reruns bit-identical, timed beside the plain version and
    F.scaled_dot_product_attention (the yardstick; the port never calls
-   it), with the profiler's kernel names of both backwards (SDPA's route);
+   it), with the profiler's kernel names of the slab kernels and of SDPA
+   (its route) and the kernels' resident blocks and block size;
 7. training path: V5E8_DP's model and train settings in float32 on one
    card (full-width CondUNet, attn_slab=True, batch 256, condition
    4693 x 14). (a) 5 train_steps on the kernel path against the same 5 on
@@ -78,13 +82,14 @@ non-zero and prints no result line):
    exact) and load_best_model.
 
 12. flash attention kernels: flash_attention's CUDA forward, dQ and dK/dV
-   (the backward on 3xTF32 tensor cores, skipping key tiles that are all
-   padding) at the encoder's flash shape (B=256, H=4, L=147 padded to 256
+   (all on 3xTF32 tensor cores, skipping key tiles that are all padding)
+   at the encoder's flash shape (B=256, H=4, L=147 padded to 256
    with the pad keys masked, Dh=64), the length gate's (8, 4, 1024, 64),
    Dh=128 and 256, and batch rows whose keys are all masked (one of them
    at the flash arm's head width with padded key tiles), each output held
-   against the plain version (1e-4 * max(1, max|plain|)), the skipped key
-   rows' dK and dV exactly 0, reruns bit-identical, timed (CUDA events and
+   against the plain version (1e-4 * max(1, max|plain|)), all-masked
+   rows' lse -1e30, the skipped key rows' dK and dV exactly 0, reruns
+   bit-identical (out, lse, dq, dk, dv), timed (CUDA events and
    profiler device time) beside the plain version and
    F.scaled_dot_product_attention on the same padded, masked operands
    (the yardstick; the port never calls it), with the share of key tiles
@@ -122,6 +127,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -259,6 +265,39 @@ def kernel_names(fn) -> str:
     return "; ".join(f"{name[:100]} {us / 1e3:.4f} ms"
                      for name, us in sorted(by_name.items(),
                                             key=lambda kv: -kv[1]))
+
+
+# an attention kernel's name in a mangled symbol
+ATTENTION_KERNEL = re.compile(
+    r"\d((?:slab|flash)_(?:fwd|bwd_dq|bwd_dkv)_kernel)I")
+
+
+def check_tensor_cores(path) -> None:
+    """Phase 2: the TF32 MMAs (HMMA.1688.F32.TF32) in the SASS of each
+    slab and flash kernel of the built library; raises where one has
+    none. Logs and returns where the toolkit has no cuobjdump."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        log("sass: no cuobjdump; the tensor-core check is not made")
+        return
+    sass = subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                          text=True, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            fn = ATTENTION_KERNEL.search(line)
+            name = None if fn is None else "%s<%s>" % (
+                fn.group(1), ",".join(re.findall(r"Li(\d+)E", line)))
+            if name:
+                counts[name] = 0
+        elif name and "HMMA.1688.F32.TF32" in line:
+            counts[name] += 1
+    log("sass: HMMA.1688.F32.TF32 per attention kernel: " + "; ".join(
+        f"{k} {n}" for k, n in sorted(counts.items())))
+    bare = [k for k, n in counts.items() if n == 0]
+    if not counts or bare:
+        raise RuntimeError(f"attention kernels without TF32 MMAs: {bare}")
 
 
 def check_kernels(cb, dev) -> dict:
@@ -405,12 +444,16 @@ def check_slab(sa, dev) -> dict:
                 f"plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, "
                 f"{bound_text(bd, flops, nbytes)}, achieved "
                 f"{flops / ms / 1e9:.2f} TFLOP/s")
+        log("slab forward's kernel, profiler device time a call: "
+            + kernel_names(lambda: sa.slab_attention_fwd(qkv, nh)))
         log("slab backward's kernels, profiler device time a call: "
             + kernel_names(lambda: sa.slab_attention_bwd(qkv, do, nh)))
         log("SDPA's route, forward and backward (profiler kernel names, "
             "device time): " + kernel_names(sdpa_fwd_bwd))
-        log(f"resident blocks per SM at L={l}, dh={dh} (256 threads "
-            f"each): {sa.blocks_per_sm(l, dh)}")
+        occ = sa.blocks_per_sm(l, dh)
+        threads = occ.pop("threads")
+        log(f"resident blocks per SM at L={l}, dh={dh} ({threads} threads "
+            f"each): {occ}")
         log(f"SDPA forward+backward (one call each, reshapes included): "
             f"{fwd_bwd_lib:.4f} ms; slab kernels forward+backward "
             f"{fwd_ms + bwd_ms:.4f} ms")
@@ -1120,7 +1163,7 @@ def check_flash(at, dev, card) -> dict:
             raise RuntimeError("all-masked rows: lse is not -1e30")
         # key rows the backward skips (all padding, in a live batch row)
         # hold exactly 0 in dK and dV
-        tiles = at.bwd_tiles(d)
+        tiles = at.skip_tiles(d)
         tile = tiles["dkv_warp_keys"]
         pad = (mask.reshape(b, l // tile, tile).amax(dim=2) <= 0) \
             & live[:, None]
@@ -1130,11 +1173,13 @@ def check_flash(at, dev, card) -> dict:
             f"not 0: {skipped_nonzero} of {2 * int(pad.sum()) * h * d}")
         if skipped_nonzero:
             raise RuntimeError(f"flash {shape}: skipped key rows not zero")
-        again = (at.flash_attention_fwd(q, k, v, mask)[0],
+        again = (*at.flash_attention_fwd(q, k, v, mask),
                  at.flash_attention_bwd_dq(q, k, v, mask, out, lse, do)[0],
                  *at.flash_attention_bwd_dkv(q, k, v, mask, lse, delta, do))
-        same = [torch.equal(a, w) for a, w in zip(again, (out, dq, dk, dv))]
-        log(f"flash {shape}: reruns bit-identical (out, dq, dk, dv) {same}")
+        same = [torch.equal(a, w)
+                for a, w in zip(again, (out, lse, dq, dk, dv))]
+        log(f"flash {shape}: reruns bit-identical (out, lse, dq, dk, dv) "
+            f"{same}")
         if not all(same):
             raise RuntimeError(f"flash {shape}: reruns differ")
         if (b, h, l, d, valid, dead) != FLASH_CASES[0]:
@@ -1215,11 +1260,12 @@ def check_flash(at, dev, card) -> dict:
             f"the five products counted once {bwd_bd['bound_ms']:.4f} ms "
             f"(fp32 pipe {bwd_bd['bound_fp32_ms']:.4f} ms); {card}")
         live_keys = mask[live]
-        for what, tile in (("dQ key tiles", tiles["dq_key_tile"]),
+        for what, tile in (("forward key tiles", tiles["fwd_key_tile"]),
+                           ("dQ key tiles", tiles["dq_key_tile"]),
                            ("dK/dV key rows of a warp",
                             tiles["dkv_warp_keys"])):
             empty = live_keys.reshape(-1, l // tile, tile).amax(dim=2) <= 0
-            log(f"flash backward at {shape}: {what} ({tile} keys) skipped "
+            log(f"flash kernels at {shape}: {what} ({tile} keys) skipped "
                 f"as all padding: {float(empty.float().mean()):.4f} of them")
         def sdpa_fwd_bwd():
             leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
@@ -1814,6 +1860,7 @@ def main() -> int:
         line.strip() for line in kernels.report.splitlines()
         if "registers" in line or "Compiling entry" in line
         or "bytes stack frame" in line))
+    check_tensor_cores(kernels.path)
     phase("build", t0)
 
     # 3. kernels against their plain versions

@@ -1,5 +1,5 @@
-// Packed-head slab attention, forward and backward (sm_90a; the forward
-// on fp32 FMA, the backward on 3xTF32 tensor cores).
+// Packed-head slab attention, forward and backward (sm_90a; every
+// product on the 3xTF32 tensor-core tile of tf32x3.cuh).
 //
 // Replaces the TPU kernels of ertdx/ops/slab_attn.py:
 //   * slab_fwd_kernel            <- _slab_fwd_kernel (:147-168)
@@ -7,53 +7,57 @@
 //     slab_bwd_dkv_kernel        <- _slab_bwd_kernel (:184-222)
 // Input is the fused QKV slab (B, L, 3C) as the encoder's Dense emits it:
 // q at lanes [0, C), k at [C, 2C), v at [2C, 3C); head h owns lanes
-// [h dh, (h+1) dh) of each third. The forward writes softmax(q k^T /
-// sqrt(dh)) v per head into (B, L, C); the backward writes dQ | dK | dV
-// into (B, L, 3C) in the same layout, with the JAX kernel's math:
-// dS = P o (dP - rowsum(dP o P)), dQ = dS K scale, dK = dS^T Q scale,
-// dV = P^T dO. No (B, H, L, dh) tensor and no logit matrix ever reaches
-// device memory.
+// [h dh, (h+1) dh) of each third. The forward writes softmax((q scale)
+// k^T) v per head, scale = 1/sqrt(dh), into (B, L, C); the backward
+// writes dQ | dK | dV into (B, L, 3C) in the same layout, with the JAX
+// kernel's math: dS = P o (dP - rowsum(dP o P)), dQ = dS K scale, dK =
+// dS^T Q scale, dV = P^T dO. No (B, H, L, dh) tensor and no logit matrix
+// ever reaches device memory.
 //
-// What bounds it on an H100: operations. At the encoder's training shape
-// (B=256, L=147, C=256, H=4, dh=64) the forward does 4 B H L^2 dh = 5.7
-// GFLOP against 154 MB of traffic, the backward 10 B H L^2 dh = 14.2 GFLOP
-// against 270 MB: 0.085 and 0.211 ms at 67 TFLOP/s fp32; the backward's
-// products as 3xTF32 are 42.6 GFLOP, 0.086 ms at 495 TFLOP/s.
+// What bounds it on an H100: bytes in the forward, operations (barely)
+// in the backward. At the encoder's training shape
+// (B=256, L=147, C=256, H=4, dh=64) the forward reads the slab and
+// writes the output, 154 MB, 0.046 ms at 3.35 TB/s, against 4 B H L^2 dh
+// = 5.7 GFLOP, 17 GFLOP as 3xTF32 (0.034 ms at 495 TFLOP/s); the
+// backward moves 270 MB (0.081 ms) for 10 B H L^2 dh = 14.2 GFLOP, 42.6
+// as 3xTF32 (0.086 ms). On the fp32 pipe (67 TFLOP/s) the products alone
+// would take 0.085 and 0.211 ms.
 //
 // What the design does about it, and what it changes from the TPU kernel:
 //   * Exact per-head attention. The TPU's block-diagonal head groups
 //     (_packed_kv, _diag_blocks) exist only to fill 128 MXU lanes and are
 //     not carried over: no masked logits are computed.
-//   * Forward grid: one CUDA block per (batch row, head, tile of 64 rows);
-//     3,072 blocks at the training shape. Each block holds K and V of its
-//     head in shared memory, rows padded to dh+1 floats so that 32 lanes
-//     reading 32 rows hit 32 banks. Its inner loops are bound by
-//     shared-memory bandwidth (128 bytes per clock per SM), not by the FMA
-//     units, so every value read from shared memory serves R = 4 rows: a
-//     warp owns 4 rows at a time, their q values sit in shared memory as
-//     [dh][4] and arrive as one 16-byte broadcast, and the lanes split the
-//     L logits of all 4 rows. Warp shuffles reduce max and sum; the 4
-//     rows' logits live in a per-warp [L][4] buffer, and the lanes then
-//     split dh for the P V product, each V value serving 4 rows. Its
-//     products are fp32 FMAs.
-//   * The backward is two launches, each one block per (batch row, head),
-//     so that a head's two resident operands are staged once (with 16-byte
-//     cp.async; the slab's row stride is 3C floats, 16-byte aligned since
-//     C is a multiple of 4). A dQ pass (K, V resident; query rows) also
-//     writes each row's log-sum-exp and delta = rowsum(dP o P) to a
+//   * Every product (forward S = q k^T and O = P V; backward S, dP, dQ =
+//     dS K, dV = P^T dO, dK = dS^T Q) runs on the 3xTF32 tile of
+//     tf32x3.cuh: warp-level mma.sync m16n8k8, each operand split into two
+//     TF32 halves, three MMAs a k step; fp32-class results (the TPU kernel
+//     runs Precision.HIGHEST), so `accurate` has no effect. The softmax
+//     (and in the backward delta and dS) is computed on the accumulator
+//     fragments in registers, and P and dS feed the next product from
+//     there.
+//   * Each kernel is one block per (batch row, head), so that a head's two
+//     resident operands are staged once, with 16-byte cp.async (the
+//     slab's row stride is 3C floats, 16-byte aligned since C is a
+//     multiple of 4; the wrappers refuse a slab that does not start on a
+//     16-byte boundary). A block has 32 x block_warps(L) threads; warp w
+//     takes the 16-row tiles w, w + warps, ... of the head.
+//   * The forward (K, V resident) stages a warp's 16 q rows, scales them,
+//     keeps the whole row of S in registers (key_tiles(L) n tiles of 8
+//     keys; above 160 keys two halves under an online softmax), takes
+//     the softmax there and runs P V from the fragments, scaling by
+//     1/rowsum at the end; the next tile's q rows are staged while it
+//     does. P V sums each k step's MMAs from zero and adds them
+//     to O in fp32 (tf32x3::nn_add): over L keys the MMA's own
+//     accumulation drifts further from the fp32 plain version than
+//     training's gates allow.
+//   * The backward is two launches. A dQ pass (K, V resident; query rows)
+//     also writes each row's log-sum-exp and delta = rowsum(dP o P) to a
 //     (B, H, L) scratch, and a dK/dV pass (Q, dO resident; key rows)
-//     recomputes P from the log-sum-exp. Each pass owns its outputs
+//     recomputes P from the log-sum-exp. Each kernel owns its outputs
 //     outright: no atomics, deterministic results. At L=147, dh=64 the
-//     passes take 104 and 88 KB of shared memory: two blocks of 4 warps
-//     an SM.
-//   * All five backward products (S, dP, dQ = dS K, dV = P^T dO, dK =
-//     dS^T Q) run on the 3xTF32 tile of tf32x3.cuh: warp-level
-//     mma.sync m16n8k8, each operand split into two TF32 halves, three
-//     MMAs a k step; fp32-class results (the TPU kernel runs
-//     Precision.HIGHEST), so `accurate` has no effect. The softmax, delta
-//     and dS are computed on the accumulator fragments in registers, and
-//     P and dS feed the next product from there. The dQ pass recomputes
-//     dP once more for delta than the TPU kernel does (dP does not fit in
+//     forward and the dQ pass take 104 KB of shared memory and the dK/dV
+//     pass 88 KB: two blocks of 4 warps an SM. The dQ pass recomputes dP
+//     once more for delta than the TPU kernel does (dP does not fit in
 //     registers beside P at L=256): 8 products where the math has 5.
 //   * The ragged edge: L need not be a multiple of 16. Staged rows past L
 //     are zero; keys past L get -inf before the max (p = 0 exactly),
@@ -71,190 +75,151 @@
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
-constexpr int TILE = 64;               // rows of one block
-constexpr int R = 4;                   // rows a warp owns at a time
 constexpr int L_MAX = 256;             // longest sequence the kernels take
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
+// Warps of a block at length L: at least two 16-row tiles each, at most
+// MAX_WARPS, so that two blocks fit an SM's registers at up to 255 a
+// thread.
+constexpr int MAX_WARPS = 4;
+int block_warps(int L) { return min(MAX_WARPS, ((L + 15) / 16 + 1) / 2); }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// Copy one head's (L, DH) third of the slab into a padded shared tile,
-// scaled by `mul`.
-template <int DH>
-__device__ void load_head(float* dst, const float* src, int L, int stride,
-                          float mul) {
-  for (int e = threadIdx.x; e < L * DH; e += THREADS) {
-    const int i = e / DH, d = e % DH;
-    dst[i * (DH + 1) + d] = src[(size_t)i * stride + d] * mul;
-  }
-}
-
-// Stage `nr` <= R rows of one head (row stride `stride`) as a [DH][R] tile
-// for 16-byte broadcasts; rows past nr are zero. Called by a whole warp.
-template <int DH>
-__device__ void stage_rows(float* dst, const float* src, int nr, int stride,
-                           float mul, int lane) {
-  for (int e = lane; e < R * DH; e += 32) {
-    const int r = e / DH, d = e % DH;
-    dst[d * R + r] = r < nr ? src[(size_t)r * stride + d] * mul : 0.f;
-  }
-  __syncwarp();
-}
-
-// acc[r][u] = sum_j w[j][r] M[j][lane + 32 u]: the P V-type product of a
-// warp's 4 rows against the L rows of a padded (L, DH+1) shared tile.
-template <int DH>
-__device__ __forceinline__ void rows_times(const float4* w, const float* M,
-                                           int L, int lane,
-                                           float (&acc)[R][DH / 32]) {
-  constexpr int LD = DH + 1;
-  constexpr int U = DH / 32;
-#pragma unroll
-  for (int r = 0; r < R; ++r)
-#pragma unroll
-    for (int u = 0; u < U; ++u) acc[r][u] = 0.f;
-  for (int j = 0; j < L; ++j) {
-    const float4 wj = w[j];
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const float m = M[j * LD + lane + 32 * u];
-      acc[0][u] = fmaf(wj.x, m, acc[0][u]);
-      acc[1][u] = fmaf(wj.y, m, acc[1][u]);
-      acc[2][u] = fmaf(wj.z, m, acc[2][u]);
-      acc[3][u] = fmaf(wj.w, m, acc[3][u]);
-    }
-  }
-}
-
-struct Geometry {
-  int b, h, r0, r1;
-};
-
-__device__ Geometry geometry(int L, int H) {
-  const int tiles = (L + TILE - 1) / TILE;
-  const int tile = blockIdx.x % tiles;
-  const int bh = blockIdx.x / tiles;
-  Geometry g;
-  g.h = bh % H;
-  g.b = bh / H;
-  g.r0 = tile * TILE;
-  g.r1 = min(L, g.r0 + TILE);
-  return g;
-}
-
-// In each kernel's shared memory the 16-byte arrays come first, so that
-// they stay aligned.
-template <int DH>
-__global__ void __launch_bounds__(THREADS)
-    slab_fwd_kernel(const float* __restrict__ qkv, float* __restrict__ out,
-                    int L, int H, float scale) {
-  extern __shared__ __align__(16) float smem[];
-  constexpr int LD = DH + 1;
-  constexpr int U = DH / 32;
-  const int C = H * DH, C3 = 3 * C;
-  const Geometry g = geometry(L, H);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float4* p = reinterpret_cast<float4*>(smem) + warp * L;   // (L) x 4 rows
-  float* qs = smem + WARPS * L * R + warp * DH * R;         // (DH) x 4
-  float* Ks = smem + WARPS * L * R + WARPS * DH * R;        // (L, LD)
-  float* Vs = Ks + L * LD;                                  // (L, LD)
-  const float* base = qkv + (size_t)g.b * L * C3 + g.h * DH;
-  load_head<DH>(Ks, base + C, L, C3, 1.0f);
-  load_head<DH>(Vs, base + 2 * C, L, C3, 1.0f);
-  __syncthreads();
-
-  const float4* qs4 = reinterpret_cast<const float4*>(qs);
-  for (int r0 = g.r0 + warp * R; r0 < g.r1; r0 += WARPS * R) {
-    const int nr = min(R, g.r1 - r0);
-    stage_rows<DH>(qs, base + (size_t)r0 * C3, nr, C3, scale, lane);
-    float mx[R] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
-    for (int j = lane; j < L; j += 32) {
-      const float* kr = Ks + j * LD;
-      float s[R] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-      for (int d = 0; d < DH; ++d) {
-        const float kd = kr[d];
-        const float4 q = qs4[d];
-        s[0] = fmaf(q.x, kd, s[0]);
-        s[1] = fmaf(q.y, kd, s[1]);
-        s[2] = fmaf(q.z, kd, s[2]);
-        s[3] = fmaf(q.w, kd, s[3]);
-      }
-      p[j] = make_float4(s[0], s[1], s[2], s[3]);
-#pragma unroll
-      for (int r = 0; r < R; ++r) mx[r] = fmaxf(mx[r], s[r]);
-    }
-    float sum[R] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-    for (int r = 0; r < R; ++r) mx[r] = warp_max(mx[r]);
-    for (int j = lane; j < L; j += 32) {
-      const float4 s = p[j];
-      const float4 e = make_float4(expf(s.x - mx[0]), expf(s.y - mx[1]),
-                                   expf(s.z - mx[2]), expf(s.w - mx[3]));
-      p[j] = e;
-      sum[0] += e.x;
-      sum[1] += e.y;
-      sum[2] += e.z;
-      sum[3] += e.w;
-    }
-    __syncwarp();
-    float acc[R][U];
-    rows_times<DH>(p, Vs, L, lane, acc);
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const float inv = 1.f / warp_sum(sum[r]);
-      if (r < nr) {
-        float* o = out + ((size_t)g.b * L + r0 + r) * C + g.h * DH;
-#pragma unroll
-        for (int u = 0; u < U; ++u) o[lane + 32 * u] = acc[r][u] * inv;
-      }
-    }
-    __syncwarp();
-  }
-}
-
-// The backward kernels run every product on the 3xTF32 tensor-core tile of
-// tf32x3.cuh. One block per (batch row, head) of 32 x bwd_warps(L)
-// threads; warp w takes the 16-row tiles w, w + warps, ... of the head.
-
-// Warps of a backward block at length L: at least two 16-row tiles each,
-// at most BWD_WARPS, so that two blocks fit an SM's registers at up to
-// 255 a thread.
-constexpr int BWD_WARPS = 4;
-int bwd_warps(int L) { return min(BWD_WARPS, ((L + 15) / 16 + 1) / 2); }
-
-// Key (and query) n tiles of 8 the backward pads L to: 8, 16, 20 or 32
-// (L <= 64, 128, 160, 256), so that its loops over them have a
+// Key (and query) n tiles of 8 the kernels pad L to: 8, 16, 20 or 32
+// (L <= 64, 128, 160, 256), so that their loops over them have a
 // compile-time count and no branch. Padded rows are zero in shared memory
 // and their keys and queries are masked.
-__host__ __device__ int bwd_tiles(int L) {
+__host__ __device__ int key_tiles(int L) {
   const int n = (L + 7) / 8;
   return n <= 8 ? 8 : n <= 16 ? 16 : n <= 20 ? 20 : 32;
 }
 
-__host__ __device__ int Lp_of(int L) { return 8 * bwd_tiles(L); }
+__host__ __device__ int Lp_of(int L) { return 8 * key_tiles(L); }
+
+// Forward: out rows of one (batch row, head). K and V of the head sit in
+// shared memory ((8 NT, DH+4), zero rows past L); a warp stages its 16 q
+// rows, scales them (the TPU kernel's q * scale), and keeps a row of S =
+// q k^T, then of exp(S - max), in registers; O = P V runs from those
+// fragments and is scaled by 1/rowsum on the way out. The row is taken
+// in chunks of KC n tiles, up to 160 keys: one chunk for L <= 160; above
+// that (NT = 32) two of 128 keys under an online softmax, as a whole row
+// of 256 keys in registers beside O spills. The warp's next q rows are
+// staged once its last chunk of S is computed.
+template <int DH, int NT>
+__global__ void __launch_bounds__(32 * MAX_WARPS)
+    slab_fwd_kernel(const float* __restrict__ qkv, float* __restrict__ out,
+                    int L, int H, float scale) {
+  using namespace tf32x3;
+  extern __shared__ __align__(16) float smem[];
+  constexpr int LD = DH + 4, NN = DH / 8, Lp = 8 * NT;
+  constexpr int KC = NT > 20 ? NT / 2 : NT;
+  const int C = H * DH, C3 = 3 * C;
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int warps = blockDim.x / 32, g = lane >> 2, t = lane & 3;
+  const int tiles = (L + 15) / 16;
+  float* Ks = smem;                                // (Lp, LD)
+  float* Vs = Ks + Lp * LD;                        // (Lp, LD)
+  float* W = Vs + Lp * LD + warp * 16 * LD;        // this warp's 16 q rows
+  const float* base = qkv + (size_t)b * L * C3 + h * DH;
+  auto stage_q = [&](int tile) {
+    if (tile < tiles)
+      stage<DH>(W, LD, base + (size_t)tile * 16 * C3, C3, 16, L - tile * 16,
+                warp * 32, 32);
+    cp_commit();
+  };
+  stage<DH>(Ks, LD, base + C, C3, Lp, L, 0, blockDim.x);
+  stage<DH>(Vs, LD, base + 2 * C, C3, Lp, L, 0, blockDim.x);
+  stage_q(warp);
+  cp_wait<0>();
+  __syncthreads();
+
+  for (int tile = warp; tile < tiles; tile += warps) {
+    const int m0 = tile * 16;
+    for (int i = lane; i < 16 * DH; i += 32) W[i / DH * LD + i % DH] *= scale;
+    __syncwarp();
+    // running max and sum of rows g and g+8 (the sum per thread, over its
+    // keys, added up over the quad at the end); chunk 0 holds key 0, so
+    // the max is finite from the first chunk on
+    float mx[2] = {-INFINITY, -INFINITY}, sum[2] = {0.f, 0.f};
+    float acc[NN][4] = {};
+#pragma unroll
+    for (int c = 0; c < NT; c += KC) {
+      float p[KC][4];
+#pragma unroll
+      for (int j = 0; j < KC; ++j)
+        p[j][0] = p[j][1] = p[j][2] = p[j][3] = 0.f;
+      nt1<KC, DH>(p, W, Ks, LD, 0, 8 * c, lane);   // S = (q scale) k^T
+      if (c + KC == NT) {
+        __syncwarp();                              // q is read: stage the next
+        stage_q(tile + warps);
+      }
+
+      // softmax over the keys < L: -inf before the max, so p = 0 past L
+      float cm[2] = {mx[0], mx[1]};
+#pragma unroll
+      for (int j = 0; j < KC; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = 8 * (c + j) + 2 * t + (e & 1);
+          if (key >= L) p[j][e] = -INFINITY;
+          cm[e >> 1] = fmaxf(cm[e >> 1], p[j][e]);
+        }
+      if (c > 0) {
+        float alpha[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          cm[r] = quad_max(cm[r]);
+          alpha[r] = expf(mx[r] - cm[r]);
+          sum[r] *= alpha[r];
+        }
+#pragma unroll
+        for (int n = 0; n < NN; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e >> 1];
+      } else {
+        cm[0] = quad_max(cm[0]);
+        cm[1] = quad_max(cm[1]);
+      }
+      mx[0] = cm[0];
+      mx[1] = cm[1];
+#pragma unroll
+      for (int j = 0; j < KC; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          p[j][e] = expf(p[j][e] - mx[e >> 1]);
+          sum[e >> 1] += p[j][e];
+        }
+        FragA a;
+        from_c(a, p[j]);
+        nn_add<NN>(acc, a, Vs, LD, 8 * (c + j), 0, lane);  // O += P V
+      }
+    }
+    const float inv[2] = {1.f / quad_sum(sum[0]), 1.f / quad_sum(sum[1])};
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = m0 + g + 8 * r;
+      if (row < L) {
+        float* o = out + ((size_t)b * L + row) * C + h * DH + 2 * t;
+#pragma unroll
+        for (int n = 0; n < NN; ++n)
+          *reinterpret_cast<float2*>(o + 8 * n) = make_float2(
+              acc[n][2 * r] * inv[r], acc[n][2 * r + 1] * inv[r]);
+      }
+    }
+    cp_wait<0>();
+    __syncwarp();                                  // the next q rows are in W
+  }
+}
 
 // Backward pass 1: dQ rows, and each row's log-sum-exp and delta. K and V
 // of the head sit in shared memory ((8 NT, DH+4), zero rows past L); a
 // warp stages its 16 q rows, keeps the whole row of S (then P) in
-// registers (NT = bwd_tiles(L) n tiles of 8 keys), stages its dO rows
+// registers (NT = key_tiles(L) n tiles of 8 keys), stages its dO rows
 // over the q rows, and recomputes dP in chunks of CH n tiles twice: once
 // for delta = rowsum(P o dP), once for dS = P o (dP - delta), which goes
 // straight from the accumulators into dQ = dS K.
 template <int DH, int NT>
-__global__ void __launch_bounds__(32 * BWD_WARPS)
+__global__ void __launch_bounds__(32 * MAX_WARPS)
     slab_bwd_dq_kernel(const float* __restrict__ qkv,
                        const float* __restrict__ dout,
                        float* __restrict__ dqkv, float* __restrict__ lse,
@@ -377,13 +342,13 @@ __global__ void __launch_bounds__(32 * BWD_WARPS)
 }
 
 // Backward pass 2: dK and dV rows, P recomputed from the log-sum-exp. Q
-// and dO of the head ((Lp, DH+4), Lp = 8 bwd_tiles(L), zero rows past L)
+// and dO of the head ((Lp, DH+4), Lp = 8 key_tiles(L), zero rows past L)
 // and its lse and delta sit in shared memory; a warp holds its 16 key rows of k and v as A fragments in
 // registers (read once from the slab) and walks the queries in chunks of
 // CH n tiles: S^T = k q^T and dP^T = v dO^T, P^T and dS^T on the
 // accumulators, then dV += P^T dO and dK += dS^T Q from them.
 template <int DH>
-__global__ void __launch_bounds__(32 * BWD_WARPS)
+__global__ void __launch_bounds__(32 * MAX_WARPS)
     slab_bwd_dkv_kernel(const float* __restrict__ qkv,
                         const float* __restrict__ dout,
                         float* __restrict__ dqkv,
@@ -480,13 +445,10 @@ __global__ void __launch_bounds__(32 * BWD_WARPS)
   }
 }
 
+// The forward and the dQ pass: K and V, and 16 rows a warp.
 size_t fwd_smem(int L, int DH) {
-  return sizeof(float) * (WARPS * L * R + WARPS * DH * R + 2 * L * (DH + 1));
-}
-
-size_t dq_smem(int L, int DH) {
   const int lp = Lp_of(L), ld = DH + 4;
-  return sizeof(float) * (2 * lp * ld + bwd_warps(L) * 16 * ld);
+  return sizeof(float) * (2 * lp * ld + block_warps(L) * 16 * ld);
 }
 
 size_t dkv_smem(int L, int DH) {
@@ -494,11 +456,20 @@ size_t dkv_smem(int L, int DH) {
   return sizeof(float) * (2 * lp * ld + 2 * lp);
 }
 
-// The dQ pass instantiated for L's key tiles.
+// The forward and the dQ pass instantiated for L's key tiles.
 template <int DH>
-void (*dq_kernel(int L))(const float*, const float*, float*, float*, float*,
-                         int, int, float) {
-  switch (bwd_tiles(L)) {
+auto fwd_kernel(int L) {
+  switch (key_tiles(L)) {
+    case 8: return slab_fwd_kernel<DH, 8>;
+    case 16: return slab_fwd_kernel<DH, 16>;
+    case 20: return slab_fwd_kernel<DH, 20>;
+    default: return slab_fwd_kernel<DH, 32>;
+  }
+}
+
+template <int DH>
+auto dq_kernel(int L) {
+  switch (key_tiles(L)) {
     case 8: return slab_bwd_dq_kernel<DH, 8>;
     case 16: return slab_bwd_dq_kernel<DH, 16>;
     case 20: return slab_bwd_dq_kernel<DH, 20>;
@@ -509,8 +480,6 @@ void (*dq_kernel(int L))(const float*, const float*, float*, float*, float*,
 bool shape_ok(int B, int L, int H, int DH) {
   return B >= 1 && H >= 1 && L >= 1 && L <= L_MAX && (DH == 32 || DH == 64);
 }
-
-int grid_of(int B, int L, int H) { return B * H * ((L + TILE - 1) / TILE); }
 
 template <typename K>
 cudaError_t set_smem(K kernel, size_t bytes) {
@@ -530,19 +499,21 @@ int resident(K kernel, int threads, size_t bytes) {
 
 template <int DH>
 void occupancy(int L, int* out) {
-  out[0] = resident(slab_fwd_kernel<DH>, THREADS, fwd_smem(L, DH));
-  out[1] = resident(dq_kernel<DH>(L), 32 * bwd_warps(L), dq_smem(L, DH));
-  out[2] = resident(slab_bwd_dkv_kernel<DH>, 32 * bwd_warps(L),
-                    dkv_smem(L, DH));
+  const int threads = 32 * block_warps(L);
+  out[0] = resident(fwd_kernel<DH>(L), threads, fwd_smem(L, DH));
+  out[1] = resident(dq_kernel<DH>(L), threads, fwd_smem(L, DH));
+  out[2] = resident(slab_bwd_dkv_kernel<DH>, threads, dkv_smem(L, DH));
+  out[3] = threads;
 }
 
 template <int DH>
 int fwd(const float* qkv, float* out, int B, int L, int H,
         cudaStream_t stream) {
   const size_t smem = fwd_smem(L, DH);
-  cudaError_t err = set_smem(slab_fwd_kernel<DH>, smem);
+  const auto kern = fwd_kernel<DH>(L);
+  cudaError_t err = set_smem(kern, smem);
   if (err != cudaSuccess) return (int)err;
-  slab_fwd_kernel<DH><<<grid_of(B, L, H), THREADS, smem, stream>>>(
+  kern<<<B * H, 32 * block_warps(L), smem, stream>>>(
       qkv, out, L, H, 1.0f / sqrtf((float)DH));
   return (int)cudaGetLastError();
 }
@@ -551,8 +522,8 @@ template <int DH>
 int bwd(const float* qkv, const float* dout, float* dqkv, float* lse,
         float* delta, int B, int L, int H, cudaStream_t stream) {
   const float scale = 1.0f / sqrtf((float)DH);
-  const int threads = 32 * bwd_warps(L);
-  size_t smem = dq_smem(L, DH);
+  const int threads = 32 * block_warps(L);
+  size_t smem = fwd_smem(L, DH);
   const auto dq = dq_kernel<DH>(L);
   cudaError_t err = set_smem(dq, smem);
   if (err != cudaSuccess) return (int)err;
@@ -576,6 +547,8 @@ extern "C" {
 int ertdx_slab_fwd(const float* qkv, float* out, int B, int L, int H, int DH,
                    void* stream) {
   if (!shape_ok(B, L, H, DH)) return (int)cudaErrorInvalidValue;
+  // the kernels stage rows with 16-byte cp.async
+  if ((uintptr_t)qkv & 15) return (int)cudaErrorMisalignedAddress;
   cudaStream_t s = (cudaStream_t)stream;
   return DH == 32 ? fwd<32>(qkv, out, B, L, H, s)
                   : fwd<64>(qkv, out, B, L, H, s);
@@ -587,7 +560,6 @@ int ertdx_slab_bwd(const float* qkv, const float* dout, float* dqkv,
                    float* lse, float* delta, int B, int L, int H, int DH,
                    void* stream) {
   if (!shape_ok(B, L, H, DH)) return (int)cudaErrorInvalidValue;
-  // the backward stages rows with 16-byte cp.async
   if (((uintptr_t)qkv | (uintptr_t)dout) & 15)
     return (int)cudaErrorMisalignedAddress;
   cudaStream_t s = (cudaStream_t)stream;
@@ -596,7 +568,8 @@ int ertdx_slab_bwd(const float* qkv, const float* dout, float* dqkv,
 }
 
 // Resident blocks per SM of the forward, dQ and dK/dV kernels at (L, DH),
-// written to out[0..2]; -1 where the query fails.
+// written to out[0..2] (-1 where the query fails), and the threads of a
+// block of each, to out[3].
 int ertdx_slab_blocks_per_sm(int L, int DH, int* out) {
   if (!shape_ok(1, L, 1, DH)) return (int)cudaErrorInvalidValue;
   if (DH == 32)

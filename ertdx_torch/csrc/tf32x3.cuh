@@ -1,6 +1,6 @@
-// The 3xTF32 tensor-core tile of the attention backward kernels
-// (slab_attn.cu, flash_attn.cu). Device code only; sm_80 and later, built
-// for sm_90a.
+// The 3xTF32 tensor-core tile of the attention kernels, forward and
+// backward (slab_attn.cu, flash_attn.cu). Device code only; sm_80 and
+// later, built for sm_90a.
 //
 // An fp32 product a b runs on the TF32 tensor cores as
 //     a b ~ a_lo b_hi + a_hi b_lo + a_hi b_hi,   a = a_hi + a_lo,
@@ -12,13 +12,13 @@
 // (round_half_ulp_truncate big, round_toward_zero small). The error of a
 // product is about 2^-21 |a b| (the truncated a_lo, the dropped a_lo b_lo
 // at 2^-22): fp32-class, as the JAX kernels' Precision.HIGHEST, where one
-// TF32 rounding (2^-11) misses the port's 1e-4 * max(1, |plain|) bound
-// on the attention backward (tests/test_torch_tf32x3.py emulates both).
-// cvt.rna for both halves costs more instructions, and the backward
-// kernels are bound by issued instructions, of which the split is a large
-// share (PERF.md). Three MMAs per k step
-// run at up to 495 / 3 = 165 TFLOP/s on an H100 SXM, against 67 for the
-// fp32 FMA pipe.
+// TF32 rounding (2^-11) misses the JAX tests' bounds on the attention
+// forward and backward (tests/test_torch_tf32x3.py emulates both splits
+// and the one rounding). cvt.rna for both halves costs more
+// instructions, and the backward kernels are bound by issued
+// instructions, of which the split is a large share (PERF.md). Three MMAs
+// per k step run at up to 495 / 3 = 165 TFLOP/s on an H100 SXM, against
+// 67 for the fp32 FMA pipe.
 //
 // The split is done as a fragment is loaded from shared memory: tiles stay
 // fp32 (one footprint, not two), and an A fragment, loaded once per k
@@ -31,16 +31,17 @@
 //     B (8 x 8):   b0 (t, g)   b1 (t+4, g)
 //     C (16 x 8):  c0 (g, 2t)  c1 (g, 2t+1)  c2 (g+8, 2t)  c3 (g+8, 2t+1)
 //
-// The attention backward needs two kinds of product:
+// Attention needs two kinds of product:
 //   * "nt": C = X Y^T, X and Y row-major shared tiles along the head dim:
 //     S = Q K^T and dP = dO V^T (and S^T = K Q^T, dP^T = V dO^T). A comes
 //     from rows of X, B from rows of Y.
 //   * "nn": C = P Y, P an earlier product's C fragment (P, dS, P^T, dS^T)
-//     and Y a row-major shared tile along the key or query axis: dQ = dS K,
-//     dV = P^T dO, dK = dS^T Q. A k step takes its 8 contraction indices
-//     in the order 0 2 4 6 1 3 5 7: then A's (g, t) is C's (g, 2t) and
-//     A's (g, t+4) is C's (g, 2t+1), so a C fragment is an A fragment with
-//     no data movement (from_c), and B reads rows 2t and 2t+1 of Y.
+//     and Y a row-major shared tile along the key or query axis: O = P V
+//     (nn_add), dQ = dS K, dV = P^T dO, dK = dS^T Q. A k step takes its 8
+//     contraction indices in the order 0 2 4 6 1 3 5 7: then A's (g, t)
+//     is C's (g, 2t) and A's (g, t+4) is C's (g, 2t+1), so a C fragment
+//     is an A fragment with no data movement (from_c), and B reads rows
+//     2t and 2t+1 of Y.
 // Shared tiles have a row stride LD = 4 (mod 32) floats: an A or nt load
 // (rows g, column t) hits bank 4g + t, an nn load (rows 2t + h, column g)
 // bank 8t + 4h + g; 32 distinct banks either way.
@@ -181,6 +182,35 @@ __device__ __forceinline__ void nn(float (&acc)[NN][4], const FragA& a,
     FragB b;
     load_b_nn(b, Y, ld, k0, c0 + 8 * n, lane);
     mma3(acc[n], a, b);
+  }
+}
+
+// d += a b in 3xTF32, the k step's three MMAs summed from zero and added
+// to d by one fp32 add (round to nearest). The MMA's own accumulation is
+// coarser than an fp32 add: over a product that runs over many k steps
+// into one accumulator (the forwards' O = P V, over every key) its error
+// builds up with |d|; summed from zero it stays within one k step's
+// partial. The forwards need it: with P V on mma3, a b256 train step on
+// the flash arm came out further from the fp32 plain version than its
+// gate allows (PERF.md). One FADD per accumulator a k step.
+__device__ __forceinline__ void mma3_add(float (&d)[4], const FragA& a,
+                                         const FragB& b) {
+  float t[4] = {0.f, 0.f, 0.f, 0.f};
+  mma3(t, a, b);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) d[i] += t[i];
+}
+
+// nn with mma3_add.
+template <int NN>
+__device__ __forceinline__ void nn_add(float (&acc)[NN][4], const FragA& a,
+                                       const float* Y, int ld, int k0,
+                                       int c0, int lane) {
+#pragma unroll
+  for (int n = 0; n < NN; ++n) {
+    FragB b;
+    load_b_nn(b, Y, ld, k0, c0 + 8 * n, lane);
+    mma3_add(acc[n], a, b);
   }
 }
 

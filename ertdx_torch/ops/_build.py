@@ -57,7 +57,7 @@ SIGNATURES = {
     "ertdx_flash_fwd": [_P] * 6 + [_I] * 5 + [_F, _P],
     "ertdx_flash_bwd_dq": [_P] * 9 + [_I] * 5 + [_F, _P],
     "ertdx_flash_bwd_dkv": [_P] * 9 + [_I] * 5 + [_F, _P],
-    "ertdx_flash_bwd_tiles": [_I, _P],
+    "ertdx_flash_skip_tiles": [_I, _P],
 }
 
 

@@ -25,11 +25,15 @@ warns once per shape. `launches` counts kernel launches only.
 kernels' arithmetic from a saved (O, lse) in plain PyTorch: they are the
 kernels' oracle. With -1e30 as the bias (not -inf), a batch row whose
 keys are all masked gets the uniform mean of V, lse = -1e30, and p = 1 in
-the backward, in JAX's kernels and here alike. The CUDA backward runs its
-products as 3xTF32 on the tensor cores (fp32-class, as JAX's
-Precision.HIGHEST) and skips key tiles that are all padding where the
-batch row has a valid key: p = 0 there exactly, so their dK and dV rows
-are 0 and dQ is unchanged.
+the backward, in JAX's kernels and here alike. The CUDA kernels, forward
+and backward, run their products as 3xTF32 on the tensor cores
+(fp32-class, as JAX's Precision.HIGHEST) and skip key tiles that are all
+padding where the batch row has a valid key: p = 0 there exactly, so the
+forward's out and lse and the backward's dQ are unchanged and the
+skipped keys' dK and dV rows are 0. They stage their operands with
+16-byte cp.async: the kernel wrappers refuse one that does not start on
+a 16-byte boundary, and `flash_attention` copies one
+(`_build.contiguous16`).
 """
 from __future__ import annotations
 
@@ -172,6 +176,7 @@ def flash_attention_fwd(q, k, v, kv_mask=None):
     launch on the current stream."""
     mask = _mask_for(kv_mask, q.shape[0], k.shape[2], q.device)
     b, h, lq, lk, d = _dims(q, k, v, mask)
+    _build.check_aligned16(q=q, k=k, v=v, kv_mask=mask)
     out = torch.empty_like(q)
     lse = torch.empty(b, h, lq, device=q.device, dtype=torch.float32)
     lib = _build.load().lib
@@ -236,14 +241,14 @@ def flash_attention_bwd_dkv(q, k, v, kv_mask, lse, delta, do):
     return dk, dv
 
 
-def bwd_tiles(d: int) -> dict:
-    """Keys of one skip of all-padding keys in the backward at head width
-    d: the dQ kernel's key tile and a dK/dV warp's rows (needs the built
+def skip_tiles(d: int) -> dict:
+    """Keys of one skip of all-padding keys at head width d: the forward's
+    and the dQ kernel's key tiles and a dK/dV warp's rows (needs the built
     kernels)."""
-    out = (ctypes.c_int * 2)()
-    rc = _build.load().lib.ertdx_flash_bwd_tiles(d, out)
-    _build.raise_on(rc, "flash backward tile query")
-    return dict(zip(("dq_key_tile", "dkv_warp_keys"), out))
+    out = (ctypes.c_int * 3)()
+    rc = _build.load().lib.ertdx_flash_skip_tiles(d, out)
+    _build.raise_on(rc, "flash skip tile query")
+    return dict(zip(("fwd_key_tile", "dq_key_tile", "dkv_warp_keys"), out))
 
 
 def flash_attention_bwd(q, k, v, kv_mask, out, lse, do):

@@ -18,8 +18,11 @@ is true a failed build or launch raises. `launches` counts kernel
 launches only.
 
 `accurate` selects HIGHEST-precision matmuls in the TPU kernel. The CUDA
-forward computes its products as fp32 FMAs and the backward as 3xTF32 on
-the tensor cores (csrc/tf32x3.cuh), both fp32-class, so it has no effect.
+kernels, forward and backward, compute every product as 3xTF32 on the
+tensor cores (csrc/tf32x3.cuh), fp32-class, so it has no effect. They
+stage the slab with 16-byte cp.async: the kernel wrappers refuse a slab
+that does not start on a 16-byte boundary, and `slab_attention` copies
+one (`_build.contiguous16`).
 """
 from __future__ import annotations
 
@@ -94,6 +97,7 @@ def slab_attention_fwd(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     current stream."""
     b, l, c, dh = _dims(qkv, num_heads)
     _build.check_cuda("qkv", qkv, (b, l, 3 * c))
+    _build.check_aligned16(qkv=qkv)
     out = torch.empty(b, l, c, device=qkv.device, dtype=qkv.dtype)
     lib = _build.load().lib
     with torch.cuda.device(qkv.device):
@@ -133,11 +137,12 @@ def slab_attention_bwd(qkv: torch.Tensor, do: torch.Tensor,
 
 def blocks_per_sm(l: int, dh: int) -> dict:
     """Resident blocks per SM of the three kernels at (L, dh), from the
-    CUDA occupancy calculator (needs a card)."""
-    out = (ctypes.c_int * 3)()
+    CUDA occupancy calculator, and the threads of a block, which all three
+    share (needs a card)."""
+    out = (ctypes.c_int * 4)()
     rc = _build.load().lib.ertdx_slab_blocks_per_sm(l, dh, out)
     _build.raise_on(rc, "slab occupancy query")
-    return dict(zip(("fwd", "bwd_dq", "bwd_dkv"), out))
+    return dict(zip(("fwd", "bwd_dq", "bwd_dkv", "threads"), out))
 
 
 class _SlabAttention(torch.autograd.Function):

@@ -140,7 +140,10 @@ def test_slab_kernels_match_plain(cuda, b, l, c, nh):
         1e-4 * max(1.0, float(want.abs().max()))
     assert float((z.grad - dwant).abs().max()) <= \
         1e-4 * max(1.0, float(dwant.abs().max()))
-    # the backward owns its outputs (no atomics): reruns are bit-identical
+    # each kernel owns its outputs (no atomics): reruns are bit-identical
+    assert torch.equal(sa.slab_attention_fwd(qkv, nh), out.detach())
+    assert torch.equal(sa.slab_attention_fwd(qkv, nh),
+                       sa.slab_attention_fwd(qkv, nh))
     again = sa.slab_attention_bwd(qkv, do, nh)
     assert torch.equal(again, sa.slab_attention_bwd(qkv, do, nh))
     assert torch.equal(again, z.grad)
@@ -442,7 +445,8 @@ def test_flash_kernels_match_plain(cuda, b, h, l, d, valid, dead):
         _close(a, w)
     again = at.flash_attention_bwd(q, k, v, mask, out, lse, do)
     assert all(torch.equal(a, w) for a, w in zip(grads, again))
-    assert torch.equal(out, at.flash_attention_fwd(q, k, v, mask)[0])
+    out2, lse2 = at.flash_attention_fwd(q, k, v, mask)
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
     # key rows that are all padding in a live batch row: the backward
     # skips them, and their dK and dV are exactly 0 (as p = 0 there)
     pad = (mask.reshape(b, l // 16, 16).amax(dim=2) <= 0) & live[:, None]
@@ -523,6 +527,38 @@ def test_attention_backwards_take_misaligned_views(cuda):
     with pytest.raises(ValueError, match="16-byte aligned"):
         at.flash_attention_bwd_dkv(q, _misaligned(k), v, mask, lse, delta,
                                    do)
+
+
+def test_attention_forwards_take_misaligned_views(cuda):
+    from ertdx_torch.ops import attention as at
+    from ertdx_torch.ops import slab_attn as sa
+
+    # the forward kernels stage with 16-byte cp.async too: the kernel
+    # wrappers refuse a misaligned operand by name, the autograd paths
+    # copy it
+    g = torch.Generator(device=cuda).manual_seed(12)
+    qkv = torch.randn(2, 147, 3 * 256, generator=g, device=cuda)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        sa.slab_attention_fwd(_misaligned(qkv), 4)
+    sa.reset_launches()
+    with torch.no_grad():
+        out = sa.slab_attention(_misaligned(qkv), 4)
+    torch.cuda.synchronize()
+    assert sa.launches["slab_attention_fwd"] == 1
+    _close(out, sa.reference_slab_attention(qkv, 4))
+
+    q, k, v, _, mask = _flash_inputs(cuda, 2, 4, 256, 64, 147, (1,), 6)
+    for i in range(4):
+        args = [q, k, v, mask]
+        args[i] = _misaligned(args[i])
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            at.flash_attention_fwd(*args)
+    at.reset_launches()
+    with torch.no_grad():
+        out = at.flash_attention(*map(_misaligned, (q, k, v, mask)))
+    torch.cuda.synchronize()
+    assert at.launches["flash_attention_fwd"] == 1
+    _close(out, at.reference_flash_forward(q, k, v, mask)[0])
 
 
 def test_flash_gate_false_runs_the_plain_version(cuda):
