@@ -9,13 +9,16 @@ non-zero and prints no result line):
 1. device: the card's name and power limit;
 2. build: nvcc compiles ertdx_torch/csrc/*.cu (ertdx_torch/ops/_build.py)
    and prints ptxas' register and shared-memory report; `cuobjdump -sass`
-   of the library counts each attention kernel's HMMA.1688.F32.TF32
-   instructions and fails if one has none (the slab and flash kernels run
+   of the library counts the HMMA.1688.F32.TF32 instructions of each
+   slab, flash and fused-core kernel and fails if one has none (they run
    their products on the tensor cores);
 3. kernels: fused_core_stack and fused_core_block at full width (D=128,
-   nb=4, P=29, Lk=147), every weight non-zero, held against their plain
-   PyTorch versions (max abs error <= 1e-4 * max(1, max|plain|)) and timed
-   with CUDA events; one JSON line {"kernels": [...]};
+   nb=4, P=29, Lk=147) and at the kernels' limits (P=17 with Lk=61, P=32
+   with Lk=256), every weight non-zero, held against their plain PyTorch
+   versions (max abs error <= 1e-4 * max(1, max|plain|)), a rerun and
+   accurate=True bit-identical to the first run, ptxas' spill line of
+   both kernels (a spill fails), timed with CUDA events with their share
+   of the TF32 MMA rate; one JSON line {"kernels": [...]};
 4. main path: the configs[3] posterior ensemble (CondUNet at
    DDIM_ENSEMBLE's full width, random weights from a seed carried over by
    params_from_jax, 8 conditions x 1000 members, DDIM-50, eta=0) through
@@ -24,7 +27,7 @@ non-zero and prints no result line):
    the inverse pipeline;
 5. per-block path: the same DDIM run over 2 of the conditions through
    mega_denoise_ensemble(stack=False), i.e. fused_core_block, held against
-   the main path's draws;
+   the main path's draws, with its ms per DDIM step;
 6. slab kernels: slab_attention's CUDA forward and backward (both on
    3xTF32 tensor cores) at the encoder's training shape
    (B=256, L=147, C=256, 4 heads), at B=4 with 8 heads (dh=32) and at an
@@ -145,9 +148,17 @@ PEAK_TF32_FLOPS = 494.7e12
 PEAK_BYTES_PER_S = 3.35e12
 P, D, NB, LK = 29, 128, 4, 147
 SEED = 0
-# (kernel, conditions, members): the configs[3] shapes, then R=10
-KERNEL_CASES = [("fused_core_stack", 8, 1000), ("fused_core_stack", 8, 10),
-                ("fused_core_block", 2, 1000), ("fused_core_block", 2, 10)]
+# (kernel, conditions, members, P, Lk): the configs[3] shapes, R=10, and
+# the kernels' limits (P=17 with Lk=61 below one 128-key block; P=32 with
+# Lk=256); the first case of each kernel is timed
+KERNEL_CASES = [("fused_core_stack", 8, 1000, P, LK),
+                ("fused_core_stack", 8, 10, P, LK),
+                ("fused_core_stack", 2, 33, 17, 61),
+                ("fused_core_stack", 2, 20, 32, 256),
+                ("fused_core_block", 2, 1000, P, LK),
+                ("fused_core_block", 2, 10, P, LK),
+                ("fused_core_block", 2, 33, 17, 61),
+                ("fused_core_block", 2, 20, 32, 256)]
 # (B, L, C, heads): the encoder's training shape first, then dh=32 and an
 # odd L
 SLAB_CASES = [(256, 147, 256, 4), (4, 147, 256, 8), (3, 61, 128, 2)]
@@ -208,7 +219,8 @@ def time_ms(fn, reps: int = 10, warmup: int = 2, run: int = 5) -> float:
     return statistics.median(times)
 
 
-def core_inputs(gen, b: int, r: int, nb: int, dev):
+def core_inputs(gen, b: int, r: int, nb: int, dev, p: int = P,
+                lk: int = LK):
     """Random full-width core inputs, every weight non-zero."""
     def rnd(*shape, scale=1.0):
         return (torch.randn(*shape, generator=gen, device=dev)
@@ -221,11 +233,11 @@ def core_inputs(gen, b: int, r: int, nb: int, dev):
           "w1": rnd(nb, D, 4 * D, scale=s), "b1": rnd(nb, 4 * D, scale=0.1),
           "w2": rnd(nb, 4 * D, D, scale=0.5 * s),
           "b2": rnd(nb, D, scale=0.1)}
-    return {"mods": rnd(b, 6 * nb, D, scale=0.3), "k": rnd(b * nb, LK, D),
-            "v": rnd(b * nb, LK, D), "ws": ws,
-            "x": rnd(b, r, P), "x3": rnd(b, r * P, D),
+    return {"mods": rnd(b, 6 * nb, D, scale=0.3), "k": rnd(b * nb, lk, D),
+            "v": rnd(b * nb, lk, D), "ws": ws,
+            "x": rnd(b, r, p), "x3": rnd(b, r * p, D),
             "lift_w": rnd(1, D), "lift_b": rnd(1, D, scale=0.1),
-            "pos_emb": rnd(P, D, scale=0.1),
+            "pos_emb": rnd(p, D, scale=0.1),
             "on_scale": 1.0 + rnd(1, D, scale=0.1),
             "on_bias": rnd(1, D, scale=0.1), "head_w": rnd(D, 1, scale=s),
             "head_b": rnd(1, 1, scale=0.1)}
@@ -267,15 +279,19 @@ def kernel_names(fn) -> str:
                                             key=lambda kv: -kv[1]))
 
 
-# an attention kernel's name in a mangled symbol
-ATTENTION_KERNEL = re.compile(
-    r"\d((?:slab|flash)_(?:fwd|bwd_dq|bwd_dkv)_kernel)I")
+# a kernel that runs its products on the tensor cores, in a mangled symbol:
+# the slab and flash attention kernels and the fused core's two
+TENSOR_CORE_KERNEL = re.compile(
+    r"\d((?:slab|flash)_(?:fwd|bwd_dq|bwd_dkv)_kernel"
+    r"|core_(?:stack|block)_kernel)[IE]")
+CORE_KERNELS = ("core_stack_kernel", "core_block_kernel")
 
 
 def check_tensor_cores(path) -> None:
     """Phase 2: the TF32 MMAs (HMMA.1688.F32.TF32) in the SASS of each
-    slab and flash kernel of the built library; raises where one has
-    none. Logs and returns where the toolkit has no cuobjdump."""
+    slab, flash and fused-core kernel of the built library; raises where
+    one has none, or where a fused-core kernel is missing. Logs and
+    returns where the toolkit has no cuobjdump."""
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     if not os.path.exists(tool):
@@ -286,33 +302,58 @@ def check_tensor_cores(path) -> None:
     counts, name = {}, None
     for line in sass.splitlines():
         if "Function : " in line:
-            fn = ATTENTION_KERNEL.search(line)
-            name = None if fn is None else "%s<%s>" % (
-                fn.group(1), ",".join(re.findall(r"Li(\d+)E", line)))
+            fn = TENSOR_CORE_KERNEL.search(line)
+            args = ",".join(re.findall(r"Li(\d+)E", line))
+            name = None if fn is None else fn.group(1) + (
+                f"<{args}>" if args else "")
             if name:
                 counts[name] = 0
         elif name and "HMMA.1688.F32.TF32" in line:
             counts[name] += 1
-    log("sass: HMMA.1688.F32.TF32 per attention kernel: " + "; ".join(
+    log("sass: HMMA.1688.F32.TF32 per tensor-core kernel: " + "; ".join(
         f"{k} {n}" for k, n in sorted(counts.items())))
     bare = [k for k, n in counts.items() if n == 0]
+    bare += [k for k in CORE_KERNELS if k not in counts]
     if not counts or bare:
-        raise RuntimeError(f"attention kernels without TF32 MMAs: {bare}")
+        raise RuntimeError(f"kernels without TF32 MMAs: {bare}")
 
 
-def check_kernels(cb, dev) -> dict:
-    """Phase 3: both kernels against their plain versions, timed."""
+def ptxas_lines(report: str, kernel: str) -> list:
+    """ptxas' lines (-Xptxas -v) for the entry function whose mangled name
+    holds `kernel`: its stack frame and spills, and its registers."""
+    lines, inside = [], False
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            inside = kernel in line
+        elif inside and ("bytes stack frame" in line
+                         or "registers" in line):
+            lines.append(line.strip())
+    return lines
+
+
+def check_kernels(cb, dev, report: str, card: str) -> dict:
+    """Phase 3: both kernels against their plain versions, reruns and
+    accurate=True bit-identical, ptxas' spill line of each (a spill
+    fails), timed with their share of the TF32 MMA rate."""
+    for kernel in CORE_KERNELS:
+        lines = ptxas_lines(report, kernel)
+        log(f"ptxas {kernel}: " + " | ".join(lines))
+        spills = [int(n) for line in lines for n in
+                  re.findall(r"(\d+) bytes spill", line)]
+        if not lines or any(spills):
+            raise RuntimeError(f"{kernel}: no ptxas report or it spills")
     gen = torch.Generator(device=dev).manual_seed(SEED)
     results = {}
-    for name, b, r in KERNEL_CASES:
+    for name, b, r, p, lk in KERNEL_CASES:
         nb = NB if name == "fused_core_stack" else 1
-        a = core_inputs(gen, b, r, nb, dev)
+        a = core_inputs(gen, b, r, nb, dev, p, lk)
         if name == "fused_core_stack":
             args = (a["x"], a["mods"], a["k"], a["v"], a["ws"], a["lift_w"],
                     a["lift_b"], a["pos_emb"], a["on_scale"], a["on_bias"],
                     a["head_w"], a["head_b"])
-            kernel = lambda: cb.fused_core_stack(*args, p=P, chunk=r)
-            plain = lambda: cb.fused_core_stack_plain(*args, p=P)
+            kernel = lambda acc=False: cb.fused_core_stack(
+                *args, p=p, chunk=r, accurate=acc)
+            plain = lambda: cb.fused_core_stack_plain(*args, p=p)
             ins = [a["x"], a["mods"], a["k"], a["v"], *a["ws"].values(),
                    a["lift_w"], a["lift_b"], a["pos_emb"], a["on_scale"],
                    a["on_bias"], a["head_w"], a["head_b"]]
@@ -321,27 +362,35 @@ def check_kernels(cb, dev) -> dict:
             w = {key: val[0].contiguous() for key, val in a["ws"].items()}
             mods = a["mods"][:, :6].contiguous()
             args = (a["x3"], mods, a["k"], a["v"], w)
-            kernel = lambda: cb.fused_core_block(*args, p=P, chunk=r)
-            plain = lambda: cb.fused_core_block_plain(*args, p=P)
+            kernel = lambda acc=False: cb.fused_core_block(
+                *args, p=p, chunk=r, accurate=acc)
+            plain = lambda: cb.fused_core_block_plain(*args, p=p)
             ins = [a["x3"], mods, a["k"], a["v"], *w.values()]
             out_bytes = a["x3"].numel() * 4
+        tag = f"{name} B={b} R={r} P={p} Lk={lk}"
         with torch.no_grad():
             got = kernel()
+            again = kernel()
+            accurate = kernel(True)
             torch.cuda.synchronize()
             want = plain()
             torch.cuda.synchronize()
         if not torch.isfinite(got).all():
-            raise RuntimeError(f"{name} B={b} R={r}: non-finite output")
+            raise RuntimeError(f"{tag}: non-finite output")
+        same = torch.equal(got, again) and torch.equal(got, accurate)
         err = float((got - want).abs().max())
         scale = float(want.abs().max())
         tol = 1e-4 * max(1.0, scale)
-        log(f"{name} B={b} R={r}: max_abs_err={err:.3e} "
+        log(f"{tag}: max_abs_err={err:.3e} "
             f"max_rel_err={err / max(scale, 1e-30):.3e} max|plain|="
-            f"{scale:.4f} tol={tol:.3e}")
+            f"{scale:.4f} tol={tol:.3e}; rerun and accurate=True "
+            f"bit-identical: {same}")
         if not err <= tol:
-            raise RuntimeError(f"{name} B={b} R={r}: error {err} > {tol}")
-        rows = b * r * P
-        flops = nb * rows * 2 * D * (14 * D + 2 * P + 2 * LK)
+            raise RuntimeError(f"{tag}: error {err} > {tol}")
+        if not same:
+            raise RuntimeError(f"{tag}: a rerun or accurate=True differs")
+        rows = b * r * p
+        flops = nb * rows * 2 * D * (14 * D + 2 * p + 2 * lk)
         nbytes = sum(t.numel() * 4 for t in ins) + out_bytes
         entry = results.setdefault(name, {"max_abs_err": 0.0})
         entry["max_abs_err"] = max(entry["max_abs_err"], err)
@@ -350,11 +399,16 @@ def check_kernels(cb, dev) -> dict:
                 ms = time_ms(kernel)
                 plain_ms = time_ms(plain)
             bd = bound(flops, nbytes)
+            # 3 TF32 MMAs a product: the share of the tensor cores' TF32
+            # peak that the counted operations, tripled, reach
+            share = 3 * flops / (ms * 1e-3) / PEAK_TF32_FLOPS
             entry.update(ms=ms, plain_ms=plain_ms, **bd, flops=flops,
-                         bytes=nbytes, shape=f"B={b} R={r}")
-            log(f"{name} B={b} R={r}: kernel {ms:.3f} ms, plain "
-                f"{plain_ms:.3f} ms, {bound_text(bd, flops, nbytes)}, "
-                f"achieved {flops / ms / 1e9:.2f} TFLOP/s")
+                         bytes=nbytes, shape=f"B={b} R={r}",
+                         tf32_share=share)
+            log(f"{tag}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+                f"{bound_text(bd, flops, nbytes)}, achieved "
+                f"{flops / ms / 1e9:.2f} TFLOP/s, {100 * share:.1f} % of "
+                f"the TF32 MMA rate (3 MMAs a product); {card}")
     return results
 
 
@@ -1865,7 +1919,7 @@ def main() -> int:
 
     # 3. kernels against their plain versions
     t0 = time.perf_counter()
-    results = check_kernels(cb, dev)
+    results = check_kernels(cb, dev, kernels.report, card)
     phase("kernels", t0)
 
     # 4. main path: the configs[3] ensemble
@@ -1906,7 +1960,7 @@ def main() -> int:
         raise RuntimeError("main path: wrong shape or non-finite draws")
     log(f"main path: {run_s / steps * 1e3:.3f} ms per DDIM step, "
         f"{n_cond * n_real * steps / run_s:.1f} chain-steps/s, peak memory "
-        f"{peak / 2**20:.1f} MiB")
+        f"{peak / 2**20:.1f} MiB; {card}")
 
     model.ensemble_mega = False          # the plain module path
     t_plain = time.perf_counter()
@@ -1939,6 +1993,8 @@ def main() -> int:
         ctx = model.encode_condition(cond[:nb_cond])
         weights = mega_weights(model)
         cb.reset_launches()
+        torch.cuda.synchronize()
+        t_blk = time.perf_counter()
         ub = sample_ddim(
             lambda x, t: mega_denoise_ensemble(
                 model, x, t, ctx, n_real, p=cfg.model.param_dim,
@@ -1947,11 +2003,13 @@ def main() -> int:
             (nb_cond * n_real, cfg.model.param_dim), schedule, steps,
             x_T=x_T[:nb_cond * n_real], device=dev)
         torch.cuda.synchronize()
+        blk_s = time.perf_counter() - t_blk
     block_launches = dict(cb.launches)
     ub = ub.reshape(nb_cond, n_real, -1).transpose(0, 1)
     dub = float((ub - u[:, :nb_cond]).abs().max())
     log(f"per-block path: launches {block_launches}; max|du| vs main "
-        f"path={dub:.3e}")
+        f"path={dub:.3e}; {blk_s / steps * 1e3:.3f} ms per DDIM step "
+        f"({nb_cond} conditions x {n_real} members; {card})")
     if block_launches["fused_core_block"] != steps * cfg.model.num_blocks:
         raise RuntimeError("per-block path: wrong fused_core_block count")
     if not dub <= 1e-3:

@@ -1,4 +1,5 @@
-// Fused CoreBlock kernels for the posterior-ensemble denoiser core (sm_90a).
+// Fused CoreBlock kernels for the posterior-ensemble denoiser core (sm_90a;
+// every large product on the 3xTF32 tensor-core tile of tf32x3.cuh).
 //
 // Replaces the TPU kernels of ertdx/ops/core_block.py:
 //   * core_stack_kernel  <- fused_core_stack (_core_stack_kernel): lift and
@@ -14,7 +15,12 @@
 // What bounds it on an H100: operations. Per row and block it does
 // 2 D (14 D + 2 P + 2 Lk) flops on 4 bytes in and out per token, so at the
 // configs[3] shape (P=29, D=128, Lk=147, 232,000 rows, 4 blocks) it is
-// ~5.1e11 fp32 flops against < 12 MB of device-memory traffic.
+// ~5.1e11 flops against < 12 MB of device-memory traffic: 3.1 ms at the
+// 3xTF32 rate (495 / 3 TFLOP/s), 7.6 ms on the fp32 pipe. The six
+// projections are 84 % of the flops, the cross-attention 14 %, the
+// self-attention 3 %. A second floor: each 64-row tile reads a block's
+// 14 D^2 weights and its condition's K and V from L2, about 17 GB a
+// configs[3] launch.
 //
 // What the design does about it, and what it changes from the TPU kernel:
 //   * Grid: one CUDA block per (condition, tile of ROWS/P chains), not one
@@ -24,38 +30,69 @@
 //   * Activations of the tile (<= 64 rows x 128) stay in shared memory
 //     through every block of the stack; device memory sees only the
 //     compact x in and eps out (stack) or the slab in and out (block).
-//   * Weights (14 nb D^2 floats = 3.7 MB at nb=4) do not fit in shared
-//     memory: each product stages one 32 x 128 weight tile at a time
-//     through shared memory, and the 50 MB L2 holds the stack for all
-//     blocks.
-//   * Self-attention is 29 x 29 per chain: the TPU's (8P, 8P) block-
-//     diagonal tile and its 7/8 masked logits are not computed.
-//   * Cross-attention runs over the Lk valid keys only; the TPU's padding
-//     of 147 to 256 and its column mask are gone.
+//   * Every product (the six projections, the self-attention's q k^T and
+//     P v, the cross logits q K^T and P V) runs on the 3xTF32 tile of
+//     tf32x3.cuh: warp-level mma.sync m16n8k8, each operand split into TF32
+//     hi and lo, three MMAs a product; fp32-class, more exact than both TPU
+//     modes (one TF32 rounding misses phase 3's gate:
+//     tests/test_torch_core_tf32x3.py), so `accurate` selects nothing. A
+//     block is 16 warps (one block an SM: 206 KB of shared memory, 128
+//     registers a thread); they split each 64 x 128 output into 32 x 16
+//     parts, which measured faster than 8 warps of 16 x 64 or 32 x 32
+//     (PERF.md; tools/core_ab.py). Every operand read from shared memory
+//     takes k in the order 0 2 4 6 1 3 5 7, so a fragment's two k values
+//     are one 8-byte load.
+//   * The B operands (weights, K, V; 14 nb D^2 floats = 3.7 MB of weights
+//     at nb=4, which the 50 MB L2 holds) stream through a double-buffered
+//     ring of 32-deep chunks by cp.async: while the MMAs run on one chunk
+//     the next is in flight, and a product's last chunk issues the next
+//     product's first, so that it loads during the epilogue, the softmax
+//     or the LayerNorm in between.
+//   * Each 32-deep chunk's MMAs sum from zero and the partial is added to
+//     the accumulator in fp32, in every product: half the error of
+//     accumulating on the MMA, for 2 % more time (PERF.md).
+//   * Self-attention: q k^T over the whole tile (64 x 64 logits, 2 chains
+//     of 29 at configs[3]) and P v over its 64 keys, from q, k, v in
+//     shared memory; the softmax keeps each row's own chain's P keys and
+//     gives every other key probability 0, so a chain may straddle the
+//     MMA's 16-row tiles. The TPU's (8P, 8P) tile with 7/8 of its logits
+//     masked becomes one of 64 rows with about half of them masked.
+//   * Cross-attention runs over the Lk valid keys only: K and V rows past
+//     Lk stage as zeros, logits past Lk are never read and their
+//     probabilities are 0, and the warps whose keys are all past Lk skip
+//     the logits' MMAs; the TPU's padding of 147 to 256 is gone.
 //   * The MLP hidden activation (rows x 4D) is made and consumed in
 //     128-column chunks, accumulating into the residual.
-//   * Every product is an fp32 FMA on the CUDA cores (bound: 67 TFLOP/s),
-//     more exact than both TPU modes. Tensor cores (wgmma, TF32 or bf16)
-//     and TMA are later work; `accurate` has no effect until then.
+//   * No atomics: each output element is written by one thread, in a fixed
+//     order; reruns are bit-identical.
 //
 // Plain C interface for ctypes: each entry point launches on the given
 // stream and returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include "tf32x3.cuh"
 
 namespace {
 
 constexpr int D = 128;                 // hidden width the kernels take
 constexpr int ROWS = 64;               // rows of one block's tile
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
-constexpr int LDX = D + 4;             // padded row stride, X and H
-constexpr int LDB = 3 * D + 4;         // padded row stride, BIG
-constexpr int KC = 32;                 // depth of one staged weight tile
+constexpr int WM = 32, WN = 16;        // a warp's part of a 64 x 128 output
+constexpr int MT = WM / 16, NT = WN / 8;   // its m16 and n8 tiles
+constexpr int WARPS = (ROWS / WM) * (D / WN);
+constexpr int THREADS = 32 * WARPS;
+constexpr int LDX = D + 8;             // row stride of X and H, 8 (mod 32)
+constexpr int LDB = 3 * D + 8;         // row stride of BIG, 8 (mod 32)
+constexpr int LDS = ROWS + 8;          // self logits (ROWS, LDS) in H
+constexpr int KC = 32;                 // depth of one staged B chunk
+constexpr int LDW = D + 4;             // (KC, D) weight or V chunk, 4 (mod 32)
+constexpr int LDK = KC + 8;            // (D keys, KC) K chunk, 8 (mod 32)
+constexpr int STAGE = D * LDK;         // floats of a ring slot (>= KC LDW)
 constexpr int LK_MAX = 256;            // cross logits live in BIG[:, D:]
 constexpr int P_MAX = 32;              // one warp lane per key token
-constexpr int SMEM_FLOATS = 2 * ROWS * LDX + ROWS * LDB + KC * D;
+constexpr int SMEM_FLOATS = 2 * ROWS * LDX + ROWS * LDB + 2 * STAGE;
 constexpr size_t SMEM_BYTES = SMEM_FLOATS * sizeof(float);
 constexpr float LN_EPS = 1e-6f;
 
@@ -72,12 +109,33 @@ struct LayerW {
   const float* b2;    // (D)
 };
 
+// The B operand of one product over a 128-column block, streamed in
+// KC-deep chunks. Row-major: B(k, n) = p[k ld + n0 + n] (a weight, or V),
+// rows k >= valid staged as zeros. nt: B(k, n) = p[(n0 + n) ld + k] (K),
+// key rows n0 + n >= valid staged as zeros. K: the depth run, a multiple
+// of KC (or rounded up to one).
+struct BSrc {
+  const float* p;
+  int ld, n0, K, valid;
+  bool nt;
+};
+
+__device__ __forceinline__ BSrc rowmajor(const float* p, int ld, int n0,
+                                         int K, int valid) {
+  return BSrc{p, ld, n0, K, valid, false};
+}
+
+__device__ __forceinline__ BSrc keys_of(const float* p, int n0, int Lk) {
+  return BSrc{p, D, n0, D, Lk, true};
+}
+
 struct Tile {
-  float* X;    // (ROWS, LDX) the residual stream
-  float* H;    // (ROWS, LDX) normed activations / attention outputs
-  float* BIG;  // (ROWS, LDB) qkv, cross q + logits, MLP hidden chunk
-  float* W;    // (KC, D) staged weight tile
-  int nrows;   // valid rows (chains * P)
+  float* X;     // (ROWS, LDX) the residual stream
+  float* H;     // (ROWS, LDX) normed activations / attention outputs
+  float* BIG;   // (ROWS, LDB) qkv, cross q + logits, MLP hidden chunk
+  float* ring;  // 2 x STAGE: the B chunks
+  int slot;     // the ring slot of the next chunk to compute on
+  int nrows;    // valid rows (chains * P)
   int P;
 };
 
@@ -94,186 +152,313 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-__device__ __forceinline__ int gemm_col(int tx, int j) {
-  return j < 4 ? tx * 4 + j : 64 + tx * 4 + (j - 4);
-}
-
 __device__ __forceinline__ float gelu_tanh(float x) {
   return 0.5f * x *
          (1.0f + tanhf(0.7978845608028654f * (x + 0.044715f * x * x * x)));
 }
 
-// acc[i][j] = sum_{k<K} A[r_i][k] * B[k][n0 + c_j] for the thread's rows
-// r_i = ty*4+i and columns c_j = gemm_col(tx, j) of a 64 x 128 output tile.
-// A lives in shared memory (row stride lda) and must be finite up to K
-// rounded up to KC. B is row-major (K x ldb) in device memory, or with
-// TRANS the transpose of a row-major (nvalid x ldb) matrix; columns at or
-// beyond nvalid and rows at or beyond K stage as zeros. Ends with a
-// barrier, so the caller may overwrite A in its epilogue.
-template <bool TRANS>
-__device__ void gemm_tile(const float* A, int lda, int K,
-                          const float* __restrict__ B, int ldb, int n0,
-                          int nvalid, float* Ws, float acc[4][8]) {
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
-
-  for (int k0 = 0; k0 < K; k0 += KC) {
-    __syncthreads();
-    for (int s = tid; s < KC * D / 4; s += THREADS) {
-      float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (!TRANS) {
-        const int kk = s / (D / 4), c = (s % (D / 4)) * 4;
-        if (k0 + kk < K && n0 + c < nvalid)
-          val = *reinterpret_cast<const float4*>(B + (size_t)(k0 + kk) * ldb +
-                                                 n0 + c);
-        *reinterpret_cast<float4*>(Ws + kk * D + c) = val;
-      } else {
-        const int n = s / (KC / 4), kq = (s % (KC / 4)) * 4;
-        if (n0 + n < nvalid && k0 + kq < K)
-          val = *reinterpret_cast<const float4*>(B + (size_t)(n0 + n) * ldb +
-                                                 k0 + kq);
-        Ws[(kq + 0) * D + n] = val.x;
-        Ws[(kq + 1) * D + n] = val.y;
-        Ws[(kq + 2) * D + n] = val.z;
-        Ws[(kq + 3) * D + n] = val.w;
-      }
+// Issue chunk `chunk` of b into the ring slot s with cp.async (one commit
+// group per thread).
+__device__ void stage_chunk(float* s, const BSrc& b, int chunk) {
+  const int k0 = chunk * KC;
+  if (!b.nt) {                         // KC rows of D floats
+    for (int i = threadIdx.x; i < KC * D / 4; i += THREADS) {
+      const int r = i / (D / 4), c = (i % (D / 4)) * 4;
+      const bool ok = k0 + r < b.valid;
+      tf32x3::cp16(s + r * LDW + c,
+                   b.p + (ok ? (size_t)(k0 + r) * b.ld + b.n0 + c : 0), ok);
     }
-    __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < KC; ++kk) {
-      float a[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = A[(ty * 4 + i) * lda + k0 + kk];
-      const float4 b0 = *reinterpret_cast<const float4*>(Ws + kk * D + tx * 4);
-      const float4 b1 =
-          *reinterpret_cast<const float4*>(Ws + kk * D + 64 + tx * 4);
-      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+  } else {                             // D key rows of KC floats
+    for (int i = threadIdx.x; i < D * KC / 4; i += THREADS) {
+      const int n = i / (KC / 4), c = (i % (KC / 4)) * 4;
+      const bool ok = b.n0 + n < b.valid;
+      tf32x3::cp16(s + n * LDK + c,
+                   b.p + (ok ? (size_t)(b.n0 + n) * b.ld + k0 + c : 0), ok);
     }
   }
-  __syncthreads();
+  tf32x3::cp_commit();
 }
 
-// dst = LN(src) * (1 + scale) + shift (ada) or LN(src) * scale + shift,
-// one warp per row; scale/shift are (D) vectors in device memory.
+// The first row and column of the warp's WM x WN part of a 64 x 128
+// output tile.
+__device__ __forceinline__ int warp_row0() {
+  return WM * ((threadIdx.x >> 5) % (ROWS / WM));
+}
+__device__ __forceinline__ int warp_col0() {
+  return WN * ((threadIdx.x >> 5) / (ROWS / WM));
+}
+
+__device__ __forceinline__ void zero(float (&acc)[MT][NT][4]) {
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+}
+
+// part += columns [k0, k0 + KC) of A times a KC-deep B chunk in shared
+// memory, on the 3xTF32 tile, for the warp's part of the output. A is a
+// shared tile with row stride lda = 8 (mod 32); B(k, n) = Bs[k ldb + n],
+// or with NTB Bs[n ldb + k]. Two k steps at a time: the whole chunk
+// unrolled needs more than the 128 registers a thread has and spills.
+template <bool NTB>
+__device__ __forceinline__ void chunk_mma(float (&part)[MT][NT][4],
+                                          const float* A, int lda, int k0,
+                                          const float* Bs, int ldb) {
+  using namespace tf32x3;
+  const int lane = threadIdx.x & 31;
+  const int m0 = warp_row0(), c0 = warp_col0();
+#pragma unroll 2
+  for (int kk = 0; kk < KC; kk += 8) {
+    FragA a[MT];
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+      load_a_perm(a[i], A, lda, m0 + 16 * i, k0 + kk, lane);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      FragB f;
+      if (NTB)
+        load_b_nt_perm(f, Bs, ldb, c0 + 8 * j, kk, lane);
+      else
+        load_b_nn(f, Bs, ldb, kk, c0 + 8 * j, lane);
+#pragma unroll
+      for (int i = 0; i < MT; ++i) mma3(part[i][j], a[i], f);
+    }
+  }
+}
+
+// acc += part: each chunk's MMAs sum from zero and the partial is added
+// in fp32, since over many k steps the MMA's own accumulation drifts
+// (PERF.md).
+__device__ __forceinline__ void add_part(float (&acc)[MT][NT][4],
+                                         const float (&part)[MT][NT][4]) {
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] += part[i][j][e];
+}
+
+// acc = A B for the warp's part of a 64 x 128 output. A is (ROWS, b.K) in
+// shared memory, row stride lda = 8 (mod 32), finite up to b.K. b's chunk
+// 0 is already in flight into ring slot t.slot (issued by the kernel's
+// prologue or by the previous product); the last chunk issues next's
+// chunk 0 (where next.p), so the next product's first weights load while
+// this epilogue and what follows it run. Each chunk starts with a
+// barrier, which also orders the caller's shared-memory writes before it;
+// there is none at the end, so the epilogue must not write A.
+template <bool NTB>
+__device__ void gemm(Tile& t, const float* A, int lda, const BSrc& b,
+                     const BSrc& next, float (&acc)[MT][NT][4]) {
+  zero(acc);
+  // a warp whose columns are all past the valid keys has nothing to do
+  const bool idle = NTB && b.n0 + warp_col0() >= b.valid;
+  const int chunks = (b.K + KC - 1) / KC;
+  for (int ch = 0; ch < chunks; ++ch) {
+    tf32x3::cp_wait<0>();
+    __syncthreads();                   // chunk ch has landed for every thread
+    const float* cur = t.ring + t.slot * STAGE;
+    float* other = t.ring + (t.slot ^ 1) * STAGE;
+    if (ch + 1 < chunks)
+      stage_chunk(other, b, ch + 1);
+    else if (next.p)
+      stage_chunk(other, next, 0);
+    if (!idle) {
+      float part[MT][NT][4];
+      zero(part);
+      chunk_mma<NTB>(part, A, lda, ch * KC, cur, NTB ? LDK : LDW);
+      add_part(acc, part);
+    }
+    t.slot ^= 1;
+  }
+}
+
+// acc = A B with B resident in shared memory (the tile's own k or v, row
+// stride ldb), K a multiple of KC: B(k, n) = Bs[k ldb + n], or with NTB
+// Bs[n ldb + k]. No barrier: the caller orders the writes of A and B.
+template <bool NTB>
+__device__ void tile_product(const float* A, int lda, const float* Bs,
+                             int ldb, int K, float (&acc)[MT][NT][4]) {
+  zero(acc);
+  for (int k0 = 0; k0 < K; k0 += KC) {
+    float part[MT][NT][4];
+    zero(part);
+    chunk_mma<NTB>(part, A, lda, k0, NTB ? Bs + k0 : Bs + k0 * ldb, ldb);
+    add_part(acc, part);
+  }
+}
+
+// f(row, col, v0, v1) for the output elements (row, col) and (row, col+1)
+// that acc holds, over the warp's WM x WN part of the 64 x 128 tile.
+template <class F>
+__device__ __forceinline__ void for_pairs(const float (&acc)[MT][NT][4],
+                                          F f) {
+  const int lane = threadIdx.x & 31;
+  const int r = warp_row0() + (lane >> 2);
+  const int c = warp_col0() + 2 * (lane & 3);
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      f(r + 16 * i, c + 8 * j, acc[i][j][0], acc[i][j][1]);
+      f(r + 16 * i + 8, c + 8 * j, acc[i][j][2], acc[i][j][3]);
+    }
+}
+
+__device__ __forceinline__ void store2(float* p, float v0, float v1) {
+  *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+}
+
+// p[0:2] += (v0, v1): an output projection's residual add.
+__device__ __forceinline__ void add2(float* p, float v0, float v1) {
+  float2 x = *reinterpret_cast<float2*>(p);
+  x.x += v0;
+  x.y += v1;
+  *reinterpret_cast<float2*>(p) = x;
+}
+
+// The first product of a CoreBlock: the q columns of the qkv projection.
+__device__ __forceinline__ BSrc first_product(const LayerW& w) {
+  return rowmajor(w.wqkv, 3 * D, 0, D, D);
+}
+
+// dst = LN(src) * (1 + scale) + shift (ada) or LN(src) * scale + shift;
+// each warp takes ROWS / WARPS rows and reduces their sums together, so
+// that their shuffles overlap. scale/shift are (D) vectors in device
+// memory.
 __device__ void norm_rows(const float* src, float* dst,
                           const float* __restrict__ scale,
                           const float* __restrict__ shift, bool ada) {
+  constexpr int RR = ROWS / WARPS;       // a warp's rows, reduced together
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const float4 s = *reinterpret_cast<const float4*>(scale + lane * 4);
   const float4 h = *reinterpret_cast<const float4*>(shift + lane * 4);
   const float add = ada ? 1.0f : 0.0f;
-  for (int r = warp; r < ROWS; r += WARPS) {
-    const float4 v = *reinterpret_cast<const float4*>(src + r * LDX + lane * 4);
-    const float mu = warp_sum(v.x + v.y + v.z + v.w) * (1.0f / D);
-    const float dx = v.x - mu, dy = v.y - mu, dz = v.z - mu, dw = v.w - mu;
-    const float var =
-        warp_sum(dx * dx + dy * dy + dz * dz + dw * dw) * (1.0f / D);
-    const float inv = 1.0f / sqrtf(var + LN_EPS);
+  float4 v[RR];
+  float mu[RR], var[RR];
+#pragma unroll
+  for (int i = 0; i < RR; ++i) {
+    v[i] = *reinterpret_cast<const float4*>(src + (warp + i * WARPS) * LDX +
+                                            lane * 4);
+    mu[i] = v[i].x + v[i].y + v[i].z + v[i].w;
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+    for (int i = 0; i < RR; ++i)
+      mu[i] += __shfl_xor_sync(0xffffffffu, mu[i], o);
+#pragma unroll
+  for (int i = 0; i < RR; ++i) {
+    mu[i] *= 1.0f / D;
+    v[i].x -= mu[i];
+    v[i].y -= mu[i];
+    v[i].z -= mu[i];
+    v[i].w -= mu[i];
+    var[i] = v[i].x * v[i].x + v[i].y * v[i].y + v[i].z * v[i].z +
+             v[i].w * v[i].w;
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+    for (int i = 0; i < RR; ++i)
+      var[i] += __shfl_xor_sync(0xffffffffu, var[i], o);
+#pragma unroll
+  for (int i = 0; i < RR; ++i) {
+    const float inv = 1.0f / sqrtf(var[i] * (1.0f / D) + LN_EPS);
     float4 o;
-    o.x = dx * inv * (add + s.x) + h.x;
-    o.y = dy * inv * (add + s.y) + h.y;
-    o.z = dz * inv * (add + s.z) + h.z;
-    o.w = dw * inv * (add + s.w) + h.w;
-    *reinterpret_cast<float4*>(dst + r * LDX + lane * 4) = o;
+    o.x = v[i].x * inv * (add + s.x) + h.x;
+    o.y = v[i].y * inv * (add + s.y) + h.y;
+    o.z = v[i].z * inv * (add + s.z) + h.z;
+    o.w = v[i].w * inv * (add + s.w) + h.w;
+    *reinterpret_cast<float4*>(dst + (warp + i * WARPS) * LDX + lane * 4) = o;
   }
 }
 
 // One CoreBlock on the tile in t.X, in place. mods: (6, D) rows
 // s1,h1,s2,h2,s3,h3 of this condition; kc, vc: (Lk, D) of this condition.
-__device__ void core_layer(const Tile& t, const float* __restrict__ mods,
+// The block's first product (first_product(w)) is already in flight;
+// `after` is the product that follows the block (its chunk 0 is issued
+// by the last one here), or p == nullptr for none.
+__device__ void core_layer(Tile& t, const float* __restrict__ mods,
                            const float* __restrict__ kc,
                            const float* __restrict__ vc, int Lk,
-                           const LayerW& w) {
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+                           const LayerW& w, const BSrc& after) {
+  const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int P = t.P, nrows = t.nrows;
   const float scale = 1.0f / sqrtf((float)D);
-  float acc[4][8];
+  const int lk_pad = (Lk + KC - 1) / KC * KC;
+  float acc[MT][NT][4];
 
   // ---- self-attention over each chain's P tokens ----
   norm_rows(t.X, t.H, mods + 0 * D, mods + 1 * D, true);
   for (int c = 0; c < 3; ++c) {   // q (pre-scaled), k, v into BIG[:, cD:]
-    gemm_tile<false>(t.H, LDX, D, w.wqkv, 3 * D, c * D, 3 * D, t.W, acc);
+    gemm<false>(t, t.H, LDX, rowmajor(w.wqkv, 3 * D, c * D, D, D),
+                c < 2 ? rowmajor(w.wqkv, 3 * D, (c + 1) * D, D, D)
+                      : rowmajor(w.wso, D, 0, D, D),
+                acc);
     const float f = c == 0 ? scale : 1.0f;
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        t.BIG[(ty * 4 + i) * LDB + c * D + gemm_col(tx, j)] = acc[i][j] * f;
+    for_pairs(acc, [&](int r, int col, float v0, float v1) {
+      store2(t.BIG + r * LDB + c * D + col, v0 * f, v1 * f);
+    });
   }
   __syncthreads();
-  float* S = t.H;                  // (ROWS, 32) logits; H is free now
-  for (int e = tid; e < nrows * P; e += THREADS) {
-    const int r = e / P, j = e % P, key = (r / P) * P + j;
-    const float4* q = reinterpret_cast<const float4*>(t.BIG + r * LDB);
-    const float4* k = reinterpret_cast<const float4*>(t.BIG + key * LDB + D);
-    float s = 0.0f;
-#pragma unroll 8
-    for (int d = 0; d < D / 4; ++d) {
-      const float4 a = q[d], b = k[d];
-      s = fmaf(a.x, b.x, s);
-      s = fmaf(a.y, b.y, s);
-      s = fmaf(a.z, b.z, s);
-      s = fmaf(a.w, b.w, s);
-    }
-    S[r * 32 + j] = s;
-  }
+  // S = q k^T over the whole tile on the 3xTF32 tile (the warps of the
+  // first 64 columns), masked to each chain's P keys by the softmax
+  float* S = t.H;                  // (ROWS, LDS) logits; H is free now
+  if (warp_col0() < ROWS)
+    tile_product<true>(t.BIG, LDB, t.BIG + D, LDB, D, acc);
+  else
+    zero(acc);
+  for_pairs(acc, [&](int r, int col, float v0, float v1) {
+    if (col < ROWS) store2(S + r * LDS + col, v0, v1);
+  });
   __syncthreads();
-  for (int r = warp; r < nrows; r += WARPS) {
-    const float s = lane < P ? S[r * 32 + lane] : -INFINITY;
+  for (int r = warp; r < ROWS; r += WARPS) {  // probabilities, 0 elsewhere
+    const int base = (r / P) * P;
+    const bool live = r < nrows && lane < P;
+    const float s = live ? S[r * LDS + base + lane] : -INFINITY;
     const float m = warp_max(s);
-    const float e = lane < P ? expf(s - m) : 0.0f;
+    const float e = live ? expf(s - m) : 0.0f;
     const float sum = warp_sum(e);
-    if (lane < P) S[r * 32 + lane] = e / sum;
+    __syncwarp();
+    for (int j = lane; j < ROWS; j += 32) S[r * LDS + j] = 0.0f;
+    __syncwarp();
+    if (live) S[r * LDS + base + lane] = e / sum;
   }
   __syncthreads();
-  for (int e = tid; e < ROWS * D; e += THREADS) {  // a = p v into BIG[:, :D]
-    const int r = e / D, c = e % D;
-    float a = 0.0f;
-    if (r < nrows) {
-      const int base = (r / P) * P;
-      for (int j = 0; j < P; ++j)
-        a = fmaf(S[r * 32 + j], t.BIG[(base + j) * LDB + 2 * D + c], a);
-    }
-    t.BIG[r * LDB + c] = a;
-  }
-  gemm_tile<false>(t.BIG, LDB, D, w.wso, D, 0, D, t.W, acc);
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = gemm_col(tx, j);
-      t.X[(ty * 4 + i) * LDX + col] += acc[i][j] + w.bso[col];
-    }
+  tile_product<false>(S, LDS, t.BIG + 2 * D, LDB, ROWS, acc);  // a = p v
+  for_pairs(acc, [&](int r, int col, float v0, float v1) {
+    store2(t.BIG + r * LDB + col, v0, v1);
+  });
+  gemm<false>(t, t.BIG, LDB, rowmajor(w.wso, D, 0, D, D),
+              rowmajor(w.wcq, D, 0, D, D), acc);
+  for_pairs(acc, [&](int r, int col, float v0, float v1) {
+    add2(t.X + r * LDX + col, v0 + w.bso[col], v1 + w.bso[col + 1]);
+  });
   __syncthreads();
 
   // ---- cross-attention to the condition's Lk keys ----
   norm_rows(t.X, t.H, mods + 2 * D, mods + 3 * D, true);
-  gemm_tile<false>(t.H, LDX, D, w.wcq, D, 0, D, t.W, acc);
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      t.BIG[(ty * 4 + i) * LDB + gemm_col(tx, j)] = acc[i][j] * scale;
+  gemm<false>(t, t.H, LDX, rowmajor(w.wcq, D, 0, D, D), keys_of(kc, 0, Lk),
+              acc);
+  for_pairs(acc, [&](int r, int col, float v0, float v1) {
+    store2(t.BIG + r * LDB + col, v0 * scale, v1 * scale);
+  });
   for (int n0 = 0; n0 < Lk; n0 += D) {  // logits q k^T into BIG[:, D:]
-    gemm_tile<true>(t.BIG, LDB, D, kc, D, n0, Lk, t.W, acc);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int col = n0 + gemm_col(tx, j);
-        if (col < Lk) t.BIG[(ty * 4 + i) * LDB + D + col] = acc[i][j];
-      }
+    gemm<true>(t, t.BIG, LDB, keys_of(kc, n0, Lk),
+               n0 + D < Lk ? keys_of(kc, n0 + D, Lk)
+                           : rowmajor(vc, D, 0, lk_pad, Lk),
+               acc);
+    // columns past Lk (at most BIG's row) hold the zero keys' logits,
+    // which the softmax never reads
+    for_pairs(acc, [&](int r, int col, float v0, float v1) {
+      store2(t.BIG + r * LDB + D + n0 + col, v0, v1);
+    });
   }
   __syncthreads();
-  const int lk_pad = (Lk + KC - 1) / KC * KC;
   for (int r = warp; r < ROWS; r += WARPS) {
     float* row = t.BIG + r * LDB + D;
     float m = -INFINITY;
@@ -289,44 +474,34 @@ __device__ void core_layer(const Tile& t, const float* __restrict__ mods,
     for (int j = lane; j < lk_pad; j += 32)
       row[j] = j < Lk ? row[j] * inv : 0.0f;
   }
-  gemm_tile<false>(t.BIG + D, LDB, Lk, vc, D, 0, D, t.W, acc);  // p v
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      t.H[(ty * 4 + i) * LDX + gemm_col(tx, j)] = acc[i][j];
-  gemm_tile<false>(t.H, LDX, D, w.wco, D, 0, D, t.W, acc);
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = gemm_col(tx, j);
-      t.X[(ty * 4 + i) * LDX + col] += acc[i][j] + w.bco[col];
-    }
+  gemm<false>(t, t.BIG + D, LDB, rowmajor(vc, D, 0, lk_pad, Lk),
+              rowmajor(w.wco, D, 0, D, D), acc);   // p v
+  for_pairs(acc, [&](int r, int col, float v0, float v1) {
+    store2(t.H + r * LDX + col, v0, v1);
+  });
+  gemm<false>(t, t.H, LDX, rowmajor(w.wco, D, 0, D, D),
+              rowmajor(w.w1, 4 * D, 0, D, D), acc);
+  for_pairs(acc, [&](int r, int col, float v0, float v1) {
+    add2(t.X + r * LDX + col, v0 + w.bco[col], v1 + w.bco[col + 1]);
+  });
   __syncthreads();
 
   // ---- MLP, hidden made and consumed in 128-column chunks ----
   norm_rows(t.X, t.H, mods + 4 * D, mods + 5 * D, true);
   for (int c = 0; c < 4; ++c) {
-    gemm_tile<false>(t.H, LDX, D, w.w1, 4 * D, c * D, 4 * D, t.W, acc);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int col = gemm_col(tx, j);
-        t.BIG[(ty * 4 + i) * LDB + col] =
-            gelu_tanh(acc[i][j] + w.b1[c * D + col]);
-      }
-    gemm_tile<false>(t.BIG, LDB, D, w.w2 + (size_t)c * D * D, D, 0, D, t.W,
-                     acc);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int col = gemm_col(tx, j);
-        t.X[(ty * 4 + i) * LDX + col] +=
-            acc[i][j] + (c == 0 ? w.b2[col] : 0.0f);
-      }
+    const BSrc w2c = rowmajor(w.w2 + (size_t)c * D * D, D, 0, D, D);
+    gemm<false>(t, t.H, LDX, rowmajor(w.w1, 4 * D, c * D, D, D), w2c, acc);
+    for_pairs(acc, [&](int r, int col, float v0, float v1) {
+      store2(t.BIG + r * LDB + col, gelu_tanh(v0 + w.b1[c * D + col]),
+             gelu_tanh(v1 + w.b1[c * D + col + 1]));
+    });
+    gemm<false>(t, t.BIG, LDB, w2c,
+                c < 3 ? rowmajor(w.w1, 4 * D, (c + 1) * D, D, D) : after,
+                acc);
+    for_pairs(acc, [&](int r, int col, float v0, float v1) {
+      add2(t.X + r * LDX + col, v0 + (c == 0 ? w.b2[col] : 0.0f),
+           v1 + (c == 0 ? w.b2[col + 1] : 0.0f));
+    });
   }
   __syncthreads();
 }
@@ -336,7 +511,8 @@ __device__ Tile make_tile(float* smem, int nrows, int P) {
   t.X = smem;
   t.H = t.X + ROWS * LDX;
   t.BIG = t.H + ROWS * LDX;
-  t.W = t.BIG + ROWS * LDB;
+  t.ring = t.BIG + ROWS * LDB;
+  t.slot = 0;
   t.nrows = nrows;
   t.P = P;
   return t;
@@ -382,7 +558,8 @@ core_stack_kernel(const StackArgs a) {
   const int b = blockIdx.x / tiles, r0 = (blockIdx.x % tiles) * cpt;
   const int nrows = min(cpt, a.R - r0) * a.P;
   const size_t row0 = ((size_t)b * a.R + r0) * a.P;
-  const Tile t = make_tile(smem, nrows, a.P);
+  Tile t = make_tile(smem, nrows, a.P);
+  stage_chunk(t.ring, first_product(a.w), 0);
 
   for (int e = threadIdx.x; e < ROWS * D; e += THREADS) {  // lift + pos
     const int r = e / D, c = e % D;
@@ -393,8 +570,10 @@ core_stack_kernel(const StackArgs a) {
   __syncthreads();
   for (int i = 0; i < a.nb; ++i) {
     const size_t kv = ((size_t)b * a.nb + i) * a.Lk * D;
+    const BSrc after = i + 1 < a.nb ? first_product(layer_at(a.w, i + 1))
+                                    : BSrc{nullptr, 0, 0, 0, 0, false};
     core_layer(t, a.mods + ((size_t)b * a.nb * 6 + 6 * i) * D, a.k + kv,
-               a.v + kv, a.Lk, layer_at(a.w, i));
+               a.v + kv, a.Lk, layer_at(a.w, i), after);
   }
   norm_rows(t.X, t.H, a.ons, a.onb, false);  // out-norm, then the head
   __syncthreads();
@@ -425,7 +604,8 @@ core_block_kernel(const BlockArgs a) {
   const int b = blockIdx.x / tiles, r0 = (blockIdx.x % tiles) * cpt;
   const int nrows = min(cpt, a.R - r0) * a.P;
   const size_t row0 = ((size_t)b * a.R + r0) * a.P;
-  const Tile t = make_tile(smem, nrows, a.P);
+  Tile t = make_tile(smem, nrows, a.P);
+  stage_chunk(t.ring, first_product(a.w), 0);
 
   for (int e = threadIdx.x; e < ROWS * D / 4; e += THREADS) {
     const int r = e / (D / 4), c = (e % (D / 4)) * 4;
@@ -437,7 +617,8 @@ core_block_kernel(const BlockArgs a) {
   }
   __syncthreads();
   core_layer(t, a.mods + (size_t)b * 6 * D, a.k + (size_t)b * a.Lk * D,
-             a.v + (size_t)b * a.Lk * D, a.Lk, a.w);
+             a.v + (size_t)b * a.Lk * D, a.Lk, a.w,
+             BSrc{nullptr, 0, 0, 0, 0, false});
   for (int e = threadIdx.x; e < nrows * D / 4; e += THREADS) {
     const int r = e / (D / 4), c = (e % (D / 4)) * 4;
     *reinterpret_cast<float4*>(a.out + (row0 + r) * D + c) =

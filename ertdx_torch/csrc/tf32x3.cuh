@@ -1,6 +1,6 @@
 // The 3xTF32 tensor-core tile of the attention kernels, forward and
-// backward (slab_attn.cu, flash_attn.cu). Device code only; sm_80 and
-// later, built for sm_90a.
+// backward (slab_attn.cu, flash_attn.cu), and of the fused denoiser core
+// (core_block.cu). Device code only; sm_80 and later, built for sm_90a.
 //
 // An fp32 product a b runs on the TF32 tensor cores as
 //     a b ~ a_lo b_hi + a_hi b_lo + a_hi b_hi,   a = a_hi + a_lo,
@@ -45,6 +45,12 @@
 // Shared tiles have a row stride LD = 4 (mod 32) floats: an A or nt load
 // (rows g, column t) hits bank 4g + t, an nn load (rows 2t + h, column g)
 // bank 8t + 4h + g; 32 distinct banks either way.
+//
+// The core's products take the nn order for every operand read from shared
+// memory (load_a_perm, load_b_nt_perm): A's (g, t) and (g, t+4) are then
+// columns 2t and 2t+1 of a row, one 8-byte load, and so are an nt B's. Its
+// activation and K tiles have LD = 8 (mod 32): a half warp's 8-byte loads
+// (rows g < 4, columns 2t, 2t+1) hit banks 8g + 2t + {0, 1}, all distinct.
 #pragma once
 
 #include <stdint.h>
@@ -106,6 +112,30 @@ __device__ __forceinline__ void load_b_nt(FragB& f, const float* s, int ld,
   const float* p = s + (n0 + (lane >> 2)) * ld + k0 + (lane & 3);
   split(p[0], f.hi[0], f.lo[0]);
   split(p[4], f.hi[1], f.lo[1]);
+}
+
+// A with k in the order 0 2 4 6 1 3 5 7: rows [m0, m0+16), columns
+// [k0, k0+8) of a row-major shared tile (ld even, k0 even).
+__device__ __forceinline__ void load_a_perm(FragA& f, const float* s, int ld,
+                                            int m0, int k0, int lane) {
+  const float* p = s + (m0 + (lane >> 2)) * ld + k0 + 2 * (lane & 3);
+  const float2 top = *reinterpret_cast<const float2*>(p);
+  const float2 bot = *reinterpret_cast<const float2*>(p + 8 * ld);
+  split(top.x, f.hi[0], f.lo[0]);
+  split(bot.x, f.hi[1], f.lo[1]);
+  split(top.y, f.hi[2], f.lo[2]);
+  split(bot.y, f.hi[3], f.lo[3]);
+}
+
+// nt B with k in the order 0 2 4 6 1 3 5 7: B(k, n) = Y(n0 + n, k0 + k),
+// Y a row-major shared tile (ld even, k0 even).
+__device__ __forceinline__ void load_b_nt_perm(FragB& f, const float* s,
+                                               int ld, int n0, int k0,
+                                               int lane) {
+  const float2 v = *reinterpret_cast<const float2*>(
+      s + (n0 + (lane >> 2)) * ld + k0 + 2 * (lane & 3));
+  split(v.x, f.hi[0], f.lo[0]);
+  split(v.y, f.hi[1], f.lo[1]);
 }
 
 // nn B: B(k, n) = Y(k0 + k, n0 + n) with k in the order 0 2 4 6 1 3 5 7.

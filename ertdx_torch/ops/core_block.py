@@ -20,8 +20,9 @@ plain versions are also the oracle the kernels are held against on the
 card. `launches` counts kernel launches only.
 
 `accurate` selects the TPU kernels' bf16_3x mode in JAX; the CUDA
-kernels compute every product as an fp32 FMA, so it has no effect until a
-tensor-core version exists.
+kernels run their products on the tensor cores in 3xTF32 (three TF32
+MMAs a product, fp32-class, at least as exact as bf16_3x) whatever its
+value, so it selects nothing yet: both values give the same bits.
 """
 from __future__ import annotations
 
@@ -160,7 +161,7 @@ def fused_core_stack(x, mods, k, v, ws, lift_w, lift_b, pos_emb, on_scale,
                      accurate: bool = False):
     """The whole denoiser core, (B*n_chunks, chunk, P) chains -> eps of the
     same shape. One CUDA launch on the current stream."""
-    del accurate   # fp32 FMA throughout; see the module docstring
+    del accurate   # 3xTF32 for both values; see the module docstring
     tensors = [x, mods, k, v, *(ws[key] for key in WEIGHT_KEYS), lift_w,
                lift_b, pos_emb, on_scale, on_bias, head_w, head_b]
     if _on_cpu(tensors):
@@ -207,7 +208,7 @@ def fused_core_block(x3, mods, k, v, w, *, p: int, chunk: int,
                      accurate: bool = False):
     """One CoreBlock over (B*n_chunks, chunk*P, D) condition-major chain
     slabs. One CUDA launch on the current stream."""
-    del accurate   # fp32 FMA throughout; see the module docstring
+    del accurate   # 3xTF32 for both values; see the module docstring
     tensors = [x3, mods, k, v, *(w[key] for key in WEIGHT_KEYS)]
     if _on_cpu(tensors):
         return fused_core_block_plain(x3, mods, k, v, w, p=p)

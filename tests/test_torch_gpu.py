@@ -29,7 +29,7 @@ def cuda():
     return torch.device("cuda")
 
 
-def _inputs(dev, b, r, nb, seed=0):
+def _inputs(dev, b, r, nb, seed=0, lk=LK):
     g = torch.Generator(device=dev).manual_seed(seed)
 
     def rnd(*shape, scale=1.0):
@@ -41,37 +41,57 @@ def _inputs(dev, b, r, nb, seed=0):
           "wco": rnd(nb, D, D, scale=s), "bco": rnd(nb, D, scale=0.1),
           "w1": rnd(nb, D, 4 * D, scale=s), "b1": rnd(nb, 4 * D, scale=0.1),
           "w2": rnd(nb, 4 * D, D, scale=s), "b2": rnd(nb, D, scale=0.1)}
-    return ws, rnd(b, 6 * nb, D, scale=0.3), rnd(b * nb, LK, D), \
-        rnd(b * nb, LK, D), rnd
+    return ws, rnd(b, 6 * nb, D, scale=0.3), rnd(b * nb, lk, D), \
+        rnd(b * nb, lk, D), rnd
 
 
-@pytest.mark.parametrize("r", [10, 33, 64])    # ragged last tile at 33
-def test_stack_kernel_matches_plain(cuda, r):
+def _same_on_rerun_and_accurate(run, got):
+    """A rerun is bit-identical, and so is accurate=True: both values
+    compute 3xTF32."""
+    assert torch.equal(run(False), got)
+    assert torch.equal(run(True), got)
+
+
+# (R, P, Lk): ragged last tile at R=33; the kernels' limits, P=17 with
+# Lk=61 (one key block) and P=32 with Lk=256 (two full key blocks)
+CORE_CASES = [(10, P, LK), (33, P, LK), (64, P, LK), (33, 17, 61),
+              (20, 32, 256)]
+
+
+@pytest.mark.parametrize("r,p,lk", CORE_CASES)
+def test_stack_kernel_matches_plain(cuda, r, p, lk):
     b, nb = 3, 2
-    ws, mods, k, v, rnd = _inputs(cuda, b, r, nb)
-    args = (rnd(b, r, P), mods, k, v, ws, rnd(1, D), rnd(1, D), rnd(P, D),
+    ws, mods, k, v, rnd = _inputs(cuda, b, r, nb, lk=lk)
+    args = (rnd(b, r, p), mods, k, v, ws, rnd(1, D), rnd(1, D), rnd(p, D),
             1 + rnd(1, D, scale=0.1), rnd(1, D), rnd(D, 1, scale=0.1),
             rnd(1, 1))
     before = cb.launches["fused_core_stack"]
-    got = cb.fused_core_stack(*args, p=P, chunk=r)
+    got = cb.fused_core_stack(*args, p=p, chunk=r)
     torch.cuda.synchronize()
     assert cb.launches["fused_core_stack"] == before + 1
-    want = cb.fused_core_stack_plain(*args, p=P)
+    want = cb.fused_core_stack_plain(*args, p=p)
     tol = 1e-4 * max(1.0, float(want.abs().max()))
     assert float((got - want).abs().max()) <= tol
+    _same_on_rerun_and_accurate(
+        lambda acc: cb.fused_core_stack(*args, p=p, chunk=r, accurate=acc),
+        got)
 
 
-@pytest.mark.parametrize("r", [10, 33])
-def test_block_kernel_matches_plain(cuda, r):
+@pytest.mark.parametrize("r,p,lk", CORE_CASES[:2] + CORE_CASES[3:])
+def test_block_kernel_matches_plain(cuda, r, p, lk):
     b = 2
-    ws, mods, k, v, rnd = _inputs(cuda, b, r, 1, seed=1)
+    ws, mods, k, v, rnd = _inputs(cuda, b, r, 1, seed=1, lk=lk)
     w = {key: val[0].contiguous() for key, val in ws.items()}
-    x3 = rnd(b, r * P, D)
-    got = cb.fused_core_block(x3, mods, k, v, w, p=P, chunk=r)
+    x3 = rnd(b, r * p, D)
+    got = cb.fused_core_block(x3, mods, k, v, w, p=p, chunk=r)
     torch.cuda.synchronize()
-    want = cb.fused_core_block_plain(x3, mods, k, v, w, p=P)
+    want = cb.fused_core_block_plain(x3, mods, k, v, w, p=p)
     tol = 1e-4 * max(1.0, float(want.abs().max()))
     assert float((got - want).abs().max()) <= tol
+    _same_on_rerun_and_accurate(
+        lambda acc: cb.fused_core_block(x3, mods, k, v, w, p=p, chunk=r,
+                                        accurate=acc),
+        got)
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):

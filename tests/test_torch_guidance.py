@@ -279,7 +279,7 @@ def test_guided_student_matches_jax():
                                rtol=1e-4)
 
 
-def test_training_a_guided_model_is_still_refused(tmp_path):
+def test_training_a_guided_model_moves_its_null_context(tmp_path):
     """The refusal is lifted: `train` now trains a guided model with
     condition dropout (ROADMAP.md's former queue 1 item 1), and its learned
     null context moves (from the third step on: the head and the output
