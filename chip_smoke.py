@@ -10,8 +10,8 @@ non-zero and prints no result line):
 2. build: nvcc compiles ertdx_torch/csrc/*.cu (ertdx_torch/ops/_build.py)
    and prints ptxas' register and shared-memory report; `cuobjdump -sass`
    of the library counts the HMMA.1688.F32.TF32 instructions of each
-   slab, flash and fused-core kernel and fails if one has none (they run
-   their products on the tensor cores);
+   slab, flash, fused-core and ensemble attention kernel and fails if one
+   has none (they run their products on the tensor cores);
 3. kernels: fused_core_stack and fused_core_block at full width (D=128,
    nb=4, P=29, Lk=147) and at the kernels' limits (P=17 with Lk=61, P=32
    with Lk=256), every weight non-zero, held against their plain PyTorch
@@ -45,12 +45,15 @@ non-zero and prints no result line):
    as well. (b) ertdx_torch.train.train for 2
    epochs on 400 examples into a temporary directory, its best and last
    checkpoints read back through the port's reader;
-8. ensemble kernels: block_self_attention and folded_cross_attention at
-   the per-block path's shapes (N=2000 chains of P=29; B=2 conditions of
-   Lq=29,000 folded queries against Lk=147 keys; D=128), at a small and at
-   an odd shape, held against the plain version (1e-4 * max(1,
-   max|plain|)), timed beside the plain version and
-   F.scaled_dot_product_attention with one head (the yardstick);
+8. ensemble kernels: block_self_attention and folded_cross_attention (both
+   on 3xTF32 tensor cores) at the per-block path's shapes (N=2000 chains
+   of P=29; B=2 conditions of Lq=29,000 folded queries against Lk=147
+   keys; D=128), at a small and at an odd shape and at the cross gate's
+   edges (Lk=173 at D=128, Lk=256 at D=64), held against the plain
+   version (1e-4 * max(1, max|plain|)), reruns bit-identical, ptxas'
+   spill line of both kernels (a spill fails), timed beside the plain
+   version and F.scaled_dot_product_attention with one head (the
+   yardstick), with TFLOP/s and the share of the bound;
 9. the rest of serving: DDIM_ENSEMBLE's CondUNet with uncond_prob=0.1, a
    v-parameterisation and ensemble_pallas=True, random weights (null
    context included) through params_from_jax, 2 conditions x 1000
@@ -164,9 +167,11 @@ KERNEL_CASES = [("fused_core_stack", 8, 1000, P, LK),
 SLAB_CASES = [(256, 147, 256, 4), (4, 147, 256, 8), (3, 61, 128, 2)]
 TRAIN_STEPS = 5
 # (N, P, D) and (B, Lq, Lk, D): the per-block path's shapes first (2
-# conditions x 1000 members), then a small and an odd one
+# conditions x 1000 members), then a small and an odd one, and the cross
+# gate's edges (Lk=173 at D=128, Lk=256 at D=64)
 SELF_CASES = [(2000, 29, 128), (16, 29, 128), (7, 17, 64)]
-CROSS_CASES = [(2, 29000, 147, 128), (1, 116, 147, 128), (3, 13, 61, 64)]
+CROSS_CASES = [(2, 29000, 147, 128), (1, 116, 147, 128), (3, 13, 61, 64),
+               (1, 87, 173, 128), (2, 40, 256, 64)]
 SERVE_CONDS, SERVE_MEMBERS = 2, 1000
 # (B, L, C) of the GN kernels and (B, L, C, Cout) of the fused conv: the
 # fused encoder arm's shapes first (the stem's GN; the 256-wide ResBlocks
@@ -280,18 +285,22 @@ def kernel_names(fn) -> str:
 
 
 # a kernel that runs its products on the tensor cores, in a mangled symbol:
-# the slab and flash attention kernels and the fused core's two
+# the slab and flash attention kernels, the fused core's two and the
+# ensemble attention pair
 TENSOR_CORE_KERNEL = re.compile(
     r"\d((?:slab|flash)_(?:fwd|bwd_dq|bwd_dkv)_kernel"
-    r"|core_(?:stack|block)_kernel)[IE]")
+    r"|core_(?:stack|block)_kernel|block_self_kernel|folded_cross_kernel)"
+    r"[IE]")
 CORE_KERNELS = ("core_stack_kernel", "core_block_kernel")
+ENSEMBLE_KERNELS = ("block_self_kernel", "folded_cross_kernel")
 
 
 def check_tensor_cores(path) -> None:
     """Phase 2: the TF32 MMAs (HMMA.1688.F32.TF32) in the SASS of each
-    slab, flash and fused-core kernel of the built library; raises where
-    one has none, or where a fused-core kernel is missing. Logs and
-    returns where the toolkit has no cuobjdump."""
+    slab, flash, fused-core and ensemble attention kernel of the built
+    library; raises where one has none, or where a fused-core or ensemble
+    kernel is missing. Logs and returns where the toolkit has no
+    cuobjdump."""
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     if not os.path.exists(tool):
@@ -313,7 +322,8 @@ def check_tensor_cores(path) -> None:
     log("sass: HMMA.1688.F32.TF32 per tensor-core kernel: " + "; ".join(
         f"{k} {n}" for k, n in sorted(counts.items())))
     bare = [k for k, n in counts.items() if n == 0]
-    bare += [k for k in CORE_KERNELS if k not in counts]
+    bare += [k for k in CORE_KERNELS + ENSEMBLE_KERNELS
+             if not any(name.startswith(k) for name in counts)]
     if not counts or bare:
         raise RuntimeError(f"kernels without TF32 MMAs: {bare}")
 
@@ -514,12 +524,21 @@ def check_slab(sa, dev) -> dict:
     return results
 
 
-def check_ensemble(ea, dev) -> dict:
-    """Phase 8: the ensemble kernels against their plain version, timed
-    at the per-block path's shapes. q, k and v are chunks of one fused
-    projection, as the model passes them."""
+def check_ensemble(ea, dev, report: str, card: str) -> dict:
+    """Phase 8: ptxas' spill line of both ensemble kernels (a spill
+    fails); the kernels against their plain version, reruns bit-identical;
+    timed at the per-block path's shapes with TFLOP/s and the share of the
+    bound. q, k and v are chunks of one fused projection, as the model
+    passes them."""
     import torch.nn.functional as F
 
+    for kernel in ENSEMBLE_KERNELS:
+        lines = ptxas_lines(report, kernel)
+        log(f"ptxas {kernel}: " + " | ".join(lines))
+        spills = [int(n) for line in lines for n in
+                  re.findall(r"(\d+) bytes spill", line)]
+        if not lines or any(spills):
+            raise RuntimeError(f"{kernel}: no ptxas report or it spills")
     gen = torch.Generator(device=dev).manual_seed(SEED + 80)
     results = {}
     cases = ([("block_self_attention", c) for c in SELF_CASES]
@@ -548,6 +567,7 @@ def check_ensemble(ea, dev) -> dict:
         plain = lambda: ea.reference_attention(q, k, v)
         with torch.no_grad():
             got = kernel()
+            again = kernel()
             torch.cuda.synchronize()
             want = plain()
             torch.cuda.synchronize()
@@ -556,10 +576,13 @@ def check_ensemble(ea, dev) -> dict:
         err = float((got - want).abs().max())
         scale = float(want.abs().max())
         tol = 1e-4 * max(1.0, scale)
+        same = torch.equal(got, again)
         log(f"{name} {shape}: max_abs_err={err:.3e} max|plain|={scale:.4f} "
-            f"tol={tol:.3e}")
+            f"tol={tol:.3e}; rerun bit-identical: {same}")
         if not err <= tol:
             raise RuntimeError(f"{name} {shape}: error {err} > {tol}")
+        if not same:
+            raise RuntimeError(f"{name} {shape}: a rerun differs")
         entry = results.setdefault(name, {"max_abs_err": 0.0})
         entry["max_abs_err"] = max(entry["max_abs_err"], err)
         if case not in (SELF_CASES[0], CROSS_CASES[0]):
@@ -585,9 +608,10 @@ def check_ensemble(ea, dev) -> dict:
         log(f"{name} {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"SDPA {lib_ms:.4f} ms (max|d| vs plain {lib_err:.2e}), "
             f"{bound_text(bd, flops, nbytes)}, achieved "
-            f"{flops / ms / 1e9:.2f} TFLOP/s; "
+            f"{flops / ms / 1e9:.2f} TFLOP/s, "
+            f"{100 * bd['bound_ms'] / ms:.1f} % of the bound; "
             f"profiler device time {dev_ms:.4f} ms a launch, host time "
-            f"{host_us:.1f} us a wrapper call")
+            f"{host_us:.1f} us a wrapper call; {card}")
     return results
 
 
@@ -2033,7 +2057,7 @@ def main() -> int:
 
     # 8. ensemble attention kernels against their plain version
     t0 = time.perf_counter()
-    ensemble = check_ensemble(ea, dev)
+    ensemble = check_ensemble(ea, dev, kernels.report, card)
     phase("ensemble kernels", t0)
 
     # 9. the rest of serving on the per-block path

@@ -32,13 +32,13 @@ import torch
 from . import _build
 
 # what the CUDA kernels take (csrc/ensemble_attn.cu: D, P <= 32 keys per
-# warp pass, Lk <= 8 x 32 keys, K and V of one condition and the warps'
-# row buffers in shared memory)
+# warp pass, Lk <= 256 keys padded to a bucket of 8-key tiles, K and V of
+# one condition and at least one warp's 16 q rows in shared memory)
 KERNEL_DIMS = (64, 128)
 KERNEL_P_MAX = 32
 KERNEL_LK_MAX = 256
 SMEM_LIMIT = 232448          # bytes of shared memory a block may use
-CROSS_WARPS, ROWS_PER_WARP = 8, 8
+CROSS_KEY_TILES = (8, 16, 19, 24, 32)
 
 launches = {"block_self_attention": 0, "folded_cross_attention": 0}
 
@@ -49,12 +49,12 @@ def reset_launches() -> None:
 
 
 def _cross_smem_bytes(lk: int, d: int) -> int:
-    """Shared memory of one cross-attention block: K and V rows padded to
-    D + 4 floats, and each warp's buffer of 8 rows of q or of
-    probabilities (csrc/ensemble_attn.cu::cross_smem_bytes)."""
-    keys = -(-lk // 32) * 32
-    return 4 * (2 * lk * (d + 4)
-                + CROSS_WARPS * ROWS_PER_WARP * max(d, keys))
+    """The least shared memory of one cross-attention block: K and V rows
+    of D + 4 floats, padded with zero rows to the bucket of 8-key tiles
+    that Lk falls in, and one warp's 16 q rows; a block takes as many
+    warps (up to 8) as fit (csrc/ensemble_attn.cu::cross_smem_bytes)."""
+    tiles = next(n for n in CROSS_KEY_TILES if 8 * n >= lk)
+    return 4 * (2 * 8 * tiles + 16) * (d + 4)
 
 
 def block_self_ok(n: int, p: int, d: int) -> bool:

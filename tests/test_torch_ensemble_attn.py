@@ -150,6 +150,8 @@ def test_gates_and_layout_checks():
     assert not ea.block_self_ok(8, 29, 32)       # a width not built
     assert ea.folded_cross_ok(2, 29000, 147, 128)
     assert ea.folded_cross_ok(1, 1, 256, 64)
+    assert ea.folded_cross_ok(1, 29 * 3, 173, 128)   # the edges the gate
+    assert ea.folded_cross_ok(2, 40, 256, 64)        # must keep taking
     assert not ea.folded_cross_ok(2, 100, 257, 64)
     assert not ea.folded_cross_ok(2, 100, 250, 128)  # K, V exceed 227 KB
     qkv = torch.zeros(4, 29, 3 * 128)

@@ -206,6 +206,8 @@ def _ensemble_inputs(dev, shape_q, shape_kv, seed, fused=True):
     (5, 32, 128, False),       # every lane a key
     (7, 1, 64, True),          # one token
     (3, 17, 64, False),
+    (1, 29, 128, True),        # one chain
+    (5000, 29, 64, True),      # many chains a block
 ])
 def test_block_self_kernel_matches_plain(cuda, n, p, d, fused):
     from ertdx_torch.ops import ensemble_attn as ea
@@ -213,11 +215,13 @@ def test_block_self_kernel_matches_plain(cuda, n, p, d, fused):
     q, k, v = _ensemble_inputs(cuda, (n, p, d), (n, p, d), n + p, fused)
     ea.reset_launches()
     got = ea.block_self_attention(q, k, v)
+    again = ea.block_self_attention(q, k, v)
     torch.cuda.synchronize()
-    assert ea.launches["block_self_attention"] == 1
+    assert ea.launches["block_self_attention"] == 2
     want = ea.reference_attention(q, k, v)
     assert float((got - want).abs().max()) <= \
         1e-4 * max(1.0, float(want.abs().max()))
+    assert torch.equal(got, again)
 
 
 @pytest.mark.parametrize("b,lq,lk,d,fused", [
@@ -225,6 +229,10 @@ def test_block_self_kernel_matches_plain(cuda, n, p, d, fused):
     (1, 13, 256, 64, False),          # the most keys; a ragged row group
     (3, 1, 1, 128, True),
     (2, 29 * 7, 61, 128, False),
+    (1, 29 * 3, 173, 128, True),      # the old gate's edge at D = 128
+    (2, 40, 256, 64, True),           # and at D = 64
+    (2, 29 * 5, 147, 128, True),      # Lq not a multiple of 16
+    (2, 7, 147, 128, False),          # Lq below one 16-row tile
 ])
 def test_folded_cross_kernel_matches_plain(cuda, b, lq, lk, d, fused):
     from ertdx_torch.ops import ensemble_attn as ea
@@ -232,11 +240,13 @@ def test_folded_cross_kernel_matches_plain(cuda, b, lq, lk, d, fused):
     q, k, v = _ensemble_inputs(cuda, (b, lq, d), (b, lk, d), lq + lk, fused)
     ea.reset_launches()
     got = ea.folded_cross_attention(q, k, v)
+    again = ea.folded_cross_attention(q, k, v)
     torch.cuda.synchronize()
-    assert ea.launches["folded_cross_attention"] == 1
+    assert ea.launches["folded_cross_attention"] == 2
     want = ea.reference_attention(q, k, v)
     assert float((got - want).abs().max()) <= \
         1e-4 * max(1.0, float(want.abs().max()))
+    assert torch.equal(got, again)
 
 
 def test_ensemble_gate_false_runs_the_plain_version(cuda):

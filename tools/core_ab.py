@@ -94,14 +94,23 @@ VARIANTS = {
 }
 
 
-def build(names) -> dict:
-    """name -> (loaded library, ptxas' lines for both kernels)."""
-    src = open(os.path.join(CSRC, "core_block.cu")).read()
+def build(names, source="core_block.cu", variants=None,
+          entry_points=("ertdx_core_stack", "ertdx_core_block"), out=OUT,
+          before=None) -> dict:
+    """name -> (the variant's library, ptxas' report). Each variant is
+    `source` (in csrc/) with the text substitutions of `variants` (this
+    file's VARIANTS by default; "base" has none, "before" is the file at
+    the path `before`), written with tf32x3.cuh into out/<name>/ and
+    built by one nvcc per variant, all started together; `entry_points`
+    get their ctypes signatures. Used by tools/ensemble_ab.py too."""
+    variants = VARIANTS if variants is None else variants
+    src = open(os.path.join(CSRC, source)).read()
     hdr = open(os.path.join(CSRC, "tf32x3.cuh")).read()
     procs = {}
     for name in names:
-        s, h = src, hdr
-        for old, new in ([] if name == "base" else VARIANTS[name]):
+        s, h = (open(before).read() if name == "before" else src), hdr
+        for old, new in ([] if name in ("base", "before")
+                         else variants[name]):
             text = h if old.startswith("H:") else s
             old = old[2:] if old.startswith("H:") else old
             if text.count(old) != 1:
@@ -111,27 +120,25 @@ def build(names) -> dict:
                 h = h.replace(old, new)
             else:
                 s = s.replace(old, new)
-        d = os.path.join(OUT, name)
+        d = os.path.join(out, name)
         os.makedirs(d, exist_ok=True)
-        open(os.path.join(d, "core_block.cu"), "w").write(s)
+        open(os.path.join(d, source), "w").write(s)
         open(os.path.join(d, "tf32x3.cuh"), "w").write(h)
         procs[name] = subprocess.Popen(
             [_build._nvcc(), *_build.ARCH_FLAGS, "-std=c++17", "-O3",
              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o",
-             os.path.join(d, "lib.so"), os.path.join(d, "core_block.cu")],
+             os.path.join(d, "lib.so"), os.path.join(d, source)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs = {}
     for name, proc in procs.items():
         report = proc.communicate()[0]
         if proc.returncode:
             raise SystemExit(f"{name}: nvcc failed\n{report[-3000:]}")
-        lib = ctypes.CDLL(os.path.join(OUT, name, "lib.so"))
-        for fn in ("ertdx_core_stack", "ertdx_core_block"):
+        lib = ctypes.CDLL(os.path.join(out, name, "lib.so"))
+        for fn in entry_points:
             getattr(lib, fn).argtypes = _build.SIGNATURES[fn]
             getattr(lib, fn).restype = ctypes.c_int
-        lines = [f"{k}: " + " | ".join(cs.ptxas_lines(report, k))
-                 for k in cs.CORE_KERNELS]
-        libs[name] = (types.SimpleNamespace(lib=lib), lines)
+        libs[name] = (lib, report)
     return libs
 
 
@@ -179,8 +186,10 @@ def main() -> int:
     libs = build(names)
     print(f"built {len(libs)} variants in {time.perf_counter() - t0:.1f} s"
           f"; {cs.card_line()}", flush=True)
-    for name, (_, lines) in libs.items():
-        print(f"ptxas {name}: " + "; ".join(lines))
+    for name, (_, report) in libs.items():
+        print(f"ptxas {name}: " + "; ".join(
+            f"{k}: " + " | ".join(cs.ptxas_lines(report, k))
+            for k in cs.CORE_KERNELS))
 
     gen = torch.Generator(device=dev).manual_seed(cs.SEED)
     a = cs.core_inputs(gen, 8, 1000, cs.NB, dev)
@@ -201,7 +210,8 @@ def main() -> int:
     try:
         for turn, order in enumerate((names, names[::-1])):
             for name in order:
-                _build.load = lambda n=name: libs[n][0]
+                lib = types.SimpleNamespace(lib=libs[name][0])
+                _build.load = lambda lib=lib: lib
                 with torch.no_grad():
                     got, again, got_b = stack(), stack(), block()
                     torch.cuda.synchronize()
