@@ -10,8 +10,9 @@ non-zero and prints no result line):
 2. build: nvcc compiles ertdx_torch/csrc/*.cu (ertdx_torch/ops/_build.py)
    and prints ptxas' register and shared-memory report; `cuobjdump -sass`
    of the library counts the HMMA.1688.F32.TF32 instructions of each
-   slab, flash, fused-core and ensemble attention kernel and fails if one
-   has none (they run their products on the tensor cores);
+   slab, flash, fused-core, ensemble attention and fused-conv GEMM kernel
+   and fails if one has none (they run their products on the tensor
+   cores);
 3. kernels: fused_core_stack and fused_core_block at full width (D=128,
    nb=4, P=29, Lk=147) and at the kernels' limits (P=17 with Lk=61, P=32
    with Lk=256), every weight non-zero, held against their plain PyTorch
@@ -70,10 +71,13 @@ non-zero and prints no result line):
    (256, 147, 256 -> 256)), at the stem-width conv (256, 587, 128 ->
    128, as pallas_conv=True runs it), a 128 -> 256 conv and odd shapes,
    each output (dx, dgamma, dbeta, dW, db) held against the plain version
-   (1e-4 * max(1, max|plain|)), timed (CUDA events and profiler device
-   time) beside the plain version and the unfused library composition
-   (F.group_norm + F.silu, + F.conv1d; cuDNN and TF32 off), a yardstick
-   only: no single PyTorch call computes either function;
+   (1e-4 * max(1, max|plain|)), reruns of the forward and the backward
+   bit-identical, ptxas' spill line of both fused-conv kernels (a spill
+   fails), timed (CUDA events and profiler device time, the backward's
+   launch by launch) beside the plain version and the unfused library
+   composition (F.group_norm + F.silu, + F.conv1d; cuDNN and TF32 off), a
+   yardstick only: no single PyTorch call computes either function, with
+   TFLOP/s and the share of the bound;
 11. the fused-encoder training arm: V5E8_DP as phase 7 with pallas_gn=True
    and pallas_conv_min_width=256, random weights from a seed through
    params_from_jax. (a) 5 train_steps against the same 5 with every
@@ -285,22 +289,23 @@ def kernel_names(fn) -> str:
 
 
 # a kernel that runs its products on the tensor cores, in a mangled symbol:
-# the slab and flash attention kernels, the fused core's two and the
-# ensemble attention pair
+# the slab and flash attention kernels, the fused core's two, the ensemble
+# attention pair and the fused conv's GEMMs
 TENSOR_CORE_KERNEL = re.compile(
     r"\d((?:slab|flash)_(?:fwd|bwd_dq|bwd_dkv)_kernel"
-    r"|core_(?:stack|block)_kernel|block_self_kernel|folded_cross_kernel)"
-    r"[IE]")
+    r"|core_(?:stack|block)_kernel|block_self_kernel|folded_cross_kernel"
+    r"|tap3_gemm_kernel|conv_dw_kernel)[IE]")
 CORE_KERNELS = ("core_stack_kernel", "core_block_kernel")
 ENSEMBLE_KERNELS = ("block_self_kernel", "folded_cross_kernel")
+CONV_KERNELS = ("tap3_gemm_kernel", "conv_dw_kernel")
 
 
 def check_tensor_cores(path) -> None:
     """Phase 2: the TF32 MMAs (HMMA.1688.F32.TF32) in the SASS of each
-    slab, flash, fused-core and ensemble attention kernel of the built
-    library; raises where one has none, or where a fused-core or ensemble
-    kernel is missing. Logs and returns where the toolkit has no
-    cuobjdump."""
+    slab, flash, fused-core, ensemble attention and fused-conv kernel of
+    the built library; raises where one has none, or where a fused-core,
+    ensemble or fused-conv kernel is missing. Logs and returns where the
+    toolkit has no cuobjdump."""
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     if not os.path.exists(tool):
@@ -312,7 +317,7 @@ def check_tensor_cores(path) -> None:
     for line in sass.splitlines():
         if "Function : " in line:
             fn = TENSOR_CORE_KERNEL.search(line)
-            args = ",".join(re.findall(r"Li(\d+)E", line))
+            args = ",".join(re.findall(r"L[ib](\d+)E", line))
             name = None if fn is None else fn.group(1) + (
                 f"<{args}>" if args else "")
             if name:
@@ -322,7 +327,7 @@ def check_tensor_cores(path) -> None:
     log("sass: HMMA.1688.F32.TF32 per tensor-core kernel: " + "; ".join(
         f"{k} {n}" for k, n in sorted(counts.items())))
     bare = [k for k, n in counts.items() if n == 0]
-    bare += [k for k in CORE_KERNELS + ENSEMBLE_KERNELS
+    bare += [k for k in CORE_KERNELS + ENSEMBLE_KERNELS + CONV_KERNELS
              if not any(name.startswith(k) for name in counts)]
     if not counts or bare:
         raise RuntimeError(f"kernels without TF32 MMAs: {bare}")
@@ -813,8 +818,8 @@ def _log_param_gaps(label, kernel, plain, g1_kernel, g1_plain,
 
 
 KERNEL_GROUPS = (("GN and fused conv (this port)",
-                  ("gn_silu_", "gn_stats_", "tap3_gemm_", "conv_dw_",
-                   "sum_rows_")),
+                  ("gn_silu_", "gn_stats_", "gn_affine_", "tap3_gemm_",
+                   "conv_dw_", "sum_rows_")),
                  ("slab attention (this port)", ("slab_",)),
                  ("flash attention (this port)",
                   ("(anonymous namespace)::flash_",)),
@@ -843,6 +848,21 @@ def kernel_records(fn) -> list:
         wall_us = (time.perf_counter() - t0) * 1e6
     return [e for e in prof.events() if e.device_type == DeviceType.CUDA
             and not getattr(e, "is_user_annotation", False)], wall_us
+
+
+def launch_times(fn, calls: int = 5) -> str:
+    """The device time of each kernel fn launches, by name in launch order,
+    the mean over `calls` calls of fn from torch.profiler's records, with
+    the number of records of each (the profiler has dropped a few)."""
+    records, _ = kernel_records(lambda: [fn() for _ in range(calls)])
+    by_name: dict = {}
+    for e in records:
+        name = re.search(r"\w+_kernel(<[^>]*>)?", e.name)
+        key = name[0] if name else e.name[:40]
+        us, n = by_name.get(key, (0.0, 0))
+        by_name[key] = (us + e.time_range.elapsed_us(), n + 1)
+    return "; ".join(f"{k} {us / calls / 1e3:.4f} ms ({n} records)"
+                     for k, (us, n) in by_name.items())
 
 
 def device_profile(fn, label: str) -> None:
@@ -1064,10 +1084,21 @@ def check_train_entry(sa, dev) -> dict:
     return counts
 
 
-def check_gn_conv(gn, cv, dev, card) -> dict:
-    """Phase 10: the GN and fused-conv kernels, forward and backward,
-    against their plain versions, timed at the large shapes."""
+def check_gn_conv(gn, cv, dev, report: str, card: str) -> dict:
+    """Phase 10: ptxas' spill line of both fused-conv kernels (a spill
+    fails); the GN and fused-conv kernels, forward and backward, against
+    their plain versions, reruns bit-identical; timed at the large shapes,
+    the fused conv's backward launch by launch, with TFLOP/s and the
+    share of the bound."""
     import torch.nn.functional as F
+
+    for kernel in CONV_KERNELS:
+        lines = ptxas_lines(report, kernel)
+        log(f"ptxas {kernel}: " + " | ".join(lines))
+        spills = [int(n) for line in lines for n in
+                  re.findall(r"(\d+) bytes spill", line)]
+        if not lines or any(spills):
+            raise RuntimeError(f"{kernel}: no ptxas report or it spills")
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 100)
     eps = 1e-5
@@ -1133,7 +1164,11 @@ def check_gn_conv(gn, cv, dev, card) -> dict:
             shape = f"B={b} L={l} C={c} Cout={cout}"
         got = fwd()
         dgot = bwd()
+        again, dagain = fwd(), bwd()
         torch.cuda.synchronize()
+        if not (torch.equal(got, again) and all(
+                torch.equal(a, w) for a, w in zip(dgot, dagain))):
+            raise RuntimeError(f"{names[0]} {shape}: a rerun differs")
         want = plain(*ins)
         dwant = grad_of(plain, ins, dy)()
         torch.cuda.synchronize()
@@ -1178,7 +1213,11 @@ def check_gn_conv(gn, cv, dev, card) -> dict:
                 f"{lib_ms:.4f} ms (its forward vs plain: max|d| "
                 f"{lib_err:.2e}), {bound_text(bd, flops, nbytes)}, achieved "
                 f"{flops / ms / 1e9:.2f} TFLOP/s, {nbytes / ms / 1e6:.1f} "
-                f"GB/s; {card}")
+                f"GB/s, {100 * bd['bound_ms'] / ms:.1f} % of the bound; "
+                f"{card}")
+            if name == "gn_silu_conv3_bwd":
+                log(f"{name} {shape}, launch by launch: "
+                    + launch_times(kernel))
             entry = results[name]
             if "ms" not in entry:       # the first large case: the path's
                 entry.update(ms=ms, plain_ms=plain_ms, library_ms=None,
@@ -2067,7 +2106,7 @@ def main() -> int:
 
     # 10. GN and fused-conv kernels against their plain versions
     t0 = time.perf_counter()
-    gnconv = check_gn_conv(gn, cv, dev, card)
+    gnconv = check_gn_conv(gn, cv, dev, kernels.report, card)
     phase("GN and fused-conv kernels", t0)
 
     # 11. the fused-encoder training arm: (a) steps, (b) train() + resume

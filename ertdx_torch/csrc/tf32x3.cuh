@@ -1,6 +1,7 @@
 // The 3xTF32 tensor-core tile of the attention kernels, forward and
-// backward (slab_attn.cu, flash_attn.cu), and of the fused denoiser core
-// (core_block.cu). Device code only; sm_80 and later, built for sm_90a.
+// backward (slab_attn.cu, flash_attn.cu, ensemble_attn.cu), of the fused
+// denoiser core (core_block.cu) and of the fused conv's GEMMs
+// (gn_conv.cu). Device code only; sm_80 and later, built for sm_90a.
 //
 // An fp32 product a b runs on the TF32 tensor cores as
 //     a b ~ a_lo b_hi + a_hi b_lo + a_hi b_hi,   a = a_hi + a_lo,
@@ -51,6 +52,13 @@
 // columns 2t and 2t+1 of a row, one 8-byte load, and so are an nt B's. Its
 // activation and K tiles have LD = 8 (mod 32): a half warp's 8-byte loads
 // (rows g < 4, columns 2t, 2t+1) hit banks 8g + 2t + {0, 1}, all distinct.
+//
+// The fused conv's dW reads its A operand transposed (load_a_t): A = X^T
+// for a row-major tile X whose rows run along k, in the nn order, so A's
+// (g, t) is X's (2t, g) and A's (g, t+4) is X's (2t+1, g), like an nn B.
+// With LD = 4 (mod 32) a load hits bank 8t + g (+ 4 for row 2t+1, + 8 for
+// column g+8): 32 distinct banks, and a shift of the tile by j rows (the
+// conv's taps) adds the same 4j to every lane.
 #pragma once
 
 #include <stdint.h>
@@ -136,6 +144,18 @@ __device__ __forceinline__ void load_b_nt_perm(FragB& f, const float* s,
       s + (n0 + (lane >> 2)) * ld + k0 + 2 * (lane & 3));
   split(v.x, f.hi[0], f.lo[0]);
   split(v.y, f.hi[1], f.lo[1]);
+}
+
+// A = X^T with k in the order 0 2 4 6 1 3 5 7: A(m, k) = X(k0 + k, m0 + m),
+// X a row-major shared tile along m (rows k0 + 2t, k0 + 2t + 1; columns
+// m0 + g, m0 + g + 8).
+__device__ __forceinline__ void load_a_t(FragA& f, const float* s, int ld,
+                                         int m0, int k0, int lane) {
+  const float* p = s + (k0 + 2 * (lane & 3)) * ld + m0 + (lane >> 2);
+  split(p[0], f.hi[0], f.lo[0]);
+  split(p[8], f.hi[1], f.lo[1]);
+  split(p[ld], f.hi[2], f.lo[2]);
+  split(p[ld + 8], f.hi[3], f.lo[3]);
 }
 
 // nn B: B(k, n) = Y(k0 + k, n0 + n) with k in the order 0 2 4 6 1 3 5 7.

@@ -13,8 +13,10 @@ to the hand-written CUDA kernels of csrc/gn_conv.cu:
                           all summed over the batch in the kernels
 
 On CUDA tensors the forward and backward launch their kernels (the
-kernels take Cout a multiple of 4 and B up to 65535; the wrapper raises
-on anything else); on CPU tensors both are the plain version under
+kernels take Cout a multiple of 4, B up to 65535 and x, beta, w, bias
+and g starting on 16-byte boundaries, which they stage with cp.async; the
+wrappers raise on anything else, and the autograd path copies a
+misaligned operand); on CPU tensors both are the plain version under
 autograd. A failed build or launch raises: nothing falls back. Channels
 not divisible by the groups raise ValueError on every device, as in JAX
 (:237-243). `launches` counts kernel launches only.
@@ -73,25 +75,34 @@ def _checked(x, gamma, beta, w, num_groups, bias=None, g=None):
     _build.check_cuda("gamma", gamma, (c,))
     _build.check_cuda("beta", beta, (c,))
     _build.check_cuda("w", w, (3, c, cout))
-    extra = []
+    staged = {"x": x, "beta": beta, "w": w}    # read by 16-byte cp.async
     if bias is not None:
         _build.check_cuda("bias", bias, (cout,))
-        extra.append(bias)
+        staged["bias"] = bias
     if g is not None:
         _build.check_cuda("g", g, (b, l, cout))
-        extra.append(g)
-    if any(t.device != x.device for t in (gamma, beta, w, *extra)):
+        staged["g"] = g
+    if any(t.device != x.device for t in (gamma, *staged.values())):
         raise ValueError("all tensors must lie on one CUDA device")
+    _build.check_aligned16(**staged)
     return b, l, c, cout
+
+
+def stats_floats(b: int, num_groups: int, c: int) -> int:
+    """Floats of the kernels' statistics scratch: the (B, G, 2) mean and
+    rstd, padded to 16 bytes, then the (B, C, 2) table of each (row,
+    channel)'s group mean and rstd * gamma that the GEMMs read."""
+    return (2 * b * num_groups + 3) // 4 * 4 + 2 * b * c
 
 
 def gn_silu_conv3_fwd(x, gamma, beta, w, bias, num_groups: int,
                       eps: float = 1e-5) -> torch.Tensor:
-    """The forward kernels: (B, L, C) -> (B, L, Cout). Two launches on the
-    current stream (statistics, then the fused GEMM), counted as one."""
+    """The forward kernels: (B, L, C) -> (B, L, Cout). Three launches on
+    the current stream (statistics, their per-channel table, then the
+    fused GEMM), counted as one."""
     b, l, c, cout = _checked(x, gamma, beta, w, num_groups, bias=bias)
     out = torch.empty(b, l, cout, device=x.device, dtype=torch.float32)
-    stats = torch.empty(b, num_groups, 2, device=x.device,
+    stats = torch.empty(stats_floats(b, num_groups, c), device=x.device,
                         dtype=torch.float32)
     lib = _build.load().lib
     with torch.cuda.device(x.device):
@@ -107,20 +118,20 @@ def gn_silu_conv3_fwd(x, gamma, beta, w, bias, num_groups: int,
 
 
 def dw_splits(b: int, c: int, cout: int, sms: int) -> int:
-    """How many ways the dW reduction splits the batch rows: as many
-    blocks as fit on the card at once (two per SM at the kernel's
-    register count), never a second wave, at most one split per batch
-    row."""
-    tiles = -(-c // 64) * -(-cout // 64)
-    return max(1, min(b, 2 * sms // tiles))
+    """How many ways the dW reduction splits the B L rows: as many
+    blocks of 64 input by 128 output channels as fit on the card at once
+    (one per SM at the kernel's register count), never a second wave, at
+    most one split per batch row."""
+    tiles = -(-c // 64) * -(-cout // 128)
+    return max(1, min(b, sms // tiles))
 
 
 def gn_silu_conv3_bwd(x, gamma, beta, w, g, num_groups: int,
                       eps: float = 1e-5):
     """The backward kernels: (dx, dgamma, dbeta, dW, db) for upstream
-    gradient g (B, L, Cout). Six launches on the current stream
-    (statistics, dW partials, their sum, dh, the GN backward and its sum
-    over B), counted as one backward."""
+    gradient g (B, L, Cout). Seven launches on the current stream
+    (statistics and their per-channel table, dW partials, their sum, dh,
+    the GN backward and its sum over B), counted as one backward."""
     b, l, c, cout = _checked(x, gamma, beta, w, num_groups, g=g)
     dev = x.device
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -131,7 +142,7 @@ def gn_silu_conv3_bwd(x, gamma, beta, w, g, num_groups: int,
         return torch.empty(*shape, device=dev, dtype=torch.float32)
 
     dx, dgb, dwb = empty(b, l, c), empty(2, c), empty(nw)
-    stats, dh = empty(b, num_groups, 2), empty(b, l, c)
+    stats, dh = empty(stats_floats(b, num_groups, c)), empty(b, l, c)
     part_w, part_gn = empty(splits, nw), empty(b, 2, c)
     lib = _build.load().lib
     with torch.cuda.device(dev):
@@ -160,7 +171,7 @@ class _GNSiLUConv3(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, gamma, beta, w = ctx.saved_tensors
-        grads = gn_silu_conv3_bwd(x, gamma, beta, w, g.contiguous(),
+        grads = gn_silu_conv3_bwd(x, gamma, beta, w, _build.contiguous16(g),
                                   ctx.num_groups, ctx.eps)
         return (*grads, None, None)
 
@@ -174,6 +185,6 @@ def gn_silu_conv3(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     if x.device.type == "cpu":
         return reference_gn_silu_conv3(x, gamma, beta, w, bias, num_groups,
                                        eps)
-    return _GNSiLUConv3.apply(x.contiguous(), gamma.contiguous(),
-                              beta.contiguous(), w.contiguous(),
-                              bias.contiguous(), num_groups, eps)
+    c16 = _build.contiguous16
+    return _GNSiLUConv3.apply(c16(x), gamma.contiguous(), c16(beta), c16(w),
+                              c16(bias), num_groups, eps)

@@ -83,8 +83,10 @@ def test_channels_not_divisible_by_the_groups_raise():
 
 
 def test_dw_splits_fill_the_card_in_one_wave():
-    assert cv.dw_splits(256, 256, 256, 132) == 16   # 16 tiles x 16 <= 264
-    assert cv.dw_splits(256, 128, 128, 132) == 66   # 4 tiles x 66 = 264
+    # blocks of 64 x 128 output channels, one an SM
+    assert cv.dw_splits(256, 256, 256, 132) == 16   # 8 tiles x 16 <= 132
+    assert cv.dw_splits(256, 128, 128, 132) == 66   # 2 tiles x 66 = 132
+    assert cv.dw_splits(256, 256, 64, 132) == 33    # 4 tiles x 33 = 132
     assert cv.dw_splits(3, 64, 72, 132) == 3        # one split a batch row
     assert cv.dw_splits(1, 1024, 1024, 132) == 1
 

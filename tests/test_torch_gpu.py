@@ -340,7 +340,10 @@ def test_groupnorm_kernels_match_plain(cuda, b, l, c):
 
 @pytest.mark.parametrize("b,l,c,cout", [
     (2, 37, 16, 16), (3, 61, 64, 72), (2, 1, 8, 4), (2, 2, 16, 8),
-    (4, 147, 256, 256), (2, 294, 128, 256)])
+    (4, 147, 256, 256), (2, 294, 128, 256),
+    # a 128-row tile over several batch rows; one row past a tile; K not a
+    # multiple of the 32-channel stage (C=24, 8 groups of 3)
+    (5, 1, 16, 16), (3, 37, 32, 16), (2, 129, 64, 64), (3, 20, 24, 16)])
 def test_conv_kernels_match_plain(cuda, b, l, c, cout):
     from ertdx_torch.ops import conv as cv
 
@@ -362,6 +365,7 @@ def test_conv_kernels_match_plain(cuda, b, l, c, cout):
     for a, wt in zip(dgot, want):
         assert a.shape == wt.shape
         _close(a, wt)
+    assert torch.equal(got, cv.gn_silu_conv3_fwd(x, gamma, beta, w, bias, 8))
     again = cv.gn_silu_conv3_bwd(x, gamma, beta, w, dy, 8)
     assert all(torch.equal(a, wt) for a, wt in zip(dgot, again))
 
@@ -386,6 +390,35 @@ def test_gn_conv_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         w = torch.randn(3, 8, 16, device=cuda).transpose(1, 2)
         cv.gn_silu_conv3_fwd(x, one, one, w, torch.zeros(8, device=cuda), 8)
+
+
+def test_conv_kernels_take_misaligned_views(cuda):
+    from ertdx_torch.ops import conv as cv
+
+    # the GEMMs stage x, beta, w, bias and g with 16-byte cp.async: the
+    # autograd path copies a misaligned operand, the wrappers refuse it
+    g = torch.Generator(device=cuda).manual_seed(12)
+    x = torch.randn(2, 37, 32, generator=g, device=cuda)
+    gamma = 1 + 0.3 * torch.randn(32, generator=g, device=cuda)
+    beta = 0.3 * torch.randn(32, generator=g, device=cuda)
+    w = torch.randn(3, 32, 16, generator=g, device=cuda) / math.sqrt(96)
+    bias = torch.randn(16, generator=g, device=cuda)
+    dy = torch.randn(2, 37, 16, generator=g, device=cuda)
+    leaves = [_misaligned(t).requires_grad_(True)
+              for t in (x, gamma, beta, w, bias)]
+    cv.reset_launches()
+    out = cv.gn_silu_conv3(*leaves, 8)
+    out.backward(_misaligned(dy))
+    torch.cuda.synchronize()
+    assert cv.launches == {"gn_silu_conv3_fwd": 1, "gn_silu_conv3_bwd": 1}
+    _close(out, cv.reference_gn_silu_conv3(x, gamma, beta, w, bias, 8))
+    for leaf, want in zip(leaves, cv.reference_gn_silu_conv3_backward(
+            x, gamma, beta, w, bias, dy, 8)):
+        _close(leaf.grad, want)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        cv.gn_silu_conv3_fwd(_misaligned(x), gamma, beta, w, bias, 8)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        cv.gn_silu_conv3_bwd(x, gamma, beta, w, _misaligned(dy), 8)
 
 
 def test_fused_encoder_trains_on_the_gn_kernels(cuda):

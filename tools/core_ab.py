@@ -100,12 +100,16 @@ def build(names, source="core_block.cu", variants=None,
     """name -> (the variant's library, ptxas' report). Each variant is
     `source` (in csrc/) with the text substitutions of `variants` (this
     file's VARIANTS by default; "base" has none, "before" is the file at
-    the path `before`), written with tf32x3.cuh into out/<name>/ and
-    built by one nvcc per variant, all started together; `entry_points`
-    get their ctypes signatures. Used by tools/ensemble_ab.py too."""
+    the path `before`), written with csrc's headers (tf32x3.cuh with the
+    "H:" substitutions) into out/<name>/ and built by one nvcc per
+    variant, all started together; `entry_points` get their ctypes
+    signatures. Used by tools/ensemble_ab.py and tools/conv_ab.py too."""
     variants = VARIANTS if variants is None else variants
     src = open(os.path.join(CSRC, source)).read()
     hdr = open(os.path.join(CSRC, "tf32x3.cuh")).read()
+    others = {f: open(os.path.join(CSRC, f)).read()
+              for f in os.listdir(CSRC)
+              if f.endswith(".cuh") and f != "tf32x3.cuh"}
     procs = {}
     for name in names:
         s, h = (open(before).read() if name == "before" else src), hdr
@@ -124,6 +128,8 @@ def build(names, source="core_block.cu", variants=None,
         os.makedirs(d, exist_ok=True)
         open(os.path.join(d, source), "w").write(s)
         open(os.path.join(d, "tf32x3.cuh"), "w").write(h)
+        for f, text in others.items():
+            open(os.path.join(d, f), "w").write(text)
         procs[name] = subprocess.Popen(
             [_build._nvcc(), *_build.ARCH_FLAGS, "-std=c++17", "-O3",
              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o",
