@@ -12,7 +12,8 @@ non-zero and prints no result line):
    of the library counts the HMMA.1688.F32.TF32 instructions of each
    slab, flash, fused-core, ensemble attention and fused-conv GEMM kernel
    and fails if one has none (they run their products on the tensor
-   cores);
+   cores); ptxas' lines of every GN kernel (staged and streamed), where
+   a spill fails;
 3. kernels: fused_core_stack and fused_core_block at full width (D=128,
    nb=4, P=29, Lk=147) and at the kernels' limits (P=17 with Lk=61, P=32
    with Lk=256), every weight non-zero, held against their plain PyTorch
@@ -67,9 +68,12 @@ non-zero and prints no result line):
    in batches of 2 (pd-4, inverse on the device);
 10. GN and fused-conv kernels: groupnorm_silu's and gn_silu_conv3's CUDA
    forward and backward at the fused encoder arm's shapes (GN at the
-   stem, (256, 587, 128); the fused conv at (256, 294, 256 -> 256) and
-   (256, 147, 256 -> 256)), at the stem-width conv (256, 587, 128 ->
-   128, as pallas_conv=True runs it), a 128 -> 256 conv and odd shapes,
+   stem, (256, 587, 128), and at (256, 294, 256); the fused conv at (256,
+   294, 256 -> 256) and (256, 147, 256 -> 256)), at the stem-width conv
+   (256, 587, 128 -> 128, as pallas_conv=True runs it), a 128 -> 256 conv
+   and odd shapes, GN also at the condition's length (2, 4693, 128; the
+   streamed kernels) and on x = 1000 + N(0, 1), each case's GN launch
+   plan logged (staged or streamed) and the GN kernels' GB/s,
    each output (dx, dgamma, dbeta, dW, db) held against the plain version
    (1e-4 * max(1, max|plain|)), reruns of the forward and the backward
    bit-identical, ptxas' spill line of both fused-conv kernels (a spill
@@ -177,11 +181,14 @@ SELF_CASES = [(2000, 29, 128), (16, 29, 128), (7, 17, 64)]
 CROSS_CASES = [(2, 29000, 147, 128), (1, 116, 147, 128), (3, 13, 61, 64),
                (1, 87, 173, 128), (2, 40, 256, 64)]
 SERVE_CONDS, SERVE_MEMBERS = 2, 1000
-# (B, L, C) of the GN kernels and (B, L, C, Cout) of the fused conv: the
-# fused encoder arm's shapes first (the stem's GN; the 256-wide ResBlocks
-# at L=294 and 147), then the stem-width conv, a 128 -> 256 conv and odd
-# shapes; the first case of each is the one in the kernels line
-GN_CASES = [(256, 587, 128), (3, 61, 72)]
+# (B, L, C, mean of x) of the GN kernels and (B, L, C, Cout) of the fused
+# conv: the fused encoder arm's shapes first (the stem's GN, then at the
+# 256-wide ResBlocks' L=294; the fused conv at L=294 and 147), then the
+# stem-width conv, a 128 -> 256 conv and odd shapes; for GN also the
+# condition's length (the streamed kernels) and x = 1000 + N(0, 1); the
+# first case of each is the one in the kernels line
+GN_CASES = [(256, 587, 128, 0.5), (256, 294, 256, 0.5), (3, 61, 72, 0.5),
+            (2, 4693, 128, 0.5), (4, 587, 128, 1000.0)]
 CONV_CASES = [(256, 294, 256, 256), (256, 147, 256, 256),
               (256, 587, 128, 128), (256, 294, 128, 256), (3, 61, 64, 72)]
 GROUPS = 8
@@ -298,6 +305,13 @@ TENSOR_CORE_KERNEL = re.compile(
 CORE_KERNELS = ("core_stack_kernel", "core_block_kernel")
 ENSEMBLE_KERNELS = ("block_self_kernel", "folded_cross_kernel")
 CONV_KERNELS = ("tap3_gemm_kernel", "conv_dw_kernel")
+GN_KERNELS = ("gn_fwd_staged_kernel", "gn_bwd_staged_kernel",
+              "gn_stats_staged_kernel", "gn_fwd_stream_kernel",
+              "gn_bwd_stream_kernel", "gn_stats_stream_kernel")
+# what the fused conv backward's launches compute, by kernel name
+LAUNCH_LABELS = {"gn_stats": "statistics", "gn_affine": "table",
+                 "conv_dw": "dW", "sum_rows": "sum", "tap3_gemm": "dh",
+                 "gn_bwd": "GN backward"}
 
 
 def check_tensor_cores(path) -> None:
@@ -331,6 +345,18 @@ def check_tensor_cores(path) -> None:
              if not any(name.startswith(k) for name in counts)]
     if not counts or bare:
         raise RuntimeError(f"kernels without TF32 MMAs: {bare}")
+
+
+def check_no_spill(report: str, kernels) -> None:
+    """Log ptxas' lines of each kernel; raise where one has none (it was
+    not built) or spills."""
+    for kernel in kernels:
+        lines = ptxas_lines(report, kernel)
+        log(f"ptxas {kernel}: " + " | ".join(lines))
+        spills = [int(n) for line in lines for n in
+                  re.findall(r"(\d+) bytes spill", line)]
+        if not lines or any(spills):
+            raise RuntimeError(f"{kernel}: no ptxas report or it spills")
 
 
 def ptxas_lines(report: str, kernel: str) -> list:
@@ -818,7 +844,8 @@ def _log_param_gaps(label, kernel, plain, g1_kernel, g1_plain,
 
 
 KERNEL_GROUPS = (("GN and fused conv (this port)",
-                  ("gn_silu_", "gn_stats_", "gn_affine_", "tap3_gemm_",
+                  ("gn_fwd_", "gn_bwd_", "gn_stats_", "gn_affine_",
+                   "tap3_gemm_",
                    "conv_dw_", "sum_rows_")),
                  ("slab attention (this port)", ("slab_",)),
                  ("flash attention (this port)",
@@ -859,6 +886,9 @@ def launch_times(fn, calls: int = 5) -> str:
     for e in records:
         name = re.search(r"\w+_kernel(<[^>]*>)?", e.name)
         key = name[0] if name else e.name[:40]
+        label = next((v for k, v in LAUNCH_LABELS.items()
+                      if key.startswith(k)), None)
+        key = f"{label} ({key})" if label else key
         us, n = by_name.get(key, (0.0, 0))
         by_name[key] = (us + e.time_range.elapsed_us(), n + 1)
     return "; ".join(f"{k} {us / calls / 1e3:.4f} ms ({n} records)"
@@ -1087,18 +1117,13 @@ def check_train_entry(sa, dev) -> dict:
 def check_gn_conv(gn, cv, dev, report: str, card: str) -> dict:
     """Phase 10: ptxas' spill line of both fused-conv kernels (a spill
     fails); the GN and fused-conv kernels, forward and backward, against
-    their plain versions, reruns bit-identical; timed at the large shapes,
+    their plain versions, reruns bit-identical, the GN kernels' launch
+    plan (staged or streamed) at each case; timed at the large shapes,
     the fused conv's backward launch by launch, with TFLOP/s and the
-    share of the bound."""
+    share of the bound, and the GN kernels' GB/s at every case."""
     import torch.nn.functional as F
 
-    for kernel in CONV_KERNELS:
-        lines = ptxas_lines(report, kernel)
-        log(f"ptxas {kernel}: " + " | ".join(lines))
-        spills = [int(n) for line in lines for n in
-                  re.findall(r"(\d+) bytes spill", line)]
-        if not lines or any(spills):
-            raise RuntimeError(f"{kernel}: no ptxas report or it spills")
+    check_no_spill(report, CONV_KERNELS)
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 100)
     eps = 1e-5
@@ -1121,9 +1146,9 @@ def check_gn_conv(gn, cv, dev, report: str, card: str) -> dict:
              + [("conv", c) for c in CONV_CASES])
     for kind, case in cases:
         if kind == "gn":
-            b, l, c = case
+            b, l, c, mean = case
             cout = c
-            x = rnd(b, l, c, scale=2.0, shift=0.5)
+            x = rnd(b, l, c, scale=2.0 if mean < 100 else 1.0, shift=mean)
             ins = (x, rnd(c, scale=0.3, shift=1.0), rnd(c, scale=0.3))
             dy = rnd(b, l, c)
             names = ("groupnorm_silu_fwd", "groupnorm_silu_bwd")
@@ -1138,7 +1163,10 @@ def check_gn_conv(gn, cv, dev, report: str, card: str) -> dict:
             # read once, y (dx) written once
             work = {names[0]: (10 * n, 4 * (2 * n + 2 * c)),
                     names[1]: (30 * n, 4 * (3 * n + 4 * c))}
-            shape = f"B={b} L={l} C={c}"
+            shape = f"B={b} L={l} C={c}" + (f" mean {mean:g}"
+                                            if mean >= 100 else "")
+            plans = {name: gn.launch_plan(l, c, GROUPS, k)
+                     for name, k in zip(names, ("fwd", "bwd"))}
         else:
             b, l, c, cout = case
             x = rnd(b, l, c)
@@ -1162,6 +1190,13 @@ def check_gn_conv(gn, cv, dev, report: str, card: str) -> dict:
                     names[1]: (2 * prod, 4 * (nx + ny + 2 * c + nw
                                               + nx + 2 * c + nw + cout))}
             shape = f"B={b} L={l} C={c} Cout={cout}"
+            plans = {"gn_silu_conv3 statistics":
+                     gn.launch_plan(l, c, GROUPS, "stats"),
+                     "gn_silu_conv3 GN backward":
+                     gn.launch_plan(l, c, GROUPS, "bwd")}
+        log(f"{shape}: launch plans " + "; ".join(
+            f"{name} {p.path} ({p.threads} threads, {p.smem_bytes} bytes "
+            "of shared memory)" for name, p in plans.items()))
         got = fwd()
         dgot = bwd()
         again, dagain = fwd(), bwd()
@@ -1189,6 +1224,17 @@ def check_gn_conv(gn, cv, dev, report: str, card: str) -> dict:
             entry = results.setdefault(name, {"max_abs_err": 0.0})
             entry["max_abs_err"] = max(entry["max_abs_err"], err)
         if b < 256:
+            if kind == "gn":            # the kernels alone, for GB/s
+                for name, kernel in zip(names, (fwd, bwd)):
+                    with torch.no_grad():
+                        ms = time_ms(kernel)
+                    flops, nbytes = work[name]
+                    bd = bound(flops, nbytes, products=False)
+                    log(f"{name} {shape} ({plans[name].path}): kernel "
+                        f"{ms:.4f} ms, {nbytes / ms / 1e6:.1f} GB/s, "
+                        f"bound {bd['bound_ms']:.4f} ms, "
+                        f"{100 * bd['bound_ms'] / ms:.1f} % of the bound; "
+                        f"{card}")
             continue
         lib_err = float((lib(*ins) - want).abs().max())
         timed = {names[0]: (fwd, lambda: plain(*ins), lambda: lib(*ins)),
@@ -1207,7 +1253,8 @@ def check_gn_conv(gn, cv, dev, report: str, card: str) -> dict:
             # GroupNorm does no matrix product
             bd = bound(flops, nbytes,
                        products=not name.startswith("groupnorm"))
-            log(f"{name} {shape}: kernel {ms:.4f} ms (profiler device "
+            path = f" ({plans[name].path})" if name in plans else ""
+            log(f"{name} {shape}{path}: kernel {ms:.4f} ms (profiler device "
                 f"{dev_ms:.4f} ms), "
                 f"plain {plain_ms:.4f} ms, library composition "
                 f"{lib_ms:.4f} ms (its forward vs plain: max|d| "
@@ -1978,6 +2025,7 @@ def main() -> int:
         if "registers" in line or "Compiling entry" in line
         or "bytes stack frame" in line))
     check_tensor_cores(kernels.path)
+    check_no_spill(kernels.report, GN_KERNELS)
     phase("build", t0)
 
     # 3. kernels against their plain versions

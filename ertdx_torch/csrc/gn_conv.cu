@@ -3,11 +3,13 @@
 // tf32x3.cuh).
 //
 // Replaces the TPU kernels of ertdx/ops/conv.py:
-//   * gn_stats_kernel, gn_affine_kernel + tap3_gemm_kernel<true, false>
+//   * the statistics (gn_stats_{staged,stream}_kernel), gn_affine_kernel
+//     + tap3_gemm_kernel<true, false>
 //                                  <- _gn_silu_conv3_kernel (:49-82)
-//   * gn_stats_kernel, gn_affine_kernel, conv_dw_kernel + sum_rows_kernel
-//     (dW, db), tap3_gemm_kernel<false, true> (dh) and gn_silu_bwd_kernel
-//     + sum_rows_kernel (dx, dgamma, dbeta)
+//   * the statistics, gn_affine_kernel, conv_dw_kernel + sum_rows_kernel
+//     (dW, db), tap3_gemm_kernel<false, true> (dh) and the GN backward
+//     (gn_bwd_{staged,stream}_kernel, from those statistics) +
+//     sum_rows_kernel (dx, dgamma, dbeta)
 //                                  <- _gn_silu_conv3_bwd_kernel (:109-180)
 // x (B, L, C), h = silu(GN(x)) with G groups, w (3, C, Cout), bias (Cout):
 //   y[l] = h[l-1] w[0] + h[l] w[1] + h[l+1] w[2] + bias,
@@ -551,18 +553,11 @@ int conv_shape_ok(int B, int L, int C, int Cout, int G) {
          B <= 65535 && C % 4 == 0;
 }
 
-template <typename Kern>
-cudaError_t set_smem(Kern kernel, size_t bytes) {
-  return cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-}
-
-// the statistics and the affine table of x
+// the statistics (by plan p, gn_common.cuh) and the affine table of x
 cudaError_t gn_tables(const float* x, const float* gamma, float* stats,
-                      int B, int L, int C, int G, float eps,
+                      int B, int L, int C, int G, float eps, GnPlan p,
                       cudaStream_t s) {
-  gn_stats_kernel<<<B * G, GN_THREADS, 0, s>>>(x, stats, L, C, G, eps);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = gn_stats(x, stats, B, L, C, G, eps, p, s);
   if (err != cudaSuccess) return err;
   const int n = B * C;
   gn_affine_kernel<<<(n + 255) / 256, 256, 0, s>>>(
@@ -590,15 +585,18 @@ extern "C" {
 
 // x (B, L, C), gamma, beta (C), w (3, C, Cout), bias (Cout) -> out
 // (B, L, Cout). stats is scratch of affine_offset(B, G) + 2 B C floats:
-// the (B, G, 2) statistics, then the (B, C, 2) affine table. x, beta, w
-// and bias start on 16-byte boundaries.
+// the (B, G, 2) statistics, then the (B, C, 2) affine table. (st_staged,
+// st_threads, st_smem) is the statistics' launch plan. x, beta, w and
+// bias start on 16-byte boundaries.
 int ertdx_gn_conv3_fwd(const float* x, const float* gamma, const float* beta,
                        const float* w, const float* bias, float* out,
                        float* stats, int B, int L, int C, int Cout, int G,
-                       float eps, void* stream) {
+                       float eps, int st_staged, int st_threads,
+                       int st_smem, void* stream) {
   if (!conv_shape_ok(B, L, C, Cout, G)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err = gn_tables(x, gamma, stats, B, L, C, G, eps, s);
+  cudaError_t err = gn_tables(x, gamma, stats, B, L, C, G, eps,
+                              GnPlan{st_staged, st_threads, st_smem}, s);
   if (err != cudaSuccess) return (int)err;
   return (int)tap3_gemm<true, false>(x, stats + affine_offset(B, G), beta,
                                      w, bias, out, B, L, C, Cout, s);
@@ -608,16 +606,22 @@ int ertdx_gn_conv3_fwd(const float* x, const float* gamma, const float* beta,
 // dx (B, L, C), dgb (2 C: dgamma, dbeta), dwb (3 C Cout + Cout: dW, db).
 // Scratch: stats (as the forward's), dh (B, L, C), part_w (S, 3 C Cout +
 // Cout), part_gn (B, 2, C). S splits the rows of the dW reduction, 1 <= S
-// <= B. x, beta, w and gy start on 16-byte boundaries.
+// <= B. (st_*) and (bw_*) are the launch plans of the statistics and of
+// the GN backward, which takes those statistics. x, beta, w and gy start
+// on 16-byte boundaries.
 int ertdx_gn_conv3_bwd(const float* x, const float* gamma, const float* beta,
                        const float* w, const float* gy, float* dx,
                        float* dgb, float* dwb, float* stats, float* dh,
                        float* part_w, float* part_gn, int B, int L, int C,
-                       int Cout, int G, int S, float eps, void* stream) {
-  if (!conv_shape_ok(B, L, C, Cout, G) || S < 1 || S > B)
+                       int Cout, int G, int S, float eps, int st_staged,
+                       int st_threads, int st_smem, int bw_staged,
+                       int bw_threads, int bw_smem, void* stream) {
+  if (!conv_shape_ok(B, L, C, Cout, G) || S < 1 || S > B ||
+      !gn_plan_ok(GnPlan{bw_staged, bw_threads, bw_smem}, 2, L, C / G))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err = gn_tables(x, gamma, stats, B, L, C, G, eps, s);
+  cudaError_t err = gn_tables(x, gamma, stats, B, L, C, G, eps,
+                              GnPlan{st_staged, st_threads, st_smem}, s);
   if (err != cudaSuccess) return (int)err;
   const float* aff = stats + affine_offset(B, G);
   const size_t dw_bytes = DW_STAGES * DW_SF * sizeof(float);
@@ -633,12 +637,9 @@ int ertdx_gn_conv3_bwd(const float* x, const float* gamma, const float* beta,
   err = tap3_gemm<false, true>(gy, nullptr, nullptr, w, nullptr, dh, B, L,
                                Cout, C, s);
   if (err != cudaSuccess) return (int)err;
-  gn_silu_bwd_kernel<<<B * G, GN_THREADS, 0, s>>>(x, gamma, beta, dh, dx,
-                                                  part_gn, L, C, G, eps);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  sum_rows_kernel<<<(2 * C + 255) / 256, 256, 0, s>>>(part_gn, dgb, B,
-                                                      2 * C);
-  return (int)cudaGetLastError();
+  return (int)gn_silu_bwd(x, gamma, beta, dh, stats, dx, part_gn, dgb, B, L,
+                          C, G, eps, GnPlan{bw_staged, bw_threads, bw_smem},
+                          s);
 }
 
 }  // extern "C"

@@ -27,7 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from .groupnorm import check_groups, reference_groupnorm_silu
+from .groupnorm import check_groups, launch_plan, reference_groupnorm_silu
 
 launches = {"gn_silu_conv3_fwd": 0, "gn_silu_conv3_bwd": 0}
 MAX_BATCH = 65535          # the GEMM grid's z dimension
@@ -111,7 +111,9 @@ def gn_silu_conv3_fwd(x, gamma, beta, w, bias, num_groups: int,
                                     beta.data_ptr(), w.data_ptr(),
                                     bias.data_ptr(), out.data_ptr(),
                                     stats.data_ptr(), b, l, c, cout,
-                                    num_groups, eps, stream)
+                                    num_groups, eps,
+                                    *launch_plan(l, c, num_groups,
+                                                 "stats").args(), stream)
     _build.raise_on(rc, "gn_silu_conv3_fwd")
     launches["gn_silu_conv3_fwd"] += 1
     return out
@@ -152,7 +154,8 @@ def gn_silu_conv3_bwd(x, gamma, beta, w, g, num_groups: int,
             g.data_ptr(), dx.data_ptr(), dgb.data_ptr(), dwb.data_ptr(),
             stats.data_ptr(), dh.data_ptr(), part_w.data_ptr(),
             part_gn.data_ptr(), b, l, c, cout, num_groups, splits, eps,
-            stream)
+            *launch_plan(l, c, num_groups, "stats").args(),
+            *launch_plan(l, c, num_groups, "bwd").args(), stream)
     _build.raise_on(rc, "gn_silu_conv3_bwd")
     launches["gn_silu_conv3_bwd"] += 1
     return (dx, dgb[0], dgb[1], dwb[:3 * c * cout].view(3, c, cout),

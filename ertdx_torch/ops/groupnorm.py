@@ -2,7 +2,7 @@
 
 `groupnorm_silu` ports the TPU kernels of ertdx/ops/groupnorm.py
 (`_gn_silu_kernel` :47-76, `_gn_silu_bwd_kernel` :95-131) to the
-hand-written CUDA kernels of csrc/groupnorm.cu:
+hand-written CUDA kernels of csrc/groupnorm.cu and csrc/gn_common.cuh:
 
     x  (B, L, C)  feature-last, C divisible by num_groups
     y  (B, L, C)  silu(gamma * GN(x) + beta), statistics per (row, group)
@@ -11,11 +11,20 @@ hand-written CUDA kernels of csrc/groupnorm.cu:
 
 On CUDA tensors the forward launches the forward kernel and the backward
 the backward kernels; on CPU tensors both are the plain version under
-autograd. A failed build or launch raises: nothing falls back. Channels
-not divisible by the groups raise ValueError on every device, as in JAX
-(:176-182). `launches` counts kernel launches only.
+autograd. `launch_plan` picks, by shape, the staged kernels (the group
+copied into shared memory, device memory read once) or the streamed ones
+(groups too large to stage); both are hand-written, and the plan is
+checked again in C. The kernels take x and the upstream gradient on
+16-byte boundaries (the wrappers raise on anything else, the autograd
+path copies a misaligned one). A failed build or launch raises: nothing
+falls back. Channels not divisible by the groups raise ValueError on
+every device, as in JAX (:176-182). `launches` counts kernel launches
+only, one a forward and one a backward whichever kernel ran.
 """
 from __future__ import annotations
+
+import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -23,6 +32,51 @@ import torch.nn.functional as F
 from . import _build
 
 launches = {"groupnorm_silu_fwd": 0, "groupnorm_silu_bwd": 0}
+
+SMEM_MAX = 232_448        # shared memory an H100 block may use, bytes
+STREAM_THREADS = 256      # the streamed kernels' block (GN_THREADS)
+MAX_THREADS = 512         # the staged kernels' largest block
+# groups staged per kind (the statistics and the forward stage x, the
+# backward x and the upstream gradient), the block sums each takes (a
+# float a warp each), and the block size each aims at
+TILES = {"stats": 1, "fwd": 1, "bwd": 2}
+SUMS = {"stats": 2, "fwd": 2, "bwd": 4}
+TARGET_THREADS = {"stats": 256, "fwd": 256, "bwd": 256}
+
+
+class Plan(NamedTuple):
+    """How a GN kernel launches: "staged" or "streamed", the block size
+    and the dynamic shared-memory bytes (0 when streamed)."""
+    path: str
+    threads: int
+    smem_bytes: int
+
+    def args(self) -> tuple:
+        """The plan as the C entry points take it."""
+        return int(self.path == "staged"), self.threads, self.smem_bytes
+
+
+def launch_plan(length: int, channels: int, num_groups: int,
+                kind: str) -> Plan:
+    """The kernel for a (row, group) of `length` x channels / num_groups
+    values, for `kind` "fwd", "bwd" or "stats" (the fused conv's): staged
+    where its tiles fit in SMEM_MAX (gn_common.cuh::gn_staged_bytes), else
+    streamed. A staged block's threads each own one unit of W channels (4
+    when the group's channels divide by 4, else 1), so its size is a
+    multiple of the units a position and of a warp, near
+    TARGET_THREADS[kind]."""
+    cg = channels // num_groups
+    units = cg // (4 if cg % 4 == 0 else 1)
+    step = units * 32 // math.gcd(units, 32)
+    if step <= MAX_THREADS:
+        threads = step * max(1, TARGET_THREADS[kind] // step)
+        count = threads // 32 if 32 % units == 0 else threads // units
+        chan = 2 * cg * count if kind == "bwd" else 0
+        smem = 4 * (TILES[kind] * length * cg + SUMS[kind] * threads // 32
+                    + chan)
+        if smem <= SMEM_MAX:
+            return Plan("staged", threads, smem)
+    return Plan("streamed", STREAM_THREADS, 0)
 
 
 def reset_launches() -> None:
@@ -72,6 +126,7 @@ def _checked(x, gamma, beta, num_groups, extra=()):
     if any(t.device != x.device for t in (gamma, beta, *(t for _, t in
                                                           extra))):
         raise ValueError("all tensors must lie on one CUDA device")
+    _build.check_aligned16(x=x, **dict(extra))
     return b, l, c
 
 
@@ -81,12 +136,13 @@ def groupnorm_silu_fwd(x, gamma, beta, num_groups: int,
     current stream."""
     b, l, c = _checked(x, gamma, beta, num_groups)
     out = torch.empty_like(x)
+    plan = launch_plan(l, c, num_groups, "fwd")
     lib = _build.load().lib
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.ertdx_gn_silu_fwd(x.data_ptr(), gamma.data_ptr(),
                                    beta.data_ptr(), out.data_ptr(), b, l, c,
-                                   num_groups, eps, stream)
+                                   num_groups, eps, *plan.args(), stream)
     _build.raise_on(rc, "groupnorm_silu_fwd")
     launches["groupnorm_silu_fwd"] += 1
     return out
@@ -101,6 +157,7 @@ def groupnorm_silu_bwd(x, gamma, beta, g, num_groups: int,
     dx = torch.empty_like(x)
     part = torch.empty(b, 2, c, device=x.device, dtype=torch.float32)
     dgb = torch.empty(2, c, device=x.device, dtype=torch.float32)
+    plan = launch_plan(l, c, num_groups, "bwd")
     lib = _build.load().lib
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -108,7 +165,7 @@ def groupnorm_silu_bwd(x, gamma, beta, g, num_groups: int,
                                    beta.data_ptr(), g.data_ptr(),
                                    dx.data_ptr(), part.data_ptr(),
                                    dgb.data_ptr(), b, l, c, num_groups, eps,
-                                   stream)
+                                   *plan.args(), stream)
     _build.raise_on(rc, "groupnorm_silu_bwd")
     launches["groupnorm_silu_bwd"] += 1
     return dx, dgb[0], dgb[1]
@@ -127,7 +184,7 @@ class _GroupNormSiLU(torch.autograd.Function):
     def backward(ctx, g):
         x, gamma, beta = ctx.saved_tensors
         dx, dgamma, dbeta = groupnorm_silu_bwd(x, gamma, beta,
-                                               g.contiguous(),
+                                               _build.contiguous16(g),
                                                ctx.num_groups, ctx.eps)
         return dx, dgamma, dbeta, None, None
 
@@ -139,5 +196,5 @@ def groupnorm_silu(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     check_groups(x.shape[-1], num_groups)
     if x.device.type == "cpu":
         return reference_groupnorm_silu(x, gamma, beta, num_groups, eps)
-    return _GroupNormSiLU.apply(x.contiguous(), gamma.contiguous(),
+    return _GroupNormSiLU.apply(_build.contiguous16(x), gamma.contiguous(),
                                 beta.contiguous(), num_groups, eps)

@@ -316,15 +316,16 @@ def _close(got, want):
     assert err <= tol, (err, tol)
 
 
-@pytest.mark.parametrize("b,l,c", [(2, 37, 16), (3, 61, 72), (4, 587, 128)])
-def test_groupnorm_kernels_match_plain(cuda, b, l, c):
+def _gn_case(dev, b, l, c, shift=0.5, scale=2.0):
+    """The GN kernels against their plain versions at one shape, reruns
+    bit-identical, one launch a call; returns the plans they ran."""
     from ertdx_torch.ops import groupnorm as gn
 
-    g = torch.Generator(device=cuda).manual_seed(b * l + c)
-    x = 2 * torch.randn(b, l, c, generator=g, device=cuda) + 0.5
-    gamma = 1 + 0.3 * torch.randn(c, generator=g, device=cuda)
-    beta = 0.3 * torch.randn(c, generator=g, device=cuda)
-    dy = torch.randn(b, l, c, generator=g, device=cuda)
+    g = torch.Generator(device=dev).manual_seed(b * l + c)
+    x = scale * torch.randn(b, l, c, generator=g, device=dev) + shift
+    gamma = 1 + 0.3 * torch.randn(c, generator=g, device=dev)
+    beta = 0.3 * torch.randn(c, generator=g, device=dev)
+    dy = torch.randn(b, l, c, generator=g, device=dev)
     gn.reset_launches()
     got = gn.groupnorm_silu_fwd(x, gamma, beta, 8)
     dgot = gn.groupnorm_silu_bwd(x, gamma, beta, dy, 8)
@@ -334,16 +335,64 @@ def test_groupnorm_kernels_match_plain(cuda, b, l, c):
     for a, w in zip(dgot, gn.reference_groupnorm_silu_backward(
             x, gamma, beta, dy, 8)):
         _close(a, w)
+    assert torch.equal(got, gn.groupnorm_silu_fwd(x, gamma, beta, 8))
     again = gn.groupnorm_silu_bwd(x, gamma, beta, dy, 8)
     assert all(torch.equal(a, w) for a, w in zip(dgot, again))
+    return [gn.launch_plan(l, c, 8, k).path for k in ("fwd", "bwd")]
+
+
+# the staged kernels (float4 units; 4-byte units at cg = 9; the stem; the
+# fused conv's width) and the streamed ones (the condition's length)
+@pytest.mark.parametrize("b,l,c", [(2, 37, 16), (3, 61, 72), (4, 587, 128),
+                                   (2, 294, 256), (2, 4693, 128)])
+def test_groupnorm_kernels_match_plain(cuda, b, l, c):
+    paths = _gn_case(cuda, b, l, c)
+    assert paths == (["streamed"] * 2 if l == 4693 else ["staged"] * 2)
+
+
+def test_groupnorm_kernels_on_a_large_mean(cuda):
+    """x = 1000 + N(0, 1): the two-pass statistics hold the gate, where
+    E[x^2] - mean^2 would not (tests/test_torch_gn_staged.py)."""
+    assert _gn_case(cuda, 4, 587, 128, shift=1000.0, scale=1.0) == \
+        ["staged"] * 2
+
+
+def test_groupnorm_takes_misaligned_views(cuda):
+    from ertdx_torch.ops import groupnorm as gn
+
+    # the staged kernels read x and the upstream gradient with 16-byte
+    # cp.async: the autograd path copies a misaligned one, the wrappers
+    # refuse it
+    g = torch.Generator(device=cuda).manual_seed(13)
+    x = torch.randn(2, 37, 32, generator=g, device=cuda)
+    gamma = 1 + 0.3 * torch.randn(32, generator=g, device=cuda)
+    beta = 0.3 * torch.randn(32, generator=g, device=cuda)
+    dy = torch.randn(2, 37, 32, generator=g, device=cuda)
+    leaves = [_misaligned(t).requires_grad_(True) for t in (x, gamma, beta)]
+    gn.reset_launches()
+    out = gn.groupnorm_silu(*leaves, 8)
+    out.backward(_misaligned(dy))
+    torch.cuda.synchronize()
+    assert gn.launches == {"groupnorm_silu_fwd": 1, "groupnorm_silu_bwd": 1}
+    _close(out, gn.reference_groupnorm_silu(x, gamma, beta, 8))
+    for leaf, want in zip(leaves, gn.reference_groupnorm_silu_backward(
+            x, gamma, beta, dy, 8)):
+        _close(leaf.grad, want)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        gn.groupnorm_silu_fwd(_misaligned(x), gamma, beta, 8)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        gn.groupnorm_silu_bwd(x, gamma, beta, _misaligned(dy), 8)
 
 
 @pytest.mark.parametrize("b,l,c,cout", [
     (2, 37, 16, 16), (3, 61, 64, 72), (2, 1, 8, 4), (2, 2, 16, 8),
     (4, 147, 256, 256), (2, 294, 128, 256),
     # a 128-row tile over several batch rows; one row past a tile; K not a
-    # multiple of the 32-channel stage (C=24, 8 groups of 3)
-    (5, 1, 16, 16), (3, 37, 32, 16), (2, 129, 64, 64), (3, 20, 24, 16)])
+    # multiple of the 32-channel stage (C=24, 8 groups of 3, the GN
+    # backward's 4-byte units)
+    (5, 1, 16, 16), (3, 37, 32, 16), (2, 129, 64, 64), (3, 20, 24, 16),
+    # the GN backward streamed beside staged statistics; both streamed
+    (1, 1900, 128, 64), (1, 4000, 128, 64)])
 def test_conv_kernels_match_plain(cuda, b, l, c, cout):
     from ertdx_torch.ops import conv as cv
 

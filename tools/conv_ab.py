@@ -7,8 +7,11 @@ Builds ertdx_torch/csrc/gn_conv.cu as it stands ("base") and in the
 variants of VARIANTS below, each a list of exact text substitutions in
 gn_conv.cu or (prefix "H:") tf32x3.cuh; with --before, also the
 gn_conv.cu at PATH as it is ("before": an earlier version, e.g. from a
-`git archive` of the parent commit). tools/core_ab.py's builder, one
-nvcc per variant, all started together, into build/conv_ab/. Then, in
+`git archive` of the parent commit, built against today's gn_common.cuh
+and bound with today's entry points, so one that takes the GN launch
+plans; tools/gn_ab.py builds and binds earlier ones). tools/core_ab.py's
+build(), one nvcc per variant, all started together, into
+build/conv_ab/. Then, in
 turns (the variants in order, then in reverse), times gn_silu_conv3's
 forward and backward at chip_smoke.py's phase-10 shapes (256, 294, 256 ->
 256) and (256, 147, 256 -> 256) (CUDA events) and prints, at the first,

@@ -98,42 +98,52 @@ def build(names, source="core_block.cu", variants=None,
           entry_points=("ertdx_core_stack", "ertdx_core_block"), out=OUT,
           before=None) -> dict:
     """name -> (the variant's library, ptxas' report). Each variant is
-    `source` (in csrc/) with the text substitutions of `variants` (this
-    file's VARIANTS by default; "base" has none, "before" is the file at
-    the path `before`), written with csrc's headers (tf32x3.cuh with the
-    "H:" substitutions) into out/<name>/ and built by one nvcc per
-    variant, all started together; `entry_points` get their ctypes
-    signatures. Used by tools/ensemble_ab.py and tools/conv_ab.py too."""
+    `source` (in csrc/; a list of sources builds them into one library)
+    with the text substitutions of `variants` (this file's VARIANTS by
+    default; "base" has none), written with csrc's headers into
+    out/<name>/ and built by one nvcc per variant, all started together;
+    `entry_points` get their ctypes signatures. A substitution applies to
+    the first source, or to tf32x3.cuh with the prefix "H:", or to any
+    other source or header named as a prefix ("gn_common.cuh:..."). The
+    variant "before" takes the file at the path `before` for the first
+    source, or, where `before` is a directory, every source and header
+    found there by name. Used by tools/ensemble_ab.py, tools/conv_ab.py
+    and tools/gn_ab.py too."""
     variants = VARIANTS if variants is None else variants
-    src = open(os.path.join(CSRC, source)).read()
-    hdr = open(os.path.join(CSRC, "tf32x3.cuh")).read()
-    others = {f: open(os.path.join(CSRC, f)).read()
-              for f in os.listdir(CSRC)
-              if f.endswith(".cuh") and f != "tf32x3.cuh"}
+    sources = [source] if isinstance(source, str) else list(source)
+    files = {f: open(os.path.join(CSRC, f)).read()
+             for f in os.listdir(CSRC) if f.endswith(".cuh")}
+    files.update({f: open(os.path.join(CSRC, f)).read() for f in sources})
     procs = {}
     for name in names:
-        s, h = (open(before).read() if name == "before" else src), hdr
+        text = dict(files)
+        if name == "before" and os.path.isdir(before):
+            text.update({f: open(os.path.join(before, f)).read()
+                         for f in os.listdir(before) if f in text})
+        elif name == "before":
+            text[sources[0]] = open(before).read()
         for old, new in ([] if name in ("base", "before")
                          else variants[name]):
-            text = h if old.startswith("H:") else s
-            old = old[2:] if old.startswith("H:") else old
-            if text.count(old) != 1:
-                raise SystemExit(f"{name}: the text to replace is not found "
-                                 f"once in the source: {old[:60]!r}")
-            if text is h:
-                h = h.replace(old, new)
+            target, sep, rest = old.partition(":")
+            if old.startswith("H:"):
+                target, old = "tf32x3.cuh", old[2:]
+            elif sep and target in text:
+                old = rest
             else:
-                s = s.replace(old, new)
+                target = sources[0]
+            if text[target].count(old) != 1:
+                raise SystemExit(f"{name}: the text to replace is not found "
+                                 f"once in {target}: {old[:60]!r}")
+            text[target] = text[target].replace(old, new)
         d = os.path.join(out, name)
         os.makedirs(d, exist_ok=True)
-        open(os.path.join(d, source), "w").write(s)
-        open(os.path.join(d, "tf32x3.cuh"), "w").write(h)
-        for f, text in others.items():
-            open(os.path.join(d, f), "w").write(text)
+        for f, body in text.items():
+            open(os.path.join(d, f), "w").write(body)
         procs[name] = subprocess.Popen(
             [_build._nvcc(), *_build.ARCH_FLAGS, "-std=c++17", "-O3",
              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o",
-             os.path.join(d, "lib.so"), os.path.join(d, source)],
+             os.path.join(d, "lib.so"),
+             *[os.path.join(d, f) for f in sources]],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs = {}
     for name, proc in procs.items():
