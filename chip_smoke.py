@@ -122,17 +122,40 @@ non-zero and prints no result line):
    then distill() with a conversion stage and one halving (8 -> 4), one
    epoch each, 2 flash forwards, 1 dQ and 1 dK/dV per step and 2 forwards
    per val batch; the student read back and sampled by sample_pd (pd-4,
-   2 x 1000 chains), draws within 1e-3 of the plain path.
+   2 x 1000 chains), draws within 1e-3 of the plain path;
+15. bfloat16: V5E8_DP in its own dtype (bf16 compute, float32 params),
+   one card. (a) the bf16 slab kernels (forward, dQ, dK/dV, one bf16 MMA
+   a product) at the slab cases against the plain version computed in
+   float32 from the same bf16 inputs, max abs <= max(2 x the bf16 plain
+   version's own error, 8e-3 x max(1, max|plain|)), reruns
+   bit-identical, ptxas' spill lines (a spill fails) and bf16 MMAs
+   (HMMA.16816.F32.BF16) in their SASS, timed beside the float32
+   kernels, the bf16 plain version and F.scaled_dot_product_attention in
+   bf16 (the yardstick), with SDPA's kernel names; (b) 5 b256 train
+   steps on them against the same 5 with use_pallas off, phase 7's gates
+   with the tolerance set by the spread of two plain paths (run to run,
+   and with the plain slab in float32 from the bf16 slab), exactly one
+   bf16 slab forward and backward a step and no float32 slab launch, ms
+   a step, a profile of one step of each path, peak memory; (c) train()
+   for 2 epochs on 400 examples: launches by the epoch grid, float32
+   params and Adam moments in the checkpoint, its echo of bfloat16, and
+   load_best_model's bf16 model bit for bit the trained one; (d) a
+   configs[3] ensemble (8 x 1000, DDIM-50) from that checkpoint: 50
+   fused_core_stack launches and one bf16 slab forward, draws within the
+   JAX package's bf16 band (rtol = atol = 5e-2) of the same run with the
+   slab kernel off, ms per DDIM step beside phase 4's.
 
 Every kernel's entry in the kernels line has `bound_ms`, the least time
 the card could take: the bytes at 3.35 TB/s or the operations at the
-fastest fp32-class rate, 3xTF32 on the tensor cores for matrix products
-(the fp32 pipe for GroupNorm, which has none); for the flash kernels
+fastest rate of their class, 3xTF32 on the tensor cores for float32
+matrix products (the fp32 pipe for GroupNorm, which has none), the bf16
+tensor cores' 989 TFLOP/s for the bf16 kernels; for the flash kernels
 only the keys the mask needs. Beside it `bound_tc_ms` (the 3xTF32 time;
 null for GroupNorm) and `bound_fp32_ms` (the fp32 pipe's). The last line of
 stdout is {"ok": true, "device": {...}}. The build goes
-to build/ertdx_torch_kernels/; the checkpoints of phases 7, 11, 13 and 14
-go to temporary directories that are removed; nothing else is written.
+to build/ertdx_torch_kernels/; the checkpoints of phases 7, 11, 13, 14
+and 15 go to temporary directories that are removed; nothing else is
+written.
 """
 from __future__ import annotations
 
@@ -157,6 +180,7 @@ import torch
 PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 494.7e12
 PEAK_BYTES_PER_S = 3.35e12
+PEAK_BF16_FLOPS = 989e12         # bf16 on the tensor cores, dense
 P, D, NB, LK = 29, 128, 4, 147
 SEED = 0
 # (kernel, conditions, members, P, Lk): the configs[3] shapes, R=10, and
@@ -259,17 +283,19 @@ def core_inputs(gen, b: int, r: int, nb: int, dev, p: int = P,
             "head_b": rnd(1, 1, scale=0.1)}
 
 
-def bound(flops: float, nbytes: float, products: bool = True) -> dict:
+def bound(flops: float, nbytes: float, products: bool = True,
+          tc_rate: float = PEAK_TF32_FLOPS / 3) -> dict:
     """The least time, in ms, the card could take to do `flops`
     operations and move `nbytes`: the larger of the bytes at the memory
-    rate and the operations at the card's fastest fp32-class rate for
-    them. For matrix products that is 3xTF32 on the tensor cores (three
+    rate and the operations at the card's fastest rate of their class.
+    For float32 matrix products that is 3xTF32 on the tensor cores (three
     TF32 products each, 495 / 3 TFLOP/s), faster than the fp32 pipe's 67;
-    for other work, the fp32 pipe. `bound_tc_ms` is the 3xTF32 time (None
+    for bf16 products `tc_rate` is the bf16 tensor cores' 989; for other
+    work, the fp32 pipe. `bound_tc_ms` is the tensor cores' time (None
     without products), `bound_fp32_ms` the fp32 pipe's."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_fp32 = flops / PEAK_FP32_FLOPS * 1e3
-    t_tc = 3 * flops / PEAK_TF32_FLOPS * 1e3 if products else None
+    t_tc = flops / tc_rate * 1e3 if products else None
     t_ops = min(t_fp32, t_tc) if products else t_fp32
     return {"bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
@@ -283,16 +309,19 @@ def bound_text(b: dict, flops: float, nbytes: float) -> str:
             f" ms)")
 
 
-def kernel_names(fn) -> str:
-    """The device kernels fn launches, by name with their device time:
-    which route a library call takes."""
-    records, _ = kernel_records(fn)
+def kernel_names(fn, calls: int = 3) -> str:
+    """The device kernels fn launches, by name with their device time a
+    call (the mean over `calls` calls, with the records of each name: the
+    profiler drops a record now and then): which route a library call
+    takes."""
+    records, _ = kernel_records(lambda: [fn() for _ in range(calls)])
     by_name: dict = {}
     for e in records:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-    return "; ".join(f"{name[:100]} {us / 1e3:.4f} ms"
-                     for name, us in sorted(by_name.items(),
-                                            key=lambda kv: -kv[1]))
+        us, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+    return "; ".join(f"{name[:100]} {us / calls / 1e3:.4f} ms ({n} records)"
+                     for name, (us, n) in sorted(by_name.items(),
+                                                 key=lambda kv: -kv[1][0]))
 
 
 # a kernel that runs its products on the tensor cores, in a mangled symbol:
@@ -314,30 +343,44 @@ LAUNCH_LABELS = {"gn_stats": "statistics", "gn_affine": "table",
                  "gn_bwd": "GN backward"}
 
 
+def sass_counts(path, kernel_of, instruction: str):
+    """{kernel<template args>: the count of `instruction` in its SASS} for
+    each kernel of the library at `path` whose SASS header
+    `kernel_of(line)` names, or None where the toolkit has no
+    cuobjdump."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                          text=True, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            name = kernel_of(line)
+            if name:
+                args = ",".join(re.findall(r"L[ib](\d+)E", line))
+                name += f"<{args}>" if args else ""
+                counts[name] = 0
+        elif name and instruction in line:
+            counts[name] += 1
+    return counts
+
+
 def check_tensor_cores(path) -> None:
     """Phase 2: the TF32 MMAs (HMMA.1688.F32.TF32) in the SASS of each
     slab, flash, fused-core, ensemble attention and fused-conv kernel of
     the built library; raises where one has none, or where a fused-core,
     ensemble or fused-conv kernel is missing. Logs and returns where the
     toolkit has no cuobjdump."""
-    tool = shutil.which("cuobjdump") or os.path.join(
-        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
-    if not os.path.exists(tool):
+    def kernel_of(line):
+        fn = TENSOR_CORE_KERNEL.search(line)
+        return None if fn is None else fn.group(1)
+
+    counts = sass_counts(path, kernel_of, "HMMA.1688.F32.TF32")
+    if counts is None:
         log("sass: no cuobjdump; the tensor-core check is not made")
         return
-    sass = subprocess.run([tool, "-sass", str(path)], capture_output=True,
-                          text=True, check=True).stdout
-    counts, name = {}, None
-    for line in sass.splitlines():
-        if "Function : " in line:
-            fn = TENSOR_CORE_KERNEL.search(line)
-            args = ",".join(re.findall(r"L[ib](\d+)E", line))
-            name = None if fn is None else fn.group(1) + (
-                f"<{args}>" if args else "")
-            if name:
-                counts[name] = 0
-        elif name and "HMMA.1688.F32.TF32" in line:
-            counts[name] += 1
     log("sass: HMMA.1688.F32.TF32 per tensor-core kernel: " + "; ".join(
         f"{k} {n}" for k, n in sorted(counts.items())))
     bare = [k for k, n in counts.items() if n == 0]
@@ -853,7 +896,8 @@ KERNEL_GROUPS = (("GN and fused conv (this port)",
                  ("ensemble attention (this port)", ("block_self_kernel",
                                                      "folded_cross_kernel")),
                  ("convolution", ("conv", "implicit", "fprop", "dgrad",
-                                  "wgrad", "winograd")),
+                                  "wgrad", "winograd", "nchwtonhwc",
+                                  "nhwctonchw")),
                  ("matrix product", ("gemm", "cutlass", "cublas")),
                  ("reduction, norm, softmax", ("reduce", "norm", "softmax")),
                  ("elementwise", ("elementwise", "vectorized", "copy",
@@ -1956,6 +2000,461 @@ def check_distill(at, ckdir, ds, dev, card) -> dict:
     return got
 
 
+# ---------------------------------------------------------------------------
+# 15. bfloat16: V5E8_DP in its own dtype
+# ---------------------------------------------------------------------------
+
+# the bf16 kernels of csrc/slab_attn_bf16.cu, by the name in their symbol
+SLAB_BF16_KERNELS = ("slab_fwd_bf16_kernel", "slab_bwd_dq_bf16_kernel",
+                     "slab_bwd_dkv_bf16_kernel")
+SLAB_BF16_WANT = {"slab_attention_fwd": 0, "slab_attention_bwd": 0,
+                  "slab_attention_fwd_bf16": 1, "slab_attention_bwd_bf16": 1}
+
+
+def check_bf16_tensor_cores(path) -> None:
+    """The bf16 MMAs (HMMA.16816.F32.BF16) in the SASS of each bf16 slab
+    kernel; raises where one has none or is missing. Logs and returns
+    where the toolkit has no cuobjdump."""
+    counts = sass_counts(path, lambda line: next(
+        (k for k in SLAB_BF16_KERNELS if k in line), None),
+        "HMMA.16816.F32.BF16")
+    if counts is None:
+        log("sass: no cuobjdump; the bf16 tensor-core check is not made")
+        return
+    log("sass: HMMA.16816.F32.BF16 per bf16 slab kernel: " + "; ".join(
+        f"{k} {n}" for k, n in sorted(counts.items())))
+    bare = [k for k, n in counts.items() if n == 0]
+    bare += [k for k in SLAB_BF16_KERNELS
+             if not any(name.startswith(k) for name in counts)]
+    if bare:
+        raise RuntimeError(f"bf16 slab kernels without bf16 MMAs: {bare}")
+
+
+class _SlabCounts:
+    """Both dicts of slab launch counts, float32 and bf16, as one."""
+
+    def __init__(self, sa):
+        self.sa = sa
+
+    @property
+    def launches(self) -> dict:
+        return {**self.sa.launches, **self.sa.launches_bf16}
+
+    def reset_launches(self) -> None:
+        self.sa.reset_launches()
+
+
+def check_slab_bf16(sa, dev, report: str, path, card: str) -> dict:
+    """Phase 15 (a): the bf16 slab kernels against the plain version in
+    float32 from the same bf16 inputs, with the bf16 plain version's own
+    error beside it; reruns bit-identical; ptxas' spill lines; bf16 MMAs
+    in the SASS; timed beside the float32 kernels, the bf16 plain version
+    and F.scaled_dot_product_attention in bf16 (the yardstick)."""
+    import torch.nn.functional as F
+
+    check_no_spill(report, SLAB_BF16_KERNELS)
+    check_bf16_tensor_cores(path)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 15)
+    bf16 = torch.bfloat16
+    results = {}
+    for b, l, c, nh in SLAB_CASES:
+        dh = c // nh
+        qkv = torch.randn(b, l, 3 * c, generator=gen, device=dev).to(bf16)
+        do = torch.randn(b, l, c, generator=gen, device=dev).to(bf16)
+        got = sa.slab_attention_fwd_bf16(qkv, nh)
+        dgot = sa.slab_attention_bwd_bf16(qkv, do, nh)
+        torch.cuda.synchronize()
+        q32, do32 = qkv.float(), do.float()
+        pairs = (("slab_attention_fwd_bf16", got,
+                  sa.reference_slab_attention(q32, nh),
+                  sa.reference_slab_attention(qkv, nh)),
+                 ("slab_attention_bwd_bf16", dgot,
+                  sa.reference_slab_attention_backward(q32, do32, nh),
+                  sa.reference_slab_attention_backward(qkv, do, nh)))
+        for name, g, want, plain in pairs:
+            if g.dtype != bf16 or not torch.isfinite(g.float()).all():
+                raise RuntimeError(f"{name} B={b} L={l}: not finite bf16")
+            err = float((g.float() - want).abs().max())
+            err_plain = float((plain.float() - want).abs().max())
+            scale = float(want.abs().max())
+            tol = max(2 * err_plain, 8e-3 * max(1.0, scale))
+            log(f"{name} B={b} L={l} C={c} H={nh}: max_abs_err={err:.3e} "
+                f"against the float32 plain version, the bf16 plain "
+                f"version's own {err_plain:.3e}; max|plain|={scale:.4f} "
+                f"tol={tol:.3e}")
+            if not err <= tol:
+                raise RuntimeError(f"{name} B={b} L={l}: error {err} > "
+                                   f"{tol}")
+            entry = results.setdefault(name, {"max_abs_err": 0.0})
+            entry["max_abs_err"] = max(entry["max_abs_err"], err)
+        same = [torch.equal(sa.slab_attention_fwd_bf16(qkv, nh), got),
+                torch.equal(sa.slab_attention_bwd_bf16(qkv, do, nh), dgot)]
+        log(f"slab bf16 B={b} L={l} C={c} H={nh}: reruns bit-identical "
+            f"(out, dqkv) {same}")
+        if not all(same):
+            raise RuntimeError(f"slab bf16 B={b} L={l}: reruns differ")
+        if (b, l, c, nh) != SLAB_CASES[0]:
+            continue
+
+        def heads(z):
+            return z.reshape(b, l, nh, dh).transpose(1, 2)
+
+        def sdpa(z):
+            q, k, v = z.split(c, dim=-1)
+            out = F.scaled_dot_product_attention(heads(q), heads(k),
+                                                 heads(v))
+            return out.transpose(1, 2).reshape(b, l, c)
+
+        def backward_of(fn, z0, g0):
+            z = z0.detach().requires_grad_(True)
+            out = fn(z)
+            return lambda: torch.autograd.grad(out, z, g0,
+                                               retain_graph=True)
+
+        def sdpa_fwd_bwd():
+            z = qkv.detach().requires_grad_(True)
+            sdpa(z).backward(do)
+
+        with torch.no_grad():
+            fwd_ms = time_ms(lambda: sa.slab_attention_fwd_bf16(qkv, nh))
+            fwd_f32 = time_ms(lambda: sa.slab_attention_fwd(q32, nh))
+            fwd_plain = time_ms(lambda: sa.reference_slab_attention(qkv,
+                                                                    nh))
+            fwd_lib = time_ms(lambda: sdpa(qkv))
+        bwd_ms = time_ms(lambda: sa.slab_attention_bwd_bf16(qkv, do, nh))
+        bwd_f32 = time_ms(lambda: sa.slab_attention_bwd(q32, do32, nh))
+        bwd_plain = time_ms(backward_of(
+            lambda z: sa.reference_slab_attention(z, nh), qkv, do))
+        bwd_lib = time_ms(backward_of(sdpa, qkv, do))
+        fwd_bwd_lib = time_ms(sdpa_fwd_bwd)
+        prod = b * nh * l * l * dh
+        io = {"fwd": 2 * (b * l * 3 * c + b * l * c),
+              "bwd": 2 * (2 * b * l * 3 * c + b * l * c)}
+        for name, flops, nbytes, ms, f32_ms, plain_ms, lib_ms in (
+                ("slab_attention_fwd_bf16", 4 * prod, io["fwd"], fwd_ms,
+                 fwd_f32, fwd_plain, fwd_lib),
+                ("slab_attention_bwd_bf16", 10 * prod, io["bwd"], bwd_ms,
+                 bwd_f32, bwd_plain, bwd_lib)):
+            bd = bound(flops, nbytes, tc_rate=PEAK_BF16_FLOPS)
+            results[name].update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                 fp32_kernel_ms=f32_ms, **bd,
+                                 shape=f"B={b} L={l} C={c} H={nh}")
+            log(f"{name} B={b} L={l} C={c} H={nh}: kernel {ms:.4f} ms, "
+                f"the float32 kernel(s) {f32_ms:.4f} ms, bf16 plain "
+                f"{plain_ms:.4f} ms, SDPA bf16 {lib_ms:.4f} ms, bound "
+                f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}: {flops:.3e} "
+                f"flops at 989 TFLOP/s, {nbytes:.3e} bytes), "
+                f"{100 * bd['bound_ms'] / ms:.1f} % of the bound, achieved "
+                f"{flops / ms / 1e9:.2f} TFLOP/s, "
+                f"{nbytes / ms / 1e6:.1f} GB/s; {card}")
+        log("slab bf16 forward's kernel, profiler device time a call: "
+            + kernel_names(lambda: sa.slab_attention_fwd_bf16(qkv, nh)))
+        log("slab bf16 backward's kernels, profiler device time a call: "
+            + kernel_names(lambda: sa.slab_attention_bwd_bf16(qkv, do, nh)))
+        log("SDPA bf16's route, forward and backward (profiler kernel "
+            "names, device time): " + kernel_names(sdpa_fwd_bwd))
+        occ = sa.blocks_per_sm(l, dh, bf16=True)
+        threads = occ.pop("threads")
+        log(f"bf16 kernels' resident blocks per SM at L={l}, dh={dh} "
+            f"({threads} threads each): {occ}")
+        log(f"SDPA bf16 forward+backward (one call each, reshapes "
+            f"included): {fwd_bwd_lib:.4f} ms; bf16 slab kernels "
+            f"forward+backward {fwd_ms + bwd_ms:.4f} ms; float32 slab "
+            f"kernels {fwd_f32 + bwd_f32:.4f} ms")
+    return results
+
+
+def bf16_cfg(configs):
+    """Phase 15's configuration: V5E8_DP in its own dtype (bfloat16
+    compute, float32 params) on one card."""
+    return dataclasses.replace(configs.V5E8_DP, mesh=configs.MeshConfig())
+
+
+def _leaf_spread(a: dict, b: dict) -> dict:
+    return {n: float((a[n] - b[n]).abs().max()) for n in a}
+
+
+def check_bf16_training(sa, dev, card) -> dict:
+    """Phase 15 (b): TRAIN_STEPS b256 steps of the bf16 model on the bf16
+    slab kernels against the same steps with use_pallas off (the plain
+    bf16 slab), phase 7's gates with the tolerance set by the spread of
+    two plain paths: plain against plain (run to run), and plain against
+    the plain slab computed in float32 from the same bf16 slab (where
+    bf16 rounds: a second computation of the same bf16 model). A leaf's
+    gradient gate is at least two bf16 ulps of its largest value: a bf16
+    layer's weight gradient comes out of a bf16 product."""
+    from ertdx_torch import configs, train
+    from ertdx_torch.diffusion import schedule_from_config
+    from ertdx_torch.models import build_model
+    from ertdx_torch.models import condunet as condunet_mod
+    from ertdx_torch.utils.weights import flax_shapes, params_from_jax
+
+    cfg = bf16_cfg(configs)
+    mcfg, tcfg = cfg.model, cfg.train
+    kernel = build_model(mcfg, dev, generator=torch.Generator()
+                         .manual_seed(SEED + 150))
+    params_from_jax(kernel, random_flax_tree(
+        flax_shapes(kernel), np.random.default_rng(SEED + 151)))
+    attn = kernel.encoder.attn
+    log(f"bf16 training config: {mcfg.name} dtype={mcfg.dtype} "
+        f"(compute {kernel.compute_dtype}, params "
+        f"{sorted({str(p.dtype) for p in kernel.parameters()})}) "
+        f"D={mcfg.hidden_dim} base_width={mcfg.base_width} "
+        f"depth={mcfg.depth} heads={mcfg.num_heads} blocks="
+        f"{mcfg.num_blocks} attn_slab={attn.slab} use_pallas="
+        f"{attn.use_pallas} batch={tcfg.batch_size} lr={tcfg.lr} "
+        f"condition {mcfg.cond_length} x {mcfg.cond_channels}")
+    if (kernel.compute_dtype != torch.bfloat16 or not attn.slab
+            or not attn.use_pallas):
+        raise RuntimeError("phase 15 must train the bf16 slab arm")
+    plain = plain_attention(kernel)
+    plain2 = copy.deepcopy(plain)
+    plain32 = copy.deepcopy(plain)
+    alpha_bar = schedule_from_config(cfg.diffusion).alpha_bar.to(dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 152)
+    b, p = tcfg.batch_size, mcfg.param_dim
+    batches = [(torch.randn(b, p, generator=gen, device=dev),
+                torch.rand(b, mcfg.cond_length, mcfg.cond_channels,
+                           generator=gen, device=dev),
+                torch.randint(0, cfg.diffusion.T, (b,), generator=gen,
+                              device=dev),
+                torch.randn(b, p, generator=gen, device=dev))
+               for _ in range(TRAIN_STEPS)]
+    lr = train.make_lr(tcfg, TRAIN_STEPS)
+
+    def steps(model, counts=None):
+        return _run_steps(train, model, train.create_optimizer(model, lr),
+                          batches, alpha_bar, lr, counts)
+
+    pl, p_ms, _, pg = steps(plain)
+    pl2, _, _, pg2 = steps(plain2)
+    plain_slab = condunet_mod.reference_slab_attention
+    condunet_mod.reference_slab_attention = lambda qkv, nh: plain_slab(
+        qkv.float(), nh).to(qkv.dtype)
+    try:
+        pl32, _, _, pg32 = steps(plain32)
+    finally:
+        condunet_mod.reference_slab_attention = plain_slab
+    spreads = {}
+    for tag, other, og, om in (("run to run", pl2, pg2, plain2),
+                               ("float32 slab", pl32, pg32, plain32)):
+        d = _param_diffs(plain, om)
+        spreads[tag] = {"loss": max(abs(a - c) for a, c in zip(pl, other)),
+                        "grad": _leaf_spread(og, pg),
+                        "share": float((d > 1e-5).float().mean())}
+        log(f"bf16 plain vs plain ({tag}): max|dloss|="
+            f"{spreads[tag]['loss']:.3e} max|dgrad|="
+            f"{max(spreads[tag]['grad'].values()):.3e} max|dparam|="
+            f"{float(d.max()):.3e} share > 1e-5: {spreads[tag]['share']:.3e}")
+
+    counts = _SlabCounts(sa)
+    counts.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    kl, k_ms, per_step, kg = steps(kernel, counts)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"bf16 kernel path: losses {kl}; slab launches per step {per_step}")
+    for step, cnt in enumerate(per_step):
+        if cnt != SLAB_BF16_WANT:
+            raise RuntimeError(f"bf16 train step {step + 1}: launches {cnt},"
+                               f" expected {SLAB_BF16_WANT}")
+    rr, rf = spreads["run to run"], spreads["float32 slab"]
+    loss_tol = max(1e-5, 10 * rr["loss"], 10 * rf["loss"])
+    dloss = max(abs(a - c) for a, c in zip(kl, pl))
+    for step, (a, c) in enumerate(zip(kl, pl)):
+        if not abs(a - c) <= loss_tol * max(1.0, abs(c)):
+            raise RuntimeError(f"bf16 train step {step + 1}: loss {a} vs "
+                               f"plain {c}, tolerance {loss_tol:.1e}")
+    worst = 0.0
+    for name, w in pg.items():
+        err = float((kg[name] - w).abs().max())
+        top = float(w.abs().max())
+        # a bf16 layer's weight gradient is computed in bf16: two of its
+        # ulps at the leaf's largest value are the finest gate it can meet
+        ulp = 2.0 ** (math.floor(math.log2(max(top, 2.0 ** -126))) - 7)
+        tol = max(1e-4 * max(1.0, top), 2 * ulp, 10 * rr["grad"][name],
+                  4 * rf["grad"][name])
+        worst = max(worst, err / tol)
+        if not err <= tol:
+            raise RuntimeError(f"bf16 step 1: gradient of {name} differs by "
+                               f"{err:.3e} > {tol:.3e}")
+    kp = _param_diffs(kernel, plain)
+    k_share = float((kp > 1e-5).float().mean())
+    share_limit = max(1e-3, 2 * rr["share"], 2 * rf["share"])
+    flip_bound = 2 * tcfg.lr * TRAIN_STEPS
+    log(f"bf16 kernel vs plain: max|dloss|={dloss:.3e} (tol {loss_tol:.1e} "
+        f"x max(1, loss)); step-1 gradients worst err/tol {worst:.3f} (tol "
+        f"per leaf max(1e-4 x max(1, max|g|), 2 bf16 ulps of max|g|, 10 x "
+        f"run to run, 4 x the float32 slab's)); params after {TRAIN_STEPS} "
+        f"steps max|d|="
+        f"{float(kp.max()):.3e} (bound {flip_bound:.1e}), share > 1e-5 "
+        f"{k_share:.3e} (limit {share_limit:.3e})")
+    _log_param_gaps("bf16 kernel vs plain", kernel, plain, kg, pg)
+    if not (float(kp.max()) <= flip_bound + 1e-6 and k_share <= share_limit):
+        raise RuntimeError("bf16 kernel-path parameters disagree with the "
+                           "plain path")
+
+    for model, path in ((kernel, "kernel"), (plain, "plain")):
+        x0, cond, t, noise = batches[0]
+        opt = train.create_optimizer(model, lr)
+        device_profile(lambda: train.train_step(model, opt, x0, cond, t,
+                                                noise, alpha_bar=alpha_bar,
+                                                lr=lr),
+                       f"one bf16 train step, {path} path")
+    k_step = statistics.median(k_ms[1:])
+    p_step = statistics.median(p_ms[1:])
+    log(f"bf16 ms per train step (median of steps 2-{TRAIN_STEPS}; {card}):"
+        f" kernel path {k_step:.3f}, plain path {p_step:.3f}; peak memory "
+        f"{peak / 2**20:.1f} MiB; step times kernel {k_ms} plain {p_ms}")
+    return {"kernel_step_ms": k_step, "plain_step_ms": p_step}
+
+
+def check_bf16_train_entry(sa, ckdir, dev, card) -> dict:
+    """Phase 15 (c): train() of the bf16 model for 2 epochs on 400
+    examples into `ckdir`: launches by the epoch grid, float32 params
+    and Adam moments in the checkpoint and its echo of bfloat16, and
+    load_best_model giving a bf16 model whose forward is the trained
+    one's bit for bit. Returns the launches."""
+    from ertdx_torch import configs, train
+    from ertdx_torch.data import prepare_dataset
+    from ertdx_torch.doe import SurrogateDataGenerator
+    from ertdx_torch.utils import checkpoint as ckpt_lib
+
+    cfg = bf16_cfg(configs)
+    mcfg = cfg.model
+    n = 400
+    params_phys = SurrogateDataGenerator(
+        seed=SEED + 3).generate_training_samples(n, "lhs")
+    ert = np.random.default_rng(SEED + 153).normal(
+        50.0, 10.0, size=(n, mcfg.cond_length, mcfg.cond_channels))
+    ds = prepare_dataset(params_phys[..., None], ert)
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, num_epochs=2, step_checkpoint_every=1,
+        checkpoint_dir=ckdir))
+    counts = _SlabCounts(sa)
+    counts.reset_launches()
+    t0 = time.perf_counter()
+    res = train.train(cfg, ds, device=dev, logger=lambda d: log(
+        f"train(): {d}"))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    got = counts.launches
+    steps = res.state.step
+    val_batches = -(-int(0.1 * n) // cfg.train.batch_size)
+    want = {"slab_attention_fwd": 0, "slab_attention_bwd": 0,
+            "slab_attention_fwd_bf16": steps + 2 * val_batches,
+            "slab_attention_bwd_bf16": steps}
+    log(f"train() bf16: 2 epochs, {steps} steps in {seconds:.3f} s "
+        f"({res.steps_per_sec:.3f} steps/s; {card}), val {res.val_history};"
+        f" rule: one bf16 slab forward per forward (train or eval), one "
+        f"backward per step -> {want}; counted {got}")
+    if steps != 2 * -(-int(0.8 * n) // cfg.train.batch_size) or got != want:
+        raise RuntimeError("train() bf16: launches differ from the rule")
+    if not np.isfinite(res.train_history + res.val_history).all():
+        raise RuntimeError("train() bf16: non-finite loss")
+
+    def float_leaves(tree):
+        if isinstance(tree, dict):
+            return [x for v in tree.values() for x in float_leaves(v)]
+        a = np.asarray(tree)
+        return [a.dtype] if np.issubdtype(a.dtype, np.floating) else []
+
+    tree, meta, _ = ckpt_lib.restore_checkpoint(os.path.join(ckdir, "best"))
+    dtypes = {str(d) for key in ("params", "opt_state")
+              for d in float_leaves(tree[key])}
+    echo = meta["config"]["model"]["dtype"]
+    log(f"bf16 checkpoint: float leaves of params and opt_state {dtypes}, "
+        f"config echo dtype {echo!r}")
+    if dtypes != {"float32"} or echo != "bfloat16":
+        raise RuntimeError("bf16 checkpoint: params or moments not float32, "
+                           "or the echo is not bfloat16")
+    # load_best_model on the last checkpoint (the trained state) as best
+    tmp = tempfile.mkdtemp(prefix="ertdx_torch_bf16_last_")
+    try:
+        shutil.copytree(os.path.join(ckdir, "last"),
+                        os.path.join(tmp, "best"))
+        last, _, _ = train.load_best_model(tmp, cfg, device=dev)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    best, bmeta, _ = train.load_best_model(ckdir, cfg, device=dev)
+    x = torch.from_numpy(ds.params_u[:8]).to(dev)
+    cond = torch.from_numpy(ds.conditions[:8]).to(dev)
+    t = torch.arange(8, device=dev) * 60
+    with torch.no_grad():
+        trained = res.state.model(x, t, cond)
+        from_last = last.model(x, t, cond)
+        from_best = best.model(x, t, cond)
+    same = torch.equal(trained, from_last)
+    log(f"load_best_model: compute {last.model.compute_dtype}, forward of "
+        f"the trained state bit for bit {same}; best (epoch "
+        f"{bmeta['epoch']}) max|d| vs the final model "
+        f"{float((from_best - trained).abs().max()):.3e}")
+    if not (same and last.model.compute_dtype == torch.bfloat16
+            and best.model.compute_dtype == torch.bfloat16
+            and torch.isfinite(from_best).all()):
+        raise RuntimeError("bf16 checkpoint read back differs")
+    return got
+
+
+def check_bf16_serving(sa, cb, ckdir, dev, card, fp32_step_ms) -> None:
+    """Phase 15 (d): a configs[3] posterior ensemble (DDIM-50, 8
+    conditions x 1000 members, on the fused core) from phase 15's bf16
+    checkpoint: 50 fused_core_stack launches and one bf16 slab forward,
+    draws against the same run with the encoder's slab kernel off, within
+    the JAX package's bf16 band (rtol = atol = 5e-2)."""
+    from ertdx_torch import configs, sample, train
+    from ertdx_torch.diffusion import schedule_from_config
+
+    cfg = bf16_cfg(configs)
+    state, _, _ = train.load_best_model(ckdir, cfg, device=dev)
+    model = state.model.eval()
+    plain = plain_attention(model)
+    scfg = configs.DDIM_ENSEMBLE.sample
+    schedule = schedule_from_config(cfg.diffusion)
+    n_cond, n_real = 8, scfg.uncertainty_samples
+    gen = torch.Generator(device=dev).manual_seed(SEED + 154)
+    cond = torch.rand(n_cond, cfg.model.cond_length, cfg.model.cond_channels,
+                      generator=gen, device=dev)
+    x_T = torch.randn(n_cond * n_real, cfg.model.param_dim, generator=gen,
+                      device=dev)
+    counts = _SlabCounts(sa)
+    with torch.no_grad():           # first bf16 encoder call: set-up
+        model.encode_condition(cond[:1])
+    counts.reset_launches()
+    cb.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    u = sample.posterior_ensemble(model, cond, schedule, n_real, scfg,
+                                  x_T=x_T, device=dev)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    got = {**counts.launches, **cb.launches}
+    t0 = time.perf_counter()
+    u_plain = sample.posterior_ensemble(plain, cond, schedule, n_real, scfg,
+                                        x_T=x_T, device=dev)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    du = (u - u_plain).abs()
+    excess = float((du - 5e-2 * u_plain.abs()).max())
+    dmean = float((u.mean(0) - u_plain.mean(0)).abs().max())
+    dstd = float((u.std(0) - u_plain.std(0)).abs().max())
+    steps = scfg.ddim_steps
+    log(f"bf16 ensemble ({n_cond} x {n_real}, DDIM-{steps}): {run_s:.3f} s "
+        f"kernel path ({run_s / steps * 1e3:.3f} ms per DDIM step; phase 4's"
+        f" float32 model {fp32_step_ms:.3f}), {plain_s:.3f} s with the slab "
+        f"kernel off ({card}); launches {got}; u {u.dtype}; max|du|="
+        f"{float(du.max()):.3e} max(|du| - 5e-2 |u_plain|)={excess:.3e} "
+        f"(gate 5e-2) max|dmean|={dmean:.3e} max|dstd|={dstd:.3e} max|u|="
+        f"{float(u_plain.abs().max()):.4f}")
+    want = {"slab_attention_fwd": 0, "slab_attention_bwd": 0,
+            "slab_attention_fwd_bf16": 1, "slab_attention_bwd_bf16": 0,
+            "fused_core_stack": steps, "fused_core_block": 0}
+    if got != want:
+        raise RuntimeError(f"bf16 ensemble: launches {got}, expected {want}")
+    if not (u.dtype == torch.float32 and torch.isfinite(u).all()
+            and excess <= 5e-2):
+        raise RuntimeError("bf16 ensemble disagrees with the plain path")
+
+
 def random_flax_tree(shapes, rng) -> dict:
     """A flax-layout tree of non-zero numpy leaves at init-like scales."""
     out = {}
@@ -2069,7 +2568,8 @@ def main() -> int:
     if tuple(u.shape) != (n_real, n_cond, cfg.model.param_dim) or \
             not torch.isfinite(u).all():
         raise RuntimeError("main path: wrong shape or non-finite draws")
-    log(f"main path: {run_s / steps * 1e3:.3f} ms per DDIM step, "
+    main_step_ms = run_s / steps * 1e3
+    log(f"main path: {main_step_ms:.3f} ms per DDIM step, "
         f"{n_cond * n_real * steps / run_s:.1f} chain-steps/s, peak memory "
         f"{peak / 2**20:.1f} MiB; {card}")
 
@@ -2196,12 +2696,36 @@ def main() -> int:
     finally:
         shutil.rmtree(ckdir, ignore_errors=True)
 
+    # 15. bfloat16: V5E8_DP in its own dtype; (a) the bf16 slab kernels,
+    # (b) train steps, (c) train(), (d) a configs[3] ensemble from it
+    t0 = time.perf_counter()
+    slab_bf16 = check_slab_bf16(sa, dev, kernels.report, kernels.path, card)
+    phase("bf16 slab kernels", t0)
+    ckdir = tempfile.mkdtemp(prefix="ertdx_torch_bf16_")
+    try:
+        t0 = time.perf_counter()
+        bf16_ms = check_bf16_training(sa, dev, card)
+        bf16_launches = check_bf16_train_entry(sa, ckdir, dev, card)
+        check_bf16_serving(sa, cb, ckdir, dev, card, main_step_ms)
+        share = (slab_bf16["slab_attention_fwd_bf16"]["ms"]
+                 + slab_bf16["slab_attention_bwd_bf16"]["ms"]) / \
+            bf16_ms["kernel_step_ms"]
+        log(f"bf16 slab kernels' share of the bf16 kernel-path train step: "
+            f"{100 * share:.2f} %; the float32 step (phase 7) "
+            f"{step_ms['kernel_step_ms']:.3f} ms, the bf16 step "
+            f"{bf16_ms['kernel_step_ms']:.3f} ms")
+        phase("bf16 training and serving", t0)
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+
     launches = {"fused_core_stack": main_launches["fused_core_stack"],
                 "fused_core_block": block_launches["fused_core_block"],
                 **train_launches,
                 "block_self_attention": serve_launches,
                 "folded_cross_attention": serve_launches,
-                **fused_launches, **flash_launches}
+                **fused_launches, **flash_launches,
+                **{k: v for k, v in bf16_launches.items()
+                   if k.endswith("_bf16")}}
     replaces = {"fused_core_stack": "ertdx/ops/core_block.py:440",
                 "fused_core_block": "ertdx/ops/core_block.py:281",
                 "slab_attention_fwd": "ertdx/ops/slab_attn.py:147",
@@ -2214,7 +2738,9 @@ def main() -> int:
                 "gn_silu_conv3_bwd": "ertdx/ops/conv.py:109",
                 "flash_attention_fwd": "ertdx/ops/attention.py:53",
                 "flash_attention_bwd_dq": "ertdx/ops/attention.py:146",
-                "flash_attention_bwd_dkv": "ertdx/ops/attention.py:178"}
+                "flash_attention_bwd_dkv": "ertdx/ops/attention.py:178",
+                "slab_attention_fwd_bf16": "ertdx/ops/slab_attn.py:147",
+                "slab_attention_bwd_bf16": "ertdx/ops/slab_attn.py:184"}
     sources = {"fused_core_stack": "ertdx_torch/csrc/core_block.cu",
                "fused_core_block": "ertdx_torch/csrc/core_block.cu",
                "slab_attention_fwd": "ertdx_torch/csrc/slab_attn.cu",
@@ -2226,7 +2752,9 @@ def main() -> int:
                "gn_silu_conv3_fwd": "ertdx_torch/csrc/gn_conv.cu",
                "gn_silu_conv3_bwd": "ertdx_torch/csrc/gn_conv.cu",
                **{name: "ertdx_torch/csrc/flash_attn.cu"
-                  for name in FLASH_WANT}}
+                  for name in FLASH_WANT},
+               **{name: "ertdx_torch/csrc/slab_attn_bf16.cu"
+                  for name in SLAB_BF16_WANT if name.endswith("_bf16")}}
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": sources[name],
          "replaces": replaces[name], "launches": launches[name],
@@ -2236,7 +2764,7 @@ def main() -> int:
          "bound_fp32_ms": r["bound_fp32_ms"],
          "library_ms": r.get("library_ms"), "shape": r["shape"]}
         for name, r in {**results, **slab, **ensemble, **gnconv,
-                        **flash}.items()]}
+                        **flash, **slab_bf16}.items()]}
     log(f"[phase] total: {time.perf_counter() - t_all:.3f} s")
     log(json.dumps(line))
     log(card_line())

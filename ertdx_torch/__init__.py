@@ -12,7 +12,10 @@ it trains the CondUNet with the encoder's slab attention kernels of
 `pallas_conv_min_width`), the GroupNorm+SiLU and GN+SiLU+conv3 kernels of
 `csrc/groupnorm.cu` and `csrc/gn_conv.cu`, or, in the flash arm
 (`attn_flash_min_logits`), the flash attention kernels of
-`csrc/flash_attn.cu`. `distill.py` distills a trained model into a
+`csrc/flash_attn.cu`. A model computes in float32 or, with
+`ModelConfig.dtype="bfloat16"` (the throughput preset's), in bfloat16 by
+flax's rules, its slab attention then on the bf16 kernels of
+`csrc/slab_attn_bf16.cu`. `distill.py` distills a trained model into a
 few-step student for the pd sampler.
 
 Entry points run on the CUDA device unless the caller passes

@@ -4,8 +4,9 @@ The field names and defaults match the JAX package so that a checkpoint's
 `meta.json` config echo means the same thing to both packages
 (ertdx/configs.py:13-200). Only the presets the port runs are here:
 FULL_CONDITIONAL (configs[2]), DDIM_ENSEMBLE (configs[3]) and V5E8_DP
-(configs[4], the throughput training preset; the port trains it in
-float32 on one device: build it with dtype="float32" and MeshConfig()).
+(configs[4], the throughput training preset, which computes in bfloat16
+with float32 parameters; the port builds it in its own dtype and trains
+it on one device: give it MeshConfig()).
 """
 from __future__ import annotations
 
@@ -50,7 +51,9 @@ class ModelConfig:
                                     # attention.py) once b h lp^2 reaches
                                     # it; 0 = only at lp >= 1024
     attn_slab: bool = False        # encoder slab attention (ops/slab_attn.py)
-    dtype: str = "float32"         # the port computes in float32 only
+    dtype: str = "float32"         # compute dtype, "float32" or
+                                   # "bfloat16"; parameters, optimizer
+                                   # state and loss stay float32
     uncond_prob: float = 0.0       # classifier-free guidance dropout
     parameterization: str = "eps"  # "eps" | "v"
 
@@ -121,9 +124,10 @@ DDIM_ENSEMBLE = ExperimentConfig(
 )
 
 # configs[4]: data-parallel b256 training with the encoder's slab
-# attention (ertdx/configs.py:312-320). bfloat16 and the 8-way mesh are
-# the JAX preset's; the port refuses bf16 (build_model) and runs one
-# device, so it trains this preset with dtype="float32", MeshConfig().
+# attention (ertdx/configs.py:312-320). The port builds it in bfloat16,
+# its own compute dtype (params stay float32), with the slab attention's
+# bf16 kernels; the 8-way mesh is the JAX preset's and the port runs one
+# device, so it trains this preset with MeshConfig().
 V5E8_DP = ExperimentConfig(
     name="v5e8_dp",
     model=dataclasses.replace(ModelConfig(), name="condunet",

@@ -24,7 +24,8 @@ applies the guidance only while the original teacher is the target; a
 conversion-only no-op raises; `save_stages` writes `pd<N>`
 subdirectories; the student's echo carries sampler="pd", its pd_steps,
 guidance_scale=1 and guidance_interval=(0, 1), so `sample_pd` (and JAX's
-`load_best_model`) restore it without flags.
+`load_best_model`) restore it without flags. `distill` runs under
+`precision.fp32_precision` (no TF32 in cuBLAS or cuDNN).
 
 Random draws: the per-epoch shuffle is numpy's
 SeedSequence([seed, 11, student_steps, epoch]) permutation, exactly as in
@@ -50,6 +51,7 @@ from . import resolve_device
 from . import train as train_lib
 from .configs import ExperimentConfig
 from .diffusion import pd_grid, schedule_from_config
+from .precision import fp32_precision
 
 
 @dataclasses.dataclass(frozen=True)
@@ -335,6 +337,7 @@ def _frozen(model: torch.nn.Module) -> torch.nn.Module:
     return copy.deepcopy(model).requires_grad_(False).eval()
 
 
+@fp32_precision()
 def distill(cfg: ExperimentConfig, dcfg: DistillConfig,
             dataset: data_lib.ERTDataset, teacher_dir: str,
             out_dir: Optional[str] = None, mesh=None,

@@ -4,9 +4,15 @@ The port has the flagship `condunet`, with the guidance null context
 when `uncond_prob > 0`, the encoder's GN and fused GN+conv kernels
 under `pallas_gn`, `pallas_conv` and `pallas_conv_min_width`, and its
 slab or flash attention kernels under `use_pallas` with `attn_slab` or
-`attn_flash_min_logits`. The other models of the JAX package (`refmlp`,
-configs[0]; `uncondmlp`, configs[1]) are ROADMAP.md queue 1 item 3 and
-raise here, as do bf16 models (item 1).
+`attn_flash_min_logits`, in float32 or bfloat16 (`dtype`: the compute
+dtype, parameters float32, flax's rules; models/condunet.py). A bfloat16
+model runs the encoder's slab attention on its bf16 kernels and samples
+on the float32 fused core (models/mega.py casts at entry); the other
+kernels take float32 only, so bfloat16 together with `pallas_gn`,
+`pallas_conv`, `pallas_conv_min_width`, `ensemble_pallas` or
+`attn_flash_min_logits` raises (their bf16 variants are ROADMAP.md queue
+2). The other models of the JAX package (`refmlp`, configs[0];
+`uncondmlp`, configs[1]) are ROADMAP.md queue 1 item 3 and raise here.
 """
 from __future__ import annotations
 
@@ -16,7 +22,14 @@ import torch
 
 from .. import resolve_device
 from ..configs import ModelConfig
+from .common import compute_dtype
 from .condunet import CondUNet, init_params
+
+# the knobs whose kernels have no bf16 variant yet (ROADMAP.md queue 2,
+# "bf16 variants"), with the value that leaves them off
+_FP32_ONLY = {"pallas_gn": False, "pallas_conv": False,
+              "pallas_conv_min_width": 0, "ensemble_pallas": False,
+              "attn_flash_min_logits": 0}
 
 
 def build_model(cfg: ModelConfig, device=None,
@@ -31,10 +44,13 @@ def build_model(cfg: ModelConfig, device=None,
         raise NotImplementedError(
             f"model {cfg.name!r} is not ported yet (ROADMAP.md queue 1 "
             "item 3: the other models)")
-    if cfg.dtype != "float32":
-        raise NotImplementedError(
-            f"dtype {cfg.dtype!r}: the port computes in float32 only "
-            "(ROADMAP.md queue 1 item 1: bf16 models)")
+    if compute_dtype(cfg.dtype) == torch.bfloat16:
+        on = [k for k, off in _FP32_ONLY.items() if getattr(cfg, k) != off]
+        if on:
+            raise NotImplementedError(
+                f"dtype 'bfloat16' with {', '.join(on)}: those kernels "
+                "take float32 only; their bf16 variants are not ported yet "
+                "(ROADMAP.md queue 2: bf16 variants)")
     model = CondUNet(param_dim=cfg.param_dim, hidden_dim=cfg.hidden_dim,
                      cond_channels=cfg.cond_channels,
                      base_width=cfg.base_width, depth=cfg.depth,
@@ -49,7 +65,8 @@ def build_model(cfg: ModelConfig, device=None,
                      pallas_gn=cfg.pallas_gn, pallas_conv=cfg.pallas_conv,
                      pallas_conv_min_width=cfg.pallas_conv_min_width,
                      use_pallas=cfg.use_pallas,
-                     flash_min_logits=cfg.attn_flash_min_logits)
+                     flash_min_logits=cfg.attn_flash_min_logits,
+                     dtype=cfg.dtype)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     return init_params(model, generator).to(dev)

@@ -31,6 +31,17 @@ serve the sampling hot path through models/mega.py. With
 `uncond_prob > 0` the model carries the learned null context of
 classifier-free guidance.
 
+`dtype` is the compute dtype, float32 or bfloat16 (ModelConfig.dtype),
+with flax's rules module by module (ertdx/models/condunet.py): every
+Dense and Conv casts its input, kernel and bias to it (models/common.py);
+LayerNorm and GroupNorm take their statistics in float32 and return it;
+attention takes its logits in float32 and casts the probabilities to v's
+dtype (ertdx/ops/attention.py:36-46); `pos_emb` (float32) promotes the
+core's residual stream to float32, where each block's bf16 output is
+added; the time embedding is float32 and enters `time_mlp1` in the
+dtype; `out_norm` and `head` stay float32, so the denoiser returns
+float32. Parameters are float32 in either dtype.
+
 `init_params` draws a fresh model the way flax initialises the JAX
 CondUNet; the modules' own constructors keep PyTorch's default init.
 """
@@ -49,7 +60,8 @@ from ..ops.ensemble_attn import block_self_attention, folded_cross_attention
 from ..ops.groupnorm import (check_groups, groupnorm_silu,
                              reference_groupnorm_silu)
 from ..ops.slab_attn import reference_slab_attention, slab_attention
-from .common import get_timestep_embedding
+from .common import (Conv1d, Dense, LayerNorm, compute_dtype,
+                     get_timestep_embedding)
 
 LN_EPS = 1e-6          # flax nn.LayerNorm default
 GN_EPS = 1e-5
@@ -68,11 +80,13 @@ def same_pad(x: torch.Tensor, kernel: int, stride: int) -> torch.Tensor:
     return F.pad(x, (total // 2, total - total // 2))
 
 
-class Conv1dSame(nn.Conv1d):
-    """Conv1d on (B, L, C) tensors with "SAME" padding."""
+class Conv1dSame(Conv1d):
+    """Conv1d on (B, L, C) tensors with "SAME" padding, computing in
+    `dtype`."""
 
-    def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1):
-        super().__init__(cin, cout, kernel, stride=stride, padding=0)
+    def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(cin, cout, kernel, stride=stride, dtype=dtype)
 
     def forward(self, x):
         h = same_pad(x.transpose(1, 2), self.kernel_size[0], self.stride[0])
@@ -80,9 +94,12 @@ class Conv1dSame(nn.Conv1d):
 
 
 def attention(q, k, v):
-    """softmax(q k^T / sqrt(dh)) v over the last two axes."""
-    logits = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(q.shape[-1])
-    return torch.matmul(torch.softmax(logits, dim=-1), v)
+    """softmax(q k^T / sqrt(dh)) v over the last two axes: the logits in
+    float32 or wider, the probabilities cast to v's dtype."""
+    f32 = torch.promote_types(q.dtype, torch.float32)
+    logits = torch.matmul(q.to(f32), k.to(f32).transpose(-1, -2)) \
+        / math.sqrt(q.shape[-1])
+    return torch.matmul(torch.softmax(logits, dim=-1).to(v.dtype), v)
 
 
 class GNSiLU(nn.Module):
@@ -136,7 +153,8 @@ class ResBlock1D(nn.Module):
     `pallas_gn` sends the GNSiLU pairs through the fused GN kernels."""
 
     def __init__(self, cin: int, features: int, num_groups: int = 8,
-                 pallas_gn: bool = False, pallas_conv: bool = False):
+                 pallas_gn: bool = False, pallas_conv: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.pallas_conv = pallas_conv
         if pallas_conv:
@@ -144,11 +162,11 @@ class ResBlock1D(nn.Module):
             self.fused2 = FusedGNConv(features, features, num_groups)
         else:
             self.norm1 = GNSiLU(cin, num_groups, pallas_gn)
-            self.conv1 = Conv1dSame(cin, features, 3)
+            self.conv1 = Conv1dSame(cin, features, 3, dtype=dtype)
             self.norm2 = GNSiLU(features, num_groups, pallas_gn)
-            self.conv2 = Conv1dSame(features, features, 3)
+            self.conv2 = Conv1dSame(features, features, 3, dtype=dtype)
         self.skip = (None if cin == features
-                     else Conv1dSame(cin, features, 1))
+                     else Conv1dSame(cin, features, 1, dtype=dtype))
 
     def forward(self, x):
         if self.pallas_conv:
@@ -171,15 +189,16 @@ class SelfAttention1D(nn.Module):
     the plain attention runs on the raw length."""
 
     def __init__(self, channels: int, num_heads: int, slab: bool = False,
-                 use_pallas: bool = True, flash_min_logits: int = 0):
+                 use_pallas: bool = True, flash_min_logits: int = 0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_heads = num_heads
         self.slab = slab
         self.use_pallas = use_pallas
         self.flash_min_logits = flash_min_logits
-        self.norm = nn.LayerNorm(channels, eps=LN_EPS)
-        self.qkv = nn.Linear(channels, 3 * channels, bias=False)
-        self.out = nn.Linear(channels, channels)
+        self.norm = LayerNorm(channels, LN_EPS, dtype)
+        self.qkv = Dense(channels, 3 * channels, bias=False, dtype=dtype)
+        self.out = Dense(channels, channels, dtype=dtype)
 
     def forward(self, x):
         b, l, c = x.shape
@@ -228,7 +247,8 @@ class ConditionEncoder(nn.Module):
                  patch: int = 8, attn_slab: bool = False,
                  pallas_gn: bool = False, pallas_conv: bool = False,
                  pallas_conv_min_width: int = 0, use_pallas: bool = True,
-                 flash_min_logits: int = 0):
+                 flash_min_logits: int = 0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.patch = patch
         self.pallas_conv = pallas_conv
@@ -236,24 +256,27 @@ class ConditionEncoder(nn.Module):
 
         def res(width):
             return ResBlock1D(width, width, pallas_gn=pallas_gn,
-                              pallas_conv=self._conv_fused(width))
+                              pallas_conv=self._conv_fused(width),
+                              dtype=dtype)
 
         w0 = 2 * base_width
-        self.stem = nn.Linear(patch * cond_channels, w0)
+        self.stem = Dense(patch * cond_channels, w0, dtype=dtype)
         self.res = nn.ModuleList([res(w0)])
         self.downs = nn.ModuleList()
         w = w0
         for i in range(depth - 1):
             w_next = min(w0 * 2 ** (i + 1), 4 * base_width)
-            self.downs.append(Conv1dSame(w, w_next, 3, stride=2))
+            self.downs.append(Conv1dSame(w, w_next, 3, stride=2,
+                                         dtype=dtype))
             self.res.append(res(w_next))
             w = w_next
         self.attn = SelfAttention1D(w, num_heads, slab=attn_slab,
                                     use_pallas=use_pallas,
-                                    flash_min_logits=flash_min_logits)
+                                    flash_min_logits=flash_min_logits,
+                                    dtype=dtype)
         self.res_out = res(w)
-        self.tokens = nn.Linear(w, hidden_dim)
-        self.pool = nn.Linear(hidden_dim, hidden_dim)
+        self.tokens = Dense(w, hidden_dim, dtype=dtype)
+        self.pool = Dense(hidden_dim, hidden_dim, dtype=dtype)
 
     def _conv_fused(self, width: int) -> bool:
         return self.pallas_conv or (self.pallas_conv_min_width > 0
@@ -276,14 +299,17 @@ class ConditionEncoder(nn.Module):
 
 
 class AdaLN(nn.Module):
-    """LayerNorm without affine, then scale/shift from the conditioning."""
+    """LayerNorm without affine (float32 statistics, output in `dtype`),
+    then scale/shift from the conditioning."""
 
-    def __init__(self, dim: int):
+    def __init__(self, dim: int, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.proj = nn.Linear(dim, 2 * dim)
+        self.compute_dtype = dtype
+        self.proj = Dense(dim, 2 * dim, dtype=dtype)
 
     def forward(self, x, c):
-        h = F.layer_norm(x, x.shape[-1:], eps=LN_EPS)
+        h = F.layer_norm(x.to(torch.float32), x.shape[-1:],
+                         eps=LN_EPS).to(self.compute_dtype)
         scale, shift = self.proj(F.silu(c)).chunk(2, dim=-1)
         return h * (1.0 + scale[:, None, :]) + shift[:, None, :]
 
@@ -302,19 +328,21 @@ class CoreBlock(nn.Module):
 
     def __init__(self, dim: int, num_heads: int = 1,
                  ensemble_pallas: bool = False,
-                 ensemble_min_chains: int = 1024):
+                 ensemble_min_chains: int = 1024,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_heads = num_heads
         self.ensemble_pallas = ensemble_pallas
         self.ensemble_min_chains = ensemble_min_chains
-        self.ada1, self.ada2, self.ada3 = AdaLN(dim), AdaLN(dim), AdaLN(dim)
-        self.qkv = nn.Linear(dim, 3 * dim, bias=False)
-        self.self_out = nn.Linear(dim, dim)
-        self.cross_q = nn.Linear(dim, dim, bias=False)
-        self.cross_kv = nn.Linear(dim, 2 * dim, bias=False)
-        self.cross_out = nn.Linear(dim, dim)
-        self.mlp_in = nn.Linear(dim, 4 * dim)
-        self.mlp_out = nn.Linear(4 * dim, dim)
+        self.ada1, self.ada2, self.ada3 = (AdaLN(dim, dtype)
+                                           for _ in range(3))
+        self.qkv = Dense(dim, 3 * dim, bias=False, dtype=dtype)
+        self.self_out = Dense(dim, dim, dtype=dtype)
+        self.cross_q = Dense(dim, dim, bias=False, dtype=dtype)
+        self.cross_kv = Dense(dim, 2 * dim, bias=False, dtype=dtype)
+        self.cross_out = Dense(dim, dim, dtype=dtype)
+        self.mlp_in = Dense(dim, 4 * dim, dtype=dtype)
+        self.mlp_out = Dense(4 * dim, dim, dtype=dtype)
 
     def _heads(self, z):
         n, l, d = z.shape
@@ -366,8 +394,11 @@ class CondUNet(nn.Module):
                  uncond_prob: float = 0.0, ensemble_pallas: bool = False,
                  ensemble_min_chains: int = 1024, pallas_gn: bool = False,
                  pallas_conv: bool = False, pallas_conv_min_width: int = 0,
-                 use_pallas: bool = True, flash_min_logits: int = 0):
+                 use_pallas: bool = True, flash_min_logits: int = 0,
+                 dtype: str = "float32"):
         super().__init__()
+        dtype = compute_dtype(dtype)
+        self.compute_dtype = dtype
         self.param_dim = param_dim
         self.hidden_dim = hidden_dim
         self.depth = depth
@@ -382,15 +413,17 @@ class CondUNet(nn.Module):
                                         base_width, depth, num_heads, patch,
                                         attn_slab, pallas_gn, pallas_conv,
                                         pallas_conv_min_width, use_pallas,
-                                        flash_min_logits)
-        self.lift = nn.Linear(1, hidden_dim)
+                                        flash_min_logits, dtype)
+        self.lift = Dense(1, hidden_dim, dtype=dtype)
         self.pos_emb = nn.Parameter(
             0.02 * torch.randn(param_dim, hidden_dim))
-        self.time_mlp1 = nn.Linear(hidden_dim, hidden_dim)
-        self.time_mlp2 = nn.Linear(hidden_dim, hidden_dim)
+        self.time_mlp1 = Dense(hidden_dim, hidden_dim, dtype=dtype)
+        self.time_mlp2 = Dense(hidden_dim, hidden_dim, dtype=dtype)
         self.blocks = nn.ModuleList(
             [CoreBlock(hidden_dim, core_heads, ensemble_pallas,
-                       ensemble_min_chains) for _ in range(num_blocks)])
+                       ensemble_min_chains, dtype)
+             for _ in range(num_blocks)])
+        # the final norm and the head stay float32, as in flax
         self.out_norm = nn.LayerNorm(hidden_dim, eps=LN_EPS)
         self.head = nn.Linear(hidden_dim, 1)
         if uncond_prob > 0.0:

@@ -14,6 +14,13 @@ through ertdx_torch.sample.posterior_ensemble, which keeps that contract.
 
 Weights are the model's own, in the JAX kernels' (in, out) layout
 (`extract_core_weights`, names as in ertdx/models/mega.py:52-64).
+
+A bfloat16 model takes this path as JAX's does (ertdx/models/mega.py:
+82-99, 167-173): only its condition encoder, which runs once a run,
+computes in bfloat16; `mega_denoise_ensemble` casts the context and the
+chains to float32 once, at entry, and everything after it (the time
+MLP, the AdaLN rows, the cross K/V and the fused-core kernels) computes
+in float32 from the float32 parameters.
 """
 from __future__ import annotations
 
@@ -85,9 +92,10 @@ def mega_plan(model, n_real: int, batch: int = 1,
               cond_len: Optional[int] = None, device=None) -> Optional[dict]:
     """The fused-core plan, or None for the plain module path.
 
-    Requires the `ensemble_mega` flag, a single-head core, tensors on a
-    CUDA device, at least MIN_TOTAL_CHAINS chains, and a core shape the
-    CUDA kernels take (ops/core_block.kernel_supports: D=128, P <= 32,
+    Requires the `ensemble_mega` flag, a single-head core (float32 or
+    bfloat16: both run the float32 kernels), tensors on a CUDA device,
+    at least MIN_TOTAL_CHAINS chains, and a core shape the CUDA kernels
+    take (ops/core_block.kernel_supports: D=128, P <= 32,
     Lk <= 256), which replaces the TPU's VMEM estimators. The one-launch
     stack kernel is always preferred; the per-block kernel stays
     reachable through `mega_denoise_ensemble(stack=False)`, the
@@ -109,9 +117,12 @@ def mega_plan(model, n_real: int, batch: int = 1,
 
 
 def _cvec_silu(model, t, cond_vec, d):
-    """silu(AdaLN conditioning vector) per condition — shared t."""
+    """silu(AdaLN conditioning vector) per condition — shared t; float32
+    from the float32 parameters whatever the model's dtype, as JAX's."""
     temb = get_timestep_embedding(t[:1], d)
-    return F.silu(model.time_mlp2(F.silu(model.time_mlp1(temb))) + cond_vec)
+    m1, m2 = model.time_mlp1, model.time_mlp2
+    h = F.silu(F.linear(temb, m1.weight, m1.bias))
+    return F.silu(F.linear(h, m2.weight, m2.bias) + cond_vec)
 
 
 def _block_mods_kv(w, sc, cond_tokens):
@@ -133,7 +144,10 @@ def mega_denoise_ensemble(model, x, t, cond_ctx, n_real: int, *, p: int,
     head in plain PyTorch. `weights` (from `mega_weights`) saves
     regathering them at every step."""
     w = weights if weights is not None else mega_weights(model)
-    cond_tokens, cond_vec = cond_ctx
+    # a bfloat16 model hands over a bf16 context: the kernel side computes
+    # in float32, so cast once here (ertdx/models/mega.py:167-173)
+    cond_tokens, cond_vec = (z.to(torch.float32) for z in cond_ctx)
+    x = x.to(torch.float32)
     bsz = cond_tokens.shape[0]
     n = x.shape[0]
     n_chunks = n_real // chunk

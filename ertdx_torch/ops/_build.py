@@ -52,6 +52,9 @@ SIGNATURES = {
     "ertdx_slab_fwd": [_P] * 2 + [_I] * 4 + [_P],
     "ertdx_slab_bwd": [_P] * 5 + [_I] * 4 + [_P],
     "ertdx_slab_blocks_per_sm": [_I, _I, _P],
+    "ertdx_slab_fwd_bf16": [_P] * 2 + [_I] * 4 + [_P],
+    "ertdx_slab_bwd_bf16": [_P] * 5 + [_I] * 4 + [_P],
+    "ertdx_slab_bf16_blocks_per_sm": [_I, _I, _P],
     "ertdx_block_self_attn": [_P] * 4 + [_L] * 3 + [_I] * 3 + [_P],
     "ertdx_folded_cross_attn": [_P] * 4 + [_L] * 3 + [_I] * 4 + [_P],
     "ertdx_flash_fwd": [_P] * 6 + [_I] * 5 + [_F, _P],
@@ -153,14 +156,17 @@ def load() -> Kernels:
     return _loaded["lib"]
 
 
-def check_cuda(name: str, t: torch.Tensor, shape) -> None:
-    """What the kernels take: a contiguous float32 CUDA tensor of the
-    expected shape; raises otherwise."""
+def check_cuda(name: str, t: torch.Tensor, shape,
+               dtype: torch.dtype = torch.float32) -> None:
+    """What the kernels take: a contiguous CUDA tensor of the expected
+    shape and dtype (float32 unless the kernel says otherwise); raises
+    otherwise."""
     if t.device.type != "cuda":
         raise ValueError(f"{name}: the kernel takes CUDA tensors, got "
                          f"{t.device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: the kernel takes float32, got {t.dtype}")
+    if t.dtype != dtype:
+        want, got = (str(d).replace("torch.", "") for d in (dtype, t.dtype))
+        raise TypeError(f"{name}: the kernel takes {want}, got {got}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, the kernel "
                          f"expects {tuple(shape)}")

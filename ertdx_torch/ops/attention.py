@@ -91,12 +91,14 @@ def _bias(kv_mask: torch.Tensor, dtype) -> torch.Tensor:
 def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         kv_mask: Optional[torch.Tensor] = None
                         ) -> torch.Tensor:
-    """The plain version (ertdx/ops/attention.py:36-47)."""
+    """The plain version (ertdx/ops/attention.py:36-47): the logits in
+    float32 or wider, the probabilities cast to v's dtype."""
     scale = 1.0 / math.sqrt(q.shape[-1])
-    logits = torch.matmul(q, k.transpose(-1, -2)) * scale
+    f32 = torch.promote_types(q.dtype, torch.float32)
+    logits = torch.matmul(q.to(f32), k.to(f32).transpose(-1, -2)) * scale
     if kv_mask is not None:
         logits = logits + _bias(kv_mask, logits.dtype)
-    return torch.matmul(torch.softmax(logits, dim=-1), v)
+    return torch.matmul(torch.softmax(logits, dim=-1).to(v.dtype), v)
 
 
 def reference_flash_forward(q, k, v, kv_mask=None):

@@ -94,14 +94,17 @@ def reference_groupnorm_silu(x: torch.Tensor, gamma: torch.Tensor,
                              beta: torch.Tensor, num_groups: int,
                              eps: float = 1e-5) -> torch.Tensor:
     """The plain version (ertdx/ops/groupnorm.py:24-34): statistics over
-    (L, C/G) per row and group, biased variance, then affine and SiLU."""
+    (L, C/G) per row and group, biased variance, then affine and SiLU, in
+    float32 or wider (a bf16 x is upcast, a float64 one kept); the result
+    in x's dtype."""
     b, l, c = x.shape
     check_groups(c, num_groups)
-    xg = x.reshape(b, l, num_groups, c // num_groups)
+    xg = x.to(torch.promote_types(x.dtype, torch.float32)).reshape(
+        b, l, num_groups, c // num_groups)
     mean = xg.mean(dim=(1, 3), keepdim=True)
     var = xg.var(dim=(1, 3), unbiased=False, keepdim=True)
     xn = ((xg - mean) * torch.rsqrt(var + eps)).reshape(b, l, c)
-    return F.silu(xn * gamma + beta)
+    return F.silu(xn * gamma + beta).to(x.dtype)
 
 
 def reference_groupnorm_silu_backward(x, gamma, beta, g, num_groups: int,

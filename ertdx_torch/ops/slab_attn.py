@@ -14,15 +14,26 @@ the backward kernels (a dQ pass and a dK/dV pass, see the CUDA source);
 on CPU tensors both are the plain version under autograd. Where the
 port's gate `slab_attention_ok` is false the plain version runs on any
 device, as JAX's `_sa_fwd` (:309-314) takes its XLA reference; where it
-is true a failed build or launch raises. `launches` counts kernel
-launches only.
+is true a failed build or launch raises. `launches` counts the float32
+kernels' launches and `launches_bf16` the bfloat16 kernels', and nothing
+else.
 
-`accurate` selects HIGHEST-precision matmuls in the TPU kernel. The CUDA
-kernels, forward and backward, compute every product as 3xTF32 on the
-tensor cores (csrc/tf32x3.cuh), fp32-class, so it has no effect. They
-stage the slab with 16-byte cp.async: the kernel wrappers refuse a slab
-that does not start on a 16-byte boundary, and `slab_attention` copies
-one (`_build.contiguous16`).
+The kernels dispatch on the slab's dtype. A float32 slab runs the
+kernels of csrc/slab_attn.cu, every product as 3xTF32 on the tensor
+cores (csrc/tf32x3.cuh), fp32-class, as the TPU kernel's HIGHEST: for
+them `accurate` has no effect. A bfloat16 slab (a bf16 model's encoder)
+runs those of csrc/slab_attn_bf16.cu, the TPU kernel's DEFAULT class: one
+bf16 MMA a product with float32 accumulation and a float32 softmax, P
+and dS rounded to bf16 for their products, the output and dQKV in bf16;
+with `accurate=True` it runs the float32 kernels on the upcast slab (the
+HIGHEST class) and returns bf16. All of them stage the slab with 16-byte
+cp.async: the kernel wrappers refuse a slab that does not start on a
+16-byte boundary, and `slab_attention` copies one
+(`_build.contiguous16`).
+
+The plain version computes in the dtypes of JAX's plain version
+(ertdx/ops/slab_attn.py:66-83): the logits in float32, the
+probabilities cast to v's dtype, the output in the slab's dtype.
 """
 from __future__ import annotations
 
@@ -38,11 +49,13 @@ KERNEL_HEAD_DIMS = (32, 64)
 KERNEL_L_MAX = 256
 
 launches = {"slab_attention_fwd": 0, "slab_attention_bwd": 0}
+launches_bf16 = {"slab_attention_fwd_bf16": 0, "slab_attention_bwd_bf16": 0}
 
 
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    for counts in (launches, launches_bf16):
+        for name in counts:
+            counts[name] = 0
 
 
 def slab_attention_ok(b: int, l: int, c: int, num_heads: int) -> bool:
@@ -58,7 +71,8 @@ def slab_attention_ok(b: int, l: int, c: int, num_heads: int) -> bool:
 def reference_slab_attention(qkv: torch.Tensor,
                              num_heads: int) -> torch.Tensor:
     """The plain version: head split, softmax(q k^T / sqrt(dh)) v, heads
-    merged back (ertdx/ops/slab_attn.py:66-83)."""
+    merged back (ertdx/ops/slab_attn.py:66-83); the logits in float32
+    or wider, the probabilities cast to v's dtype."""
     b, l, c3 = qkv.shape
     c = c3 // 3
     dh = c // num_heads
@@ -67,8 +81,10 @@ def reference_slab_attention(qkv: torch.Tensor,
     def heads(z):
         return z.reshape(b, l, num_heads, dh).transpose(1, 2)
 
-    logits = heads(q) @ heads(k).transpose(-1, -2) * (1.0 / math.sqrt(dh))
-    out = torch.softmax(logits, dim=-1) @ heads(v)
+    f32 = torch.promote_types(qkv.dtype, torch.float32)
+    logits = heads(q).to(f32) @ heads(k).to(f32).transpose(-1, -2) * (
+        1.0 / math.sqrt(dh))
+    out = torch.softmax(logits, dim=-1).to(v.dtype) @ heads(v)
     return out.transpose(1, 2).reshape(b, l, c)
 
 
@@ -92,31 +108,28 @@ def _dims(qkv: torch.Tensor, num_heads: int):
     return b, l, c, c // num_heads
 
 
-def slab_attention_fwd(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
-    """The forward kernel: (B, L, 3C) -> (B, L, C). One launch on the
-    current stream."""
+def _fwd(qkv: torch.Tensor, num_heads: int, dtype: torch.dtype,
+         entry: str, name: str, counts: dict) -> torch.Tensor:
     b, l, c, dh = _dims(qkv, num_heads)
-    _build.check_cuda("qkv", qkv, (b, l, 3 * c))
+    _build.check_cuda("qkv", qkv, (b, l, 3 * c), dtype)
     _build.check_aligned16(qkv=qkv)
     out = torch.empty(b, l, c, device=qkv.device, dtype=qkv.dtype)
     lib = _build.load().lib
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
-        rc = lib.ertdx_slab_fwd(qkv.data_ptr(), out.data_ptr(), b, l,
-                                num_heads, dh, stream)
-    _build.raise_on(rc, "slab_attention_fwd")
-    launches["slab_attention_fwd"] += 1
+        rc = getattr(lib, entry)(qkv.data_ptr(), out.data_ptr(), b, l,
+                                 num_heads, dh, stream)
+    _build.raise_on(rc, name)
+    counts[name] += 1
     return out
 
 
-def slab_attention_bwd(qkv: torch.Tensor, do: torch.Tensor,
-                       num_heads: int) -> torch.Tensor:
-    """The backward kernels: qkv (B, L, 3C) and dO (B, L, C) -> dQKV
-    (B, L, 3C). Two launches on the current stream (dQ, then dK/dV),
-    counted as one backward."""
+def _bwd(qkv: torch.Tensor, do: torch.Tensor, num_heads: int,
+         dtype: torch.dtype, entry: str, name: str,
+         counts: dict) -> torch.Tensor:
     b, l, c, dh = _dims(qkv, num_heads)
-    _build.check_cuda("qkv", qkv, (b, l, 3 * c))
-    _build.check_cuda("do", do, (b, l, c))
+    _build.check_cuda("qkv", qkv, (b, l, 3 * c), dtype)
+    _build.check_cuda("do", do, (b, l, c), dtype)
     if do.device != qkv.device:
         raise ValueError("qkv and do must share one CUDA device")
     _build.check_aligned16(qkv=qkv, do=do)
@@ -126,49 +139,101 @@ def slab_attention_bwd(qkv: torch.Tensor, do: torch.Tensor,
     lib = _build.load().lib
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
-        rc = lib.ertdx_slab_bwd(qkv.data_ptr(), do.data_ptr(),
-                                dqkv.data_ptr(), scratch[0].data_ptr(),
-                                scratch[1].data_ptr(), b, l, num_heads, dh,
-                                stream)
-    _build.raise_on(rc, "slab_attention_bwd")
-    launches["slab_attention_bwd"] += 1
+        rc = getattr(lib, entry)(qkv.data_ptr(), do.data_ptr(),
+                                 dqkv.data_ptr(), scratch[0].data_ptr(),
+                                 scratch[1].data_ptr(), b, l, num_heads, dh,
+                                 stream)
+    _build.raise_on(rc, name)
+    counts[name] += 1
     return dqkv
 
 
-def blocks_per_sm(l: int, dh: int) -> dict:
-    """Resident blocks per SM of the three kernels at (L, dh), from the
-    CUDA occupancy calculator, and the threads of a block, which all three
-    share (needs a card)."""
+def slab_attention_fwd(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """The float32 forward kernel: (B, L, 3C) -> (B, L, C). One launch on
+    the current stream."""
+    return _fwd(qkv, num_heads, torch.float32, "ertdx_slab_fwd",
+                "slab_attention_fwd", launches)
+
+
+def slab_attention_bwd(qkv: torch.Tensor, do: torch.Tensor,
+                       num_heads: int) -> torch.Tensor:
+    """The float32 backward kernels: qkv (B, L, 3C) and dO (B, L, C) ->
+    dQKV (B, L, 3C). Two launches on the current stream (dQ, then dK/dV),
+    counted as one backward."""
+    return _bwd(qkv, do, num_heads, torch.float32, "ertdx_slab_bwd",
+                "slab_attention_bwd", launches)
+
+
+def slab_attention_fwd_bf16(qkv: torch.Tensor,
+                            num_heads: int) -> torch.Tensor:
+    """The bfloat16 forward kernel: (B, L, 3C) -> (B, L, C), both bf16.
+    One launch on the current stream."""
+    return _fwd(qkv, num_heads, torch.bfloat16, "ertdx_slab_fwd_bf16",
+                "slab_attention_fwd_bf16", launches_bf16)
+
+
+def slab_attention_bwd_bf16(qkv: torch.Tensor, do: torch.Tensor,
+                            num_heads: int) -> torch.Tensor:
+    """The bfloat16 backward kernels: qkv (B, L, 3C) and dO (B, L, C) ->
+    dQKV (B, L, 3C), all bf16. Two launches on the current stream (dQ,
+    then dK/dV), counted as one backward."""
+    return _bwd(qkv, do, num_heads, torch.bfloat16, "ertdx_slab_bwd_bf16",
+                "slab_attention_bwd_bf16", launches_bf16)
+
+
+def blocks_per_sm(l: int, dh: int, bf16: bool = False) -> dict:
+    """Resident blocks per SM of the three float32 (or, with `bf16`,
+    bfloat16) kernels at (L, dh), from the CUDA occupancy calculator, and
+    the threads of a block, which all three share (needs a card)."""
     out = (ctypes.c_int * 4)()
-    rc = _build.load().lib.ertdx_slab_blocks_per_sm(l, dh, out)
-    _build.raise_on(rc, "slab occupancy query")
+    lib = _build.load().lib
+    query = (lib.ertdx_slab_bf16_blocks_per_sm if bf16
+             else lib.ertdx_slab_blocks_per_sm)
+    _build.raise_on(query(l, dh, out), "slab occupancy query")
     return dict(zip(("fwd", "bwd_dq", "bwd_dkv", "threads"), out))
 
 
 class _SlabAttention(torch.autograd.Function):
-    """Forward and backward on the CUDA kernels."""
+    """Forward and backward on the CUDA kernels of the slab's dtype; with
+    `accurate` a bf16 slab runs the float32 kernels on its upcast copy."""
 
     @staticmethod
-    def forward(ctx, qkv, num_heads):
+    def forward(ctx, qkv, num_heads, accurate):
         ctx.num_heads = num_heads
+        ctx.accurate = accurate
         ctx.save_for_backward(qkv)
-        return slab_attention_fwd(qkv, num_heads)
+        if qkv.dtype == torch.float32:
+            return slab_attention_fwd(qkv, num_heads)
+        if accurate:
+            return slab_attention_fwd(qkv.to(torch.float32),
+                                      num_heads).to(qkv.dtype)
+        return slab_attention_fwd_bf16(qkv, num_heads)
 
     @staticmethod
     def backward(ctx, do):
         qkv, = ctx.saved_tensors
-        return (slab_attention_bwd(qkv, _build.contiguous16(do),
-                                   ctx.num_heads), None)
+        do = _build.contiguous16(do)
+        if qkv.dtype == torch.float32:
+            dqkv = slab_attention_bwd(qkv, do, ctx.num_heads)
+        elif ctx.accurate:
+            dqkv = slab_attention_bwd(qkv.to(torch.float32),
+                                      do.to(torch.float32),
+                                      ctx.num_heads).to(qkv.dtype)
+        else:
+            dqkv = slab_attention_bwd_bf16(qkv, do, ctx.num_heads)
+        return dqkv, None, None
 
 
 def slab_attention(qkv: torch.Tensor, num_heads: int,
                    accurate: bool = False) -> torch.Tensor:
     """(B, L, 3C) packed QKV slab -> (B, L, C) attention output, with a
-    gradient. The CUDA kernels on a CUDA tensor the gate takes; the plain
-    version on a CPU tensor, or where the gate is false."""
-    del accurate   # fp32-class throughout; see the module docstring
+    gradient. The CUDA kernels of the slab's dtype (float32 or bfloat16)
+    on a CUDA tensor the gate takes; the plain version on a CPU tensor, or
+    where the gate is false. `accurate` matters for bf16 slabs only (see
+    the module docstring)."""
     b, l, c3 = qkv.shape
     if (qkv.device.type == "cpu"
             or not slab_attention_ok(b, l, c3 // 3, num_heads)):
         return reference_slab_attention(qkv, num_heads)
-    return _SlabAttention.apply(_build.contiguous16(qkv), num_heads)
+    return _SlabAttention.apply(_build.contiguous16(qkv), num_heads,
+                                accurate)

@@ -14,6 +14,12 @@ out as (R, B, P).
 Random draws come from a `torch.Generator`, or are injected (`x_T`,
 `noise`, and per batch or per member in the drivers), so that a test can
 hand the port JAX's own draws.
+
+A bfloat16 model (ModelConfig.dtype) samples here too: the condition
+enters in float32 and its encoder casts it; the fused core computes in
+float32 (models/mega.py), and the draws and the inverse pipeline stay
+float32. The entry points run under `precision.fp32_precision` (no TF32
+in cuBLAS or cuDNN).
 """
 from __future__ import annotations
 
@@ -28,6 +34,7 @@ from .diffusion import (DiffusionSchedule, as_eps_denoiser, sample_ancestral,
                         sample_ddim, sample_dpmpp_2m, sample_pd)
 from .models.mega import mega_denoise_ensemble, mega_plan, mega_weights
 from .params import ParameterSpace
+from .precision import fp32_precision
 
 SAMPLERS = ("ancestral", "ddim", "dpmpp", "pd")
 
@@ -83,6 +90,7 @@ def _run_sampler(scfg: SampleConfig, denoise, shape, schedule,
                             temperature, noise=noise, **kw)
 
 
+@fp32_precision()
 def posterior_ensemble(model, condition, schedule: DiffusionSchedule,
                        n_realizations: int = 50,
                        scfg: Optional[SampleConfig] = None, *,
@@ -210,6 +218,7 @@ def filter_valid(phys: np.ndarray, mask: np.ndarray) -> list:
     return out
 
 
+@fp32_precision()
 def posterior_over_dataset(model, conditions, schedule: DiffusionSchedule,
                            param_scaler, *, n_realizations: int = 50,
                            batch_size: int = 32,
@@ -258,6 +267,7 @@ def posterior_over_dataset(model, conditions, schedule: DiffusionSchedule,
     return inverse_pipeline(u_all.cpu().numpy(), param_scaler, a, b, space)
 
 
+@fp32_precision()
 def posterior_over_dataset_mixture(members, conditions,
                                    schedule: DiffusionSchedule, param_scaler,
                                    *, n_realizations: int = 50,

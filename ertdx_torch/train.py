@@ -22,6 +22,12 @@ nothing). The encoder's slab attention, GN+SiLU and fused GN+SiLU+conv
 run on their CUDA kernels when the model asks for them and lies on the
 card.
 
+A bfloat16 model (ModelConfig.dtype, V5E8_DP's) trains as the JAX
+package trains it: the model computes in bfloat16 while its parameters,
+the Adam moments, the EMA and the loss stay float32, and checkpoints
+echo the dtype. `train` runs under `precision.fp32_precision` (no TF32
+in cuBLAS or cuDNN), so a float32 model computes float32-class.
+
 Random draws come from torch.Generators seeded from the config's seed,
 not from JAX's threefry keys: the same seed gives other numbers than the
 JAX package. Tests hand both packages the same t, eps and drop mask.
@@ -49,6 +55,7 @@ from .configs import ExperimentConfig
 from .diffusion import (min_snr_weight, prediction_target, q_sample,
                         schedule_from_config)
 from .models import build_model
+from .precision import fp32_precision
 from .utils import checkpoint as ckpt_lib
 from .utils.weights import (adam_state_from_jax, adam_state_to_jax,
                             named_from_jax, named_to_jax, params_from_jax,
@@ -288,6 +295,7 @@ def _restore(state: TrainState, tree: dict) -> None:
                                            tree["ema_params"]).items()}
 
 
+@fp32_precision()
 def train(cfg: ExperimentConfig, dataset: data_lib.ERTDataset,
           checkpoint_dir: Optional[str] = None, device=None,
           logger: Optional[Callable[[dict], None]] = None,

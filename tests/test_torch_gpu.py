@@ -782,3 +782,135 @@ def test_flash_cross_attention_on_the_kernels(cuda, masked):
     assert at.launches["flash_attention_fwd"] == 1
     assert got.shape == q.shape
     _close(got, at.reference_attention(q, k, v, mask))
+
+
+# (B, L, C, heads) of the bf16 slab kernels: the encoder's stage with a
+# ragged last tile, dh=32, a single token, two key chunks (L > 160) and
+# the longest L
+SLAB_BF16_CASES = [(3, 147, 256, 4), (2, 65, 256, 8), (2, 1, 64, 1),
+                   (2, 200, 128, 2), (1, 256, 128, 2)]
+
+
+def _bf16_gate(got, want32, plain_bf16):
+    """The bf16 kernels against the plain version in float32 from the
+    same bf16 inputs: within twice the bf16 plain version's own error, or
+    8e-3 x max(1, max|plain|) (a few bf16 roundings of the output)."""
+    err = float((got.float() - want32).abs().max())
+    own = float((plain_bf16.float() - want32).abs().max())
+    tol = max(2 * own, 8e-3 * max(1.0, float(want32.abs().max())))
+    assert err <= tol, (err, own, tol)
+
+
+@pytest.mark.parametrize("b,l,c,nh", SLAB_BF16_CASES)
+def test_slab_bf16_kernels_match_plain(cuda, b, l, c, nh):
+    from ertdx_torch.ops import slab_attn as sa
+
+    g = torch.Generator(device=cuda).manual_seed(b * 100 + l + 7)
+    qkv = torch.randn(b, l, 3 * c, generator=g, device=cuda).bfloat16()
+    do = torch.randn(b, l, c, generator=g, device=cuda).bfloat16()
+    sa.reset_launches()
+    z = qkv.clone().requires_grad_(True)
+    out = sa.slab_attention(z, nh)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert sa.launches == {"slab_attention_fwd": 0, "slab_attention_bwd": 0}
+    assert sa.launches_bf16 == {"slab_attention_fwd_bf16": 1,
+                                "slab_attention_bwd_bf16": 1}
+    assert out.dtype == z.grad.dtype == torch.bfloat16
+    _bf16_gate(out.detach(), sa.reference_slab_attention(qkv.float(), nh),
+               sa.reference_slab_attention(qkv, nh))
+    _bf16_gate(z.grad, sa.reference_slab_attention_backward(
+        qkv.float(), do.float(), nh),
+        sa.reference_slab_attention_backward(qkv, do, nh))
+    # no atomics: reruns are bit-identical
+    assert torch.equal(sa.slab_attention_fwd_bf16(qkv, nh), out.detach())
+    assert torch.equal(sa.slab_attention_bwd_bf16(qkv, do, nh), z.grad)
+
+
+def test_slab_bf16_accurate_runs_the_float32_kernels(cuda):
+    from ertdx_torch.ops import slab_attn as sa
+
+    g = torch.Generator(device=cuda).manual_seed(5)
+    qkv = torch.randn(2, 147, 3 * 256, generator=g, device=cuda).bfloat16()
+    do = torch.randn(2, 147, 256, generator=g, device=cuda).bfloat16()
+    sa.reset_launches()
+    z = qkv.clone().requires_grad_(True)
+    out = sa.slab_attention(z, 4, accurate=True)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert sa.launches == {"slab_attention_fwd": 1, "slab_attention_bwd": 1}
+    assert sa.launches_bf16 == {"slab_attention_fwd_bf16": 0,
+                                "slab_attention_bwd_bf16": 0}
+    assert out.dtype == z.grad.dtype == torch.bfloat16
+    # fp32-class, rounded to bf16 once: within one bf16 ulp (2^-8 of the
+    # largest value) of the float32 plain version
+    for got, want in ((out.detach(), sa.reference_slab_attention(
+            qkv.float(), 4)), (z.grad, sa.reference_slab_attention_backward(
+            qkv.float(), do.float(), 4))):
+        scale = float(want.abs().max())
+        assert float((got.float() - want).abs().max()) <= \
+            2.0 ** (math.floor(math.log2(scale)) - 7)
+
+
+def test_slab_bf16_kernels_refuse_what_they_do_not_take(cuda):
+    from ertdx_torch.ops import slab_attn as sa
+
+    qkv = torch.randn(2, 147, 3 * 256, device=cuda)
+    with pytest.raises(TypeError, match="bfloat16"):
+        sa.slab_attention_fwd_bf16(qkv, 4)
+    with pytest.raises(TypeError, match="bfloat16"):
+        sa.slab_attention_bwd_bf16(qkv.bfloat16(), qkv[..., :256], 4)
+    # 2 bytes past a 16-byte boundary: the kernels stage with cp.async
+    view = torch.empty(qkv.numel() + 1, device=cuda,
+                       dtype=torch.bfloat16)[1:].view(qkv.shape)
+    view.copy_(qkv)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        sa.slab_attention_fwd_bf16(view, 4)
+    # the autograd path copies a misaligned slab
+    sa.reset_launches()
+    z = view.detach().requires_grad_(True)
+    sa.slab_attention(z, 4).sum().backward()
+    torch.cuda.synchronize()
+    assert sa.launches_bf16 == {"slab_attention_fwd_bf16": 1,
+                                "slab_attention_bwd_bf16": 1}
+
+
+def test_bf16_model_trains_on_the_slab_bf16_kernels(cuda):
+    """A small bf16 CondUNet (the slab on, use_pallas on) takes one train
+    step on the bf16 kernels, one launch each way, and its loss is within
+    1e-2 of the same step on the plain bf16 slab (bf16 roundings at other
+    places)."""
+    import copy
+    import dataclasses
+
+    from ertdx_torch import configs, train
+    from ertdx_torch.diffusion import schedule_from_config
+    from ertdx_torch.models import build_model
+    from ertdx_torch.ops import slab_attn as sa
+
+    mcfg = dataclasses.replace(configs.V5E8_DP.model, hidden_dim=32,
+                               base_width=32, depth=2, num_blocks=1,
+                               cond_length=1176, cond_channels=4)
+    model = build_model(mcfg, device=cuda)
+    plain = copy.deepcopy(model)
+    plain.encoder.attn.use_pallas = False
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x0 = torch.randn(8, 29, generator=g, device=cuda)
+    cond = torch.rand(8, 1176, 4, generator=g, device=cuda)
+    t = torch.randint(0, 500, (8,), generator=g, device=cuda)
+    noise = torch.randn(8, 29, generator=g, device=cuda)
+    alpha_bar = schedule_from_config(configs.DiffusionConfig()).alpha_bar
+    losses = []
+    for m in (model, plain):
+        sa.reset_launches()
+        losses.append(float(train.train_step(
+            m, train.create_optimizer(m, 1e-4), x0, cond, t, noise,
+            alpha_bar=alpha_bar, lr=1e-4)))
+        torch.cuda.synchronize()
+        if m is model:
+            assert sa.launches_bf16 == {"slab_attention_fwd_bf16": 1,
+                                        "slab_attention_bwd_bf16": 1}
+    assert sa.launches_bf16 == {"slab_attention_fwd_bf16": 0,
+                                "slab_attention_bwd_bf16": 0}
+    assert all(math.isfinite(v) for v in losses)
+    assert abs(losses[0] - losses[1]) <= 1e-2 * max(1.0, abs(losses[1]))

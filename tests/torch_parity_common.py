@@ -26,8 +26,9 @@ def make_pair(*, p=29, d=32, cond_channels=4, cond_len=96, base_width=16,
               attn_slab=False, parameterization="eps", uncond_prob=0.0,
               ensemble_pallas=False, ensemble_min_chains=1024,
               pallas_gn=False, pallas_conv=False, pallas_conv_min_width=0,
-              use_pallas=True, flash_min_logits=0):
-    """(flax model, numpy params, torch model on the CPU). With
+              use_pallas=True, flash_min_logits=0, dtype="float32"):
+    """(flax model, numpy params, torch model on the CPU), both computing
+    in `dtype` (float32 or bfloat16; the params are float32). With
     uncond_prob > 0 both carry the guidance null context (perturbed, so
     null_vec is non-zero); `pallas_conv` or `pallas_conv_min_width` give
     both the fused ResBlocks' parameter tree; `use_pallas` and
@@ -41,7 +42,8 @@ def make_pair(*, p=29, d=32, cond_channels=4, cond_len=96, base_width=16,
     fm = FlaxCondUNet(param_dim=p, hidden_dim=d, cond_channels=cond_channels,
                       base_width=base_width, depth=depth,
                       num_heads=num_heads, core_heads=1,
-                      num_blocks=num_blocks, **knobs)
+                      num_blocks=num_blocks, dtype=jnp.dtype(dtype),
+                      **knobs)
     # jitted: an eager flax init of the CondUNet takes about 4x as long
     variables = jax.jit(fm.init)(jax.random.key(seed), jnp.zeros((1, p)),
                                  jnp.zeros((1,), jnp.int32),
@@ -53,7 +55,7 @@ def make_pair(*, p=29, d=32, cond_channels=4, cond_len=96, base_width=16,
     tm = TorchCondUNet(param_dim=p, hidden_dim=d,
                        cond_channels=cond_channels, base_width=base_width,
                        depth=depth, num_heads=num_heads, core_heads=1,
-                       num_blocks=num_blocks, **knobs)
+                       num_blocks=num_blocks, dtype=dtype, **knobs)
     params_from_jax(tm, params)
     return fm, params, tm
 
