@@ -13,7 +13,9 @@ non-zero and prints no result line):
    slab, flash, fused-core, ensemble attention and fused-conv GEMM kernel
    and fails if one has none (they run their products on the tensor
    cores); ptxas' lines of every GN kernel (staged and streamed), where
-   a spill fails;
+   a spill fails; the bf16 MMAs (HMMA.16816.F32.BF16) of the bf16 fused
+   conv's GEMMs, and ptxas' lines of every bf16 GN and fused-conv kernel,
+   where a spill fails;
 3. kernels: fused_core_stack and fused_core_block at full width (D=128,
    nb=4, P=29, Lk=147) and at the kernels' limits (P=17 with Lk=61, P=32
    with Lk=256), every weight non-zero, held against their plain PyTorch
@@ -143,7 +145,30 @@ non-zero and prints no result line):
    configs[3] ensemble (8 x 1000, DDIM-50) from that checkpoint: 50
    fused_core_stack launches and one bf16 slab forward, draws within the
    JAX package's bf16 band (rtol = atol = 5e-2) of the same run with the
-   slab kernel off, ms per DDIM step beside phase 4's.
+   slab kernel off, ms per DDIM step beside phase 4's;
+16. the bf16 fused-encoder arm: phase 15's model with pallas_gn=True and
+   pallas_conv_min_width=256. (a) the bf16 GN and fused-conv kernels at
+   phase 10's shapes in bf16 (GN also at the condition's length and on x
+   = 1000 + N(0, 1)), every output against the plain version in float32
+   from the same bf16 inputs under phase 15 (a)'s rule, reruns
+   bit-identical, each case's launch plan, timed (CUDA events and
+   profiler device time) beside the float32 kernels, the bf16 plain
+   version and the bf16 library composition (a yardstick), GB/s and the
+   share of the bound at 2 bytes a value and 989 TFLOP/s; (b) 5 b256
+   steps against every kernel off under phase 15 (b)'s gates, exactly
+   2/2 bf16 GN, 6/6 bf16 fused-conv and 1/1 bf16 slab launches a step
+   and no float32 GN, conv or slab launch, ms a step, peak memory, a
+   profile of one step of each path and the ops that launch its float32
+   elementwise kernels; (c) train() for 2 epochs on 400 examples as
+   phase 15 (c), launches by the epoch grid; (d) a configs[3] ensemble
+   (8 x 1000, DDIM-50) from random non-zero weights: 2 GN, 6 conv and 1
+   slab bf16 forwards and 50 fused_core_stack launches, one denoiser call
+   from the kernels' context within the bf16 band of the same call with
+   the GN and conv kernels off, the draws within that band or twice the
+   gap between two plain computations of the model; (e) one
+   bf16 b256 step of the flash arm (the float32 flash kernels on upcast
+   copies) against use_pallas off under (b)'s gates, one flash forward,
+   dQ and dK/dV.
 
 Every kernel's entry in the kernels line has `bound_ms`, the least time
 the card could take: the bytes at 3.35 TB/s or the operations at the
@@ -153,8 +178,8 @@ tensor cores' 989 TFLOP/s for the bf16 kernels; for the flash kernels
 only the keys the mask needs. Beside it `bound_tc_ms` (the 3xTF32 time;
 null for GroupNorm) and `bound_fp32_ms` (the fp32 pipe's). The last line of
 stdout is {"ok": true, "device": {...}}. The build goes
-to build/ertdx_torch_kernels/; the checkpoints of phases 7, 11, 13, 14
-and 15 go to temporary directories that are removed; nothing else is
+to build/ertdx_torch_kernels/; the checkpoints of phases 7, 11, 13, 14,
+15 and 16 go to temporary directories that are removed; nothing else is
 written.
 """
 from __future__ import annotations
@@ -1499,6 +1524,17 @@ class _Counts:
             mod.reset_launches()
 
 
+class _AllCounts(_Counts):
+    """The float32 and bf16 launch counts of several ops modules as one
+    `launches` dict."""
+
+    @property
+    def launches(self) -> dict:
+        return {k: v for mod in self.mods for d in (
+            mod.launches, getattr(mod, "launches_bf16", {}))
+            for k, v in d.items()}
+
+
 def fused_arm_cfg(configs):
     """Phase 11's configuration: phase 7's with the fused-encoder arm of
     benchmarks/train_stack.py (pallas_gn, pallas_conv_min_width=256)."""
@@ -2011,37 +2047,23 @@ SLAB_BF16_WANT = {"slab_attention_fwd": 0, "slab_attention_bwd": 0,
                   "slab_attention_fwd_bf16": 1, "slab_attention_bwd_bf16": 1}
 
 
-def check_bf16_tensor_cores(path) -> None:
-    """The bf16 MMAs (HMMA.16816.F32.BF16) in the SASS of each bf16 slab
-    kernel; raises where one has none or is missing. Logs and returns
-    where the toolkit has no cuobjdump."""
+def check_bf16_tensor_cores(path, kernels=SLAB_BF16_KERNELS) -> None:
+    """The bf16 MMAs (HMMA.16816.F32.BF16) in the SASS of each of
+    `kernels` (the bf16 slab kernels; the bf16 fused conv's GEMMs);
+    raises where one has none or is missing. Logs and returns where the
+    toolkit has no cuobjdump."""
     counts = sass_counts(path, lambda line: next(
-        (k for k in SLAB_BF16_KERNELS if k in line), None),
-        "HMMA.16816.F32.BF16")
+        (k for k in kernels if k in line), None), "HMMA.16816.F32.BF16")
     if counts is None:
         log("sass: no cuobjdump; the bf16 tensor-core check is not made")
         return
-    log("sass: HMMA.16816.F32.BF16 per bf16 slab kernel: " + "; ".join(
+    log("sass: HMMA.16816.F32.BF16 per bf16 kernel: " + "; ".join(
         f"{k} {n}" for k, n in sorted(counts.items())))
     bare = [k for k, n in counts.items() if n == 0]
-    bare += [k for k in SLAB_BF16_KERNELS
+    bare += [k for k in kernels
              if not any(name.startswith(k) for name in counts)]
     if bare:
-        raise RuntimeError(f"bf16 slab kernels without bf16 MMAs: {bare}")
-
-
-class _SlabCounts:
-    """Both dicts of slab launch counts, float32 and bf16, as one."""
-
-    def __init__(self, sa):
-        self.sa = sa
-
-    @property
-    def launches(self) -> dict:
-        return {**self.sa.launches, **self.sa.launches_bf16}
-
-    def reset_launches(self) -> None:
-        self.sa.reset_launches()
+        raise RuntimeError(f"bf16 kernels without bf16 MMAs: {bare}")
 
 
 def check_slab_bf16(sa, dev, report: str, path, card: str) -> dict:
@@ -2183,8 +2205,7 @@ def check_bf16_training(sa, dev, card) -> dict:
     bf16 rounds: a second computation of the same bf16 model). A leaf's
     gradient gate is at least two bf16 ulps of its largest value: a bf16
     layer's weight gradient comes out of a bf16 product."""
-    from ertdx_torch import configs, train
-    from ertdx_torch.diffusion import schedule_from_config
+    from ertdx_torch import configs
     from ertdx_torch.models import build_model
     from ertdx_torch.models import condunet as condunet_mod
     from ertdx_torch.utils.weights import flax_shapes, params_from_jax
@@ -2208,10 +2229,39 @@ def check_bf16_training(sa, dev, card) -> dict:
             or not attn.use_pallas):
         raise RuntimeError("phase 15 must train the bf16 slab arm")
     plain = plain_attention(kernel)
+    plain_slab = condunet_mod.reference_slab_attention
+    patches = {"reference_slab_attention": lambda qkv, nh: plain_slab(
+        qkv.float(), nh).to(qkv.dtype)}
+    return compare_bf16_train_paths("bf16", cfg, kernel, plain,
+                                    _AllCounts(sa), SLAB_BF16_WANT,
+                                    SEED + 152, card, patches,
+                                    "the float32 slab")
+
+
+def compare_bf16_train_paths(label, cfg, kernel, plain, counts, want, seed,
+                             card, patches, patched, steps=TRAIN_STEPS
+                             ) -> dict:
+    """`steps` b256 train steps of the bf16 `kernel` model against the
+    same steps of `plain`, phase 7's gates with the tolerance set by the
+    spread of two plain paths: plain against plain (run to run), and
+    plain against a copy whose plain versions named in `patches` (the
+    attributes of models/condunet.py they replace) compute in float32
+    from the same bf16 inputs (`patched` says which: where bf16 rounds, a
+    second computation of the same bf16 model). A leaf's gradient gate is
+    at least two bf16 ulps of its largest value: a bf16 layer's weight
+    gradient comes out of a bf16 product. Exactly `want` launches (by
+    `counts`) a step; ms a step of both paths, peak memory and a profile
+    of one step of each; returns the ms a step of both."""
+    from ertdx_torch import train
+    from ertdx_torch.diffusion import schedule_from_config
+    from ertdx_torch.models import condunet as condunet_mod
+
+    mcfg, tcfg = cfg.model, cfg.train
+    dev = next(kernel.parameters()).device
     plain2 = copy.deepcopy(plain)
     plain32 = copy.deepcopy(plain)
     alpha_bar = schedule_from_config(cfg.diffusion).alpha_bar.to(dev)
-    gen = torch.Generator(device=dev).manual_seed(SEED + 152)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     b, p = tcfg.batch_size, mcfg.param_dim
     batches = [(torch.randn(b, p, generator=gen, device=dev),
                 torch.rand(b, mcfg.cond_length, mcfg.cond_channels,
@@ -2219,50 +2269,50 @@ def check_bf16_training(sa, dev, card) -> dict:
                 torch.randint(0, cfg.diffusion.T, (b,), generator=gen,
                               device=dev),
                 torch.randn(b, p, generator=gen, device=dev))
-               for _ in range(TRAIN_STEPS)]
-    lr = train.make_lr(tcfg, TRAIN_STEPS)
+               for _ in range(steps)]
+    lr = train.make_lr(tcfg, steps)
 
-    def steps(model, counts=None):
+    def run(model, cnt=None):
         return _run_steps(train, model, train.create_optimizer(model, lr),
-                          batches, alpha_bar, lr, counts)
+                          batches, alpha_bar, lr, cnt)
 
-    pl, p_ms, _, pg = steps(plain)
-    pl2, _, _, pg2 = steps(plain2)
-    plain_slab = condunet_mod.reference_slab_attention
-    condunet_mod.reference_slab_attention = lambda qkv, nh: plain_slab(
-        qkv.float(), nh).to(qkv.dtype)
+    pl, p_ms, _, pg = run(plain)
+    pl2, _, _, pg2 = run(plain2)
+    saved = {name: getattr(condunet_mod, name) for name in patches}
+    for name, fn in patches.items():
+        setattr(condunet_mod, name, fn)
     try:
-        pl32, _, _, pg32 = steps(plain32)
+        pl32, _, _, pg32 = run(plain32)
     finally:
-        condunet_mod.reference_slab_attention = plain_slab
+        for name, fn in saved.items():
+            setattr(condunet_mod, name, fn)
     spreads = {}
     for tag, other, og, om in (("run to run", pl2, pg2, plain2),
-                               ("float32 slab", pl32, pg32, plain32)):
+                               (patched, pl32, pg32, plain32)):
         d = _param_diffs(plain, om)
         spreads[tag] = {"loss": max(abs(a - c) for a, c in zip(pl, other)),
                         "grad": _leaf_spread(og, pg),
                         "share": float((d > 1e-5).float().mean())}
-        log(f"bf16 plain vs plain ({tag}): max|dloss|="
+        log(f"{label} plain vs plain ({tag}): max|dloss|="
             f"{spreads[tag]['loss']:.3e} max|dgrad|="
             f"{max(spreads[tag]['grad'].values()):.3e} max|dparam|="
             f"{float(d.max()):.3e} share > 1e-5: {spreads[tag]['share']:.3e}")
 
-    counts = _SlabCounts(sa)
     counts.reset_launches()
     torch.cuda.reset_peak_memory_stats()
-    kl, k_ms, per_step, kg = steps(kernel, counts)
+    kl, k_ms, per_step, kg = run(kernel, counts)
     peak = torch.cuda.max_memory_allocated()
-    log(f"bf16 kernel path: losses {kl}; slab launches per step {per_step}")
+    log(f"{label} kernel path: losses {kl}; launches per step {per_step}")
     for step, cnt in enumerate(per_step):
-        if cnt != SLAB_BF16_WANT:
-            raise RuntimeError(f"bf16 train step {step + 1}: launches {cnt},"
-                               f" expected {SLAB_BF16_WANT}")
-    rr, rf = spreads["run to run"], spreads["float32 slab"]
+        if cnt != want:
+            raise RuntimeError(f"{label} train step {step + 1}: launches "
+                               f"{cnt}, expected {want}")
+    rr, rf = spreads["run to run"], spreads[patched]
     loss_tol = max(1e-5, 10 * rr["loss"], 10 * rf["loss"])
     dloss = max(abs(a - c) for a, c in zip(kl, pl))
     for step, (a, c) in enumerate(zip(kl, pl)):
         if not abs(a - c) <= loss_tol * max(1.0, abs(c)):
-            raise RuntimeError(f"bf16 train step {step + 1}: loss {a} vs "
+            raise RuntimeError(f"{label} train step {step + 1}: loss {a} vs "
                                f"plain {c}, tolerance {loss_tol:.1e}")
     worst = 0.0
     for name, w in pg.items():
@@ -2275,23 +2325,23 @@ def check_bf16_training(sa, dev, card) -> dict:
                   4 * rf["grad"][name])
         worst = max(worst, err / tol)
         if not err <= tol:
-            raise RuntimeError(f"bf16 step 1: gradient of {name} differs by "
-                               f"{err:.3e} > {tol:.3e}")
+            raise RuntimeError(f"{label} step 1: gradient of {name} differs "
+                               f"by {err:.3e} > {tol:.3e}")
     kp = _param_diffs(kernel, plain)
     k_share = float((kp > 1e-5).float().mean())
     share_limit = max(1e-3, 2 * rr["share"], 2 * rf["share"])
-    flip_bound = 2 * tcfg.lr * TRAIN_STEPS
-    log(f"bf16 kernel vs plain: max|dloss|={dloss:.3e} (tol {loss_tol:.1e} "
-        f"x max(1, loss)); step-1 gradients worst err/tol {worst:.3f} (tol "
-        f"per leaf max(1e-4 x max(1, max|g|), 2 bf16 ulps of max|g|, 10 x "
-        f"run to run, 4 x the float32 slab's)); params after {TRAIN_STEPS} "
-        f"steps max|d|="
+    flip_bound = 2 * tcfg.lr * steps
+    log(f"{label} kernel vs plain: max|dloss|={dloss:.3e} (tol "
+        f"{loss_tol:.1e} x max(1, loss)); step-1 gradients worst err/tol "
+        f"{worst:.3f} (tol per leaf max(1e-4 x max(1, max|g|), 2 bf16 ulps "
+        f"of max|g|, 10 x run to run, 4 x {patched}'s)); params after "
+        f"{steps} steps max|d|="
         f"{float(kp.max()):.3e} (bound {flip_bound:.1e}), share > 1e-5 "
         f"{k_share:.3e} (limit {share_limit:.3e})")
-    _log_param_gaps("bf16 kernel vs plain", kernel, plain, kg, pg)
+    _log_param_gaps(f"{label} kernel vs plain", kernel, plain, kg, pg)
     if not (float(kp.max()) <= flip_bound + 1e-6 and k_share <= share_limit):
-        raise RuntimeError("bf16 kernel-path parameters disagree with the "
-                           "plain path")
+        raise RuntimeError(f"{label} kernel-path parameters disagree with "
+                           "the plain path")
 
     for model, path in ((kernel, "kernel"), (plain, "plain")):
         x0, cond, t, noise = batches[0]
@@ -2299,27 +2349,40 @@ def check_bf16_training(sa, dev, card) -> dict:
         device_profile(lambda: train.train_step(model, opt, x0, cond, t,
                                                 noise, alpha_bar=alpha_bar,
                                                 lr=lr),
-                       f"one bf16 train step, {path} path")
-    k_step = statistics.median(k_ms[1:])
-    p_step = statistics.median(p_ms[1:])
-    log(f"bf16 ms per train step (median of steps 2-{TRAIN_STEPS}; {card}):"
+                       f"one {label} train step, {path} path")
+    k_step = statistics.median(k_ms[1:] or k_ms)
+    p_step = statistics.median(p_ms[1:] or p_ms)
+    which = (f"median of steps 2-{steps}" if steps > 1 else
+             "its one step, first-call set-up included")
+    log(f"{label} ms per train step ({which}; {card}):"
         f" kernel path {k_step:.3f}, plain path {p_step:.3f}; peak memory "
         f"{peak / 2**20:.1f} MiB; step times kernel {k_ms} plain {p_ms}")
-    return {"kernel_step_ms": k_step, "plain_step_ms": p_step}
+    return {"kernel_step_ms": k_step, "plain_step_ms": p_step,
+            "batch": batches[0], "alpha_bar": alpha_bar, "lr": lr}
 
 
-def check_bf16_train_entry(sa, ckdir, dev, card) -> dict:
-    """Phase 15 (c): train() of the bf16 model for 2 epochs on 400
-    examples into `ckdir`: launches by the epoch grid, float32 params
-    and Adam moments in the checkpoint and its echo of bfloat16, and
-    load_best_model giving a bf16 model whose forward is the trained
-    one's bit for bit. Returns the launches."""
+def slab_rule(steps: int, forwards: int) -> dict:
+    """Phase 15's launches: one bf16 slab forward per forward (train or
+    eval), one backward per step, no float32 slab launch."""
+    return {"slab_attention_fwd": 0, "slab_attention_bwd": 0,
+            "slab_attention_fwd_bf16": forwards,
+            "slab_attention_bwd_bf16": steps}
+
+
+def check_bf16_train_entry(sa, ckdir, dev, card, cfg=None, counts=None,
+                           rule=slab_rule, label="bf16") -> dict:
+    """Phase 15 (c) (and 16 (c) with its `cfg`, `counts` and launch
+    `rule`): train() of the bf16 model for 2 epochs on 400 examples into
+    `ckdir`: launches by the epoch grid, float32 params and Adam moments
+    in the checkpoint and its echo of bfloat16, and load_best_model
+    giving a bf16 model whose forward is the trained one's bit for bit.
+    Returns the launches."""
     from ertdx_torch import configs, train
     from ertdx_torch.data import prepare_dataset
     from ertdx_torch.doe import SurrogateDataGenerator
     from ertdx_torch.utils import checkpoint as ckpt_lib
 
-    cfg = bf16_cfg(configs)
+    cfg = bf16_cfg(configs) if cfg is None else cfg
     mcfg = cfg.model
     n = 400
     params_phys = SurrogateDataGenerator(
@@ -2330,7 +2393,7 @@ def check_bf16_train_entry(sa, ckdir, dev, card) -> dict:
     cfg = dataclasses.replace(cfg, train=dataclasses.replace(
         cfg.train, num_epochs=2, step_checkpoint_every=1,
         checkpoint_dir=ckdir))
-    counts = _SlabCounts(sa)
+    counts = _AllCounts(sa) if counts is None else counts
     counts.reset_launches()
     t0 = time.perf_counter()
     res = train.train(cfg, ds, device=dev, logger=lambda d: log(
@@ -2340,17 +2403,16 @@ def check_bf16_train_entry(sa, ckdir, dev, card) -> dict:
     got = counts.launches
     steps = res.state.step
     val_batches = -(-int(0.1 * n) // cfg.train.batch_size)
-    want = {"slab_attention_fwd": 0, "slab_attention_bwd": 0,
-            "slab_attention_fwd_bf16": steps + 2 * val_batches,
-            "slab_attention_bwd_bf16": steps}
-    log(f"train() bf16: 2 epochs, {steps} steps in {seconds:.3f} s "
+    want = rule(steps, steps + 2 * val_batches)
+    log(f"train() {label}: 2 epochs, {steps} steps in {seconds:.3f} s "
         f"({res.steps_per_sec:.3f} steps/s; {card}), val {res.val_history};"
-        f" rule: one bf16 slab forward per forward (train or eval), one "
-        f"backward per step -> {want}; counted {got}")
+        f" rule ({' '.join(rule.__doc__.split()).split(': ')[1]}) -> {want};"
+        f" counted "
+        f"{got}")
     if steps != 2 * -(-int(0.8 * n) // cfg.train.batch_size) or got != want:
-        raise RuntimeError("train() bf16: launches differ from the rule")
+        raise RuntimeError(f"train() {label}: launches differ from the rule")
     if not np.isfinite(res.train_history + res.val_history).all():
-        raise RuntimeError("train() bf16: non-finite loss")
+        raise RuntimeError(f"train() {label}: non-finite loss")
 
     def float_leaves(tree):
         if isinstance(tree, dict):
@@ -2416,7 +2478,7 @@ def check_bf16_serving(sa, cb, ckdir, dev, card, fp32_step_ms) -> None:
                       generator=gen, device=dev)
     x_T = torch.randn(n_cond * n_real, cfg.model.param_dim, generator=gen,
                       device=dev)
-    counts = _SlabCounts(sa)
+    counts = _AllCounts(sa)
     with torch.no_grad():           # first bf16 encoder call: set-up
         model.encode_condition(cond[:1])
     counts.reset_launches()
@@ -2453,6 +2515,475 @@ def check_bf16_serving(sa, cb, ckdir, dev, card, fp32_step_ms) -> None:
     if not (u.dtype == torch.float32 and torch.isfinite(u).all()
             and excess <= 5e-2):
         raise RuntimeError("bf16 ensemble disagrees with the plain path")
+
+
+# ---------------------------------------------------------------------------
+# 16. bfloat16: V5E8_DP's fused-encoder arm in its own dtype
+# ---------------------------------------------------------------------------
+
+# the bf16 GN and fused-conv kernels, by the part of their symbol that
+# names them: the conv's GEMMs (bf16 MMAs) and every bf16 instantiation
+# of the GN kernels (units of 8 values or one; staged and streamed)
+CONV_BF16_KERNELS = ("tap3_gemm_bf16_kernel", "conv_dw_bf16_kernel")
+GN_BF16_KERNELS = tuple(
+    f"gn_{k}_staged_kernelILi{w}E13__nv_bfloat16"
+    for k in ("fwd", "bwd", "stats") for w in (8, 1)) + tuple(
+    f"gn_{k}_stream_kernelI13__nv_bfloat16" for k in ("fwd", "bwd", "stats"))
+# (B, L, C, mean of x) and (B, L, C, Cout) as phase 10's, in bf16: the
+# fused arm's shapes first (the first of each is the kernels line's)
+GN_BF16_CASES = [(256, 587, 128, 0.5), (256, 294, 256, 0.5),
+                 (2, 4693, 128, 0.5), (4, 587, 128, 1000.0),
+                 (3, 61, 72, 0.5)]
+CONV_BF16_CASES = [(256, 294, 256, 256), (256, 147, 256, 256),
+                   (256, 587, 128, 128), (256, 294, 128, 256),
+                   (3, 61, 64, 72)]
+FUSED_BF16_WANT = {"groupnorm_silu_fwd": 0, "groupnorm_silu_bwd": 0,
+                   "gn_silu_conv3_fwd": 0, "gn_silu_conv3_bwd": 0,
+                   "slab_attention_fwd": 0, "slab_attention_bwd": 0,
+                   "groupnorm_silu_fwd_bf16": 2, "groupnorm_silu_bwd_bf16": 2,
+                   "gn_silu_conv3_fwd_bf16": 6, "gn_silu_conv3_bwd_bf16": 6,
+                   "slab_attention_fwd_bf16": 1, "slab_attention_bwd_bf16": 1}
+
+
+def bf16_fused_cfg(configs):
+    """Phase 16's configuration: V5E8_DP in its own dtype (phase 15's)
+    with the fused-encoder arm of phase 11 (pallas_gn,
+    pallas_conv_min_width=256), the JAX package's bf16 `slab_fconv` arm
+    (benchmarks/train_stack.py:35-42) with the GN kernels on as well."""
+    cfg = bf16_cfg(configs)
+    return dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, pallas_gn=True, pallas_conv_min_width=256))
+
+
+def fused_bf16_rule(steps: int, forwards: int) -> dict:
+    """Phase 16's launches: per forward (train or eval) 2 bf16 GN, 6 bf16
+    fused-conv and one bf16 slab forward, per step their backwards, no
+    float32 GN, conv or slab launch."""
+    return {k: n * (forwards if k.endswith("fwd_bf16") else steps)
+            for k, n in FUSED_BF16_WANT.items()}
+
+
+def check_gn_conv_bf16(gn, cv, dev, card: str) -> dict:
+    """Phase 16 (a): the bf16 GN and fused-conv kernels, forward and
+    backward, at phase 10's shapes in bf16, each output (y, dx, dgamma,
+    dbeta, dW, db) against the plain version computed in float32 from the
+    same bf16 inputs within max(2 x the bf16 plain version's own error,
+    8e-3 x max(1, max|plain|)) (phase 15 (a)'s rule), reruns
+    bit-identical, each case's launch plan; timed at B = 256 (CUDA events
+    and profiler device time) beside the float32 kernels on the same
+    values, the bf16 plain version and the bf16 library composition
+    (F.group_norm + F.silu, + F.conv1d; a yardstick only), with GB/s and
+    the share of the bound at 2 bytes a bf16 value and 989 TFLOP/s."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 160)
+    bf16, eps = torch.bfloat16, 1e-5
+
+    def rnd(*shape, scale=1.0, shift=0.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale + shift
+
+    def lib_gn(x, gamma, beta):        # (B, C, L) view in and out
+        return F.silu(F.group_norm(x.transpose(1, 2), GROUPS, gamma, beta,
+                                   eps))
+
+    def grad_of(fn, ins, g):
+        leaves = [t.detach().requires_grad_(t.is_floating_point())
+                  for t in ins]
+        out = fn(*leaves)
+        return lambda: torch.autograd.grad(out, leaves, g,
+                                           retain_graph=True)
+
+    results = {}
+    cases = ([("gn", c) for c in GN_BF16_CASES]
+             + [("conv", c) for c in CONV_BF16_CASES])
+    for kind, case in cases:
+        if kind == "gn":
+            b, l, c, mean = case
+            x = rnd(b, l, c, scale=2.0 if mean < 100 else 1.0,
+                    shift=mean).to(bf16)
+            ins = (x, rnd(c, scale=0.3, shift=1.0), rnd(c, scale=0.3))
+            dy = rnd(b, l, c).to(bf16)
+            names = ("groupnorm_silu_fwd_bf16", "groupnorm_silu_bwd_bf16")
+            fwd = lambda: gn.groupnorm_silu_fwd(*ins, GROUPS)
+            bwd = lambda: gn.groupnorm_silu_bwd(*ins, dy, GROUPS)
+            plain = lambda *a: gn.reference_groupnorm_silu(*a, GROUPS)
+            f32_ins, dy32 = (x.float(),) + ins[1:], dy.float()
+            f32 = (lambda: gn.groupnorm_silu_fwd(*f32_ins, GROUPS),
+                   lambda: gn.groupnorm_silu_bwd(*f32_ins, dy32, GROUPS))
+            lib = lambda xx, ga, be: lib_gn(xx, ga.to(xx.dtype),
+                                            be.to(xx.dtype)).transpose(1, 2)
+            grads = ("dx", "dgamma", "dbeta")
+            n = b * l * c
+            # bytes: x (and dy) read once, y (dx) written once, 2 a bf16
+            # value; gamma and beta (and their gradients) float32
+            work = {names[0]: (10 * n, 2 * 2 * n + 4 * 2 * c),
+                    names[1]: (30 * n, 2 * 3 * n + 4 * 4 * c)}
+            shape = f"B={b} L={l} C={c} bf16" + (
+                f" mean {mean:g}" if mean >= 100 else "")
+            plans = {name: gn.launch_plan(l, c, GROUPS, k, 2)
+                     for name, k in zip(names, ("fwd", "bwd"))}
+        else:
+            b, l, c, cout = case
+            x = rnd(b, l, c).to(bf16)
+            ins = (x, rnd(c, scale=0.3, shift=1.0), rnd(c, scale=0.3),
+                   rnd(3, c, cout, scale=1.0 / math.sqrt(3 * c)),
+                   rnd(cout, scale=0.3))
+            dy = rnd(b, l, cout).to(bf16)
+            names = ("gn_silu_conv3_fwd_bf16", "gn_silu_conv3_bwd_bf16")
+            fwd = lambda: cv.gn_silu_conv3_fwd(*ins, GROUPS)
+            bwd = lambda: cv.gn_silu_conv3_bwd(*ins[:4], dy, GROUPS)
+            plain = lambda *a: cv.reference_gn_silu_conv3(*a, GROUPS)
+            f32_ins, dy32 = (x.float(),) + ins[1:], dy.float()
+            f32 = (lambda: cv.gn_silu_conv3_fwd(*f32_ins, GROUPS),
+                   lambda: cv.gn_silu_conv3_bwd(*f32_ins[:4], dy32, GROUPS))
+            # explicit pad and contiguous weight (phase 10)
+            lib = lambda xx, ga, be, ww, bb: F.conv1d(
+                F.pad(lib_gn(xx, ga.to(xx.dtype), be.to(xx.dtype)), (1, 1)),
+                ww.permute(2, 1, 0).contiguous().to(xx.dtype),
+                bb.to(xx.dtype)).transpose(1, 2)
+            grads = ("dx", "dgamma", "dbeta", "dW", "db")
+            prod = 2 * b * l * 3 * c * cout
+            nx, ny, nw = b * l * c, b * l * cout, 3 * c * cout
+            work = {names[0]: (prod, 2 * (nx + ny) + 4 * (2 * c + nw + cout)),
+                    names[1]: (2 * prod, 2 * (nx + ny + nx)
+                               + 4 * (2 * c + nw + 2 * c + nw + cout))}
+            shape = f"B={b} L={l} C={c} Cout={cout} bf16"
+            plans = {"gn_silu_conv3 statistics":
+                     gn.launch_plan(l, c, GROUPS, "stats", 2),
+                     "gn_silu_conv3 GN backward":
+                     gn.launch_plan(l, c, GROUPS, "bwd", 2, 4)}
+        log(f"{shape}: launch plans " + "; ".join(
+            f"{name} {p.path} ({p.threads} threads, {p.smem_bytes} bytes "
+            "of shared memory)" for name, p in plans.items()))
+        got = fwd()
+        dgot = bwd()
+        again, dagain = fwd(), bwd()
+        torch.cuda.synchronize()
+        if not (torch.equal(got, again) and all(
+                torch.equal(a, w) for a, w in zip(dgot, dagain))):
+            raise RuntimeError(f"{names[0]} {shape}: a rerun differs")
+        want = plain(*f32_ins)
+        dwant = grad_of(plain, f32_ins, dy32)()
+        own = plain(*ins)
+        down = grad_of(plain, ins, dy)()
+        torch.cuda.synchronize()
+        checks = [(names[0], "y", got, want, own)] + [
+            (names[1], g, a, w, o)
+            for g, a, w, o in zip(grads, dgot, dwant, down)]
+        for name, out, a, w, o in checks:
+            dtype = bf16 if out in ("y", "dx") else torch.float32
+            if (a.shape != w.shape or a.dtype != dtype
+                    or not torch.isfinite(a.float()).all()):
+                raise RuntimeError(f"{name} {shape} {out}: wrong shape, "
+                                   f"dtype {a.dtype} or non-finite")
+            err = float((a.float() - w).abs().max())
+            err_plain = float((o.float() - w).abs().max())
+            scale = float(w.abs().max())
+            tol = max(2 * err_plain, 8e-3 * max(1.0, scale))
+            log(f"{name} {shape} {out}: max_abs_err={err:.3e} against the "
+                f"float32 plain version, the bf16 plain version's own "
+                f"{err_plain:.3e}; max|plain|={scale:.4f} tol={tol:.3e}")
+            if not err <= tol:
+                raise RuntimeError(f"{name} {shape} {out}: error {err} > "
+                                   f"{tol}")
+            entry = results.setdefault(name, {"max_abs_err": 0.0})
+            entry["max_abs_err"] = max(entry["max_abs_err"], err)
+        if b < 256:
+            if kind == "gn":            # the kernels alone, for GB/s
+                for name, kernel in zip(names, (fwd, bwd)):
+                    with torch.no_grad():
+                        ms = time_ms(kernel)
+                    flops, nbytes = work[name]
+                    bd = bound(flops, nbytes, products=False)
+                    log(f"{name} {shape} ({plans[name].path}): kernel "
+                        f"{ms:.4f} ms, {nbytes / ms / 1e6:.1f} GB/s, "
+                        f"bound {bd['bound_ms']:.4f} ms, "
+                        f"{100 * bd['bound_ms'] / ms:.1f} % of the bound; "
+                        f"{card}")
+            continue
+        timed = {names[0]: (fwd, f32[0], lambda: plain(*ins),
+                            lambda: lib(*ins)),
+                 names[1]: (bwd, f32[1], grad_of(plain, ins, dy),
+                            grad_of(lib, ins, dy))}
+        for name, (kernel, f32_fn, plain_fn, lib_fn) in timed.items():
+            with torch.no_grad() if name == names[0] else \
+                    torch.enable_grad():
+                ms = time_ms(kernel)
+                f32_ms = time_ms(f32_fn)
+                plain_ms = time_ms(plain_fn)
+                lib_ms = time_ms(lib_fn)
+                records, _ = kernel_records(
+                    lambda: [kernel() for _ in range(10)])
+            dev_ms = sum(e.time_range.elapsed_us() for e in records) / 10e3
+            flops, nbytes = work[name]
+            bd = bound(flops, nbytes, products=kind == "conv",
+                       tc_rate=PEAK_BF16_FLOPS)
+            path = f" ({plans[name].path})" if name in plans else ""
+            log(f"{name} {shape}{path}: kernel {ms:.4f} ms (profiler device "
+                f"{dev_ms:.4f} ms), the float32 kernel(s) {f32_ms:.4f} ms, "
+                f"bf16 plain {plain_ms:.4f} ms, bf16 library composition "
+                f"{lib_ms:.4f} ms, bound {bd['bound_ms']:.4f} ms "
+                f"({bd['bound_by']}: {flops:.3e} flops at 989 TFLOP/s, "
+                f"{nbytes:.3e} bytes at 2 a bf16 value), "
+                f"{100 * bd['bound_ms'] / ms:.1f} % of the bound, achieved "
+                f"{flops / ms / 1e9:.2f} TFLOP/s, "
+                f"{nbytes / ms / 1e6:.1f} GB/s; {card}")
+            if name == "gn_silu_conv3_bwd_bf16":
+                log(f"{name} {shape}, launch by launch: "
+                    + launch_times(kernel))
+            entry = results[name]
+            if "ms" not in entry:       # the first large case: the path's
+                entry.update(ms=ms, plain_ms=plain_ms, library_ms=None,
+                             composition_ms=lib_ms, fp32_kernel_ms=f32_ms,
+                             device_ms=dev_ms, **bd, shape=shape)
+    return results
+
+
+def float32_elementwise_ops(fn, label: str, top: int = 12) -> None:
+    """Which ops launch fn's float32 elementwise kernels: torch.profiler's
+    kernels (the elementwise group of KERNEL_GROUPS, float32 by their
+    template arguments) summed by the op that launched them, with its
+    parent op (an autograd node names the forward op it differentiates)
+    and its input shapes; logged beside the elementwise kernels in other
+    dtypes and fn's device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+    keys = dict(KERNEL_GROUPS)["elementwise"]
+    rows, by_dtype, total = {}, {}, 0.0
+    for e in prof.events():
+        for k in getattr(e, "kernels", []) or []:
+            us = float(k.duration)
+            total += us
+            low = k.name.lower()
+            if not any(w in low for w in keys):
+                continue
+            dtype = ("bf16" if "bfloat16" in low else "float32"
+                     if re.search(r"\bfloat\b", k.name) else "other")
+            by_dtype[dtype] = by_dtype.get(dtype, 0.0) + us
+            if dtype != "float32":
+                continue
+            parent = e.cpu_parent.name if e.cpu_parent is not None else "-"
+            shapes = [tuple(sh) for sh in (e.input_shapes or [])[:2] if sh]
+            key = f"{e.name} <- {parent} {shapes}"
+            us0, n0 = rows.get(key, (0.0, 0))
+            rows[key] = (us0 + us, n0 + 1)
+    if not total:
+        ops = sorted(prof.key_averages(), key=lambda a: -getattr(
+            a, "self_device_time_total", 0.0))[:top]
+        log(f"float32 elementwise ops of {label}: the profiler attributed "
+            "no kernel to an op, so their dtypes are not measured; the ops "
+            "by their own device time: " + "; ".join(
+                "%s %.3f ms" % (a.key, getattr(a, "self_device_time_total",
+                                               0.0) / 1e3) for a in ops))
+        return
+    log(f"float32 elementwise ops of {label}: elementwise kernels by dtype "
+        + ", ".join(f"{d} {us / 1e3:.3f} ms" for d, us in by_dtype.items())
+        + f" of {total / 1e3:.3f} ms of attributed device time; the "
+        "float32 ones by launching op (op <- parent [input shapes]):")
+    for key, (us, n) in sorted(rows.items(), key=lambda kv: -kv[1][0])[:top]:
+        log(f"  {us / 1e3:8.3f} ms {n:4d} launches  {key[:150]}")
+
+
+def check_bf16_fused_training(counts, dev, card) -> dict:
+    """Phase 16 (b): TRAIN_STEPS b256 steps of the bf16 fused-encoder
+    arm on the bf16 GN, fused-conv and slab kernels against the same
+    steps with every kernel off, under phase 15 (b)'s gates (the second
+    plain path computes the plain slab and fused conv in float32 from
+    the same bf16 inputs), exactly FUSED_BF16_WANT launches a step; the
+    ops that launch the float32 elementwise kernels of a step of each
+    path."""
+    from ertdx_torch import configs, train
+    from ertdx_torch.models import build_model
+    from ertdx_torch.models import condunet as condunet_mod
+    from ertdx_torch.models.condunet import FusedGNConv, GNSiLU
+    from ertdx_torch.utils.weights import flax_shapes, params_from_jax
+
+    cfg = bf16_fused_cfg(configs)
+    mcfg, tcfg = cfg.model, cfg.train
+    kernel = build_model(mcfg, dev, generator=torch.Generator()
+                         .manual_seed(SEED + 161))
+    params_from_jax(kernel, random_flax_tree(
+        flax_shapes(kernel), np.random.default_rng(SEED + 162)))
+    fused = [m for m in kernel.modules() if isinstance(m, FusedGNConv)]
+    gns = [m for m in kernel.modules() if isinstance(m, GNSiLU)]
+    log(f"bf16 fused-encoder arm: dtype={mcfg.dtype} (compute "
+        f"{kernel.compute_dtype}, params "
+        f"{sorted({str(p.dtype) for p in kernel.parameters()})}) "
+        f"pallas_gn={mcfg.pallas_gn} pallas_conv_min_width="
+        f"{mcfg.pallas_conv_min_width}: {len(fused)} FusedGNConv "
+        f"({sorted({tuple(m.kernel.shape[1:]) for m in fused})}), "
+        f"{len(gns)} GNSiLU, attn_slab={mcfg.attn_slab}, batch "
+        f"{tcfg.batch_size}, condition {mcfg.cond_length} x "
+        f"{mcfg.cond_channels}")
+    if (kernel.compute_dtype != torch.bfloat16 or len(fused) != 6
+            or len(gns) != 2 or not all(m.use_pallas for m in gns)):
+        raise RuntimeError("phase 16 must train the bf16 fused arm: 6 "
+                           "fused convs and 2 GN pairs in bf16")
+    plain = copy.deepcopy(kernel)
+    for mod in plain.modules():     # the plain GN, fused conv and slab
+        if hasattr(mod, "use_pallas"):
+            mod.use_pallas = False
+    plain_slab = condunet_mod.reference_slab_attention
+    plain_conv = condunet_mod.reference_gn_silu_conv3
+    patches = {"reference_slab_attention": lambda qkv, nh: plain_slab(
+                   qkv.float(), nh).to(qkv.dtype),
+               "reference_gn_silu_conv3": lambda x, *a: plain_conv(
+                   x.float(), *a).to(x.dtype)}
+    res = compare_bf16_train_paths(
+        "bf16 fused arm", cfg, kernel, plain, counts, FUSED_BF16_WANT,
+        SEED + 163, card, patches, "the float32 plain slab and fused conv")
+    x0, cond, t, noise = res.pop("batch")
+    alpha_bar, lr = res.pop("alpha_bar"), res.pop("lr")
+    for model, path in ((kernel, "kernel"), (plain, "plain")):
+        opt = train.create_optimizer(model, lr)
+        float32_elementwise_ops(
+            lambda: train.train_step(model, opt, x0, cond, t, noise,
+                                     alpha_bar=alpha_bar, lr=lr),
+            f"one bf16 fused-arm train step, {path} path")
+    return res
+
+
+def check_bf16_fused_serving(counts, cb, dev, card) -> None:
+    """Phase 16 (d): a configs[3] posterior ensemble (DDIM-50, 8
+    conditions x 1000 members, the fused core) of the bf16 fused arm
+    from random non-zero weights (a head far from zero, so the draws read
+    the encoder): exactly 2 bf16 GN and 6 bf16 fused-conv forwards and
+    one bf16 slab forward per encode and 50 fused_core_stack launches.
+    Against the same run with the GN and fused-conv kernels off: one
+    denoiser call (t = 7, 250, 499) from the kernels' context within the
+    JAX package's bf16 band for one call (rtol = atol = 5e-2,
+    tests/test_ops.py:568-571); the 50-step draws, over which the random
+    model amplifies a one-ulp change of the context, within that band or
+    within twice the gap between two plain computations of the same bf16
+    model (the plain path, and the plain path with its fused conv
+    computed in float32 from the same bf16 inputs and rounded once, the
+    kernels' arithmetic), both on the band's measure max(|du| - 5e-2
+    |u_plain|)."""
+    from ertdx_torch import configs, sample
+    from ertdx_torch.diffusion import schedule_from_config
+    from ertdx_torch.models import build_model
+    from ertdx_torch.models import condunet as condunet_mod
+    from ertdx_torch.models.condunet import FusedGNConv, GNSiLU
+    from ertdx_torch.utils.weights import flax_shapes, params_from_jax
+
+    cfg = bf16_fused_cfg(configs)
+    model = build_model(cfg.model, dev).eval()
+    params_from_jax(model, random_flax_tree(
+        flax_shapes(model), np.random.default_rng(SEED + 164)))
+    plain = copy.deepcopy(model)
+    for mod in plain.modules():
+        if isinstance(mod, (FusedGNConv, GNSiLU)):
+            mod.use_pallas = False
+    scfg = configs.DDIM_ENSEMBLE.sample
+    schedule = schedule_from_config(cfg.diffusion)
+    n_cond, n_real = 8, scfg.uncertainty_samples
+    gen = torch.Generator(device=dev).manual_seed(SEED + 165)
+    cond = torch.rand(n_cond, cfg.model.cond_length, cfg.model.cond_channels,
+                      generator=gen, device=dev)
+    x_T = torch.randn(n_cond * n_real, cfg.model.param_dim, generator=gen,
+                      device=dev)
+    with torch.no_grad():           # first bf16 encoder call: set-up
+        model.encode_condition(cond[:1])
+    counts.reset_launches()
+    cb.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    u = sample.posterior_ensemble(model, cond, schedule, n_real, scfg,
+                                  x_T=x_T, device=dev)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    got = {**counts.launches, **cb.launches}
+    t0 = time.perf_counter()
+    u_plain = sample.posterior_ensemble(plain, cond, schedule, n_real, scfg,
+                                        x_T=x_T, device=dev)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    plain_conv = condunet_mod.reference_gn_silu_conv3
+    condunet_mod.reference_gn_silu_conv3 = lambda x, *a: plain_conv(
+        x.float(), *a).to(x.dtype)
+    try:
+        u_plain32 = sample.posterior_ensemble(plain, cond, schedule, n_real,
+                                              scfg, x_T=x_T, device=dev)
+    finally:
+        condunet_mod.reference_gn_silu_conv3 = plain_conv
+
+    def excess(a, b):
+        return float(((a - b).abs() - 5e-2 * b.abs()).max())
+
+    calls = []
+    with torch.no_grad():
+        ctx, ctx_plain = (m.encode_condition(cond) for m in (model, plain))
+        for step in (7, 250, 499):
+            t = torch.full((n_cond * n_real,), step, device=dev)
+            e, e_plain = (m.denoise_ensemble(x_T, t, c, n_real) for m, c in
+                          ((model, ctx), (plain, ctx_plain)))
+            calls.append((step, float((e - e_plain).abs().max()),
+                          excess(e, e_plain)))
+    du = (u - u_plain).abs()
+    gap, spread = excess(u, u_plain), excess(u_plain32, u_plain)
+    dmean = float((u.mean(0) - u_plain.mean(0)).abs().max())
+    dstd = float((u.std(0) - u_plain.std(0)).abs().max())
+    steps = scfg.ddim_steps
+    step_ms = run_s / steps * 1e3
+    log(f"bf16 fused-arm ensemble from random weights ({n_cond} x {n_real},"
+        f" DDIM-{steps}): {run_s:.3f} s kernel path ({step_ms:.3f} ms per "
+        f"DDIM step), {plain_s:.3f} s with the GN and conv kernels off "
+        f"({card}); launches {got}; one denoiser call, kernels' context vs "
+        f"plain: " + "; ".join(f"t={s_} max|de|={d:.3e} max(|de| - 5e-2 "
+                               f"|e_plain|)={x:.3e}" for s_, d, x in calls)
+        + f" (gate 5e-2); the draws max|du|={float(du.max()):.3e} max(|du| "
+        f"- 5e-2 |u_plain|)={gap:.3e}, the plain path with its fused conv "
+        f"in float32 against the plain path {spread:.3e} (gate max(5e-2, 2 "
+        f"x that)); max|dmean|={dmean:.3e} max|dstd|={dstd:.3e} max|u|="
+        f"{float(u_plain.abs().max()):.4f} std(u)={float(u.std()):.4f}")
+    want = {k: n if k.endswith("fwd_bf16") else 0
+            for k, n in FUSED_BF16_WANT.items()}
+    want.update(fused_core_stack=steps, fused_core_block=0)
+    if got != want:
+        raise RuntimeError(f"bf16 fused-arm ensemble: launches {got}, "
+                           f"expected {want}")
+    if not (u.dtype == torch.float32 and torch.isfinite(u).all()
+            and all(x <= 5e-2 for _, _, x in calls)
+            and gap <= max(5e-2, 2 * spread)):
+        raise RuntimeError("bf16 fused-arm ensemble disagrees with the "
+                           "plain path")
+
+
+def check_bf16_flash_step(at, dev, card) -> dict:
+    """Phase 16 (e): one b256 step of the bf16 model on the flash arm
+    (attn_slab=False, attn_flash_min_logits=1; the float32 flash kernels
+    on upcast copies of the bf16 operands) against the same step with the
+    encoder attention's use_pallas off, under (b)'s gates (the second
+    plain path computes the plain attention in float32 from the same
+    bf16 q, k, v), exactly one flash forward, dQ and dK/dV."""
+    from ertdx_torch import configs
+    from ertdx_torch.models import build_model
+    from ertdx_torch.models import condunet as condunet_mod
+    from ertdx_torch.utils.weights import flax_shapes, params_from_jax
+
+    base = bf16_cfg(configs)
+    cfg = dataclasses.replace(base, model=dataclasses.replace(
+        base.model, attn_slab=False, attn_flash_min_logits=1))
+    kernel = build_model(cfg.model, dev, generator=torch.Generator()
+                         .manual_seed(SEED + 166))
+    params_from_jax(kernel, random_flax_tree(
+        flax_shapes(kernel), np.random.default_rng(SEED + 167)))
+    if kernel.compute_dtype != torch.bfloat16 or kernel.encoder.attn.slab:
+        raise RuntimeError("phase 16 (e) must train the bf16 flash arm")
+    plain = plain_attention(kernel)
+    plain_attn = condunet_mod.reference_attention
+    patches = {"reference_attention": lambda q, k, v, mask=None: plain_attn(
+        q.float(), k.float(), v.float(),
+        None if mask is None else mask.float()).to(q.dtype)}
+    res = compare_bf16_train_paths(
+        "bf16 flash arm", cfg, kernel, plain, _Counts(at), FLASH_WANT,
+        SEED + 168, card, patches, "the float32 plain attention", steps=1)
+    return {k: res[k] for k in ("kernel_step_ms", "plain_step_ms")}
 
 
 def random_flax_tree(shapes, rng) -> dict:
@@ -2525,6 +3056,8 @@ def main() -> int:
         or "bytes stack frame" in line))
     check_tensor_cores(kernels.path)
     check_no_spill(kernels.report, GN_KERNELS)
+    check_bf16_tensor_cores(kernels.path, CONV_BF16_KERNELS)
+    check_no_spill(kernels.report, CONV_BF16_KERNELS + GN_BF16_KERNELS)
     phase("build", t0)
 
     # 3. kernels against their plain versions
@@ -2718,6 +3251,32 @@ def main() -> int:
     finally:
         shutil.rmtree(ckdir, ignore_errors=True)
 
+    # 16. bfloat16 fused-encoder arm: (a) the bf16 GN and fused-conv
+    # kernels, (b) train steps, (c) train(), (d) a configs[3] ensemble
+    # from random weights; (e) one bf16 step of the flash arm
+    t0 = time.perf_counter()
+    gnconv_bf16 = check_gn_conv_bf16(gn, cv, dev, card)
+    phase("bf16 GN and fused-conv kernels", t0)
+    ckdir = tempfile.mkdtemp(prefix="ertdx_torch_bf16_fused_")
+    try:
+        t0 = time.perf_counter()
+        counts16 = _AllCounts(gn, cv, sa)
+        fused16_ms = check_bf16_fused_training(counts16, dev, card)
+        fused16_launches = check_bf16_train_entry(
+            sa, ckdir, dev, card, cfg=bf16_fused_cfg(configs),
+            counts=counts16, rule=fused_bf16_rule, label="bf16 fused arm")
+        check_bf16_fused_serving(counts16, cb, dev, card)
+        flash16_ms = check_bf16_flash_step(at, dev, card)
+        log(f"bf16 ms per b256 train step ({card}): the fused arm "
+            f"{fused16_ms['kernel_step_ms']:.3f} (its plain path "
+            f"{fused16_ms['plain_step_ms']:.3f}), phase 15's slab arm "
+            f"{bf16_ms['kernel_step_ms']:.3f}, the flash arm's one step "
+            f"{flash16_ms['kernel_step_ms']:.3f}; float32 fused arm (phase "
+            f"11) {fused_ms['kernel_step_ms']:.3f}")
+        phase("bf16 fused-encoder arm", t0)
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+
     launches = {"fused_core_stack": main_launches["fused_core_stack"],
                 "fused_core_block": block_launches["fused_core_block"],
                 **train_launches,
@@ -2725,7 +3284,9 @@ def main() -> int:
                 "folded_cross_attention": serve_launches,
                 **fused_launches, **flash_launches,
                 **{k: v for k, v in bf16_launches.items()
-                   if k.endswith("_bf16")}}
+                   if k.endswith("_bf16")},
+                **{k: v for k, v in fused16_launches.items()
+                   if k.endswith("_bf16") and not k.startswith("slab_")}}
     replaces = {"fused_core_stack": "ertdx/ops/core_block.py:440",
                 "fused_core_block": "ertdx/ops/core_block.py:281",
                 "slab_attention_fwd": "ertdx/ops/slab_attn.py:147",
@@ -2740,7 +3301,11 @@ def main() -> int:
                 "flash_attention_bwd_dq": "ertdx/ops/attention.py:146",
                 "flash_attention_bwd_dkv": "ertdx/ops/attention.py:178",
                 "slab_attention_fwd_bf16": "ertdx/ops/slab_attn.py:147",
-                "slab_attention_bwd_bf16": "ertdx/ops/slab_attn.py:184"}
+                "slab_attention_bwd_bf16": "ertdx/ops/slab_attn.py:184",
+                "groupnorm_silu_fwd_bf16": "ertdx/ops/groupnorm.py:47",
+                "groupnorm_silu_bwd_bf16": "ertdx/ops/groupnorm.py:95",
+                "gn_silu_conv3_fwd_bf16": "ertdx/ops/conv.py:49",
+                "gn_silu_conv3_bwd_bf16": "ertdx/ops/conv.py:109"}
     sources = {"fused_core_stack": "ertdx_torch/csrc/core_block.cu",
                "fused_core_block": "ertdx_torch/csrc/core_block.cu",
                "slab_attention_fwd": "ertdx_torch/csrc/slab_attn.cu",
@@ -2754,7 +3319,11 @@ def main() -> int:
                **{name: "ertdx_torch/csrc/flash_attn.cu"
                   for name in FLASH_WANT},
                **{name: "ertdx_torch/csrc/slab_attn_bf16.cu"
-                  for name in SLAB_BF16_WANT if name.endswith("_bf16")}}
+                  for name in SLAB_BF16_WANT if name.endswith("_bf16")},
+               "groupnorm_silu_fwd_bf16": "ertdx_torch/csrc/groupnorm.cu",
+               "groupnorm_silu_bwd_bf16": "ertdx_torch/csrc/groupnorm.cu",
+               "gn_silu_conv3_fwd_bf16": "ertdx_torch/csrc/gn_conv.cu",
+               "gn_silu_conv3_bwd_bf16": "ertdx_torch/csrc/gn_conv.cu"}
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": sources[name],
          "replaces": replaces[name], "launches": launches[name],
@@ -2764,7 +3333,7 @@ def main() -> int:
          "bound_fp32_ms": r["bound_fp32_ms"],
          "library_ms": r.get("library_ms"), "shape": r["shape"]}
         for name, r in {**results, **slab, **ensemble, **gnconv,
-                        **flash, **slab_bf16}.items()]}
+                        **flash, **slab_bf16, **gnconv_bf16}.items()]}
     log(f"[phase] total: {time.perf_counter() - t_all:.3f} s")
     log(json.dumps(line))
     log(card_line())

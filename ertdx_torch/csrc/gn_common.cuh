@@ -1,4 +1,13 @@
-// GroupNorm pieces shared by groupnorm.cu and gn_conv.cu (sm_90a, fp32).
+// GroupNorm pieces shared by groupnorm.cu and gn_conv.cu (sm_90a).
+//
+// Every piece takes x (TX) and, in the backward, the upstream gradient
+// (TG) as float or __nv_bfloat16; the output (y, dx) is in x's type, as
+// the TPU kernels write it (ertdx/ops/groupnorm.py:74, 163-170). Values
+// convert to float on load and round once on store (to nearest even);
+// the statistics, the affine table and the dgamma/dbeta partials are
+// float32 whatever the inputs. The fused conv's backward runs the GN
+// backward with a bf16 x and a float32 gradient (dh stays float32, as in
+// ertdx/ops/conv.py:166-171).
 //
 // Layout is the JAX package's: x (B, L, C) feature-last, G groups of
 // cg = C / G consecutive channels; the statistics of group g of row b run
@@ -18,15 +27,27 @@
 //     the upstream gradient, in the backward) into shared memory with
 //     cp.async, the whole group in flight before the first barrier, and
 //     takes the statistics, the backward's sums and its outputs from
-//     there. Thread t owns one unit of W channels (W = 4, a float4, when
-//     cg % 4 == 0, else W = 1) of the positions l = t / U, t / U + R, ...
+//     there. Thread t owns one unit of W channels (float x: W = 4, a
+//     float4, when cg % 4 == 0; bf16 x: W = 8 when cg % 8 == 0; else W =
+//     1) of the positions l = t / U, t / U + R, ...
 //     (U = cg / W units a position, R = T / U, T a multiple of U and of
 //     32): it stages them and is the only thread that reads them back, so
 //     the copy needs cp.async.wait_all and no barrier, a warp moves whole
 //     runs of a position's channels, and each thread's channel is fixed.
 //     Staging 4-byte-wide for cg % 4 != 0 keeps one kernel for every cg;
 //     the wrappers take 16-byte aligned x and upstream gradients only
-//     (the autograd paths copy a misaligned one).
+//     (the autograd paths copy a misaligned one). A bf16 unit is 8
+//     values, one 16-byte cp.async.cg (the L2-only copy takes 16 bytes
+//     and no fewer): at the stem a group is 16 channels, 32 bytes of a
+//     256-byte position, i.e. two such units, so a warp moves 16 whole
+//     group rows with one instruction a thread; 4-value units would take
+//     8-byte cp.async.ca through L1, twice the copies. A bf16 value of
+//     an odd group (W = 1) is copied by a plain load and store. A bf16
+//     tile is half the float tile's bytes, so more shapes stage
+//     (ops/groupnorm.py::launch_plan takes the element sizes). Where the
+//     gradient is float32 the backward keeps dxh in its staged tile, as
+//     the float kernel does; a bf16 tile cannot hold it, so the second
+//     pass recomputes dxh from the staged x and gradient.
 //   * Streamed (groups too large to stage, e.g. the condition's own length
 //     of 4693 at cg = 16, 300 KB): the sweeps of the earlier design, which
 //     read x from device memory once a pass and count on L2 for the rest.
@@ -45,8 +66,14 @@
 // that includes the header has its own copy.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+#include "bf16mma.cuh"
 
 namespace {
 
@@ -55,39 +82,58 @@ constexpr int GN_MAX_THREADS = 512;    // the staged kernels' largest block
 constexpr int GN_SMEM_MAX = 232448;    // shared memory a block may use
 constexpr int GN_STREAM_RED = 4 * GN_THREADS / 32;  // streamed sum slots
 
+using bf16mma::bf16;
+
 // The host's choice (ops/groupnorm.py::launch_plan): the staged or the
 // streamed kernel, its block size and its dynamic shared-memory bytes.
 struct GnPlan {
   int staged, threads, smem;
 };
 
-inline int gn_width(int cg) { return cg % 4 == 0 ? 4 : 1; }
+// The channels of a thread's unit: a float4 of float x, 16 bytes of bf16
+template <typename TX>
+inline int gn_width(int cg) {
+  if (sizeof(TX) == 4) return cg % 4 == 0 ? 4 : 1;
+  return cg % 8 == 0 ? 8 : 1;
+}
 
 // Floats of the staged backward's per-channel scratch: the entries each
 // channel's sum adds in order (one a warp after the warp tree when the
 // units of a position divide 32, else one a thread), for dgamma and dbeta.
+template <typename TX>
 inline size_t gn_chan_floats(int cg, int threads) {
-  const int units = cg / gn_width(cg);
+  const int units = cg / gn_width<TX>(cg);
   return 2 * (size_t)cg * (32 % units == 0 ? threads / 32 : threads / units);
 }
 
+// Bytes of a staged tile of n values of `size` bytes: float tiles as they
+// are, bf16 tiles rounded up to 16 so that what follows stays aligned.
+__host__ __device__ inline size_t gn_tile_bytes(size_t n, size_t size) {
+  return size == 4 ? 4 * n : (2 * n + 15) & ~(size_t)15;
+}
+
 // Dynamic shared memory of a staged kernel that stages `tiles` groups
-// (1: the forward and the statistics, two sums; 2: the backward, x and
-// gy, four sums and the channel scratch): the tiles, then a slot of one
-// float a warp for each sum, then the channel scratch.
+// (1: the forward and the statistics, x, two sums; 2: the backward, x and
+// the gradient, four sums and the channel scratch): the tiles, then a
+// slot of one float a warp for each sum, then the channel scratch.
+template <typename TX, typename TG = TX>
 inline size_t gn_staged_bytes(int tiles, int L, int cg, int threads) {
-  return 4 * ((size_t)tiles * L * cg + (tiles == 2 ? 4 : 2) * (threads / 32) +
-              (tiles == 2 ? gn_chan_floats(cg, threads) : 0));
+  const size_t n = (size_t)L * cg;
+  return gn_tile_bytes(n, sizeof(TX)) +
+         (tiles == 2 ? gn_tile_bytes(n, sizeof(TG)) : 0) +
+         4 * ((tiles == 2 ? 4 : 2) * (size_t)(threads / 32) +
+              (tiles == 2 ? gn_chan_floats<TX>(cg, threads) : 0));
 }
 
 // Whether plan p is one the kernels run for a group of L x cg values.
+template <typename TX, typename TG = TX>
 inline bool gn_plan_ok(GnPlan p, int tiles, int L, int cg) {
   if (!p.staged) return p.threads == GN_THREADS && p.smem == 0;
-  const int units = cg / gn_width(cg);
+  const int units = cg / gn_width<TX>(cg);
   return p.threads >= 32 && p.threads <= GN_MAX_THREADS &&
          p.threads % 32 == 0 && p.threads % units == 0 &&
          p.smem <= GN_SMEM_MAX &&
-         (size_t)p.smem == gn_staged_bytes(tiles, L, cg, p.threads);
+         (size_t)p.smem == gn_staged_bytes<TX, TG>(tiles, L, cg, p.threads);
 }
 
 inline int gn_shape_ok(int B, int L, int C, int G) {
@@ -103,6 +149,28 @@ cudaError_t set_smem(Kern kernel, size_t bytes) {
 // 1 / (1 + e^-y) by the SFU's exp2 and reciprocal (a few ulp)
 __device__ __forceinline__ float gn_sigmoid(float y) {
   return __fdividef(1.f, 1.f + __expf(-y));
+}
+
+// bf16 <-> float: a bf16 value is the upper half of its float, so the
+// conversion up is exact; down rounds to nearest even.
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
+
+template <typename T>
+__device__ __forceinline__ T from_f(float v);
+template <>
+__device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ bf16 from_f<bf16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// the low and high bf16 halves of a 32-bit word, as floats
+__device__ __forceinline__ float bf_lo(uint32_t w) {
+  return __uint_as_float(w << 16);
+}
+__device__ __forceinline__ float bf_hi(uint32_t w) {
+  return __uint_as_float(w & 0xffff0000u);
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -147,40 +215,94 @@ __device__ __forceinline__ Moments given_moments(const float* stats,
 
 // ---- the staged kernels ---------------------------------------------------
 
-// W consecutive floats: a float4 or one float
+// W consecutive values of type T at p as floats: 16-byte loads where the
+// unit is a multiple of 16 bytes (a float4, 8 bf16 values), else one value
 template <int W>
 __device__ __forceinline__ void load_w(float (&v)[W], const float* p) {
-  if constexpr (W == 4) {
-    const float4 q = *reinterpret_cast<const float4*>(p);
-    v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+  if constexpr (W % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < W / 4; ++i) {
+      const float4 q = reinterpret_cast<const float4*>(p)[i];
+      v[4 * i] = q.x; v[4 * i + 1] = q.y; v[4 * i + 2] = q.z;
+      v[4 * i + 3] = q.w;
+    }
   } else {
     v[0] = *p;
   }
 }
 
 template <int W>
-__device__ __forceinline__ void store_w(float* p, const float (&v)[W]) {
-  if constexpr (W == 4)
-    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-  else
-    *p = v[0];
+__device__ __forceinline__ void load_w(float (&v)[W], const bf16* p) {
+  if constexpr (W == 8) {
+    const uint4 q = *reinterpret_cast<const uint4*>(p);
+    const uint32_t u[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      v[2 * i] = bf_lo(u[i]);
+      v[2 * i + 1] = bf_hi(u[i]);
+    }
+  } else {
+    static_assert(W == 1, "bf16 units are 8 values or one");
+    v[0] = to_f(*p);
+  }
 }
 
+template <int W>
+__device__ __forceinline__ void store_w(float* p, const float (&v)[W]) {
+  if constexpr (W % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < W / 4; ++i)
+      reinterpret_cast<float4*>(p)[i] =
+          make_float4(v[4 * i], v[4 * i + 1], v[4 * i + 2], v[4 * i + 3]);
+  } else {
+    *p = v[0];
+  }
+}
+
+template <int W>
+__device__ __forceinline__ void store_w(bf16* p, const float (&v)[W]) {
+  if constexpr (W == 8) {
+    *reinterpret_cast<uint4*>(p) =
+        make_uint4(bf16mma::pack(v[0], v[1]), bf16mma::pack(v[2], v[3]),
+                   bf16mma::pack(v[4], v[5]), bf16mma::pack(v[6], v[7]));
+  } else {
+    static_assert(W == 1, "bf16 units are 8 values or one");
+    *p = from_f<bf16>(v[0]);
+  }
+}
+
+// The lanes of a thread's partial sums, added pairwise
 template <int W>
 __device__ __forceinline__ float lanes_sum(const float (&a)[W]) {
-  if constexpr (W == 4) return (a[0] + a[1]) + (a[2] + a[3]);
-  else return a[0];
+  if constexpr (W == 8)
+    return ((a[0] + a[1]) + (a[2] + a[3])) + ((a[4] + a[5]) + (a[6] + a[7]));
+  else if constexpr (W == 4)
+    return (a[0] + a[1]) + (a[2] + a[3]);
+  else
+    return a[0];
 }
 
-template <int W>
-__device__ __forceinline__ void cp_async_w(float* dst, const float* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  if constexpr (W == 4)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-                 "l"(src));
-  else
+// Copy W values of type T from device to shared memory: cp.async of 16
+// bytes (.cg) or of 4 (.ca), or a plain copy of one bf16 value.
+template <typename T, int W>
+__device__ __forceinline__ void cp_async_w(T* dst, const T* src) {
+  constexpr int bytes = W * (int)sizeof(T);
+  if constexpr (bytes % 16 == 0) {
+#pragma unroll
+    for (int i = 0; i < bytes / 16; ++i) {
+      const unsigned s =
+          (unsigned)__cvta_generic_to_shared(reinterpret_cast<char*>(dst) +
+                                             16 * i);
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+                   "l"(reinterpret_cast<const char*>(src) + 16 * i));
+    }
+  } else if constexpr (bytes == 4) {
+    const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
     asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
                  "l"(src));
+  } else {
+    *dst = *src;
+  }
 }
 
 __device__ __forceinline__ void cp_async_wait_all() {
@@ -217,25 +339,34 @@ __device__ __forceinline__ GroupWalk group_walk(int L, int C, int G) {
   return w;
 }
 
+// Where the float sum slots start after `tiles` staged tiles at smem
+template <typename TX, typename TG>
+__device__ __forceinline__ float* gn_red(unsigned char* smem, int tiles,
+                                         int L, int cg) {
+  const size_t n = (size_t)L * cg;
+  return reinterpret_cast<float*>(
+      smem + gn_tile_bytes(n, sizeof(TX)) +
+      (tiles == 2 ? gn_tile_bytes(n, sizeof(TG)) : 0));
+}
+
 // Copy this thread's units of src's group into tile (cp.async, not waited
 // for).
-template <int W>
-__device__ __forceinline__ void stage_group(float* tile, const float* src,
+template <int W, typename T>
+__device__ __forceinline__ void stage_group(T* tile, const T* src,
                                             const GroupWalk& w) {
   for (int l = w.l0; l < w.L; l += w.R)
-    cp_async_w<W>(tile + (size_t)w.tile(l) * W, src + w.global(l));
+    cp_async_w<T, W>(tile + (size_t)w.tile(l) * W, src + w.global(l));
 }
 
 // The moments of the staged group of x, two passes over shared memory
 // (the shift, the group's first value, read from x); red slots 0 and 1.
-template <int W>
-__device__ __forceinline__ Moments tile_stats(const float* tile,
-                                              const float* x,
+template <int W, typename TX>
+__device__ __forceinline__ Moments tile_stats(const TX* tile, const TX* x,
                                               const GroupWalk& w, float eps,
                                               float* red) {
   const float n = (float)w.L * (float)(w.U * W);
   Moments m;
-  m.shift = x[w.base];
+  m.shift = to_f(x[w.base]);
   float a[W] = {};
 #pragma unroll 4
   for (int l = w.l0; l < w.L; l += w.R) {
@@ -261,48 +392,64 @@ __device__ __forceinline__ Moments tile_stats(const float* tile,
 }
 
 // stats (B, G, 2): mean and rstd of every (row, group), x read once.
-template <int W>
+template <int W, typename TX>
 __global__ void __launch_bounds__(GN_MAX_THREADS)
-    gn_stats_staged_kernel(const float* __restrict__ x,
+    gn_stats_staged_kernel(const TX* __restrict__ x,
                            float* __restrict__ stats, int L, int C, int G,
                            float eps) {
-  extern __shared__ __align__(16) float smem[];
+  extern __shared__ __align__(16) unsigned char gn_smem[];
+  TX* tile = reinterpret_cast<TX*>(gn_smem);
   const GroupWalk w = group_walk<W>(L, C, G);
-  float* red = smem + (size_t)L * (C / G);
-  stage_group<W>(smem, x, w);
+  float* red = gn_red<TX, TX>(gn_smem, 1, L, C / G);
+  stage_group<W>(tile, x, w);
   cp_async_wait_all();
-  const Moments m = tile_stats<W>(smem, x, w, eps, red);
+  const Moments m = tile_stats<W>(tile, x, w, eps, red);
   if (threadIdx.x == 0) {
     stats[2 * (size_t)blockIdx.x] = m.group_mean();
     stats[2 * (size_t)blockIdx.x + 1] = m.rstd;
   }
 }
 
+// dxh = dy gamma of one value, from x_hat, the upstream gradient d, and
+// the channel's gamma and beta (the SiLU chain rule on y = x_hat gamma +
+// beta); dy in *dyo.
+__device__ __forceinline__ float gn_dxh(float xh, float d, float ga,
+                                        float be, float* dyo) {
+  const float y = fmaf(xh, ga, be);
+  const float sg = gn_sigmoid(y);
+  const float dy = d * sg * (1.f + y * (1.f - sg));
+  *dyo = dy;
+  return dy * ga;
+}
+
 // GroupNorm + SiLU backward of one (row, group), x and gy read once.
 // Takes the statistics from stats (B, G, 2) where the caller has them
 // (the fused conv's backward), else computes them from the staged x. Then
 // one pass over the staged tiles applies the SiLU chain rule, keeps
-// dxh = dy gamma in gy's place and sums dxh and dxh x_hat over the group
-// and dy x_hat and dy over each channel's positions; a second writes the
-// GN identity
+// dxh = dy gamma in gy's place (a float32 gy; a bf16 tile cannot hold it
+// and the second pass recomputes it) and sums dxh and dxh x_hat over the
+// group and dy x_hat and dy over each channel's positions; a second
+// writes the GN identity
 //   dx = rstd (dxh - mean_g(dxh) - x_hat mean_g(dxh x_hat))
 // (ertdx/ops/groupnorm.py:95-131). Per-row channel sums go to part
 // (B, 2, C); sum_rows_kernel reduces them over B.
-template <int W>
+template <int W, typename TX, typename TG>
 __global__ void __launch_bounds__(GN_MAX_THREADS)
-    gn_bwd_staged_kernel(const float* __restrict__ x,
+    gn_bwd_staged_kernel(const TX* __restrict__ x,
                          const float* __restrict__ gamma,
                          const float* __restrict__ beta,
-                         const float* __restrict__ gy,
+                         const TG* __restrict__ gy,
                          const float* __restrict__ stats,
-                         float* __restrict__ dx, float* __restrict__ part,
+                         TX* __restrict__ dx, float* __restrict__ part,
                          int L, int C, int G, float eps) {
-  extern __shared__ __align__(16) float smem[];
+  constexpr bool keep = sizeof(TG) == 4;   // dxh kept in gy's tile
+  extern __shared__ __align__(16) unsigned char gn_smem[];
   const GroupWalk w = group_walk<W>(L, C, G);
   const int cg = C / G;
-  float* xs = smem;
-  float* ds = xs + (size_t)L * cg;
-  float* red = ds + (size_t)L * cg;
+  TX* xs = reinterpret_cast<TX*>(gn_smem);
+  TG* ds = reinterpret_cast<TG*>(gn_smem +
+                                 gn_tile_bytes((size_t)L * cg, sizeof(TX)));
+  float* red = gn_red<TX, TG>(gn_smem, 2, L, cg);
   float* chan = slot(red, 4);
   stage_group<W>(xs, x, w);
   stage_group<W>(ds, gy, w);
@@ -325,16 +472,14 @@ __global__ void __launch_bounds__(GN_MAX_THREADS)
 #pragma unroll
     for (int k = 0; k < W; ++k) {
       const float xh = m.centred(v[k]) * m.rstd;
-      const float y = fmaf(xh, ga[k], be[k]);
-      const float sg = gn_sigmoid(y);
-      const float dy = d[k] * sg * (1.f + y * (1.f - sg));
+      float dy;
+      d[k] = gn_dxh(xh, d[k], ga[k], be[k], &dy);
       pg[k] = fmaf(dy, xh, pg[k]);
       pb[k] += dy;
-      d[k] = dy * ga[k];
       s1[k] += d[k];
       s2[k] = fmaf(d[k], xh, s2[k]);
     }
-    store_w<W>(ds + i, d);
+    if constexpr (keep) store_w<W>(ds + i, d);
   }
 
   // the threads of one channel: a warp tree where the units of a position
@@ -397,6 +542,10 @@ __global__ void __launch_bounds__(GN_MAX_THREADS)
 #pragma unroll
     for (int k = 0; k < W; ++k) {
       const float xh = m.centred(v[k]) * m.rstd;
+      if constexpr (!keep) {
+        float dy;
+        d[k] = gn_dxh(xh, d[k], ga[k], be[k], &dy);
+      }
       d[k] = m.rstd * (d[k] - m1 - xh * m2);
     }
     store_w<W>(dx + w.global(l), d);
@@ -427,21 +576,22 @@ __device__ __forceinline__ GroupLanes group_lanes(int cg) {
 
 // The moments of group g of batch row b of x (B, L, C), two sweeps; red
 // slots 0 and 1.
-__device__ __forceinline__ Moments group_stats(const float* __restrict__ x,
+template <typename TX>
+__device__ __forceinline__ Moments group_stats(const TX* __restrict__ x,
                                                int b, int g, int L, int C,
                                                int cg, float eps,
                                                float* red) {
   const GroupLanes q = group_lanes(cg);
-  const float* xb = x + (size_t)b * L * C + (size_t)g * cg;
+  const TX* xb = x + (size_t)b * L * C + (size_t)g * cg;
   const float n = (float)L * (float)cg;
   Moments m;
-  m.shift = xb[0];
+  m.shift = to_f(xb[0]);
   float s = 0.f, ss = 0.f;
   if (q.r < q.rows) {
     for (int c = q.c; c < cg; c += q.lanes) {
 #pragma unroll 4
       for (int l = q.r; l < L; l += q.rows)
-        s += xb[(size_t)l * C + c] - m.shift;
+        s += to_f(xb[(size_t)l * C + c]) - m.shift;
     }
   }
   m.mean = block_sum(s, red) / n;
@@ -449,7 +599,7 @@ __device__ __forceinline__ Moments group_stats(const float* __restrict__ x,
     for (int c = q.c; c < cg; c += q.lanes) {
 #pragma unroll 4
       for (int l = q.r; l < L; l += q.rows) {
-        const float d = m.centred(xb[(size_t)l * C + c]);
+        const float d = m.centred(to_f(xb[(size_t)l * C + c]));
         ss += d * d;
       }
     }
@@ -458,8 +608,9 @@ __device__ __forceinline__ Moments group_stats(const float* __restrict__ x,
   return m;
 }
 
+template <typename TX>
 __global__ void __launch_bounds__(GN_THREADS)
-    gn_stats_stream_kernel(const float* __restrict__ x,
+    gn_stats_stream_kernel(const TX* __restrict__ x,
                            float* __restrict__ stats, int L, int C, int G,
                            float eps) {
   __shared__ float red[GN_STREAM_RED];
@@ -473,13 +624,14 @@ __global__ void __launch_bounds__(GN_THREADS)
 
 // The staged backward's function by sweeps: the statistics (unless given),
 // one sweep for the group and channel sums, one for dx.
+template <typename TX, typename TG>
 __global__ void __launch_bounds__(GN_THREADS)
-    gn_bwd_stream_kernel(const float* __restrict__ x,
+    gn_bwd_stream_kernel(const TX* __restrict__ x,
                          const float* __restrict__ gamma,
                          const float* __restrict__ beta,
-                         const float* __restrict__ gy,
+                         const TG* __restrict__ gy,
                          const float* __restrict__ stats,
-                         float* __restrict__ dx, float* __restrict__ part,
+                         TX* __restrict__ dx, float* __restrict__ part,
                          int L, int C, int G, float eps) {
   __shared__ float red[GN_STREAM_RED];
   __shared__ float sp[2][GN_THREADS];
@@ -502,10 +654,10 @@ __global__ void __launch_bounds__(GN_THREADS)
 #pragma unroll 4
       for (int l = q.r; l < L; l += q.rows) {
         const size_t i = base + (size_t)l * C + c;
-        const float xh = m.centred(x[i]) * m.rstd;
+        const float xh = m.centred(to_f(x[i])) * m.rstd;
         const float y = xh * ga + be;
         const float sg = gn_sigmoid(y);
-        const float dy = gy[i] * sg * (1.f + y * (1.f - sg));
+        const float dy = to_f(gy[i]) * sg * (1.f + y * (1.f - sg));
         pg += dy * xh;
         pb += dy;
         const float dxh = dy * ga;
@@ -535,11 +687,11 @@ __global__ void __launch_bounds__(GN_THREADS)
 #pragma unroll 4
     for (int l = q.r; l < L; l += q.rows) {
       const size_t i = base + (size_t)l * C + c;
-      const float xh = m.centred(x[i]) * m.rstd;
+      const float xh = m.centred(to_f(x[i])) * m.rstd;
       const float y = xh * ga + be;
       const float sg = gn_sigmoid(y);
-      const float dxh = gy[i] * sg * (1.f + y * (1.f - sg)) * ga;
-      dx[i] = m.rstd * (dxh - m1 - xh * m2);
+      const float dxh = to_f(gy[i]) * sg * (1.f + y * (1.f - sg)) * ga;
+      dx[i] = from_f<TX>(m.rstd * (dxh - m1 - xh * m2));
     }
   }
 }
@@ -556,57 +708,64 @@ __global__ void sum_rows_kernel(const float* __restrict__ part,
 
 // ---- launches (host) ------------------------------------------------------
 
+// Launch kernel<W> for the unit width of TX at cg (gn_width): W = 4 or 1
+// for float x, 8 or 1 for bf16 x. `launch(std::integral_constant<int,
+// W>)` sets the kernel's shared memory and launches it.
+template <typename TX, typename Launch>
+cudaError_t gn_by_width(int cg, Launch launch) {
+  constexpr int wide = sizeof(TX) == 4 ? 4 : 8;
+  if (gn_width<TX>(cg) == wide)
+    return launch(std::integral_constant<int, wide>());
+  return launch(std::integral_constant<int, 1>());
+}
+
 // stats (B, G, 2) of x by plan p (one tile).
-inline cudaError_t gn_stats(const float* x, float* stats, int B, int L,
-                            int C, int G, float eps, GnPlan p,
-                            cudaStream_t s) {
+template <typename TX>
+inline cudaError_t gn_stats(const TX* x, float* stats, int B, int L, int C,
+                            int G, float eps, GnPlan p, cudaStream_t s) {
   const int cg = C / G;
-  if (!gn_plan_ok(p, 1, L, cg)) return cudaErrorInvalidValue;
+  if (!gn_plan_ok<TX>(p, 1, L, cg)) return cudaErrorInvalidValue;
   if (!p.staged) {
-    gn_stats_stream_kernel<<<B * G, GN_THREADS, 0, s>>>(x, stats, L, C, G,
-                                                        eps);
+    gn_stats_stream_kernel<TX><<<B * G, GN_THREADS, 0, s>>>(x, stats, L, C,
+                                                            G, eps);
     return cudaGetLastError();
   }
-  cudaError_t err;
-  if (gn_width(cg) == 4) {
-    if ((err = set_smem(gn_stats_staged_kernel<4>, p.smem)) != cudaSuccess)
-      return err;
-    gn_stats_staged_kernel<4><<<B * G, p.threads, p.smem, s>>>(x, stats, L,
-                                                               C, G, eps);
-  } else {
-    if ((err = set_smem(gn_stats_staged_kernel<1>, p.smem)) != cudaSuccess)
-      return err;
-    gn_stats_staged_kernel<1><<<B * G, p.threads, p.smem, s>>>(x, stats, L,
-                                                               C, G, eps);
-  }
-  return cudaGetLastError();
+  return gn_by_width<TX>(cg, [&](auto wc) {
+    constexpr int W = decltype(wc)::value;
+    cudaError_t err = set_smem(gn_stats_staged_kernel<W, TX>, p.smem);
+    if (err != cudaSuccess) return err;
+    gn_stats_staged_kernel<W, TX><<<B * G, p.threads, p.smem, s>>>(
+        x, stats, L, C, G, eps);
+    return cudaGetLastError();
+  });
 }
 
 // dx (B, L, C) and dgb (2 C: dgamma, dbeta) by plan p (two tiles); stats
 // (B, G, 2) or null; part (B, 2, C) scratch.
-inline cudaError_t gn_silu_bwd(const float* x, const float* gamma,
-                               const float* beta, const float* gy,
-                               const float* stats, float* dx, float* part,
+template <typename TX, typename TG>
+inline cudaError_t gn_silu_bwd(const TX* x, const float* gamma,
+                               const float* beta, const TG* gy,
+                               const float* stats, TX* dx, float* part,
                                float* dgb, int B, int L, int C, int G,
                                float eps, GnPlan p, cudaStream_t s) {
   const int cg = C / G;
-  if (!gn_plan_ok(p, 2, L, cg)) return cudaErrorInvalidValue;
+  if (!gn_plan_ok<TX, TG>(p, 2, L, cg)) return cudaErrorInvalidValue;
   cudaError_t err;
   if (!p.staged) {
-    gn_bwd_stream_kernel<<<B * G, GN_THREADS, 0, s>>>(
+    gn_bwd_stream_kernel<TX, TG><<<B * G, GN_THREADS, 0, s>>>(
         x, gamma, beta, gy, stats, dx, part, L, C, G, eps);
-  } else if (gn_width(cg) == 4) {
-    if ((err = set_smem(gn_bwd_staged_kernel<4>, p.smem)) != cudaSuccess)
-      return err;
-    gn_bwd_staged_kernel<4><<<B * G, p.threads, p.smem, s>>>(
-        x, gamma, beta, gy, stats, dx, part, L, C, G, eps);
+    err = cudaGetLastError();
   } else {
-    if ((err = set_smem(gn_bwd_staged_kernel<1>, p.smem)) != cudaSuccess)
-      return err;
-    gn_bwd_staged_kernel<1><<<B * G, p.threads, p.smem, s>>>(
-        x, gamma, beta, gy, stats, dx, part, L, C, G, eps);
+    err = gn_by_width<TX>(cg, [&](auto wc) {
+      constexpr int W = decltype(wc)::value;
+      cudaError_t e = set_smem(gn_bwd_staged_kernel<W, TX, TG>, p.smem);
+      if (e != cudaSuccess) return e;
+      gn_bwd_staged_kernel<W, TX, TG><<<B * G, p.threads, p.smem, s>>>(
+          x, gamma, beta, gy, stats, dx, part, L, C, G, eps);
+      return cudaGetLastError();
+    });
   }
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if (err != cudaSuccess) return err;
   sum_rows_kernel<<<(2 * C + 255) / 256, 256, 0, s>>>(part, dgb, B, 2 * C);
   return cudaGetLastError();
 }

@@ -83,6 +83,7 @@
 
 #include <stdint.h>
 
+#include "bf16mma.cuh"
 #include "gn_common.cuh"
 #include "tf32x3.cuh"
 
@@ -554,7 +555,8 @@ int conv_shape_ok(int B, int L, int C, int Cout, int G) {
 }
 
 // the statistics (by plan p, gn_common.cuh) and the affine table of x
-cudaError_t gn_tables(const float* x, const float* gamma, float* stats,
+template <typename TX>
+cudaError_t gn_tables(const TX* x, const float* gamma, float* stats,
                       int B, int L, int C, int G, float eps, GnPlan p,
                       cudaStream_t s) {
   cudaError_t err = gn_stats(x, stats, B, L, C, G, eps, p, s);
@@ -577,6 +579,463 @@ cudaError_t tap3_gemm(const float* a, const float* aff, const float* beta,
                                                          bias, out, B * L,
                                                          L, K, N);
   return cudaGetLastError();
+}
+
+
+// ---- bf16 --------------------------------------------------------------
+//
+// The same function on a bf16 x (ertdx/ops/conv.py computes in float32
+// from any input dtype, its taps at DEFAULT precision: one bf16 MXU pass
+// a product on the TPU, conv.py:15-17), with the TPU's arithmetic: the
+// statistics from bf16 x in float32 (gn_common.cuh); GN+SiLU applied in
+// float32 in the A tile's prologue and rounded to bf16; the weights
+// rounded to bf16 once a call (by the wrapper: 3 C Cout values); one
+// mma.sync m16n8k16 bf16 a product with float32 accumulation; the bias
+// added in float32 and the output rounded once to bf16. The backward: dW
+// and db from h recomputed in float32 and rounded to bf16, h^T g on the
+// bf16 MMA, float32 partials summed in order; dh = g W^T taps on the
+// bf16 MMA, kept in float32 (as conv.py:166-171 keeps it in VMEM); then
+// the GN backward from the float32 statistics, dx in bf16. One bf16 MMA
+// a product (the float32 kernels above run three TF32 MMAs).
+//
+// Tiles as the float32 GEMM's (128 x 128 over the B L flattened rows, 8
+// warps of 64 x 32, the taps masked at batch-row edges in the A
+// fragment), 32 input channels a stage of a three-stage cp.async ring in
+// 16-byte units of 8 values; A through bf16mma::load_a (tap j reads the
+// tile j rows further down), the forward's B (w[j], rows k) through
+// ldmatrix.x4.trans (load_b_nn2), dh's (w[2-j]^T, rows n) by load_b_nt.
+// Row strides of KC + 8 and TN + 8 values keep both conflict-free
+// (bf16mma.cuh). The k steps accumulate on the MMA's float32
+// accumulator: the bf16 rounding of h and W is the class's error, far
+// above the sum's. dW: a block owns 64 input by 128 output channels of a
+// split of the rows, 32 rows a stage through a three-stage ring; h^T is
+// the A operand through bf16mma::load_a_t (ldmatrix.x4.trans of the
+// row-major h tile), g the nn B operand; a tap's rows that cross a batch
+// row are zeroed by halves of the A registers (k = row in the stage).
+
+namespace bf {
+
+constexpr int KC = 32;                // input channels a stage
+constexpr int STAGES = 3;
+constexpr int LDA = KC + 8;           // A rows (conflict-free load_a)
+constexpr int LDB_NN = TN + 8;        // (KC, TN) forward tile, ldmatrix
+constexpr int LDB_NT = KC + 8;        // (TN, KC) dh tile, load_b_nt
+constexpr int A_ELEMS = A_ROWS * LDA;
+constexpr int A_UNITS = (A_ROWS * KC / 8 + THREADS - 1) / THREADS;
+constexpr int B_UNITS = 3 * KC * TN / 8 / THREADS;
+constexpr int STAGE_NN = A_ELEMS + 3 * KC * LDB_NN;     // bf16 values
+constexpr int STAGE_NT = A_ELEMS + 3 * TN * LDB_NT;
+static_assert(3 * KC * TN / 8 % THREADS == 0, "GEMM weight units");
+static_assert(STAGE_NN % 8 == 0 && STAGE_NT % 8 == 0 && A_ELEMS % 8 == 0,
+              "16-byte stage boundaries");
+
+constexpr int DW_KR = 32;             // rows a stage (one mask bit each)
+constexpr int DW_STAGES = 3;
+constexpr int LDH = DW_TC + 8;        // ldmatrix.trans rows, 144 bytes
+constexpr int LDG = DW_TN + 8;        // 272 bytes
+constexpr int H_ELEMS = (DW_KR + 2) * LDH;
+constexpr int G_ELEMS = DW_KR * LDG;
+constexpr int DW_SE = H_ELEMS + G_ELEMS + 8;   // + the two row masks
+constexpr int H_UNITS = ((DW_KR + 2) * DW_TC / 8 + DW_THREADS - 1) /
+                        DW_THREADS;
+constexpr int G_UNITS = (DW_KR * DW_TN / 8 + DW_THREADS - 1) / DW_THREADS;
+static_assert(DW_THREADS % (DW_TC / 8) == 0, "an h unit's channel is fixed");
+static_assert(H_ELEMS % 8 == 0 && G_ELEMS % 8 == 0 && DW_SE % 8 == 0,
+              "16-byte stage boundaries");
+
+// silu(GN(v)) of 8 consecutive channels of bf16 v (a uint4), in float32,
+// rounded to bf16; ms holds the channels' (mean, scale) pairs, be their
+// beta
+__device__ __forceinline__ uint4 gn_silu8(uint4 v, const float* ms,
+                                          const float* be) {
+  const uint32_t u[4] = {v.x, v.y, v.z, v.w};
+  uint32_t r[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float4 p = *reinterpret_cast<const float4*>(ms + 4 * i);
+    const float2 b = *reinterpret_cast<const float2*>(be + 2 * i);
+    r[i] = bf16mma::pack(fast_silu((bf_lo(u[i]) - p.x) * p.y + b.x),
+                   fast_silu((bf_hi(u[i]) - p.z) * p.w + b.y));
+  }
+  return make_uint4(r[0], r[1], r[2], r[3]);
+}
+
+__device__ __forceinline__ void zero_rows(uint32_t (&a)[4], bool top,
+                                          bool bottom) {
+  if (top) a[0] = a[2] = 0u;       // fragment row g
+  if (bottom) a[1] = a[3] = 0u;    // fragment row g + 8
+}
+
+// acc += the three taps of one k step of 16 input channels at kk of a
+// staged chunk, for the warp's WM x WN output.
+template <bool WT>
+__device__ __forceinline__ void gemm_step(float (&acc)[MT][NT][4],
+                                          const bf16* As, const bf16* Bs,
+                                          int kk, unsigned first,
+                                          unsigned last, int wm, int wn,
+                                          int lane) {
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    uint32_t b[NT][2];
+#pragma unroll
+    for (int n = 0; n < NT; n += 2) {
+      if (WT) {
+        bf16mma::load_b_nt(b[n], Bs + j * TN * LDB_NT, LDB_NT, wn + 8 * n,
+                           kk, lane);
+        bf16mma::load_b_nt(b[n + 1], Bs + j * TN * LDB_NT, LDB_NT,
+                           wn + 8 * n + 8, kk, lane);
+      } else {
+        uint32_t q[4];
+        bf16mma::load_b_nn2(q, Bs + j * KC * LDB_NN, LDB_NN, kk, wn + 8 * n,
+                            lane);
+        b[n][0] = q[0]; b[n][1] = q[1];
+        b[n + 1][0] = q[2]; b[n + 1][1] = q[3];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < MT; ++i) {
+      uint32_t a[4];
+      bf16mma::load_a(a, As + j * LDA, LDA, wm + 16 * i, kk, lane);
+      if (j != 1) {
+        const unsigned dead = j == 0 ? first : last;
+        zero_rows(a, (dead >> (2 * i)) & 1u, (dead >> (2 * i + 1)) & 1u);
+      }
+#pragma unroll
+      for (int n = 0; n < NT; ++n) bf16mma::mma(acc[i][n], a, b[n][0],
+                                                b[n][1]);
+    }
+  }
+}
+
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(bf16* p, float a, float b) {
+  *reinterpret_cast<uint32_t*>(p) = bf16mma::pack(a, b);
+}
+
+// out[m, :] = bias + sum_j A[m-1+j, :] @ W_j over the M = B L flattened
+// rows of bf16 a, as tap3_gemm_kernel: GN: A = silu(GN(a)) from the
+// affine table and beta (float32), rounded to bf16, else A = a. WT =
+// false: W_j = w[j], w (3, K, N); WT = true: W_j = w[2-j]^T, w (3, N, K);
+// w bf16, bias float32 or null, out TO. K and N multiples of 8. Grid
+// (gemm_tiles(M, L), ceil(N/TN)), THREADS threads, STAGES * (WT ?
+// STAGE_NT : STAGE_NN) bf16 values of dynamic shared memory.
+template <bool GN, bool WT, typename TO>
+__global__ void __launch_bounds__(THREADS, 1)
+    tap3_gemm_bf16_kernel(const bf16* __restrict__ a,
+                          const float* __restrict__ aff,
+                          const float* __restrict__ beta,
+                          const bf16* __restrict__ w,
+                          const float* __restrict__ bias,
+                          TO* __restrict__ out, int M, int L, int K, int N) {
+  extern __shared__ __align__(16) unsigned char gemm_smem[];
+  bf16* smem = reinterpret_cast<bf16*>(gemm_smem);
+  constexpr int SE = WT ? STAGE_NT : STAGE_NN;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int2 rows = tile_rows(blockIdx.x, M, L);
+  const int m0 = rows.x, n0 = blockIdx.y * TN;
+  const int wm = WM * (warp % WARPS_M), wn = WN * (warp / WARPS_M);
+  const int chunks = (K + KC - 1) / KC;
+
+  unsigned first = 0u, last = 0u;
+#pragma unroll
+  for (int r = 0; r < 2 * MT; ++r) {
+    const int l = (m0 + wm + 16 * (r >> 1) + (lane >> 2) + 8 * (r & 1)) % L;
+    first |= (unsigned)(l == 0) << r;
+    last |= (unsigned)(l == L - 1) << r;
+  }
+  // the batch row of each A unit this thread copies (-1: outside [0, M))
+  int arow[A_UNITS];
+#pragma unroll
+  for (int u = 0; u < A_UNITS; ++u) {
+    const int m = m0 - 1 + (tid + u * THREADS) / (KC / 8);
+    arow[u] = (m >= 0 && m < M) ? m / L : -1;
+  }
+
+  auto stage = [&](int ch) {
+    bf16* As = smem + (ch % STAGES) * SE;
+    bf16* Bs = As + A_ELEMS;
+    const int k0 = ch * KC;
+#pragma unroll
+    for (int u = 0; u < A_UNITS; ++u) {
+      const int i = tid + u * THREADS;
+      if (i < A_ROWS * KC / 8) {
+        const int r = i / (KC / 8), c = (i % (KC / 8)) * 8;
+        const bool ok = arow[u] >= 0 && k0 + c < K;
+        bf16mma::cp16(As + r * LDA + c,
+                      a + (ok ? (size_t)(m0 - 1 + r) * K + k0 + c : 0), ok);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < B_UNITS; ++u) {
+      const int i = tid + u * THREADS;
+      if (WT) {             // tap j's rows n of KC values along k
+        const int j = i / (TN * KC / 8), n = i / (KC / 8) % TN;
+        const int c = (i % (KC / 8)) * 8;
+        const bool ok = n0 + n < N && k0 + c < K;
+        bf16mma::cp16(Bs + (j * TN + n) * LDB_NT + c,
+                      w + (ok ? ((size_t)(2 - j) * N + n0 + n) * K + k0 + c
+                              : 0), ok);
+      } else {              // tap j's rows k of TN values along n
+        const int j = i / (KC * TN / 8), k = i / (TN / 8) % KC;
+        const int c = (i % (TN / 8)) * 8;
+        const bool ok = k0 + k < K && n0 + c < N;
+        bf16mma::cp16(Bs + (j * KC + k) * LDB_NN + c,
+                      w + (ok ? ((size_t)j * K + k0 + k) * N + n0 + c : 0),
+                      ok);
+      }
+    }
+    bf16mma::cp_commit();
+  };
+
+  // GN+SiLU in place on the A units this thread copied (its own cp.async
+  // writes are visible to it after the wait)
+  auto gn_silu_tile = [&](int ch) {
+    bf16* As = smem + (ch % STAGES) * SE;
+    const int k0 = ch * KC;
+#pragma unroll
+    for (int u = 0; u < A_UNITS; ++u) {
+      const int i = tid + u * THREADS;
+      const int r = i / (KC / 8), c = (i % (KC / 8)) * 8;
+      if (i < A_ROWS * KC / 8 && arow[u] >= 0 && k0 + c < K) {
+        uint4* p = reinterpret_cast<uint4*>(As + r * LDA + c);
+        *p = gn_silu8(*p, aff + 2 * ((size_t)arow[u] * K + k0 + c),
+                      beta + k0 + c);
+      }
+    }
+  };
+
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < chunks)
+      stage(s);
+    else
+      bf16mma::cp_commit();
+  }
+  float acc[MT][NT][4] = {};
+  for (int ch = 0; ch < chunks; ++ch) {
+    bf16mma::cp_wait<STAGES - 2>();
+    if (GN) gn_silu_tile(ch);
+    __syncthreads();        // chunk ch is in place; ch - 1's slot is free
+    if (ch + STAGES - 1 < chunks)
+      stage(ch + STAGES - 1);
+    else
+      bf16mma::cp_commit();
+    const bf16* As = smem + (ch % STAGES) * SE;
+#pragma unroll
+    for (int kk = 0; kk < KC; kk += 16)
+      gemm_step<WT>(acc, As, As + A_ELEMS, kk, first, last, wm, wn, lane);
+  }
+  bf16mma::cp_wait<0>();
+
+  const int t = lane & 3;
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    const int col = n0 + wn + 8 * n + 2 * t;
+    if (col >= N) continue;      // N % 8 == 0: col and col + 1 share fate
+    const float b0 = bias != nullptr ? bias[col] : 0.f;
+    const float b1 = bias != nullptr ? bias[col + 1] : 0.f;
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = m0 + wm + 16 * i + (lane >> 2) + 8 * h;
+        if (m < rows.y)
+          store2(out + (size_t)m * N + col, acc[i][n][2 * h] + b0,
+                 acc[i][n][2 * h + 1] + b1);
+      }
+  }
+}
+
+// Zero the bf16 halves of A register a whose k (kk + 2t + 8 hi + half)
+// is set in `dead`: registers 0, 1 hold k = 2t, 2t+1; 2, 3 hold 2t+8, 2t+9
+__device__ __forceinline__ void mask_k(uint32_t (&a)[4], unsigned dead,
+                                       int k) {
+  const uint32_t lo = (dead >> k) & 1u ? 0xffff0000u : 0xffffffffu;
+  const uint32_t hi = (dead >> (k + 1)) & 1u ? 0x0000ffffu : 0xffffffffu;
+  const uint32_t lo8 = (dead >> (k + 8)) & 1u ? 0xffff0000u : 0xffffffffu;
+  const uint32_t hi8 = (dead >> (k + 9)) & 1u ? 0x0000ffffu : 0xffffffffu;
+  a[0] &= lo & hi;
+  a[1] &= lo & hi;
+  a[2] &= lo8 & hi8;
+  a[3] &= lo8 & hi8;
+}
+
+// Partial dW and db of split s of the M = B L flattened rows, as
+// conv_dw_kernel: part[s] = [dW (3, C, Cout) | db (Cout)], float32. h =
+// silu(GN(x)) in float32 from the affine table and beta, rounded to bf16;
+// x and gy bf16. Grid (ceil(C/DW_TC), ceil(Cout/DW_TN), S), DW_THREADS
+// threads, DW_STAGES * DW_SE bf16 values of dynamic shared memory.
+__global__ void __launch_bounds__(DW_THREADS, 1)
+    conv_dw_bf16_kernel(const bf16* __restrict__ x,
+                        const float* __restrict__ aff,
+                        const float* __restrict__ beta,
+                        const bf16* __restrict__ gy, float* __restrict__ part,
+                        int M, int L, int C, int Cout, int S) {
+  extern __shared__ __align__(16) unsigned char dw_smem[];
+  bf16* smem = reinterpret_cast<bf16*>(dw_smem);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int c0 = blockIdx.x * DW_TC, o0 = blockIdx.y * DW_TN;
+  const int s = blockIdx.z;
+  const int wc = DW_WM * (warp % DW_WARPS_C), wn = DW_WN * (warp / DW_WARPS_C);
+  const int total = (M + DW_KR - 1) / DW_KR, per = (total + S - 1) / S;
+  const int ch0 = min(total, s * per), ch1 = min(total, ch0 + per);
+  const bool db_warp = blockIdx.x == 0 && wc == 0;
+  // an h unit's channel is the same in every unit of a thread
+  const int hc = (tid % (DW_TC / 8)) * 8;
+  const bool hc_ok = c0 + hc < C;
+
+  auto stage = [&](int ch) {
+    bf16* Hs = smem + (ch - ch0) % DW_STAGES * DW_SE;
+    bf16* Gs = Hs + H_ELEMS;
+    const int r0 = ch * DW_KR;
+#pragma unroll
+    for (int u = 0; u < H_UNITS; ++u) {
+      const int i = tid + u * DW_THREADS;
+      if (i < (DW_KR + 2) * DW_TC / 8) {
+        const int r = i / (DW_TC / 8), m = r0 - 1 + r;
+        const bool ok = hc_ok && m >= 0 && m < M;
+        bf16mma::cp16(Hs + r * LDH + hc,
+                      x + (ok ? (size_t)m * C + c0 + hc : 0), ok);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < G_UNITS; ++u) {
+      const int i = tid + u * DW_THREADS;
+      const int r = i / (DW_TN / 8), c = (i % (DW_TN / 8)) * 8;
+      const int m = r0 + r;
+      const bool ok = m < M && o0 + c < Cout;
+      if (i < DW_KR * DW_TN / 8)
+        bf16mma::cp16(Gs + r * LDG + c,
+                      gy + (ok ? (size_t)m * Cout + o0 + c : 0), ok);
+    }
+    if (warp == 0) {      // one mask bit per g row: tap 0 / tap 2 crosses
+      const int l = (r0 + lane) % L;
+      const unsigned f = __ballot_sync(bf16mma::FULL, lane < DW_KR && l == 0);
+      const unsigned e = __ballot_sync(bf16mma::FULL,
+                                       lane < DW_KR && l == L - 1);
+      if (lane == 0) {
+        unsigned* masks = reinterpret_cast<unsigned*>(Gs + G_ELEMS);
+        masks[0] = f;
+        masks[1] = e;
+      }
+    }
+    bf16mma::cp_commit();
+  };
+
+  auto gn_silu_tile = [&](int ch) {
+    bf16* Hs = smem + (ch - ch0) % DW_STAGES * DW_SE;
+    const int r0 = ch * DW_KR;
+#pragma unroll
+    for (int u = 0; u < H_UNITS; ++u) {
+      const int i = tid + u * DW_THREADS;
+      const int r = i / (DW_TC / 8), m = r0 - 1 + r;
+      if (i < (DW_KR + 2) * DW_TC / 8 && hc_ok && m >= 0 && m < M) {
+        uint4* p = reinterpret_cast<uint4*>(Hs + r * LDH + hc);
+        *p = gn_silu8(*p, aff + 2 * ((size_t)(m / L) * C + c0 + hc),
+                      beta + c0 + hc);
+      }
+    }
+  };
+
+  for (int k = 0; k < DW_STAGES - 1; ++k) {
+    if (ch0 + k < ch1)
+      stage(ch0 + k);
+    else
+      bf16mma::cp_commit();
+  }
+  float acc[3][DW_MT][DW_NT][4] = {};
+  float dbp[DW_NT] = {};
+  for (int ch = ch0; ch < ch1; ++ch) {
+    bf16mma::cp_wait<DW_STAGES - 2>();
+    gn_silu_tile(ch);
+    __syncthreads();        // chunk ch is in place; ch - 1's slot is free
+    if (ch + DW_STAGES - 1 < ch1)
+      stage(ch + DW_STAGES - 1);
+    else
+      bf16mma::cp_commit();
+    const bf16* Hs = smem + (ch - ch0) % DW_STAGES * DW_SE;
+    const bf16* Gs = Hs + H_ELEMS;
+    const unsigned* masks = reinterpret_cast<const unsigned*>(Gs + G_ELEMS);
+    const unsigned first = masks[0], last = masks[1];
+#pragma unroll
+    for (int kk = 0; kk < DW_KR; kk += 16) {
+      uint32_t b[DW_NT][2];
+#pragma unroll
+      for (int n = 0; n < DW_NT; n += 2) {
+        uint32_t q[4];
+        bf16mma::load_b_nn2(q, Gs, LDG, kk, wn + 8 * n, lane);
+        b[n][0] = q[0]; b[n][1] = q[1];
+        b[n + 1][0] = q[2]; b[n + 1][1] = q[3];
+      }
+      if (db_warp) {        // b0: g rows kk+2t, +1; b1: kk+2t+8, +9
+#pragma unroll
+        for (int n = 0; n < DW_NT; ++n)
+          dbp[n] += (bf_lo(b[n][0]) + bf_hi(b[n][0])) +
+                    (bf_lo(b[n][1]) + bf_hi(b[n][1]));
+      }
+      const int k = kk + 2 * (lane & 3);
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+#pragma unroll
+        for (int i = 0; i < DW_MT; ++i) {
+          uint32_t a[4];
+          bf16mma::load_a_t(a, Hs + j * LDH, LDH, wc + 16 * i, kk, lane);
+          if (j != 1) mask_k(a, j == 0 ? first : last, k);
+#pragma unroll
+          for (int n = 0; n < DW_NT; ++n)
+            bf16mma::mma(acc[j][i][n], a, b[n][0], b[n][1]);
+        }
+      }
+    }
+  }
+  bf16mma::cp_wait<0>();
+
+  float* ps = part + (size_t)s * (3 * (size_t)C * Cout + Cout);
+  const int t = lane & 3;
+#pragma unroll
+  for (int n = 0; n < DW_NT; ++n) {
+    const int o = o0 + wn + 8 * n + 2 * t;
+    if (o >= Cout) continue;     // Cout % 8 == 0
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+#pragma unroll
+      for (int i = 0; i < DW_MT; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int c = c0 + wc + 16 * i + (lane >> 2) + 8 * h;
+          if (c < C)
+            store2(ps + ((size_t)j * C + c) * Cout + o, acc[j][i][n][2 * h],
+                   acc[j][i][n][2 * h + 1]);
+        }
+  }
+  if (db_warp) {
+#pragma unroll
+    for (int n = 0; n < DW_NT; ++n) {
+      const float v = bf16mma::quad_sum(dbp[n]);
+      const int o = o0 + wn + 8 * n + (lane >> 2);
+      if (t == 0 && o < Cout) ps[3 * (size_t)C * Cout + o] = v;
+    }
+  }
+}
+
+template <bool GN, bool WT, typename TO>
+cudaError_t tap3_gemm(const bf16* a, const float* aff, const float* beta,
+                      const bf16* w, const float* bias, TO* out, int B,
+                      int L, int K, int N, cudaStream_t s) {
+  const size_t bytes = STAGES * (WT ? STAGE_NT : STAGE_NN) * sizeof(bf16);
+  cudaError_t err = set_smem(tap3_gemm_bf16_kernel<GN, WT, TO>, bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(gemm_tiles(B * L, L), (N + TN - 1) / TN);
+  tap3_gemm_bf16_kernel<GN, WT, TO><<<grid, THREADS, bytes, s>>>(
+      a, aff, beta, w, bias, out, B * L, L, K, N);
+  return cudaGetLastError();
+}
+
+}  // namespace bf
+
+int conv_shape_ok_bf16(int B, int L, int C, int Cout, int G) {
+  return conv_shape_ok(B, L, C, Cout, G) && C % 8 == 0 && Cout % 8 == 0;
 }
 
 }  // namespace
@@ -617,7 +1076,8 @@ int ertdx_gn_conv3_bwd(const float* x, const float* gamma, const float* beta,
                        int st_threads, int st_smem, int bw_staged,
                        int bw_threads, int bw_smem, void* stream) {
   if (!conv_shape_ok(B, L, C, Cout, G) || S < 1 || S > B ||
-      !gn_plan_ok(GnPlan{bw_staged, bw_threads, bw_smem}, 2, L, C / G))
+      !gn_plan_ok<float>(GnPlan{bw_staged, bw_threads, bw_smem}, 2, L,
+                         C / G))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err = gn_tables(x, gamma, stats, B, L, C, G, eps,
@@ -640,6 +1100,63 @@ int ertdx_gn_conv3_bwd(const float* x, const float* gamma, const float* beta,
   return (int)gn_silu_bwd(x, gamma, beta, dh, stats, dx, part_gn, dgb, B, L,
                           C, G, eps, GnPlan{bw_staged, bw_threads, bw_smem},
                           s);
+}
+
+// bf16 x, w (already rounded to bf16: the wrapper casts it), gy, out and
+// dx; gamma, beta, bias, stats, dgb, dwb, dh and the partials float32;
+// otherwise as the float32 entry points. C and Cout multiples of 8; bw_*
+// is the plan of the GN backward of a bf16 x and a float32 dh.
+int ertdx_gn_conv3_fwd_bf16(const bf16* x, const float* gamma,
+                            const float* beta, const bf16* w,
+                            const float* bias, bf16* out, float* stats,
+                            int B, int L, int C, int Cout, int G, float eps,
+                            int st_staged, int st_threads, int st_smem,
+                            void* stream) {
+  if (!conv_shape_ok_bf16(B, L, C, Cout, G))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err = gn_tables(x, gamma, stats, B, L, C, G, eps,
+                              GnPlan{st_staged, st_threads, st_smem}, s);
+  if (err != cudaSuccess) return (int)err;
+  return (int)bf::tap3_gemm<true, false>(x, stats + affine_offset(B, G),
+                                         beta, w, bias, out, B, L, C, Cout,
+                                         s);
+}
+
+int ertdx_gn_conv3_bwd_bf16(const bf16* x, const float* gamma,
+                            const float* beta, const bf16* w, const bf16* gy,
+                            bf16* dx, float* dgb, float* dwb, float* stats,
+                            float* dh, float* part_w, float* part_gn, int B,
+                            int L, int C, int Cout, int G, int S, float eps,
+                            int st_staged, int st_threads, int st_smem,
+                            int bw_staged, int bw_threads, int bw_smem,
+                            void* stream) {
+  if (!conv_shape_ok_bf16(B, L, C, Cout, G) || S < 1 || S > B ||
+      !gn_plan_ok<bf16, float>(GnPlan{bw_staged, bw_threads, bw_smem}, 2,
+                               L, C / G))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err = gn_tables(x, gamma, stats, B, L, C, G, eps,
+                              GnPlan{st_staged, st_threads, st_smem}, s);
+  if (err != cudaSuccess) return (int)err;
+  const float* aff = stats + affine_offset(B, G);
+  const size_t dw_bytes = bf::DW_STAGES * bf::DW_SE * sizeof(bf16);
+  if ((err = set_smem(bf::conv_dw_bf16_kernel, dw_bytes)) != cudaSuccess)
+    return (int)err;
+  const dim3 dw_grid((C + DW_TC - 1) / DW_TC, (Cout + DW_TN - 1) / DW_TN, S);
+  bf::conv_dw_bf16_kernel<<<dw_grid, DW_THREADS, dw_bytes, s>>>(
+      x, aff, beta, gy, part_w, B * L, L, C, Cout, S);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const int nw = 3 * C * Cout + Cout;
+  sum_rows_kernel<<<(nw + 255) / 256, 256, 0, s>>>(part_w, dwb, S, nw);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  err = bf::tap3_gemm<false, true>(gy, nullptr, nullptr, w,
+                                   (const float*)nullptr, dh, B, L, Cout, C,
+                                   s);
+  if (err != cudaSuccess) return (int)err;
+  return (int)gn_silu_bwd(x, gamma, beta, (const float*)dh, stats, dx,
+                          part_gn, dgb, B, L, C, G, eps,
+                          GnPlan{bw_staged, bw_threads, bw_smem}, s);
 }
 
 }  // extern "C"

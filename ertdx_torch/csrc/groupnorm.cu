@@ -1,4 +1,5 @@
-// Fused GroupNorm + SiLU, forward and backward (sm_90a, fp32 FMA).
+// Fused GroupNorm + SiLU, forward and backward (sm_90a, fp32 FMA), on
+// float32 or bf16 x.
 //
 // Replaces the TPU kernels of ertdx/ops/groupnorm.py:
 //   * gn_fwd_staged_kernel / gn_fwd_stream_kernel   <- _gn_silu_kernel
@@ -38,6 +39,13 @@
 //   * The TPU's one-hot group matmuls exist because Mosaic cannot reshape
 //     (L, C) to (L, G, C/G); a block here simply indexes its group.
 //
+// bf16: the same kernels on a bf16 x (and upstream gradient) through
+// the _bf16 entry points, as the TPU kernels take any input dtype: each
+// value converts to float on load and rounds once on store, y and dx are
+// bf16, the statistics and dgamma, dbeta float32 (gn_common.cuh). The
+// group then stages in half the bytes: at the condition's length (2,
+// 4693, 128) the forward stages (150 KB) where the float32 one streams.
+//
 // Plain C interface for ctypes: each entry point launches on the given
 // stream and returns cudaGetLastError(), or cudaErrorInvalidValue for a
 // shape or a plan the kernels do not take.
@@ -47,19 +55,20 @@
 namespace {
 
 // silu(GroupNorm(x)) of one (row, group), x read once.
-template <int W>
+template <int W, typename TX>
 __global__ void __launch_bounds__(GN_MAX_THREADS)
-    gn_fwd_staged_kernel(const float* __restrict__ x,
+    gn_fwd_staged_kernel(const TX* __restrict__ x,
                          const float* __restrict__ gamma,
                          const float* __restrict__ beta,
-                         float* __restrict__ out, int L, int C, int G,
+                         TX* __restrict__ out, int L, int C, int G,
                          float eps) {
-  extern __shared__ __align__(16) float smem[];
+  extern __shared__ __align__(16) unsigned char gn_smem[];
+  TX* tile = reinterpret_cast<TX*>(gn_smem);
   const GroupWalk w = group_walk<W>(L, C, G);
-  float* red = smem + (size_t)L * (C / G);
-  stage_group<W>(smem, x, w);
+  float* red = gn_red<TX, TX>(gn_smem, 1, L, C / G);
+  stage_group<W>(tile, x, w);
   cp_async_wait_all();
-  const Moments m = tile_stats<W>(smem, x, w, eps, red);
+  const Moments m = tile_stats<W>(tile, x, w, eps, red);
   float sc[W], sh[W];   // y = (x - mean) sc + sh
 #pragma unroll
   for (int k = 0; k < W; ++k) {
@@ -69,7 +78,7 @@ __global__ void __launch_bounds__(GN_MAX_THREADS)
 #pragma unroll 4
   for (int l = w.l0; l < w.L; l += w.R) {
     float v[W];
-    load_w<W>(v, smem + (size_t)w.tile(l) * W);
+    load_w<W>(v, tile + (size_t)w.tile(l) * W);
 #pragma unroll
     for (int k = 0; k < W; ++k) {
       const float y = fmaf(m.centred(v[k]), sc[k], sh[k]);
@@ -80,11 +89,12 @@ __global__ void __launch_bounds__(GN_MAX_THREADS)
 }
 
 // The same by three sweeps over x in device memory.
+template <typename TX>
 __global__ void __launch_bounds__(GN_THREADS)
-    gn_fwd_stream_kernel(const float* __restrict__ x,
+    gn_fwd_stream_kernel(const TX* __restrict__ x,
                          const float* __restrict__ gamma,
                          const float* __restrict__ beta,
-                         float* __restrict__ out, int L, int C, int G,
+                         TX* __restrict__ out, int L, int C, int G,
                          float eps) {
   __shared__ float red[GN_STREAM_RED];
   const int b = blockIdx.x / G, g = blockIdx.x % G;
@@ -98,10 +108,43 @@ __global__ void __launch_bounds__(GN_THREADS)
 #pragma unroll 4
     for (int l = q.r; l < L; l += q.rows) {
       const size_t i = base + (size_t)l * C + c;
-      const float y = fmaf(m.centred(x[i]), sc, sh);
-      out[i] = y * gn_sigmoid(y);
+      const float y = fmaf(m.centred(to_f(x[i])), sc, sh);
+      out[i] = from_f<TX>(y * gn_sigmoid(y));
     }
   }
+}
+
+template <typename TX>
+int gn_silu_fwd(const TX* x, const float* gamma, const float* beta, TX* out,
+                int B, int L, int C, int G, float eps, GnPlan p,
+                void* stream) {
+  if (!gn_shape_ok(B, L, C, G) || !gn_plan_ok<TX>(p, 1, L, C / G))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (!p.staged) {
+    gn_fwd_stream_kernel<TX><<<B * G, GN_THREADS, 0, s>>>(x, gamma, beta,
+                                                          out, L, C, G, eps);
+    return (int)cudaGetLastError();
+  }
+  return (int)gn_by_width<TX>(C / G, [&](auto wc) {
+    constexpr int W = decltype(wc)::value;
+    cudaError_t err = set_smem(gn_fwd_staged_kernel<W, TX>, p.smem);
+    if (err != cudaSuccess) return err;
+    gn_fwd_staged_kernel<W, TX><<<B * G, p.threads, p.smem, s>>>(
+        x, gamma, beta, out, L, C, G, eps);
+    return cudaGetLastError();
+  });
+}
+
+template <typename TX>
+int gn_silu_bwd_entry(const TX* x, const float* gamma, const float* beta,
+                      const TX* gy, TX* dx, float* part, float* dgb, int B,
+                      int L, int C, int G, float eps, GnPlan p,
+                      void* stream) {
+  if (!gn_shape_ok(B, L, C, G)) return (int)cudaErrorInvalidValue;
+  return (int)gn_silu_bwd<TX, TX>(x, gamma, beta, gy, nullptr, dx, part,
+                                  dgb, B, L, C, G, eps, p,
+                                  (cudaStream_t)stream);
 }
 
 }  // namespace
@@ -113,26 +156,8 @@ extern "C" {
 int ertdx_gn_silu_fwd(const float* x, const float* gamma, const float* beta,
                       float* out, int B, int L, int C, int G, float eps,
                       int staged, int threads, int smem, void* stream) {
-  const GnPlan p{staged, threads, smem};
-  if (!gn_shape_ok(B, L, C, G) || !gn_plan_ok(p, 1, L, C / G))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err;
-  if (!p.staged) {
-    gn_fwd_stream_kernel<<<B * G, GN_THREADS, 0, s>>>(x, gamma, beta, out,
-                                                      L, C, G, eps);
-  } else if (gn_width(C / G) == 4) {
-    if ((err = set_smem(gn_fwd_staged_kernel<4>, p.smem)) != cudaSuccess)
-      return (int)err;
-    gn_fwd_staged_kernel<4><<<B * G, p.threads, p.smem, s>>>(
-        x, gamma, beta, out, L, C, G, eps);
-  } else {
-    if ((err = set_smem(gn_fwd_staged_kernel<1>, p.smem)) != cudaSuccess)
-      return (int)err;
-    gn_fwd_staged_kernel<1><<<B * G, p.threads, p.smem, s>>>(
-        x, gamma, beta, out, L, C, G, eps);
-  }
-  return (int)cudaGetLastError();
+  return gn_silu_fwd(x, gamma, beta, out, B, L, C, G, eps,
+                     GnPlan{staged, threads, smem}, stream);
 }
 
 // x, gy (B, L, C), gamma, beta (C) -> dx (B, L, C) and dgb (2 C): dgamma
@@ -142,10 +167,26 @@ int ertdx_gn_silu_bwd(const float* x, const float* gamma, const float* beta,
                       const float* gy, float* dx, float* part, float* dgb,
                       int B, int L, int C, int G, float eps, int staged,
                       int threads, int smem, void* stream) {
-  if (!gn_shape_ok(B, L, C, G)) return (int)cudaErrorInvalidValue;
-  return (int)gn_silu_bwd(x, gamma, beta, gy, nullptr, dx, part, dgb, B, L,
-                          C, G, eps, GnPlan{staged, threads, smem},
-                          (cudaStream_t)stream);
+  return gn_silu_bwd_entry(x, gamma, beta, gy, dx, part, dgb, B, L, C, G,
+                           eps, GnPlan{staged, threads, smem}, stream);
+}
+
+// The same on bf16 x, out, gy and dx (gamma, beta, dgb and part float32).
+int ertdx_gn_silu_fwd_bf16(const bf16* x, const float* gamma,
+                           const float* beta, bf16* out, int B, int L, int C,
+                           int G, float eps, int staged, int threads,
+                           int smem, void* stream) {
+  return gn_silu_fwd(x, gamma, beta, out, B, L, C, G, eps,
+                     GnPlan{staged, threads, smem}, stream);
+}
+
+int ertdx_gn_silu_bwd_bf16(const bf16* x, const float* gamma,
+                           const float* beta, const bf16* gy, bf16* dx,
+                           float* part, float* dgb, int B, int L, int C,
+                           int G, float eps, int staged, int threads,
+                           int smem, void* stream) {
+  return gn_silu_bwd_entry(x, gamma, beta, gy, dx, part, dgb, B, L, C, G,
+                           eps, GnPlan{staged, threads, smem}, stream);
 }
 
 }  // extern "C"

@@ -6,12 +6,13 @@ under `pallas_gn`, `pallas_conv` and `pallas_conv_min_width`, and its
 slab or flash attention kernels under `use_pallas` with `attn_slab` or
 `attn_flash_min_logits`, in float32 or bfloat16 (`dtype`: the compute
 dtype, parameters float32, flax's rules; models/condunet.py). A bfloat16
-model runs the encoder's slab attention on its bf16 kernels and samples
-on the float32 fused core (models/mega.py casts at entry); the other
-kernels take float32 only, so bfloat16 together with `pallas_gn`,
-`pallas_conv`, `pallas_conv_min_width`, `ensemble_pallas` or
-`attn_flash_min_logits` raises (their bf16 variants are ROADMAP.md queue
-2). The other models of the JAX package (`refmlp`, configs[0];
+model runs the encoder's slab attention, GroupNorm+SiLU and fused
+GN+SiLU+conv3 on their bf16 kernels, its flash attention on the float32
+kernels through upcast copies (as JAX's flash kernels compute in
+float32), and samples on the float32 fused core (models/mega.py casts at
+entry). The ensemble attention kernels take float32 only, so bfloat16
+together with `ensemble_pallas` raises (their bf16 variant is ROADMAP.md
+queue 2 A.3). The other models of the JAX package (`refmlp`, configs[0];
 `uncondmlp`, configs[1]) are ROADMAP.md queue 1 item 3 and raise here.
 """
 from __future__ import annotations
@@ -25,11 +26,9 @@ from ..configs import ModelConfig
 from .common import compute_dtype
 from .condunet import CondUNet, init_params
 
-# the knobs whose kernels have no bf16 variant yet (ROADMAP.md queue 2,
-# "bf16 variants"), with the value that leaves them off
-_FP32_ONLY = {"pallas_gn": False, "pallas_conv": False,
-              "pallas_conv_min_width": 0, "ensemble_pallas": False,
-              "attn_flash_min_logits": 0}
+# the knobs whose kernels have no bf16 variant yet (ROADMAP.md queue 2
+# A, "bf16 variants"), with the value that leaves them off
+_FP32_ONLY = {"ensemble_pallas": False}
 
 
 def build_model(cfg: ModelConfig, device=None,
@@ -50,7 +49,7 @@ def build_model(cfg: ModelConfig, device=None,
             raise NotImplementedError(
                 f"dtype 'bfloat16' with {', '.join(on)}: those kernels "
                 "take float32 only; their bf16 variants are not ported yet "
-                "(ROADMAP.md queue 2: bf16 variants)")
+                "(ROADMAP.md queue 2 A.3: bf16 variants)")
     model = CondUNet(param_dim=cfg.param_dim, hidden_dim=cfg.hidden_dim,
                      cond_channels=cfg.cond_channels,
                      base_width=cfg.base_width, depth=cfg.depth,

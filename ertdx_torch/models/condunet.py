@@ -103,8 +103,9 @@ def attention(q, k, v):
 
 
 class GNSiLU(nn.Module):
-    """GroupNorm (statistics over L and the channels of a group) + SiLU.
-    With `use_pallas` a CUDA input goes through the fused kernels of
+    """GroupNorm (statistics over L and the channels of a group) + SiLU,
+    in float32 and returned in x's dtype (float32 or bf16). With
+    `use_pallas` a CUDA input goes through the fused kernels of
     ops/groupnorm.py (ertdx/models/condunet.py:47-60); the plain version
     is the CPU path and the path with use_pallas off."""
 
@@ -125,8 +126,10 @@ class GNSiLU(nn.Module):
 class FusedGNConv(nn.Module):
     """GroupNorm + SiLU + k=3 "SAME" conv as one op, ops/conv.py's fused
     kernels on a CUDA input with `use_pallas` (ertdx/models/condunet.py:
-    62-82). Its parameters keep the flax names and layouts: gn_scale,
-    gn_bias (C,), kernel (3, C, Cout), bias (Cout,)."""
+    62-82). As in flax it has no dtype of its own: its output takes x's
+    dtype (a bf16 model's encoder runs it in bf16). Its parameters keep
+    the flax names and layouts: gn_scale, gn_bias (C,), kernel (3, C,
+    Cout), bias (Cout,)."""
 
     def __init__(self, cin: int, features: int, num_groups: int = 8,
                  use_pallas: bool = True):

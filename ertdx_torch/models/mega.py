@@ -35,8 +35,10 @@ from .common import get_timestep_embedding
 
 # Engage the fused-core path only above this TOTAL chain count
 # (n_realizations x condition batch). The value is the crossover the JAX
-# package measured on a TPU v5e (ertdx/models/mega.py:36-40); it has not
-# been measured on the H100 yet (ROADMAP.md).
+# package measured on a TPU v5e (ertdx/models/mega.py:36-40). On an H100
+# `python3 tools/ensemble_ab.py --crossover` measured the fused core
+# ahead of the per-block path already at 1024 chains (PERF.md §5); the
+# value is kept until that is weighed (ROADMAP.md queue 2 D).
 MIN_TOTAL_CHAINS = 4096
 
 

@@ -47,6 +47,11 @@ SIGNATURES = {
     "ertdx_gn_silu_bwd": [_P] * 7 + [_I] * 4 + [_F] + [_I] * 3 + [_P],
     "ertdx_gn_conv3_fwd": [_P] * 7 + [_I] * 5 + [_F] + [_I] * 3 + [_P],
     "ertdx_gn_conv3_bwd": [_P] * 12 + [_I] * 6 + [_F] + [_I] * 6 + [_P],
+    "ertdx_gn_silu_fwd_bf16": [_P] * 4 + [_I] * 4 + [_F] + [_I] * 3 + [_P],
+    "ertdx_gn_silu_bwd_bf16": [_P] * 7 + [_I] * 4 + [_F] + [_I] * 3 + [_P],
+    "ertdx_gn_conv3_fwd_bf16": [_P] * 7 + [_I] * 5 + [_F] + [_I] * 3 + [_P],
+    "ertdx_gn_conv3_bwd_bf16":
+        [_P] * 12 + [_I] * 6 + [_F] + [_I] * 6 + [_P],
     "ertdx_core_stack": [_P] * 22 + [_I] * 5 + [_P],
     "ertdx_core_block": [_P] * 15 + [_I] * 4 + [_P],
     "ertdx_slab_fwd": [_P] * 2 + [_I] * 4 + [_P],

@@ -34,6 +34,13 @@ skipped keys' dK and dV rows are 0. They stage their operands with
 16-byte cp.async: the kernel wrappers refuse one that does not start on
 a 16-byte boundary, and `flash_attention` copies one
 (`_build.contiguous16`).
+
+Operands in another dtype (a bf16 model's encoder) run the same float32
+kernels on upcast copies, as JAX's kernels load bf16 and compute in
+float32 at HIGHEST (ertdx/ops/attention.py:61, 69-80, 164-168): the
+output is rounded to q's dtype, the backward forms delta from that
+rounded output (as JAX forms it from `out` in q's dtype, :231-232), and
+dq, dk, dv come back in the inputs' dtypes (:257, 288-289).
 """
 from __future__ import annotations
 
@@ -261,30 +268,37 @@ def flash_attention_bwd(q, k, v, kv_mask, out, lse, do):
 
 
 class _FlashAttention(torch.autograd.Function):
-    """Forward and backward on the CUDA kernels."""
+    """Forward and backward on the CUDA kernels. Operands in another
+    dtype than float32 go in as float32 copies (`.float()` of a float32
+    tensor is the tensor itself); the output is rounded to q's dtype and
+    saved so, and the gradients come back in the inputs' dtypes."""
 
     @staticmethod
     def forward(ctx, q, k, v, kv_mask):
-        out, lse = flash_attention_fwd(q, k, v, kv_mask)
+        out, lse = flash_attention_fwd(q.float(), k.float(), v.float(),
+                                       kv_mask)
+        out = out.to(q.dtype)
         ctx.save_for_backward(q, k, v, kv_mask, out, lse)
         return out
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, kv_mask, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, kv_mask, out, lse,
-                                         _build.contiguous16(do))
-        return dq, dk, dv, None
+        dq, dk, dv = flash_attention_bwd(
+            q.float(), k.float(), v.float(), kv_mask, out.float(), lse,
+            _build.contiguous16(do.float()))
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     kv_mask: Optional[torch.Tensor] = None,
                     use_pallas: bool = True) -> torch.Tensor:
     """(B, H, Lq, Dh) attention with a (B, Lk) key mask, with a gradient.
-    The CUDA kernels on CUDA tensors `aligned` takes when `use_pallas`;
-    the plain version under autograd elsewhere, with a warning (once per
-    shape) where CUDA tensors with `use_pallas` have shapes the kernels
-    do not take."""
+    The CUDA kernels on CUDA tensors `aligned` takes when `use_pallas`
+    (float32 operands directly, others through upcast copies, the output
+    in q's dtype); the plain version under autograd elsewhere, with a
+    warning (once per shape) where CUDA tensors with `use_pallas` have
+    shapes the kernels do not take."""
     if use_pallas and q.device.type == "cuda":
         if aligned(q, k):
             mask = _mask_for(kv_mask, q.shape[0], k.shape[2], q.device)

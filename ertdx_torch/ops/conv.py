@@ -19,7 +19,21 @@ wrappers raise on anything else, and the autograd path copies a
 misaligned operand); on CPU tensors both are the plain version under
 autograd. A failed build or launch raises: nothing falls back. Channels
 not divisible by the groups raise ValueError on every device, as in JAX
-(:237-243). `launches` counts kernel launches only.
+(:237-243). `launches` counts the float32 kernels' launches and
+`launches_bf16` the bfloat16 kernels', and nothing else.
+
+The kernels dispatch on x's dtype. A bfloat16 x (a bf16 model's
+encoder) runs the bf16 kernels of csrc/gn_conv.cu, the TPU kernel's
+arithmetic (its taps at DEFAULT precision, one bf16 MXU pass a product,
+ertdx/ops/conv.py:15-17): float32 statistics and GN+SiLU, h rounded to
+bf16, the weight rounded to bf16 once a call (here, before the launch),
+one bf16 MMA a product with float32 accumulation, the bias added in
+float32 and y rounded once to bf16; the backward's dh stays float32
+(:166-171) and dx comes out in bf16; dgamma, dbeta, dW and db are float32.
+They take C and Cout multiples of 8. The plain version follows JAX's
+reference dtype rule on any input (h in x's dtype, the weight cast to
+h's dtype and the bias to the product's, :42-46): on float32 it is the
+float32 function.
 """
 from __future__ import annotations
 
@@ -30,25 +44,32 @@ from . import _build
 from .groupnorm import check_groups, launch_plan, reference_groupnorm_silu
 
 launches = {"gn_silu_conv3_fwd": 0, "gn_silu_conv3_bwd": 0}
+launches_bf16 = {"gn_silu_conv3_fwd_bf16": 0, "gn_silu_conv3_bwd_bf16": 0}
 MAX_BATCH = 65535          # the GEMM grid's z dimension
 
 
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    for counts in (launches, launches_bf16):
+        for name in counts:
+            counts[name] = 0
 
 
 def reference_gn_silu_conv3(x, gamma, beta, w, bias, num_groups: int,
                             eps: float = 1e-5) -> torch.Tensor:
-    """The plain version (ertdx/ops/conv.py:39-46): GN+SiLU, then a k=3
-    stride-1 "SAME" conv (one zero row each side) and the bias."""
+    """The plain version (ertdx/ops/conv.py:39-46): GN+SiLU in x's dtype,
+    then a k=3 stride-1 "SAME" conv (one zero row each side) with the
+    weight cast to h's dtype, and the bias cast to the product's dtype,
+    as JAX's reference casts them."""
     h = reference_groupnorm_silu(x, gamma, beta, num_groups, eps)
     # contiguous operands, padded as models/condunet.Conv1dSame pads: with
     # the permuted weight view cuDNN picked FFT algorithms that took
     # 200 ms for one backward at (256, 147, 256) on an H100
-    y = F.conv1d(F.pad(h.transpose(1, 2), (1, 1)),
-                 w.permute(2, 1, 0).contiguous(), bias)
-    return y.transpose(1, 2)
+    hp = F.pad(h.transpose(1, 2), (1, 1))
+    wt = w.permute(2, 1, 0).contiguous().to(h.dtype)
+    if bias.dtype == h.dtype:    # the float32 function: bias in the conv
+        return F.conv1d(hp, wt, bias).transpose(1, 2)
+    y = F.conv1d(hp, wt)
+    return (y + bias.to(y.dtype)[:, None]).transpose(1, 2)
 
 
 def reference_gn_silu_conv3_backward(x, gamma, beta, w, bias, g,
@@ -65,13 +86,19 @@ def _checked(x, gamma, beta, w, num_groups, bias=None, g=None):
     if x.dim() != 3 or w.dim() != 3:
         raise ValueError(f"x (B, L, C) and w (3, C, Cout) expected, got "
                          f"{tuple(x.shape)} and {tuple(w.shape)}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"x: the kernels take float32 or bfloat16, got "
+                        f"{str(x.dtype).replace('torch.', '')}")
     b, l, c = x.shape
     cout = w.shape[-1]
     check_groups(c, num_groups)
-    if cout % 4 or b > MAX_BATCH:
-        raise ValueError(f"the fused conv kernels take Cout a multiple of 4 "
-                         f"and B <= {MAX_BATCH}, got Cout={cout}, B={b}")
-    _build.check_cuda("x", x, (b, l, c))
+    mult = 4 if x.dtype == torch.float32 else 8
+    if cout % mult or c % mult or b > MAX_BATCH:
+        raise ValueError(f"the fused conv kernels take C and Cout each a "
+                         f"multiple of {mult} on "
+                         f"{str(x.dtype).replace('torch.', '')} and B <= "
+                         f"{MAX_BATCH}, got C={c}, Cout={cout}, B={b}")
+    _build.check_cuda("x", x, (b, l, c), x.dtype)
     _build.check_cuda("gamma", gamma, (c,))
     _build.check_cuda("beta", beta, (c,))
     _build.check_cuda("w", w, (3, c, cout))
@@ -80,12 +107,30 @@ def _checked(x, gamma, beta, w, num_groups, bias=None, g=None):
         _build.check_cuda("bias", bias, (cout,))
         staged["bias"] = bias
     if g is not None:
-        _build.check_cuda("g", g, (b, l, cout))
+        _build.check_cuda("g", g, (b, l, cout), x.dtype)
         staged["g"] = g
     if any(t.device != x.device for t in (gamma, *staged.values())):
         raise ValueError("all tensors must lie on one CUDA device")
     _build.check_aligned16(**staged)
     return b, l, c, cout
+
+
+def _entry(x, name: str):
+    """The C entry point, the launch-count dict and the kernel's name for
+    x's dtype."""
+    bf16 = x.dtype == torch.bfloat16
+    suffix = "_bf16" if bf16 else ""
+    lib = _build.load().lib
+    return getattr(lib, f"ertdx_gn_conv3_{name}{suffix}"), \
+        (launches_bf16 if bf16 else launches), \
+        f"gn_silu_conv3_{name}{suffix}"
+
+
+def _kernel_weight(w, x):
+    """w as the kernels read it: float32 for a float32 x; for a bf16 x
+    rounded to bf16 once (to nearest even), as the TPU's one-pass MXU
+    product rounds its operand."""
+    return w if x.dtype == torch.float32 else w.to(torch.bfloat16)
 
 
 def stats_floats(b: int, num_groups: int, c: int) -> int:
@@ -97,25 +142,25 @@ def stats_floats(b: int, num_groups: int, c: int) -> int:
 
 def gn_silu_conv3_fwd(x, gamma, beta, w, bias, num_groups: int,
                       eps: float = 1e-5) -> torch.Tensor:
-    """The forward kernels: (B, L, C) -> (B, L, Cout). Three launches on
-    the current stream (statistics, their per-channel table, then the
-    fused GEMM), counted as one."""
+    """The forward kernels: (B, L, C) -> (B, L, Cout) in x's dtype
+    (float32 or bfloat16). Three launches on the current stream
+    (statistics, their per-channel table, then the fused GEMM), counted
+    as one."""
     b, l, c, cout = _checked(x, gamma, beta, w, num_groups, bias=bias)
-    out = torch.empty(b, l, cout, device=x.device, dtype=torch.float32)
+    out = torch.empty(b, l, cout, device=x.device, dtype=x.dtype)
     stats = torch.empty(stats_floats(b, num_groups, c), device=x.device,
                         dtype=torch.float32)
-    lib = _build.load().lib
+    wk = _kernel_weight(w, x)
+    entry, counts, name = _entry(x, "fwd")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.ertdx_gn_conv3_fwd(x.data_ptr(), gamma.data_ptr(),
-                                    beta.data_ptr(), w.data_ptr(),
-                                    bias.data_ptr(), out.data_ptr(),
-                                    stats.data_ptr(), b, l, c, cout,
-                                    num_groups, eps,
-                                    *launch_plan(l, c, num_groups,
-                                                 "stats").args(), stream)
-    _build.raise_on(rc, "gn_silu_conv3_fwd")
-    launches["gn_silu_conv3_fwd"] += 1
+        rc = entry(x.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+                   wk.data_ptr(), bias.data_ptr(), out.data_ptr(),
+                   stats.data_ptr(), b, l, c, cout, num_groups, eps,
+                   *launch_plan(l, c, num_groups, "stats",
+                                x.element_size()).args(), stream)
+    _build.raise_on(rc, name)
+    counts[name] += 1
     return out
 
 
@@ -131,9 +176,10 @@ def dw_splits(b: int, c: int, cout: int, sms: int) -> int:
 def gn_silu_conv3_bwd(x, gamma, beta, w, g, num_groups: int,
                       eps: float = 1e-5):
     """The backward kernels: (dx, dgamma, dbeta, dW, db) for upstream
-    gradient g (B, L, Cout). Seven launches on the current stream
-    (statistics and their per-channel table, dW partials, their sum, dh,
-    the GN backward and its sum over B), counted as one backward."""
+    gradient g (B, L, Cout) in x's dtype; dx in x's dtype, the rest
+    float32. Seven launches on the current stream (statistics and their
+    per-channel table, dW partials, their sum, dh, the GN backward and
+    its sum over B), counted as one backward."""
     b, l, c, cout = _checked(x, gamma, beta, w, num_groups, g=g)
     dev = x.device
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -143,21 +189,23 @@ def gn_silu_conv3_bwd(x, gamma, beta, w, g, num_groups: int,
     def empty(*shape):
         return torch.empty(*shape, device=dev, dtype=torch.float32)
 
-    dx, dgb, dwb = empty(b, l, c), empty(2, c), empty(nw)
+    dx, dgb, dwb = torch.empty_like(x), empty(2, c), empty(nw)
     stats, dh = empty(stats_floats(b, num_groups, c)), empty(b, l, c)
     part_w, part_gn = empty(splits, nw), empty(b, 2, c)
-    lib = _build.load().lib
+    wk = _kernel_weight(w, x)
+    size = x.element_size()
+    entry, counts, name = _entry(x, "bwd")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.ertdx_gn_conv3_bwd(
-            x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w.data_ptr(),
+        rc = entry(
+            x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), wk.data_ptr(),
             g.data_ptr(), dx.data_ptr(), dgb.data_ptr(), dwb.data_ptr(),
             stats.data_ptr(), dh.data_ptr(), part_w.data_ptr(),
             part_gn.data_ptr(), b, l, c, cout, num_groups, splits, eps,
-            *launch_plan(l, c, num_groups, "stats").args(),
-            *launch_plan(l, c, num_groups, "bwd").args(), stream)
-    _build.raise_on(rc, "gn_silu_conv3_bwd")
-    launches["gn_silu_conv3_bwd"] += 1
+            *launch_plan(l, c, num_groups, "stats", size).args(),
+            *launch_plan(l, c, num_groups, "bwd", size, 4).args(), stream)
+    _build.raise_on(rc, name)
+    counts[name] += 1
     return (dx, dgb[0], dgb[1], dwb[:3 * c * cout].view(3, c, cout),
             dwb[3 * c * cout:])
 
@@ -182,8 +230,9 @@ class _GNSiLUConv3(torch.autograd.Function):
 def gn_silu_conv3(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                   w: torch.Tensor, bias: torch.Tensor, num_groups: int,
                   eps: float = 1e-5) -> torch.Tensor:
-    """conv3_SAME(silu(GN(x)), w) + bias with a gradient: the CUDA kernels
-    on a CUDA tensor, the plain version on a CPU tensor."""
+    """conv3_SAME(silu(GN(x)), w) + bias with a gradient, in x's dtype:
+    the CUDA kernels on a CUDA tensor (float32 or bfloat16), the plain
+    version on a CPU tensor."""
     check_groups(x.shape[-1], num_groups)
     if x.device.type == "cpu":
         return reference_gn_silu_conv3(x, gamma, beta, w, bias, num_groups,

@@ -137,15 +137,15 @@ def test_build_model_configs3_and_refusals():
                for b in g.blocks)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(ModelConfig(name="refmlp"), device="cpu")
-    # a bf16 model builds with float32 params; bf16 with a kernel that
-    # takes float32 only is refused
-    bf = build_model(ModelConfig(name="condunet", dtype="bfloat16"),
-                     device="cpu")
+    # a bf16 model builds with float32 params, with the GN kernels too;
+    # bf16 with a kernel that takes float32 only is refused
+    bf = build_model(ModelConfig(name="condunet", dtype="bfloat16",
+                                 pallas_gn=True), device="cpu")
     assert bf.compute_dtype == torch.bfloat16
     assert {p.dtype for p in bf.parameters()} == {torch.float32}
-    with pytest.raises(NotImplementedError, match="pallas_gn"):
+    with pytest.raises(NotImplementedError, match="ensemble_pallas"):
         build_model(ModelConfig(name="condunet", dtype="bfloat16",
-                                pallas_gn=True), device="cpu")
+                                ensemble_pallas=True), device="cpu")
 
 
 def test_build_model_needs_a_card_or_cpu(monkeypatch):

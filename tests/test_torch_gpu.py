@@ -914,3 +914,198 @@ def test_bf16_model_trains_on_the_slab_bf16_kernels(cuda):
                                 "slab_attention_bwd_bf16": 0}
     assert all(math.isfinite(v) for v in losses)
     assert abs(losses[0] - losses[1]) <= 1e-2 * max(1.0, abs(losses[1]))
+
+
+# bf16 GroupNorm+SiLU: 16-byte units of 8 values (cg 16, 32), one-value
+# units (cg = 9), the stem, the condition's length (the forward staged
+# in bf16, the backward streamed), and a large mean
+GN_BF16_CASES = [(2, 37, 128, 0.5), (3, 61, 72, 0.5), (4, 587, 128, 0.5),
+                 (2, 294, 256, 0.5), (2, 4693, 128, 0.5),
+                 (4, 587, 128, 1000.0)]
+
+
+@pytest.mark.parametrize("b,l,c,shift", GN_BF16_CASES)
+def test_groupnorm_bf16_kernels_match_plain(cuda, b, l, c, shift):
+    from ertdx_torch.ops import groupnorm as gn
+
+    g = torch.Generator(device=cuda).manual_seed(b * l + c + 16)
+    scale = 1.0 if shift > 100 else 2.0
+    x = (scale * torch.randn(b, l, c, generator=g, device=cuda)
+         + shift).bfloat16()
+    gamma = 1 + 0.3 * torch.randn(c, generator=g, device=cuda)
+    beta = 0.3 * torch.randn(c, generator=g, device=cuda)
+    dy = torch.randn(b, l, c, generator=g, device=cuda).bfloat16()
+    gn.reset_launches()
+    leaves = [t.clone().requires_grad_(True) for t in (x, gamma, beta)]
+    out = gn.groupnorm_silu(*leaves, 8)
+    out.backward(dy)
+    torch.cuda.synchronize()
+    assert gn.launches == {"groupnorm_silu_fwd": 0, "groupnorm_silu_bwd": 0}
+    assert gn.launches_bf16 == {"groupnorm_silu_fwd_bf16": 1,
+                                "groupnorm_silu_bwd_bf16": 1}
+    assert out.dtype == leaves[0].grad.dtype == torch.bfloat16
+    assert leaves[1].grad.dtype == leaves[2].grad.dtype == torch.float32
+    _bf16_gate(out.detach(), gn.reference_groupnorm_silu(
+        x.float(), gamma, beta, 8), gn.reference_groupnorm_silu(
+        x, gamma, beta, 8))
+    want = gn.reference_groupnorm_silu_backward(x.float(), gamma, beta,
+                                                dy.float(), 8)
+    plain = gn.reference_groupnorm_silu_backward(x, gamma, beta, dy, 8)
+    for leaf, w, p in zip(leaves, want, plain):
+        _bf16_gate(leaf.grad, w, p)
+    assert torch.equal(gn.groupnorm_silu_fwd(x, gamma, beta, 8),
+                       out.detach())
+    again = gn.groupnorm_silu_bwd(x, gamma, beta, dy, 8)
+    assert all(torch.equal(a, leaf.grad) for a, leaf in zip(again, leaves))
+
+
+# bf16 fused conv: the encoder's widths, a tile over several batch rows,
+# one row past a tile, K not a multiple of the 32-channel stage (C = 72,
+# cg = 9: one-value GN units), the GN backward streamed
+CONV_BF16_CASES = [(2, 37, 16, 16), (3, 61, 64, 72), (4, 147, 256, 256),
+                   (2, 294, 128, 256), (5, 1, 16, 16), (2, 129, 64, 64),
+                   (3, 20, 72, 16), (1, 1900, 128, 64)]
+
+
+@pytest.mark.parametrize("b,l,c,cout", CONV_BF16_CASES)
+def test_conv_bf16_kernels_match_plain(cuda, b, l, c, cout):
+    from ertdx_torch.ops import conv as cv
+
+    g = torch.Generator(device=cuda).manual_seed(b * l + c + cout + 16)
+    x = torch.randn(b, l, c, generator=g, device=cuda).bfloat16()
+    gamma = 1 + 0.3 * torch.randn(c, generator=g, device=cuda)
+    beta = 0.3 * torch.randn(c, generator=g, device=cuda)
+    w = torch.randn(3, c, cout, generator=g, device=cuda) / math.sqrt(3 * c)
+    bias = torch.randn(cout, generator=g, device=cuda)
+    dy = torch.randn(b, l, cout, generator=g, device=cuda).bfloat16()
+    cv.reset_launches()
+    leaves = [t.clone().requires_grad_(True)
+              for t in (x, gamma, beta, w, bias)]
+    out = cv.gn_silu_conv3(*leaves, 8)
+    out.backward(dy)
+    torch.cuda.synchronize()
+    assert cv.launches == {"gn_silu_conv3_fwd": 0, "gn_silu_conv3_bwd": 0}
+    assert cv.launches_bf16 == {"gn_silu_conv3_fwd_bf16": 1,
+                                "gn_silu_conv3_bwd_bf16": 1}
+    assert out.dtype == leaves[0].grad.dtype == torch.bfloat16
+    assert all(leaf.grad.dtype == torch.float32 for leaf in leaves[1:])
+    ins = (x, gamma, beta, w, bias)
+    _bf16_gate(out.detach(), cv.reference_gn_silu_conv3(
+        x.float(), *ins[1:], 8), cv.reference_gn_silu_conv3(*ins, 8))
+    want = cv.reference_gn_silu_conv3_backward(x.float(), *ins[1:],
+                                               dy.float(), 8)
+    plain = cv.reference_gn_silu_conv3_backward(*ins, dy, 8)
+    for leaf, wt, p in zip(leaves, want, plain):
+        assert leaf.grad.shape == wt.shape
+        _bf16_gate(leaf.grad, wt, p)
+    assert torch.equal(cv.gn_silu_conv3_fwd(*ins, 8), out.detach())
+    again = cv.gn_silu_conv3_bwd(x, gamma, beta, w, dy, 8)
+    assert all(torch.equal(a, leaf.grad) for a, leaf in zip(again, leaves))
+
+
+def test_gn_conv_bf16_kernels_refuse_what_they_do_not_take(cuda):
+    from ertdx_torch.ops import conv as cv
+    from ertdx_torch.ops import groupnorm as gn
+
+    x = torch.randn(2, 9, 16, device=cuda).bfloat16()
+    one = torch.ones(16, device=cuda)
+    with pytest.raises(TypeError, match="bfloat16"):
+        gn.groupnorm_silu_bwd(x, one, one, torch.ones(2, 9, 16,
+                                                      device=cuda), 8)
+    with pytest.raises(TypeError, match="float32"):
+        gn.groupnorm_silu_fwd(x, one.bfloat16(), one, 8)
+    w = torch.randn(3, 16, 12, device=cuda)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        cv.gn_silu_conv3_fwd(x, one, one, w, torch.zeros(12, device=cuda),
+                             8)
+
+
+@pytest.mark.parametrize("b,h,l,d,valid", [(4, 4, 256, 64, 147),
+                                           (2, 2, 128, 128, 100)])
+def test_flash_attention_on_bf16_operands(cuda, b, h, l, d, valid):
+    """bf16 q, k, v run the float32 kernels on upcast copies (JAX's flash
+    kernels compute in float32 from any input dtype): one forward, dQ and
+    dK/dV launch; the output rounded to bf16 once from the float32 plain
+    version's value; delta from the rounded output; the gradients in
+    bf16."""
+    from ertdx_torch.ops import attention as at
+
+    g = torch.Generator(device=cuda).manual_seed(b + l + d)
+    q, k, v = (torch.randn(b, h, l, d, generator=g, device=cuda).bfloat16()
+               for _ in range(3))
+    mask = (torch.arange(l, device=cuda) < valid).bfloat16().expand(b, l)
+    do = torch.randn(b, h, l, d, generator=g, device=cuda).bfloat16()
+    at.reset_launches()
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = at.flash_attention(*leaves, mask)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert at.launches == {"flash_attention_fwd": 1,
+                           "flash_attention_bwd_dq": 1,
+                           "flash_attention_bwd_dkv": 1}
+    assert out.dtype == torch.bfloat16
+    assert all(leaf.grad.dtype == torch.bfloat16 for leaf in leaves)
+    q32, k32, v32, m32 = (t.float() for t in (q, k, v, mask))
+    want = at.reference_attention(q32, k32, v32, m32)
+    scale = float(want.abs().max())
+    assert float((out.detach().float() - want).abs().max()) <= \
+        2.0 ** (math.floor(math.log2(scale)) - 8) + 1e-4 * scale
+    _, lse = at.reference_flash_forward(q32, k32, v32, m32)
+    dwant = at.reference_flash_backward(q32, k32, v32, m32,
+                                        out.detach().float(), lse,
+                                        do.float())
+    for leaf, wt in zip(leaves, dwant):
+        top = float(wt.abs().max())
+        assert float((leaf.grad.float() - wt).abs().max()) <= \
+            2.0 ** (math.floor(math.log2(top)) - 8) + 1e-4 * max(1.0, top)
+
+
+def test_bf16_fused_arm_trains_on_the_bf16_gn_and_conv_kernels(cuda):
+    """A small bf16 CondUNet with pallas_gn and pallas_conv_min_width = 64
+    takes one train step on the bf16 GN and fused-conv kernels (the stem
+    ResBlock's two GN pairs, the 64-wide ResBlocks' fused pairs), none of
+    the float32 ones, and its loss is within 1e-2 of the same step with
+    every kernel off."""
+    import copy
+    import dataclasses
+
+    from ertdx_torch import configs, train
+    from ertdx_torch.diffusion import schedule_from_config
+    from ertdx_torch.models import build_model
+    from ertdx_torch.ops import conv as cv
+    from ertdx_torch.ops import groupnorm as gn
+
+    mcfg = dataclasses.replace(configs.V5E8_DP.model, hidden_dim=32,
+                               base_width=16, depth=2, num_blocks=1,
+                               cond_length=1176, cond_channels=4,
+                               pallas_gn=True, pallas_conv_min_width=64)
+    model = build_model(mcfg, device=cuda)
+    plain = copy.deepcopy(model)
+    for mod in plain.modules():
+        if hasattr(mod, "use_pallas"):
+            mod.use_pallas = False
+    g = torch.Generator(device=cuda).manual_seed(4)
+    x0 = torch.randn(8, 29, generator=g, device=cuda)
+    cond = torch.rand(8, 1176, 4, generator=g, device=cuda)
+    t = torch.randint(0, 500, (8,), generator=g, device=cuda)
+    noise = torch.randn(8, 29, generator=g, device=cuda)
+    alpha_bar = schedule_from_config(configs.DiffusionConfig()).alpha_bar
+    losses = []
+    for m in (model, plain):
+        gn.reset_launches()
+        cv.reset_launches()
+        losses.append(float(train.train_step(
+            m, train.create_optimizer(m, 1e-4), x0, cond, t, noise,
+            alpha_bar=alpha_bar, lr=1e-4)))
+        torch.cuda.synchronize()
+        if m is model:
+            assert gn.launches_bf16 == {"groupnorm_silu_fwd_bf16": 2,
+                                        "groupnorm_silu_bwd_bf16": 2}
+            assert cv.launches_bf16 == {"gn_silu_conv3_fwd_bf16": 4,
+                                        "gn_silu_conv3_bwd_bf16": 4}
+            assert gn.launches == {"groupnorm_silu_fwd": 0,
+                                   "groupnorm_silu_bwd": 0}
+            assert cv.launches == {"gn_silu_conv3_fwd": 0,
+                                   "gn_silu_conv3_bwd": 0}
+    assert all(math.isfinite(v) for v in losses)
+    assert abs(losses[0] - losses[1]) <= 1e-2 * max(1.0, abs(losses[1]))
