@@ -365,14 +365,15 @@ GN_KERNELS = ("gn_fwd_staged_kernel", "gn_bwd_staged_kernel",
 # what the fused conv backward's launches compute, by kernel name
 LAUNCH_LABELS = {"gn_stats": "statistics", "gn_affine": "table",
                  "conv_dw": "dW", "sum_rows": "sum", "tap3_gemm": "dh",
+                 "tap3_wgmma": "dh",
                  "gn_bwd": "GN backward"}
 
 
 def sass_counts(path, kernel_of, instruction: str):
-    """{kernel<template args>: the count of `instruction` in its SASS} for
-    each kernel of the library at `path` whose SASS header
-    `kernel_of(line)` names, or None where the toolkit has no
-    cuobjdump."""
+    """{kernel<template args>: the count of `instruction` (a string, or a
+    compiled pattern) in its SASS} for each kernel of the library at
+    `path` whose SASS header `kernel_of(line)` names, or None where the
+    toolkit has no cuobjdump."""
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     if not os.path.exists(tool):
@@ -387,7 +388,9 @@ def sass_counts(path, kernel_of, instruction: str):
                 args = ",".join(re.findall(r"L[ib](\d+)E", line))
                 name += f"<{args}>" if args else ""
                 counts[name] = 0
-        elif name and instruction in line:
+        elif name and (instruction.search(line)
+                       if hasattr(instruction, "search")
+                       else instruction in line):
             counts[name] += 1
     return counts
 
@@ -913,7 +916,7 @@ def _log_param_gaps(label, kernel, plain, g1_kernel, g1_plain,
 
 KERNEL_GROUPS = (("GN and fused conv (this port)",
                   ("gn_fwd_", "gn_bwd_", "gn_stats_", "gn_affine_",
-                   "tap3_gemm_",
+                   "tap3_gemm_", "tap3_wgmma_",
                    "conv_dw_", "sum_rows_")),
                  ("slab attention (this port)", ("slab_",)),
                  ("flash attention (this port)",
@@ -2049,7 +2052,7 @@ SLAB_BF16_WANT = {"slab_attention_fwd": 0, "slab_attention_bwd": 0,
 
 def check_bf16_tensor_cores(path, kernels=SLAB_BF16_KERNELS) -> None:
     """The bf16 MMAs (HMMA.16816.F32.BF16) in the SASS of each of
-    `kernels` (the bf16 slab kernels; the bf16 fused conv's GEMMs);
+    `kernels` (the bf16 slab kernels);
     raises where one has none or is missing. Logs and returns where the
     toolkit has no cuobjdump."""
     counts = sass_counts(path, lambda line: next(
@@ -2524,7 +2527,41 @@ def check_bf16_serving(sa, cb, ckdir, dev, card, fp32_step_ms) -> None:
 # the bf16 GN and fused-conv kernels, by the part of their symbol that
 # names them: the conv's GEMMs (bf16 MMAs) and every bf16 instantiation
 # of the GN kernels (units of 8 values or one; staged and streamed)
-CONV_BF16_KERNELS = ("tap3_gemm_bf16_kernel", "conv_dw_bf16_kernel")
+CONV_BF16_KERNELS = ("tap3_wgmma_kernel", "conv_dw_wgmma_kernel")
+# the bf16 fused conv's three GEMMs on Hopper's wgmma, by the SASS name and
+# template arguments of their instances: the forward (GN, not WT), dh (WT)
+# and dW
+WGMMA_GEMMS = {"forward": "tap3_wgmma_kernel<1,0,", "dh":
+               "tap3_wgmma_kernel<0,1,", "dW": "conv_dw_wgmma_kernel"}
+HGMMA_BF16 = re.compile(r"HGMMA\.\S*\.F32\.BF16")
+
+
+def check_wgmma(path, report: str) -> None:
+    """Phase 2: Hopper's bf16 warpgroup MMAs (HGMMA.*.F32.BF16) in the
+    SASS of every instance of the bf16 fused conv's three GEMMs, and no
+    mma.sync (HMMA.16816) in them; raises where one of the three has no
+    instance, an instance has no HGMMA or has an HMMA.16816. Logs the
+    counts and ptxas' wgmma remarks (a serialised wgmma pipeline). Logs
+    and returns where the toolkit has no cuobjdump."""
+    def kernel_of(line):
+        return next((k for k in CONV_BF16_KERNELS if k in line), None)
+
+    hgmma = sass_counts(path, kernel_of, HGMMA_BF16)
+    if hgmma is None:
+        log("sass: no cuobjdump; the wgmma check is not made")
+        return
+    hmma = sass_counts(path, kernel_of, "HMMA.16816")
+    log("sass: HGMMA.*.F32.BF16 / HMMA.16816 per bf16 conv GEMM: " +
+        "; ".join(f"{k} {n} / {hmma[k]}" for k, n in sorted(hgmma.items())))
+    remarks = [line.strip() for line in report.splitlines()
+               if "wgmma" in line.lower() and "ptxas" in line.lower()]
+    log("ptxas wgmma remarks: " + (" | ".join(remarks) or "none"))
+    bad = [k for k, n in hgmma.items() if n == 0 or hmma[k]]
+    bad += [name for name, key in WGMMA_GEMMS.items()
+            if not any(k.startswith(key) for k in hgmma)]
+    if bad:
+        raise RuntimeError(f"bf16 conv GEMMs without HGMMA, with mma.sync or "
+                           f"missing: {bad}")
 GN_BF16_KERNELS = tuple(
     f"gn_{k}_staged_kernelILi{w}E13__nv_bfloat16"
     for k in ("fwd", "bwd", "stats") for w in (8, 1)) + tuple(
@@ -2735,7 +2772,9 @@ def check_gn_conv_bf16(gn, cv, dev, card: str) -> dict:
             if "ms" not in entry:       # the first large case: the path's
                 entry.update(ms=ms, plain_ms=plain_ms, library_ms=None,
                              composition_ms=lib_ms, fp32_kernel_ms=f32_ms,
-                             device_ms=dev_ms, **bd, shape=shape)
+                             device_ms=dev_ms, **bd, shape=shape,
+                             **({"tflops": flops / ms / 1e9}
+                                if kind == "conv" else {}))
     return results
 
 
@@ -2954,6 +2993,99 @@ def check_bf16_fused_serving(counts, cb, dev, card) -> None:
                            "plain path")
 
 
+def check_bf16_ensemble_serving(ea, cb, dev, card) -> int:
+    """Phase 16 (f): a bf16 configs[3] model with `ensemble_pallas` (random
+    non-zero weights) serving DDIM-50 to SERVE_CONDS x SERVE_MEMBERS
+    chains, below the fused core's threshold: the per-block path, its
+    bf16 q, k, v through the ensemble kernels as float32 copies, exactly
+    one launch of each kernel per block and DDIM step and no fused-core
+    launch. Against the same run with `ensemble_pallas` off (the plain
+    bf16 attention, JAX's reference dtypes): the draws within the JAX
+    package's bf16 band (5e-2, tests/test_ops.py:568-571) or within twice
+    the gap between two plain computations of the same model (the plain
+    path, and the ensemble branch with its attention computed in float32
+    from the same bf16 inputs and rounded once, the kernels'
+    arithmetic), both on the band's measure max(|du| - 5e-2 |u_plain|).
+    Returns the launches of each kernel."""
+    from ertdx_torch import configs, sample
+    from ertdx_torch.diffusion import schedule_from_config
+    from ertdx_torch.models import build_model
+    from ertdx_torch.models import condunet as condunet_mod
+    from ertdx_torch.models.mega import MIN_TOTAL_CHAINS
+    from ertdx_torch.utils.weights import flax_shapes, params_from_jax
+
+    cfg = configs.DDIM_ENSEMBLE
+    mcfg = dataclasses.replace(cfg.model, dtype="bfloat16",
+                               ensemble_pallas=True)
+    model = build_model(mcfg, device=dev).eval()
+    params_from_jax(model, random_flax_tree(
+        flax_shapes(model), np.random.default_rng(SEED + 166)))
+    b, r, p = SERVE_CONDS, SERVE_MEMBERS, mcfg.param_dim
+    if b * r >= MIN_TOTAL_CHAINS or b * r < mcfg.ensemble_min_chains:
+        raise RuntimeError("phase 16 (f) must run the per-block path")
+    schedule = schedule_from_config(cfg.diffusion)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 167)
+    cond = torch.rand(b, mcfg.cond_length, mcfg.cond_channels,
+                      generator=gen, device=dev)
+    x_T = torch.randn(b * r, p, generator=gen, device=dev)
+    steps, nb = cfg.sample.ddim_steps, mcfg.num_blocks
+    with torch.no_grad():           # first bf16 encoder call: set-up
+        model.encode_condition(cond[:1])
+
+    def run(on: bool):
+        set_ensemble_pallas(model, on)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        u = sample.posterior_ensemble(model, cond, schedule, r, cfg.sample,
+                                      x_T=x_T, device=dev)
+        torch.cuda.synchronize()
+        return u, time.perf_counter() - t0
+
+    ea.reset_launches()
+    cb.reset_launches()
+    u, run_s = run(True)
+    got = {**ea.launches, **cb.launches}
+    u_plain, plain_s = run(False)
+    # the branch's attention in float32 from the same bf16 inputs, rounded
+    # once: a second plain computation of the kernels' arithmetic
+    patched = {}
+    for name in ("block_self_attention", "folded_cross_attention"):
+        patched[name] = getattr(condunet_mod, name)
+        setattr(condunet_mod, name, lambda q, k, v: ea.reference_attention(
+            q.float(), k.float(), v.float()).to(q.dtype))
+    try:
+        u_plain32, _ = run(True)
+    finally:
+        for name, fn in patched.items():
+            setattr(condunet_mod, name, fn)
+        set_ensemble_pallas(model, True)
+
+    def excess(a, b_):
+        return float(((a - b_).abs() - 5e-2 * b_.abs()).max())
+
+    gap, spread = excess(u, u_plain), excess(u_plain32, u_plain)
+    want = {"block_self_attention": steps * nb,
+            "folded_cross_attention": steps * nb,
+            "fused_core_stack": 0, "fused_core_block": 0}
+    step_ms = run_s / steps * 1e3
+    du = float((u - u_plain).abs().max())
+    log(f"bf16 ensemble_pallas model ({b} x {r}, DDIM-{steps}, per-block "
+        f"path): {run_s:.3f} s on the ensemble kernels ({step_ms:.3f} ms "
+        f"per DDIM step), {plain_s:.3f} s with them off ({card}); "
+        f"launches {got}; the draws max|du|={du:.3e} "
+        f"max(|du| - 5e-2 |u_plain|)={gap:.3e}, the float32-attention "
+        f"plain computation against the plain path {spread:.3e} (gate "
+        f"max(5e-2, 2 x that)); max|u|={float(u_plain.abs().max()):.4f}")
+    if got != want:
+        raise RuntimeError(f"bf16 ensemble_pallas serving: launches {got}, "
+                           f"expected {want}")
+    if not (tuple(u.shape) == (r, b, p) and u.dtype == torch.float32
+            and torch.isfinite(u).all() and gap <= max(5e-2, 2 * spread)):
+        raise RuntimeError("bf16 ensemble_pallas serving disagrees with the "
+                           "plain path")
+    return steps * nb
+
+
 def check_bf16_flash_step(at, dev, card) -> dict:
     """Phase 16 (e): one b256 step of the bf16 model on the flash arm
     (attn_slab=False, attn_flash_min_logits=1; the float32 flash kernels
@@ -3056,7 +3188,7 @@ def main() -> int:
         or "bytes stack frame" in line))
     check_tensor_cores(kernels.path)
     check_no_spill(kernels.report, GN_KERNELS)
-    check_bf16_tensor_cores(kernels.path, CONV_BF16_KERNELS)
+    check_wgmma(kernels.path, kernels.report)
     check_no_spill(kernels.report, CONV_BF16_KERNELS + GN_BF16_KERNELS)
     phase("build", t0)
 
@@ -3253,7 +3385,8 @@ def main() -> int:
 
     # 16. bfloat16 fused-encoder arm: (a) the bf16 GN and fused-conv
     # kernels, (b) train steps, (c) train(), (d) a configs[3] ensemble
-    # from random weights; (e) one bf16 step of the flash arm
+    # from random weights; (e) one bf16 step of the flash arm; (f) a bf16
+    # ensemble on the per-block path through the ensemble kernels
     t0 = time.perf_counter()
     gnconv_bf16 = check_gn_conv_bf16(gn, cv, dev, card)
     phase("bf16 GN and fused-conv kernels", t0)
@@ -3267,6 +3400,7 @@ def main() -> int:
             counts=counts16, rule=fused_bf16_rule, label="bf16 fused arm")
         check_bf16_fused_serving(counts16, cb, dev, card)
         flash16_ms = check_bf16_flash_step(at, dev, card)
+        check_bf16_ensemble_serving(ea, cb, dev, card)
         log(f"bf16 ms per b256 train step ({card}): the fused arm "
             f"{fused16_ms['kernel_step_ms']:.3f} (its plain path "
             f"{fused16_ms['plain_step_ms']:.3f}), phase 15's slab arm "
@@ -3331,7 +3465,8 @@ def main() -> int:
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
          "bound_by": r["bound_by"], "bound_tc_ms": r["bound_tc_ms"],
          "bound_fp32_ms": r["bound_fp32_ms"],
-         "library_ms": r.get("library_ms"), "shape": r["shape"]}
+         "library_ms": r.get("library_ms"), "shape": r["shape"],
+         **({"tflops": r["tflops"]} if "tflops" in r else {})}
         for name, r in {**results, **slab, **ensemble, **gnconv,
                         **flash, **slab_bf16, **gnconv_bf16}.items()]}
     log(f"[phase] total: {time.perf_counter() - t_all:.3f} s")

@@ -1,6 +1,6 @@
-// The bf16 tensor-core tile of the bfloat16 kernels: the slab
-// attention's (slab_attn_bf16.cu) and the fused GN+SiLU+conv3's
-// (gn_conv.cu). Device code only; sm_80 and later, built for sm_90a.
+// The bf16 tensor-core tile of the bfloat16 slab attention kernels
+// (slab_attn_bf16.cu; gn_conv.cu's bf16 GEMMs, on wgmma.cuh, take its
+// pack). Device code only; sm_80 and later, built for sm_90a.
 //
 // One product a b of bf16 operands runs as one warp-level
 //     mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32
@@ -106,25 +106,6 @@ __device__ __forceinline__ void load_b_nn2(uint32_t (&b)[4], const bf16* s,
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
       "{%0,%1,%2,%3}, [%4];\n"
       : "=r"(b[0]), "=r"(b[1]), "=r"(b[2]), "=r"(b[3])
-      : "r"(addr));
-}
-
-// A of a transposed tile: A(m, k) = Y(k0 + k, m0 + m) for m, k in
-// [0, 16), Y a row-major shared tile (the fused conv's h^T from its rows
-// of h). ldmatrix.x4.trans hands lane (g, t) rows 2t, 2t+1 of column g of
-// each 8 x 8 matrix; matrix 0 (a0) is Y rows k0.., columns m0..; 1 (a1)
-// columns m0+8..; 2 (a2) rows k0+8.., columns m0..; 3 (a3) both +8.
-// Lanes 8 i .. 8 i + 7 give matrix i's rows.
-__device__ __forceinline__ void load_a_t(uint32_t (&a)[4], const bf16* s,
-                                         int ld, int m0, int k0, int lane) {
-  const int mi = lane >> 3;
-  const bf16* p = s + (k0 + (lane & 7) + 8 * (mi >> 1)) * ld + m0 +
-                  8 * (mi & 1);
-  const unsigned addr = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
-      "{%0,%1,%2,%3}, [%4];\n"
-      : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
       : "r"(addr));
 }
 

@@ -86,6 +86,7 @@
 #include "bf16mma.cuh"
 #include "gn_common.cuh"
 #include "tf32x3.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -588,76 +589,139 @@ cudaError_t tap3_gemm(const float* a, const float* aff, const float* beta,
 // from any input dtype, its taps at DEFAULT precision: one bf16 MXU pass
 // a product on the TPU, conv.py:15-17), with the TPU's arithmetic: the
 // statistics from bf16 x in float32 (gn_common.cuh); GN+SiLU applied in
-// float32 in the A tile's prologue and rounded to bf16; the weights
-// rounded to bf16 once a call (by the wrapper: 3 C Cout values); one
-// mma.sync m16n8k16 bf16 a product with float32 accumulation; the bias
-// added in float32 and the output rounded once to bf16. The backward: dW
-// and db from h recomputed in float32 and rounded to bf16, h^T g on the
-// bf16 MMA, float32 partials summed in order; dh = g W^T taps on the
-// bf16 MMA, kept in float32 (as conv.py:166-171 keeps it in VMEM); then
-// the GN backward from the float32 statistics, dx in bf16. One bf16 MMA
-// a product (the float32 kernels above run three TF32 MMAs).
+// float32 to the staged tile and rounded to bf16; the weights rounded to
+// bf16 once a call (by the wrapper: 3 C Cout values); one bf16 tensor-core
+// pass a product with float32 accumulation; the bias added in float32 and
+// the output rounded once to bf16. The backward: dW and db from h
+// recomputed in float32 and rounded to bf16, h^T g on the bf16 tensor
+// cores, float32 partials summed in order; dh = g W^T taps on the bf16
+// tensor cores, kept in float32 (as conv.py:166-171 keeps it in VMEM);
+// then the GN backward from the float32 statistics, dx in bf16.
 //
-// Tiles as the float32 GEMM's (128 x 128 over the B L flattened rows, 8
-// warps of 64 x 32, the taps masked at batch-row edges in the A
-// fragment), 32 input channels a stage of a three-stage cp.async ring in
-// 16-byte units of 8 values; A through bf16mma::load_a (tap j reads the
-// tile j rows further down), the forward's B (w[j], rows k) through
-// ldmatrix.x4.trans (load_b_nn2), dh's (w[2-j]^T, rows n) by load_b_nt.
-// Row strides of KC + 8 and TN + 8 values keep both conflict-free
-// (bf16mma.cuh). The k steps accumulate on the MMA's float32
-// accumulator: the bf16 rounding of h and W is the class's error, far
-// above the sum's. dW: a block owns 64 input by 128 output channels of a
-// split of the rows, 32 rows a stage through a three-stage ring; h^T is
-// the A operand through bf16mma::load_a_t (ldmatrix.x4.trans of the
-// row-major h tile), g the nn B operand; a tap's rows that cross a batch
-// row are zeroed by halves of the A registers (k = row in the stage).
+// What bounds the three GEMMs on an H100: operations, 2 B L 3 C Cout FLOP
+// each (29.6 GFLOP at the encoder's (256, 294, 256 -> 256): 0.030 ms at
+// 989 TFLOP/s). Measured there: 17-38 % of that rate, and the stages take
+// about as long without their wgmmas (PERF.md §6). The design (Hopper's
+// wgmma and TMA, wgmma.cuh):
+//   * tap3_wgmma_kernel (forward: GN, B = w[j]; dh: B = w[2-j]^T). A tile
+//     is TM = 128 flattened rows by BN = 64 NSUB output channels (NSUB 4
+//     where N > 128, else 2: the encoder's Cout = 256 is one column
+//     block, so A is staged, and in the forward transformed, once). Two
+//     warpgroups of 64 rows each hold NSUB m64n64 float32 accumulators
+//     (128 registers a thread at NSUB = 4). No producer warp: registers
+//     are split per SM sub-partition, and a block of 9 or 12 warps gets at
+//     most 168 a thread, where the 128 x 256 tile spilled and ptxas
+//     serialised its wgmmas (setmaxnreg did not raise ptxas's
+//     allocation); with 8 warps a thread may hold 255. The weights are
+//     K-major in both GEMMs, (3, N, K): the forward's are a (3, Cout, C)
+//     copy the wrapper writes in the pass that rounds them to bf16, dh's
+//     are w as it is; so both read B the same way.
+//   * A ring of STAGES slots, each 32 input channels of a tile: A rows
+//     [m0 - 1, m0 + TM] (64-byte swizzled rows, TMA zero-fills the rows
+//     outside [0, M) and the channels past K) and the three taps' (BN x
+//     32) weight tiles (3-D TMA, zero past N), one full barrier a slot.
+//     32 channels a stage, not 64 with 128-byte swizzle: three taps of
+//     256 x 64 weights would take 96 KB a stage and leave room for two.
+//   * A stage: tap j's A fragment is the tile read j rows further down by
+//     ldmatrix (the 64-byte swizzle's XOR in the address); a row whose
+//     tap crosses a batch row is zeroed in registers; 3 taps x 2 k16
+//     steps x NSUB wgmma m64n64k16 in RS form, one commit group. While
+//     it runs, the previous stage's group retires (wait_group 1; two
+//     register buffers of A fragments alternate), the next stage lands
+//     and, in the forward, every thread applies GN+SiLU in place to its
+//     units of it (once a tile, from the (row, channel) affine table),
+//     and after a barrier thread 0 refills the previous stage's slot by
+//     TMA (each thread's fence.proxy.async orders its accesses to that
+//     slot before the fill).
+//   * Persistent: one block an SM walks its tiles' stages as one
+//     sequence, so the ring stays full across tiles.
+//   * conv_dw_wgmma_kernel: a block owns 64 input by 128 output channels
+//     of a split of the rows, and walks its rows 64 a stage through a
+//     four-slot ring: h rows [r0 - 1, r0 + 64] (x, 128-byte swizzled
+//     rows of 64 channels) and g rows [r0, r0 + 64) (two 64-column
+//     panels). Warpgroup j computes tap j: A = h^T rows j .. j + 63 of
+//     the tile by ldmatrix.trans (rows whose tap crosses a batch row
+//     zeroed in registers), B = g MN-major by descriptor (tnspB = 1), 4
+//     k16 steps x 2 panels of wgmma m64n64k16; GN+SiLU is applied to the
+//     h tile once, in place, by all threads while the previous stage's
+//     group runs, as in the tap GEMM. So each staged (h, g) block feeds
+//     all three taps; across the grid h is staged twice and g four times
+//     at the encoder's shape, as before. db, the column sums of g, is
+//     summed from the g tile by the blocks of the first channel tile in
+//     a fixed order. Each split writes its own float32 partial;
+//     sum_rows_kernel adds them in order. No float atomics: two runs give
+//     the same bits.
 
 namespace bf {
 
-constexpr int KC = 32;                // input channels a stage
-constexpr int STAGES = 3;
-constexpr int LDA = KC + 8;           // A rows (conflict-free load_a)
-constexpr int LDB_NN = TN + 8;        // (KC, TN) forward tile, ldmatrix
-constexpr int LDB_NT = KC + 8;        // (TN, KC) dh tile, load_b_nt
-constexpr int A_ELEMS = A_ROWS * LDA;
-constexpr int A_UNITS = (A_ROWS * KC / 8 + THREADS - 1) / THREADS;
-constexpr int B_UNITS = 3 * KC * TN / 8 / THREADS;
-constexpr int STAGE_NN = A_ELEMS + 3 * KC * LDB_NN;     // bf16 values
-constexpr int STAGE_NT = A_ELEMS + 3 * TN * LDB_NT;
-static_assert(3 * KC * TN / 8 % THREADS == 0, "GEMM weight units");
-static_assert(STAGE_NN % 8 == 0 && STAGE_NT % 8 == 0 && A_ELEMS % 8 == 0,
-              "16-byte stage boundaries");
+constexpr int KC = 32;                 // channels a stage (64-byte rows)
+constexpr int GEMM_THREADS = 256;      // two warpgroups of 64 rows
+constexpr int A_BYTES = A_ROWS * KC * 2;       // what TMA lands: 8,320
+constexpr int A_SLOT = 9216;                   // rounded to 1 KB
+constexpr int A_UNITS = (A_ROWS * KC / 8 + GEMM_THREADS - 1) / GEMM_THREADS;
+static_assert(A_BYTES <= A_SLOT && A_SLOT % 1024 == 0, "A slot");
 
-constexpr int DW_KR = 32;             // rows a stage (one mask bit each)
-constexpr int DW_STAGES = 3;
-constexpr int LDH = DW_TC + 8;        // ldmatrix.trans rows, 144 bytes
-constexpr int LDG = DW_TN + 8;        // 272 bytes
-constexpr int H_ELEMS = (DW_KR + 2) * LDH;
-constexpr int G_ELEMS = DW_KR * LDG;
-constexpr int DW_SE = H_ELEMS + G_ELEMS + 8;   // + the two row masks
-constexpr int H_UNITS = ((DW_KR + 2) * DW_TC / 8 + DW_THREADS - 1) /
-                        DW_THREADS;
-constexpr int G_UNITS = (DW_KR * DW_TN / 8 + DW_THREADS - 1) / DW_THREADS;
-static_assert(DW_THREADS % (DW_TC / 8) == 0, "an h unit's channel is fixed");
-static_assert(H_ELEMS % 8 == 0 && G_ELEMS % 8 == 0 && DW_SE % 8 == 0,
-              "16-byte stage boundaries");
+template <int NSUB>
+struct Gemm {
+  static constexpr int BN = 64 * NSUB;             // output channels
+  static constexpr int B_TAP = BN * KC * 2;        // one tap's weights
+  static constexpr int STAGE = A_SLOT + 3 * B_TAP;
+  static constexpr int STAGES = NSUB == 4 ? 3 : 5;
+  static constexpr uint32_t TX = A_BYTES + 3 * B_TAP;
+  // + 1 KB to align the ring, + the full barriers
+  static constexpr size_t SMEM = 1024 + STAGES * STAGE + 8 * STAGES;
+};
 
-// silu(GN(v)) of 8 consecutive channels of bf16 v (a uint4), in float32,
-// rounded to bf16; ms holds the channels' (mean, scale) pairs, be their
-// beta
-__device__ __forceinline__ uint4 gn_silu8(uint4 v, const float* ms,
-                                          const float* be) {
-  const uint32_t u[4] = {v.x, v.y, v.z, v.w};
-  uint32_t r[4];
+constexpr int DW_KR = 64;              // rows a stage (one mask bit each)
+constexpr int DW_THREADS_WG = 384;     // a warpgroup a tap
+constexpr int H_ROWS = DW_KR + 2;
+constexpr int H_BYTES = H_ROWS * 128;  // 64 channels a row
+constexpr int H_SLOT = 9216;
+constexpr int G_PANEL = DW_KR * 128;   // 64 rows x 64 output channels
+constexpr int DW_STAGE = H_SLOT + 2 * G_PANEL;
+constexpr int DW_STAGES = 4;
+constexpr uint32_t DW_TX = H_BYTES + 2 * G_PANEL;
+constexpr int DB_GROUPS = DW_THREADS_WG / 64;  // row groups of db's sums
+constexpr int H_UNITS = (H_ROWS * 8 + DW_THREADS_WG - 1) / DW_THREADS_WG;
+constexpr size_t DW_SMEM = 1024 + DW_STAGES * DW_STAGE +
+                           DB_GROUPS * 64 * sizeof(float2) + 8 * DW_STAGES;
+static_assert(H_BYTES <= H_SLOT && DW_STAGE % 1024 == 0, "dW slots");
+static_assert(DW_TC == 64 && DW_TN == 128, "dW block tile");
+
+// silu(GN(v)) in place on U shared 16-byte units of 8 bf16 channels, in
+// float32, rounded to bf16: unit u at p[u] (null: none) in batch row
+// b[u]; the units share their 8 channels, whose (mean, scale) pairs of
+// batch row r are at ms + r * ld (the affine table) and whose beta is at
+// be. A run of units in one batch row loads its pairs once.
+template <int U>
+__device__ __forceinline__ void gn_silu_units(uint4* const (&p)[U],
+                                              const int (&b)[U],
+                                              const float* ms, size_t ld,
+                                              const float* be) {
+  const float4 b0 = *reinterpret_cast<const float4*>(be);
+  const float4 b1 = *reinterpret_cast<const float4*>(be + 4);
+  const float bt[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+  int row = -1;
+  float4 a[4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float4 p = *reinterpret_cast<const float4*>(ms + 4 * i);
-    const float2 b = *reinterpret_cast<const float2*>(be + 2 * i);
-    r[i] = bf16mma::pack(fast_silu((bf_lo(u[i]) - p.x) * p.y + b.x),
-                   fast_silu((bf_hi(u[i]) - p.z) * p.w + b.y));
+  for (int u = 0; u < U; ++u) {
+    if (p[u] == nullptr) continue;
+    if (b[u] != row) {
+      row = b[u];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        a[i] = *reinterpret_cast<const float4*>(ms + row * ld + 4 * i);
+    }
+    const uint4 v = *p[u];
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+    uint32_t r[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      r[i] = bf16mma::pack(
+          fast_silu((bf_lo(w[i]) - a[i].x) * a[i].y + bt[2 * i]),
+          fast_silu((bf_hi(w[i]) - a[i].z) * a[i].w + bt[2 * i + 1]));
+    *p[u] = make_uint4(r[0], r[1], r[2], r[3]);
   }
-  return make_uint4(r[0], r[1], r[2], r[3]);
 }
 
 __device__ __forceinline__ void zero_rows(uint32_t (&a)[4], bool top,
@@ -666,190 +730,9 @@ __device__ __forceinline__ void zero_rows(uint32_t (&a)[4], bool top,
   if (bottom) a[1] = a[3] = 0u;    // fragment row g + 8
 }
 
-// acc += the three taps of one k step of 16 input channels at kk of a
-// staged chunk, for the warp's WM x WN output.
-template <bool WT>
-__device__ __forceinline__ void gemm_step(float (&acc)[MT][NT][4],
-                                          const bf16* As, const bf16* Bs,
-                                          int kk, unsigned first,
-                                          unsigned last, int wm, int wn,
-                                          int lane) {
-#pragma unroll
-  for (int j = 0; j < 3; ++j) {
-    uint32_t b[NT][2];
-#pragma unroll
-    for (int n = 0; n < NT; n += 2) {
-      if (WT) {
-        bf16mma::load_b_nt(b[n], Bs + j * TN * LDB_NT, LDB_NT, wn + 8 * n,
-                           kk, lane);
-        bf16mma::load_b_nt(b[n + 1], Bs + j * TN * LDB_NT, LDB_NT,
-                           wn + 8 * n + 8, kk, lane);
-      } else {
-        uint32_t q[4];
-        bf16mma::load_b_nn2(q, Bs + j * KC * LDB_NN, LDB_NN, kk, wn + 8 * n,
-                            lane);
-        b[n][0] = q[0]; b[n][1] = q[1];
-        b[n + 1][0] = q[2]; b[n + 1][1] = q[3];
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < MT; ++i) {
-      uint32_t a[4];
-      bf16mma::load_a(a, As + j * LDA, LDA, wm + 16 * i, kk, lane);
-      if (j != 1) {
-        const unsigned dead = j == 0 ? first : last;
-        zero_rows(a, (dead >> (2 * i)) & 1u, (dead >> (2 * i + 1)) & 1u);
-      }
-#pragma unroll
-      for (int n = 0; n < NT; ++n) bf16mma::mma(acc[i][n], a, b[n][0],
-                                                b[n][1]);
-    }
-  }
-}
-
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-__device__ __forceinline__ void store2(bf16* p, float a, float b) {
-  *reinterpret_cast<uint32_t*>(p) = bf16mma::pack(a, b);
-}
-
-// out[m, :] = bias + sum_j A[m-1+j, :] @ W_j over the M = B L flattened
-// rows of bf16 a, as tap3_gemm_kernel: GN: A = silu(GN(a)) from the
-// affine table and beta (float32), rounded to bf16, else A = a. WT =
-// false: W_j = w[j], w (3, K, N); WT = true: W_j = w[2-j]^T, w (3, N, K);
-// w bf16, bias float32 or null, out TO. K and N multiples of 8. Grid
-// (gemm_tiles(M, L), ceil(N/TN)), THREADS threads, STAGES * (WT ?
-// STAGE_NT : STAGE_NN) bf16 values of dynamic shared memory.
-template <bool GN, bool WT, typename TO>
-__global__ void __launch_bounds__(THREADS, 1)
-    tap3_gemm_bf16_kernel(const bf16* __restrict__ a,
-                          const float* __restrict__ aff,
-                          const float* __restrict__ beta,
-                          const bf16* __restrict__ w,
-                          const float* __restrict__ bias,
-                          TO* __restrict__ out, int M, int L, int K, int N) {
-  extern __shared__ __align__(16) unsigned char gemm_smem[];
-  bf16* smem = reinterpret_cast<bf16*>(gemm_smem);
-  constexpr int SE = WT ? STAGE_NT : STAGE_NN;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int2 rows = tile_rows(blockIdx.x, M, L);
-  const int m0 = rows.x, n0 = blockIdx.y * TN;
-  const int wm = WM * (warp % WARPS_M), wn = WN * (warp / WARPS_M);
-  const int chunks = (K + KC - 1) / KC;
-
-  unsigned first = 0u, last = 0u;
-#pragma unroll
-  for (int r = 0; r < 2 * MT; ++r) {
-    const int l = (m0 + wm + 16 * (r >> 1) + (lane >> 2) + 8 * (r & 1)) % L;
-    first |= (unsigned)(l == 0) << r;
-    last |= (unsigned)(l == L - 1) << r;
-  }
-  // the batch row of each A unit this thread copies (-1: outside [0, M))
-  int arow[A_UNITS];
-#pragma unroll
-  for (int u = 0; u < A_UNITS; ++u) {
-    const int m = m0 - 1 + (tid + u * THREADS) / (KC / 8);
-    arow[u] = (m >= 0 && m < M) ? m / L : -1;
-  }
-
-  auto stage = [&](int ch) {
-    bf16* As = smem + (ch % STAGES) * SE;
-    bf16* Bs = As + A_ELEMS;
-    const int k0 = ch * KC;
-#pragma unroll
-    for (int u = 0; u < A_UNITS; ++u) {
-      const int i = tid + u * THREADS;
-      if (i < A_ROWS * KC / 8) {
-        const int r = i / (KC / 8), c = (i % (KC / 8)) * 8;
-        const bool ok = arow[u] >= 0 && k0 + c < K;
-        bf16mma::cp16(As + r * LDA + c,
-                      a + (ok ? (size_t)(m0 - 1 + r) * K + k0 + c : 0), ok);
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < B_UNITS; ++u) {
-      const int i = tid + u * THREADS;
-      if (WT) {             // tap j's rows n of KC values along k
-        const int j = i / (TN * KC / 8), n = i / (KC / 8) % TN;
-        const int c = (i % (KC / 8)) * 8;
-        const bool ok = n0 + n < N && k0 + c < K;
-        bf16mma::cp16(Bs + (j * TN + n) * LDB_NT + c,
-                      w + (ok ? ((size_t)(2 - j) * N + n0 + n) * K + k0 + c
-                              : 0), ok);
-      } else {              // tap j's rows k of TN values along n
-        const int j = i / (KC * TN / 8), k = i / (TN / 8) % KC;
-        const int c = (i % (TN / 8)) * 8;
-        const bool ok = k0 + k < K && n0 + c < N;
-        bf16mma::cp16(Bs + (j * KC + k) * LDB_NN + c,
-                      w + (ok ? ((size_t)j * K + k0 + k) * N + n0 + c : 0),
-                      ok);
-      }
-    }
-    bf16mma::cp_commit();
-  };
-
-  // GN+SiLU in place on the A units this thread copied (its own cp.async
-  // writes are visible to it after the wait)
-  auto gn_silu_tile = [&](int ch) {
-    bf16* As = smem + (ch % STAGES) * SE;
-    const int k0 = ch * KC;
-#pragma unroll
-    for (int u = 0; u < A_UNITS; ++u) {
-      const int i = tid + u * THREADS;
-      const int r = i / (KC / 8), c = (i % (KC / 8)) * 8;
-      if (i < A_ROWS * KC / 8 && arow[u] >= 0 && k0 + c < K) {
-        uint4* p = reinterpret_cast<uint4*>(As + r * LDA + c);
-        *p = gn_silu8(*p, aff + 2 * ((size_t)arow[u] * K + k0 + c),
-                      beta + k0 + c);
-      }
-    }
-  };
-
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < chunks)
-      stage(s);
-    else
-      bf16mma::cp_commit();
-  }
-  float acc[MT][NT][4] = {};
-  for (int ch = 0; ch < chunks; ++ch) {
-    bf16mma::cp_wait<STAGES - 2>();
-    if (GN) gn_silu_tile(ch);
-    __syncthreads();        // chunk ch is in place; ch - 1's slot is free
-    if (ch + STAGES - 1 < chunks)
-      stage(ch + STAGES - 1);
-    else
-      bf16mma::cp_commit();
-    const bf16* As = smem + (ch % STAGES) * SE;
-#pragma unroll
-    for (int kk = 0; kk < KC; kk += 16)
-      gemm_step<WT>(acc, As, As + A_ELEMS, kk, first, last, wm, wn, lane);
-  }
-  bf16mma::cp_wait<0>();
-
-  const int t = lane & 3;
-#pragma unroll
-  for (int n = 0; n < NT; ++n) {
-    const int col = n0 + wn + 8 * n + 2 * t;
-    if (col >= N) continue;      // N % 8 == 0: col and col + 1 share fate
-    const float b0 = bias != nullptr ? bias[col] : 0.f;
-    const float b1 = bias != nullptr ? bias[col + 1] : 0.f;
-#pragma unroll
-    for (int i = 0; i < MT; ++i)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int m = m0 + wm + 16 * i + (lane >> 2) + 8 * h;
-        if (m < rows.y)
-          store2(out + (size_t)m * N + col, acc[i][n][2 * h] + b0,
-                 acc[i][n][2 * h + 1] + b1);
-      }
-  }
-}
-
-// Zero the bf16 halves of A register a whose k (kk + 2t + 8 hi + half)
-// is set in `dead`: registers 0, 1 hold k = 2t, 2t+1; 2, 3 hold 2t+8, 2t+9
-__device__ __forceinline__ void mask_k(uint32_t (&a)[4], unsigned dead,
+// Zero the bf16 halves of A register a whose k (2t + 8 hi + half, from
+// k) is set in `dead`: registers 0, 1 hold k, k+1; 2, 3 hold k+8, k+9
+__device__ __forceinline__ void mask_k(uint32_t (&a)[4], uint64_t dead,
                                        int k) {
   const uint32_t lo = (dead >> k) & 1u ? 0xffff0000u : 0xffffffffu;
   const uint32_t hi = (dead >> (k + 1)) & 1u ? 0x0000ffffu : 0xffffffffu;
@@ -861,174 +744,423 @@ __device__ __forceinline__ void mask_k(uint32_t (&a)[4], unsigned dead,
   a[3] &= lo8 & hi8;
 }
 
-// Partial dW and db of split s of the M = B L flattened rows, as
-// conv_dw_kernel: part[s] = [dW (3, C, Cout) | db (Cout)], float32. h =
-// silu(GN(x)) in float32 from the affine table and beta, rounded to bf16;
-// x and gy bf16. Grid (ceil(C/DW_TC), ceil(Cout/DW_TN), S), DW_THREADS
-// threads, DW_STAGES * DW_SE bf16 values of dynamic shared memory.
-__global__ void __launch_bounds__(DW_THREADS, 1)
-    conv_dw_bf16_kernel(const bf16* __restrict__ x,
-                        const float* __restrict__ aff,
-                        const float* __restrict__ beta,
-                        const bf16* __restrict__ gy, float* __restrict__ part,
-                        int M, int L, int C, int Cout, int S) {
-  extern __shared__ __align__(16) unsigned char dw_smem[];
-  bf16* smem = reinterpret_cast<bf16*>(dw_smem);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int c0 = blockIdx.x * DW_TC, o0 = blockIdx.y * DW_TN;
-  const int s = blockIdx.z;
-  const int wc = DW_WM * (warp % DW_WARPS_C), wn = DW_WN * (warp / DW_WARPS_C);
-  const int total = (M + DW_KR - 1) / DW_KR, per = (total + S - 1) / S;
-  const int ch0 = min(total, s * per), ch1 = min(total, ch0 + per);
-  const bool db_warp = blockIdx.x == 0 && wc == 0;
-  // an h unit's channel is the same in every unit of a thread
-  const int hc = (tid % (DW_TC / 8)) * 8;
-  const bool hc_ok = c0 + hc < C;
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(bf16* p, float a, float b) {
+  *reinterpret_cast<uint32_t*>(p) = bf16mma::pack(a, b);
+}
 
-  auto stage = [&](int ch) {
-    bf16* Hs = smem + (ch - ch0) % DW_STAGES * DW_SE;
-    bf16* Gs = Hs + H_ELEMS;
-    const int r0 = ch * DW_KR;
-#pragma unroll
-    for (int u = 0; u < H_UNITS; ++u) {
-      const int i = tid + u * DW_THREADS;
-      if (i < (DW_KR + 2) * DW_TC / 8) {
-        const int r = i / (DW_TC / 8), m = r0 - 1 + r;
-        const bool ok = hc_ok && m >= 0 && m < M;
-        bf16mma::cp16(Hs + r * LDH + hc,
-                      x + (ok ? (size_t)m * C + c0 + hc : 0), ok);
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < G_UNITS; ++u) {
-      const int i = tid + u * DW_THREADS;
-      const int r = i / (DW_TN / 8), c = (i % (DW_TN / 8)) * 8;
-      const int m = r0 + r;
-      const bool ok = m < M && o0 + c < Cout;
-      if (i < DW_KR * DW_TN / 8)
-        bf16mma::cp16(Gs + r * LDG + c,
-                      gy + (ok ? (size_t)m * Cout + o0 + c : 0), ok);
-    }
-    if (warp == 0) {      // one mask bit per g row: tap 0 / tap 2 crosses
-      const int l = (r0 + lane) % L;
-      const unsigned f = __ballot_sync(bf16mma::FULL, lane < DW_KR && l == 0);
-      const unsigned e = __ballot_sync(bf16mma::FULL,
-                                       lane < DW_KR && l == L - 1);
-      if (lane == 0) {
-        unsigned* masks = reinterpret_cast<unsigned*>(Gs + G_ELEMS);
-        masks[0] = f;
-        masks[1] = e;
-      }
-    }
-    bf16mma::cp_commit();
+// the dynamic shared memory from its first 1024-byte boundary
+__device__ __forceinline__ unsigned char* align1k(unsigned char* p) {
+  return p + ((1024u - (wg::saddr(p) & 1023u)) & 1023u);
+}
+
+// out[m, :] = bias + sum_j A[m-1+j, :] @ W_j over the M = B L flattened
+// rows of bf16 a (map_a: (M, K), boxes of 32 x A_ROWS), with A[m-1+j] = 0
+// where row m-1+j lies outside m's batch row. GN: A = silu(GN(a)) from
+// the affine table `aff` and beta (float32), rounded to bf16, else A = a.
+// W_j = b[j]^T for WT = false, b[2-j]^T for WT = true, b a bf16 (3, N, K)
+// tensor (map_b: boxes of 32 x BN x 1). bias float32 or null, out TO.
+// K and N multiples of 8. Persistent: block i takes tiles i, i + grid,
+// ... of the ceil(M / TM) x ceil(N / BN) tiles, and walks their stages
+// (KC channels of a tile each) as one sequence. GEMM_THREADS threads,
+// Gemm<NSUB>::SMEM bytes of dynamic shared memory.
+template <bool GN, bool WT, int NSUB, typename TO>
+__global__ void __launch_bounds__(GEMM_THREADS, 1)
+    tap3_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
+                      const __grid_constant__ CUtensorMap map_b,
+                      const float* __restrict__ aff,
+                      const float* __restrict__ beta,
+                      const float* __restrict__ bias,
+                      TO* __restrict__ out, int M, int L, int K, int N) {
+  using G = Gemm<NSUB>;
+  extern __shared__ unsigned char gemm_raw[];
+  unsigned char* smem = align1k(gemm_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + G::STAGES * G::STAGE);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int chunks = (K + KC - 1) / KC, cols = (N + G::BN - 1) / G::BN;
+  const int tiles = (M + TM - 1) / TM * cols;
+  const int mine = tiles > (int)blockIdx.x
+                       ? (tiles - 1 - (int)blockIdx.x) / (int)gridDim.x + 1
+                       : 0;
+  const int stages = mine * chunks;    // this block's stages, in order
+  // stage i: tile blockIdx.x + (i / chunks) gridDim.x, channels
+  // (i % chunks) KC; slot i % STAGES, its full barrier's phase i / STAGES
+  auto tile_of = [&](int i) {
+    return (int)blockIdx.x + i / chunks * (int)gridDim.x;
   };
-
-  auto gn_silu_tile = [&](int ch) {
-    bf16* Hs = smem + (ch - ch0) % DW_STAGES * DW_SE;
-    const int r0 = ch * DW_KR;
-#pragma unroll
-    for (int u = 0; u < H_UNITS; ++u) {
-      const int i = tid + u * DW_THREADS;
-      const int r = i / (DW_TC / 8), m = r0 - 1 + r;
-      if (i < (DW_KR + 2) * DW_TC / 8 && hc_ok && m >= 0 && m < M) {
-        uint4* p = reinterpret_cast<uint4*>(Hs + r * LDH + hc);
-        *p = gn_silu8(*p, aff + 2 * ((size_t)(m / L) * C + c0 + hc),
-                      beta + c0 + hc);
-      }
-    }
-  };
-
-  for (int k = 0; k < DW_STAGES - 1; ++k) {
-    if (ch0 + k < ch1)
-      stage(ch0 + k);
-    else
-      bf16mma::cp_commit();
-  }
-  float acc[3][DW_MT][DW_NT][4] = {};
-  float dbp[DW_NT] = {};
-  for (int ch = ch0; ch < ch1; ++ch) {
-    bf16mma::cp_wait<DW_STAGES - 2>();
-    gn_silu_tile(ch);
-    __syncthreads();        // chunk ch is in place; ch - 1's slot is free
-    if (ch + DW_STAGES - 1 < ch1)
-      stage(ch + DW_STAGES - 1);
-    else
-      bf16mma::cp_commit();
-    const bf16* Hs = smem + (ch - ch0) % DW_STAGES * DW_SE;
-    const bf16* Gs = Hs + H_ELEMS;
-    const unsigned* masks = reinterpret_cast<const unsigned*>(Gs + G_ELEMS);
-    const unsigned first = masks[0], last = masks[1];
-#pragma unroll
-    for (int kk = 0; kk < DW_KR; kk += 16) {
-      uint32_t b[DW_NT][2];
-#pragma unroll
-      for (int n = 0; n < DW_NT; n += 2) {
-        uint32_t q[4];
-        bf16mma::load_b_nn2(q, Gs, LDG, kk, wn + 8 * n, lane);
-        b[n][0] = q[0]; b[n][1] = q[1];
-        b[n + 1][0] = q[2]; b[n + 1][1] = q[3];
-      }
-      if (db_warp) {        // b0: g rows kk+2t, +1; b1: kk+2t+8, +9
-#pragma unroll
-        for (int n = 0; n < DW_NT; ++n)
-          dbp[n] += (bf_lo(b[n][0]) + bf_hi(b[n][0])) +
-                    (bf_lo(b[n][1]) + bf_hi(b[n][1]));
-      }
-      const int k = kk + 2 * (lane & 3);
-#pragma unroll
-      for (int j = 0; j < 3; ++j) {
-#pragma unroll
-        for (int i = 0; i < DW_MT; ++i) {
-          uint32_t a[4];
-          bf16mma::load_a_t(a, Hs + j * LDH, LDH, wc + 16 * i, kk, lane);
-          if (j != 1) mask_k(a, j == 0 ? first : last, k);
-#pragma unroll
-          for (int n = 0; n < DW_NT; ++n)
-            bf16mma::mma(acc[j][i][n], a, b[n][0], b[n][1]);
-        }
-      }
-    }
-  }
-  bf16mma::cp_wait<0>();
-
-  float* ps = part + (size_t)s * (3 * (size_t)C * Cout + Cout);
-  const int t = lane & 3;
-#pragma unroll
-  for (int n = 0; n < DW_NT; ++n) {
-    const int o = o0 + wn + 8 * n + 2 * t;
-    if (o >= Cout) continue;     // Cout % 8 == 0
+  auto load = [&](int i) {             // one thread: stage i's TMA loads
+    const int s = i % G::STAGES, tile = tile_of(i), k0 = i % chunks * KC;
+    unsigned char* st = smem + s * G::STAGE;
+    wg::mbar_expect_tx(&full[s], G::TX);
+    wg::tma_load_2d(st, &map_a, &full[s], k0, tile / cols * TM - 1);
 #pragma unroll
     for (int j = 0; j < 3; ++j)
+      wg::tma_load_3d(st + A_SLOT + j * G::B_TAP, &map_b, &full[s], k0,
+                      tile % cols * G::BN, WT ? 2 - j : j);
+  };
+  // stage i landed; GN: GN+SiLU in place on the A units of this thread
+  auto land = [&](int i) {
+    const int s = i % G::STAGES;
+    wg::mbar_wait(&full[s], (i / G::STAGES) & 1);
+    // a thread's units share their 8 channels (GEMM_THREADS % 4 == 0)
+    const int c = tid % (KC / 8), k = i % chunks * KC + 8 * c;
+    if (GN && k < K) {
+      const int m0 = tile_of(i) / cols * TM;
+      unsigned char* st = smem + s * G::STAGE;
+      uint4* p[A_UNITS];
+      int b[A_UNITS];
 #pragma unroll
-      for (int i = 0; i < DW_MT; ++i)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int c = c0 + wc + 16 * i + (lane >> 2) + 8 * h;
-          if (c < C)
-            store2(ps + ((size_t)j * C + c) * Cout + o, acc[j][i][n][2 * h],
-                   acc[j][i][n][2 * h + 1]);
-        }
+      for (int u = 0; u < A_UNITS; ++u) {
+        const int r = (tid + u * GEMM_THREADS) / (KC / 8), m = m0 - 1 + r;
+        const bool ok = r < A_ROWS && m >= 0 && m < M;
+        p[u] = ok ? reinterpret_cast<uint4*>(st + wg::sw64(r, c)) : nullptr;
+        b[u] = ok ? m / L : 0;
+      }
+      gn_silu_units(p, b, aff + 2 * k, 2 * (size_t)K, beta + k);
+    }
+  };
+
+  if (tid == 0) {
+    for (int s = 0; s < G::STAGES; ++s) wg::mbar_init(&full[s], 1);
+    wg::mbar_init_fence();
+    for (int i = 0; i < G::STAGES && i < stages; ++i) load(i);
   }
-  if (db_warp) {
+  __syncthreads();
+  if (stages == 0) return;
+
+  const int r0 = 16 * warp;            // the warp's first row of a tile
+  const int g = lane >> 2, t = lane & 3;
+  bool top[2], bottom[2];              // tap 0 / tap 2 of rows g, g + 8
+  float acc[NSUB][32];
+  land(0);
+  wg::bar_sync(1, GEMM_THREADS);
+
+  // Stage i: its tap j A fragments (the tile read j rows further down)
+  // into `a`, 3 taps x 2 k16 steps x NSUB wgmmas as one group. While the
+  // group runs: stage i - 1's group is retired, stage i + 1 lands and is
+  // transformed, and after a barrier (every warpgroup is past stage i -
+  // 1) thread 0 refills stage i - 1's slot with stage i - 1 + STAGES. The
+  // caller alternates two register buffers of A fragments.
+  auto step = [&](int i, uint32_t (&a)[2][3][4]) {
+    const int ch = i % chunks;
+    if (ch == 0) {                     // a new tile: its masks, acc = 0
+      const int m0 = tile_of(i) / cols * TM;
 #pragma unroll
-    for (int n = 0; n < DW_NT; ++n) {
-      const float v = bf16mma::quad_sum(dbp[n]);
-      const int o = o0 + wn + 8 * n + (lane >> 2);
-      if (t == 0 && o < Cout) ps[3 * (size_t)C * Cout + o] = v;
+      for (int h = 0; h < 2; ++h) {
+        const int l = (m0 + r0 + g + 8 * h) % L;
+        top[h] = l == 0;
+        bottom[h] = l == L - 1;
+      }
+#pragma unroll
+      for (int n = 0; n < NSUB; ++n) {
+#pragma unroll
+        for (int e = 0; e < 32; ++e) acc[n][e] = 0.f;
+        wg::fence_regs(acc[n]);
+      }
+    }
+    const uint32_t a_base = wg::saddr(smem + i % G::STAGES * G::STAGE);
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        const int r = r0 + (lane & 15) + j;
+        wg::ldsm_x4(a[kk][j], a_base + wg::sw64(r, 2 * kk + (lane >> 4)));
+        if (j == 0) zero_rows(a[kk][j], top[0], top[1]);
+        if (j == 2) zero_rows(a[kk][j], bottom[0], bottom[1]);
+      }
+    wg::fence();
+    const uint32_t b_base = a_base + A_SLOT;
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+      for (int j = 0; j < 3; ++j)
+#pragma unroll
+        for (int n = 0; n < NSUB; ++n)
+          wg::mma_rs_n64<0>(
+              acc[n], a[kk][j],
+              wg::desc(b_base + j * G::B_TAP + n * 64 * KC * 2 + kk * 32, 16,
+                       8 * KC * 2, wg::SWIZZLE_64B));
+    wg::commit();
+    wg::wait<1>();                     // stage i - 1's group is done
+    wg::fence_proxy_async();           // before slot i - 1's next fill
+    if (i + 1 < stages) land(i + 1);
+    wg::bar_sync(1, GEMM_THREADS);
+    if (tid == 0 && i > 0 && i - 1 + G::STAGES < stages)
+      load(i - 1 + G::STAGES);
+    if (ch == chunks - 1) {            // the tile's epilogue
+      wg::wait<0>();
+#pragma unroll
+      for (int n = 0; n < NSUB; ++n) wg::fence_regs(acc[n]);
+      const int tile = tile_of(i);
+      const int m0 = tile / cols * TM, n0 = tile % cols * G::BN;
+      const int rows_end = min(M, m0 + TM);
+#pragma unroll
+      for (int n = 0; n < NSUB; ++n)
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          const int col = n0 + 64 * n + 8 * q + 2 * t;
+          if (col >= N) continue;      // N % 8 == 0: col, col + 1 together
+          const float b0 = bias != nullptr ? bias[col] : 0.f;
+          const float b1 = bias != nullptr ? bias[col + 1] : 0.f;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int m = m0 + r0 + g + 8 * h;
+            if (m < rows_end)
+              store2(out + (size_t)m * N + col, acc[n][4 * q + 2 * h] + b0,
+                     acc[n][4 * q + 2 * h + 1] + b1);
+          }
+        }
+    }
+  };
+  uint32_t a0[2][3][4], a1[2][3][4];
+#pragma unroll 1
+  for (int i = 0; i < stages; i += 2) {
+    step(i, a0);
+    if (i + 1 < stages) step(i + 1, a1);
+  }
+}
+
+// Partial dW and db of split s of the M = B L flattened rows (contiguous
+// ranges of DW_KR-row chunks): part[s] = [dW (3, C, Cout) | db (Cout)],
+// float32. h = silu(GN(x)) in float32 from the affine table and beta,
+// rounded to bf16; x (map_h: (M, C), boxes of 64 x H_ROWS) and g (map_g:
+// (M, Cout), boxes of 64 x DW_KR) bf16. Grid (ceil(C / 64), ceil(Cout /
+// 128), S), DW_THREADS_WG threads (warpgroup j computes tap j), DW_SMEM
+// bytes of dynamic shared memory.
+__global__ void __launch_bounds__(DW_THREADS_WG, 1)
+    conv_dw_wgmma_kernel(const __grid_constant__ CUtensorMap map_h,
+                         const __grid_constant__ CUtensorMap map_g,
+                         const float* __restrict__ aff,
+                         const float* __restrict__ beta,
+                         float* __restrict__ part, int M, int L, int C,
+                         int Cout, int S) {
+  extern __shared__ unsigned char dw_raw[];
+  unsigned char* smem = align1k(dw_raw);
+  float2* dbx = reinterpret_cast<float2*>(smem + DW_STAGES * DW_STAGE);
+  uint64_t* full = reinterpret_cast<uint64_t*>(dbx + DB_GROUPS * 64);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int c0 = blockIdx.x * DW_TC, o0 = blockIdx.y * DW_TN;
+  const int s = blockIdx.z;
+  const int total = (M + DW_KR - 1) / DW_KR, per = (total + S - 1) / S;
+  const int ch0 = min(total, s * per), ch1 = min(total, ch0 + per);
+  const int stages = ch1 - ch0;        // stage i: rows (ch0 + i) DW_KR..
+  const bool db_block = blockIdx.x == 0;
+  const int cp = tid & 63, rg = tid >> 6;   // db: a column pair, rows
+  auto load = [&](int i) {             // one thread: stage i's TMA loads
+    const int slot = i % DW_STAGES, r0 = (ch0 + i) * DW_KR;
+    unsigned char* st = smem + slot * DW_STAGE;
+    wg::mbar_expect_tx(&full[slot], DW_TX);
+    wg::tma_load_2d(st, &map_h, &full[slot], c0, r0 - 1);
+    wg::tma_load_2d(st + H_SLOT, &map_g, &full[slot], o0, r0);
+    wg::tma_load_2d(st + H_SLOT + G_PANEL, &map_g, &full[slot], o0 + 64, r0);
+  };
+  float2 dbp = make_float2(0.f, 0.f);
+  // stage i landed: GN+SiLU in place on this thread's h units (rows
+  // outside [0, M) stay zero), and db's sums of g column pair cp, rows rg
+  // + 6 k
+  auto land = [&](int i) {
+    const int slot = i % DW_STAGES, r0 = (ch0 + i) * DW_KR;
+    wg::mbar_wait(&full[slot], (i / DW_STAGES) & 1);
+    unsigned char* st = smem + slot * DW_STAGE;
+    // a thread's units share their 8 channels (DW_THREADS_WG % 8 == 0)
+    const int c = tid & 7, k = c0 + 8 * c;
+    if (k < C) {
+      uint4* p[H_UNITS];
+      int b[H_UNITS];
+#pragma unroll
+      for (int u = 0; u < H_UNITS; ++u) {
+        const int r = (tid + u * DW_THREADS_WG) >> 3, m = r0 - 1 + r;
+        const bool ok = r < H_ROWS && m >= 0 && m < M;
+        p[u] = ok ? reinterpret_cast<uint4*>(st + wg::sw128(r, c)) : nullptr;
+        b[u] = ok ? m / L : 0;
+      }
+      gn_silu_units(p, b, aff + 2 * k, 2 * (size_t)C, beta + k);
+    }
+    if (db_block) {
+      const int col = 2 * cp;
+      const unsigned char* gp = st + H_SLOT + (col >> 6) * G_PANEL +
+                                (col & 7) * 2;
+      for (int r = rg; r < DW_KR; r += DB_GROUPS) {
+        const uint32_t w = *reinterpret_cast<const uint32_t*>(
+            gp + wg::sw128(r, (col & 63) >> 3));
+        dbp.x += bf_lo(w);
+        dbp.y += bf_hi(w);
+      }
+    }
+  };
+
+  if (tid == 0) {
+    for (int i = 0; i < DW_STAGES; ++i) wg::mbar_init(&full[i], 1);
+    wg::mbar_init_fence();
+    for (int i = 0; i < DW_STAGES && i < stages; ++i) load(i);
+  }
+  __syncthreads();
+
+  const int j = warp >> 2, w4 = warp & 3;   // the tap; the warp in it
+  const int g = lane >> 2, t = lane & 3;
+  const int mi = lane >> 3;                 // ldmatrix.trans's matrix
+  const int want = j == 0 ? 0 : L - 1;      // a dead row's l, taps 0, 2
+  float acc[2][32];
+#pragma unroll
+  for (int n = 0; n < 2; ++n) {
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc[n][e] = 0.f;
+    wg::fence_regs(acc[n]);
+  }
+  if (stages > 0) land(0);
+  wg::bar_sync(1, DW_THREADS_WG);
+
+  // Stage i, as tap3_wgmma_kernel's: tap j's A = h^T rows j .. j + 63 of
+  // the tile, 4 k16 steps x 2 panels of g; stage i + 1 lands and is
+  // transformed while the group runs.
+  auto step = [&](int i, uint32_t (&a)[4][4]) {
+    const int r0 = (ch0 + i) * DW_KR;
+    uint64_t dead = 0;                 // g rows whose tap j crosses
+    if (j != 1) {
+      const unsigned lo = __ballot_sync(bf16mma::FULL,
+                                        (r0 + lane) % L == want);
+      const unsigned hi = __ballot_sync(bf16mma::FULL,
+                                        (r0 + 32 + lane) % L == want);
+      dead = (uint64_t)lo | ((uint64_t)hi << 32);
+    }
+    const uint32_t h_base = wg::saddr(smem + i % DW_STAGES * DW_STAGE);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {   // A(c, k) = h tile row j + k
+      const int r = j + 16 * kk + (lane & 7) + 8 * (mi >> 1);
+      wg::ldsm_x4_t(a[kk], h_base + wg::sw128(r, 2 * w4 + (mi & 1)));
+      if (j != 1) mask_k(a[kk], dead, 16 * kk + 2 * t);
+    }
+    wg::fence();
+    const uint32_t g_base = h_base + H_SLOT;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+        wg::mma_rs_n64<1>(acc[n], a[kk],
+                          wg::desc(g_base + n * G_PANEL + kk * 16 * 128,
+                                   1024, 1024, wg::SWIZZLE_128B));
+    wg::commit();
+    wg::wait<1>();                     // stage i - 1's group is done
+    wg::fence_proxy_async();           // before slot i - 1's next fill
+    if (i + 1 < stages) land(i + 1);
+    wg::bar_sync(1, DW_THREADS_WG);
+    if (tid == 0 && i > 0 && i - 1 + DW_STAGES < stages)
+      load(i - 1 + DW_STAGES);
+  };
+  uint32_t a0[4][4], a1[4][4];
+#pragma unroll 1
+  for (int i = 0; i < stages; i += 2) {
+    step(i, a0);
+    if (i + 1 < stages) step(i + 1, a1);
+  }
+  wg::wait<0>();
+#pragma unroll
+  for (int n = 0; n < 2; ++n) wg::fence_regs(acc[n]);
+
+  float* ps = part + (size_t)s * (3 * (size_t)C * Cout + Cout);
+#pragma unroll
+  for (int n = 0; n < 2; ++n)
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int o = o0 + 64 * n + 8 * q + 2 * t;
+      if (o >= Cout) continue;         // Cout % 8 == 0
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int c = c0 + 16 * w4 + g + 8 * h;
+        if (c < C)
+          store2(ps + ((size_t)j * C + c) * Cout + o, acc[n][4 * q + 2 * h],
+                 acc[n][4 * q + 2 * h + 1]);
+      }
+    }
+  if (db_block) {                      // the row groups added in order
+    dbx[rg * 64 + cp] = dbp;
+    wg::bar_sync(1, DW_THREADS_WG);
+    if (tid < 64) {
+      float2 v = dbx[tid];
+      for (int q = 1; q < DB_GROUPS; ++q) {
+        v.x += dbx[q * 64 + tid].x;
+        v.y += dbx[q * 64 + tid].y;
+      }
+      const int o = o0 + 2 * tid;
+      if (o < Cout) store2(ps + 3 * (size_t)C * Cout + o, v.x, v.y);
     }
   }
 }
 
+// the tensor maps of the tap GEMM: a (M, K) in boxes of KC x A_ROWS, b
+// (3, N, K) in boxes of KC x BN x 1, 64-byte swizzle
+inline cudaError_t gemm_maps(CUtensorMap* ma, CUtensorMap* mb, const bf16* a,
+                             const bf16* b, int M, int K, int N, int BN) {
+  const cuuint64_t da[2] = {(cuuint64_t)K, (cuuint64_t)M};
+  const cuuint64_t sa[1] = {(cuuint64_t)K * 2};
+  const cuuint32_t ba[2] = {KC, A_ROWS};
+  cudaError_t err = wg::bf16_map(ma, a, 2, da, sa, ba,
+                                 CU_TENSOR_MAP_SWIZZLE_64B);
+  if (err != cudaSuccess) return err;
+  const cuuint64_t db[3] = {(cuuint64_t)K, (cuuint64_t)N, 3};
+  const cuuint64_t sb[2] = {(cuuint64_t)K * 2, (cuuint64_t)N * K * 2};
+  const cuuint32_t bb[3] = {KC, (cuuint32_t)BN, 1};
+  return wg::bf16_map(mb, b, 3, db, sb, bb, CU_TENSOR_MAP_SWIZZLE_64B);
+}
+
+template <bool GN, bool WT, int NSUB, typename TO>
+cudaError_t tap3_gemm_n(const bf16* a, const float* aff, const float* beta,
+                        const bf16* w, const float* bias, TO* out, int B,
+                        int L, int K, int N, cudaStream_t s) {
+  using G = Gemm<NSUB>;
+  CUtensorMap ma, mb;
+  cudaError_t err = gemm_maps(&ma, &mb, a, w, B * L, K, N, G::BN);
+  if (err != cudaSuccess) return err;
+  if ((err = set_smem(tap3_wgmma_kernel<GN, WT, NSUB, TO>, G::SMEM)) !=
+      cudaSuccess)
+    return err;
+  int dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+    return err;
+  const int tiles = gemm_tiles(B * L, L) * ((N + G::BN - 1) / G::BN);
+  tap3_wgmma_kernel<GN, WT, NSUB, TO>
+      <<<min(tiles, sms), GEMM_THREADS, G::SMEM, s>>>(
+          ma, mb, aff, beta, bias, out, B * L, L, K, N);
+  return cudaGetLastError();
+}
+
+// w: (3, N, K) bf16, K-major (see tap3_wgmma_kernel)
 template <bool GN, bool WT, typename TO>
 cudaError_t tap3_gemm(const bf16* a, const float* aff, const float* beta,
                       const bf16* w, const float* bias, TO* out, int B,
                       int L, int K, int N, cudaStream_t s) {
-  const size_t bytes = STAGES * (WT ? STAGE_NT : STAGE_NN) * sizeof(bf16);
-  cudaError_t err = set_smem(tap3_gemm_bf16_kernel<GN, WT, TO>, bytes);
+  return N > 128 ? tap3_gemm_n<GN, WT, 4>(a, aff, beta, w, bias, out, B, L,
+                                          K, N, s)
+                 : tap3_gemm_n<GN, WT, 2>(a, aff, beta, w, bias, out, B, L,
+                                          K, N, s);
+}
+
+cudaError_t conv_dw(const bf16* x, const float* aff, const float* beta,
+                    const bf16* gy, float* part, int B, int L, int C,
+                    int Cout, int S, cudaStream_t s) {
+  const int M = B * L;
+  CUtensorMap mh, mg;
+  const cuuint64_t dh[2] = {(cuuint64_t)C, (cuuint64_t)M};
+  const cuuint64_t sh[1] = {(cuuint64_t)C * 2};
+  const cuuint32_t bh[2] = {64, H_ROWS};
+  cudaError_t err = wg::bf16_map(&mh, x, 2, dh, sh, bh,
+                                 CU_TENSOR_MAP_SWIZZLE_128B);
   if (err != cudaSuccess) return err;
-  const dim3 grid(gemm_tiles(B * L, L), (N + TN - 1) / TN);
-  tap3_gemm_bf16_kernel<GN, WT, TO><<<grid, THREADS, bytes, s>>>(
-      a, aff, beta, w, bias, out, B * L, L, K, N);
+  const cuuint64_t dg[2] = {(cuuint64_t)Cout, (cuuint64_t)M};
+  const cuuint64_t sg[1] = {(cuuint64_t)Cout * 2};
+  const cuuint32_t bg[2] = {64, DW_KR};
+  if ((err = wg::bf16_map(&mg, gy, 2, dg, sg, bg,
+                          CU_TENSOR_MAP_SWIZZLE_128B)) != cudaSuccess)
+    return err;
+  if ((err = set_smem(conv_dw_wgmma_kernel, DW_SMEM)) != cudaSuccess)
+    return err;
+  const dim3 grid((C + DW_TC - 1) / DW_TC, (Cout + DW_TN - 1) / DW_TN, S);
+  conv_dw_wgmma_kernel<<<grid, DW_THREADS_WG, DW_SMEM, s>>>(
+      mh, mg, aff, beta, part, M, L, C, Cout, S);
   return cudaGetLastError();
 }
 
@@ -1104,8 +1236,11 @@ int ertdx_gn_conv3_bwd(const float* x, const float* gamma, const float* beta,
 
 // bf16 x, w (already rounded to bf16: the wrapper casts it), gy, out and
 // dx; gamma, beta, bias, stats, dgb, dwb, dh and the partials float32;
-// otherwise as the float32 entry points. C and Cout multiples of 8; bw_*
-// is the plan of the GN backward of a bf16 x and a float32 dh.
+// otherwise as the float32 entry points, except that the forward's w is
+// K-major, (3, Cout, C): w[j] transposed (the backward's is (3, C,
+// Cout)). C and Cout multiples of 8; bw_* is the plan of the GN backward
+// of a bf16 x and a float32 dh. The GEMMs run on wgmma and TMA (namespace
+// bf); a tensor map that cannot be encoded returns an error.
 int ertdx_gn_conv3_fwd_bf16(const bf16* x, const float* gamma,
                             const float* beta, const bf16* w,
                             const float* bias, bf16* out, float* stats,
@@ -1140,13 +1275,9 @@ int ertdx_gn_conv3_bwd_bf16(const bf16* x, const float* gamma,
                               GnPlan{st_staged, st_threads, st_smem}, s);
   if (err != cudaSuccess) return (int)err;
   const float* aff = stats + affine_offset(B, G);
-  const size_t dw_bytes = bf::DW_STAGES * bf::DW_SE * sizeof(bf16);
-  if ((err = set_smem(bf::conv_dw_bf16_kernel, dw_bytes)) != cudaSuccess)
+  if ((err = bf::conv_dw(x, aff, beta, gy, part_w, B, L, C, Cout, S, s)) !=
+      cudaSuccess)
     return (int)err;
-  const dim3 dw_grid((C + DW_TC - 1) / DW_TC, (Cout + DW_TN - 1) / DW_TN, S);
-  bf::conv_dw_bf16_kernel<<<dw_grid, DW_THREADS, dw_bytes, s>>>(
-      x, aff, beta, gy, part_w, B * L, L, C, Cout, S);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   const int nw = 3 * C * Cout + Cout;
   sum_rows_kernel<<<(nw + 255) / 256, 256, 0, s>>>(part_w, dwb, S, nw);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;

@@ -9,11 +9,12 @@ dtype, parameters float32, flax's rules; models/condunet.py). A bfloat16
 model runs the encoder's slab attention, GroupNorm+SiLU and fused
 GN+SiLU+conv3 on their bf16 kernels, its flash attention on the float32
 kernels through upcast copies (as JAX's flash kernels compute in
-float32), and samples on the float32 fused core (models/mega.py casts at
-entry). The ensemble attention kernels take float32 only, so bfloat16
-together with `ensemble_pallas` raises (their bf16 variant is ROADMAP.md
-queue 2 A.3). The other models of the JAX package (`refmlp`, configs[0];
-`uncondmlp`, configs[1]) are ROADMAP.md queue 1 item 3 and raise here.
+float32), its per-block ensemble attention (`ensemble_pallas`) on the
+float32 ensemble kernels through upcast copies too (as JAX's kernels
+load bf16 and compute in float32), and samples on the float32 fused
+core (models/mega.py casts at entry). The other models of the JAX
+package (`refmlp`, configs[0]; `uncondmlp`, configs[1]) are ROADMAP.md
+queue 1 item 3 and raise here.
 """
 from __future__ import annotations
 
@@ -23,12 +24,7 @@ import torch
 
 from .. import resolve_device
 from ..configs import ModelConfig
-from .common import compute_dtype
 from .condunet import CondUNet, init_params
-
-# the knobs whose kernels have no bf16 variant yet (ROADMAP.md queue 2
-# A, "bf16 variants"), with the value that leaves them off
-_FP32_ONLY = {"ensemble_pallas": False}
 
 
 def build_model(cfg: ModelConfig, device=None,
@@ -43,13 +39,6 @@ def build_model(cfg: ModelConfig, device=None,
         raise NotImplementedError(
             f"model {cfg.name!r} is not ported yet (ROADMAP.md queue 1 "
             "item 3: the other models)")
-    if compute_dtype(cfg.dtype) == torch.bfloat16:
-        on = [k for k, off in _FP32_ONLY.items() if getattr(cfg, k) != off]
-        if on:
-            raise NotImplementedError(
-                f"dtype 'bfloat16' with {', '.join(on)}: those kernels "
-                "take float32 only; their bf16 variants are not ported yet "
-                "(ROADMAP.md queue 2 A.3: bf16 variants)")
     model = CondUNet(param_dim=cfg.param_dim, hidden_dim=cfg.hidden_dim,
                      cond_channels=cfg.cond_channels,
                      base_width=cfg.base_width, depth=cfg.depth,

@@ -26,8 +26,9 @@ The kernels dispatch on x's dtype. A bfloat16 x (a bf16 model's
 encoder) runs the bf16 kernels of csrc/gn_conv.cu, the TPU kernel's
 arithmetic (its taps at DEFAULT precision, one bf16 MXU pass a product,
 ertdx/ops/conv.py:15-17): float32 statistics and GN+SiLU, h rounded to
-bf16, the weight rounded to bf16 once a call (here, before the launch),
-one bf16 MMA a product with float32 accumulation, the bias added in
+bf16, the weight rounded to bf16 once a call (here, before the launch,
+into the forward's K-major (3, Cout, C) copy), one pass of Hopper's
+bf16 wgmma a product with float32 accumulation, the bias added in
 float32 and y rounded once to bf16; the backward's dh stays float32
 (:166-171) and dx comes out in bf16; dgamma, dbeta, dW and db are float32.
 They take C and Cout multiples of 8. The plain version follows JAX's
@@ -126,11 +127,19 @@ def _entry(x, name: str):
         f"gn_silu_conv3_{name}{suffix}"
 
 
-def _kernel_weight(w, x):
-    """w as the kernels read it: float32 for a float32 x; for a bf16 x
+def _kernel_weight(w, x, forward: bool):
+    """w as the kernels read it: float32 for a float32 x. For a bf16 x
     rounded to bf16 once (to nearest even), as the TPU's one-pass MXU
-    product rounds its operand."""
-    return w if x.dtype == torch.float32 else w.to(torch.bfloat16)
+    product rounds its operand, in the K-major layout of the wgmma GEMMs'
+    B operand, (3, N, K): the forward's as (3, Cout, C), w[j] transposed,
+    in the same one pass that rounds it; dh's is w's own (3, C, Cout)."""
+    if x.dtype == torch.float32:
+        return w
+    if not forward:
+        return w.to(torch.bfloat16)
+    wk = torch.empty(w.shape[0], w.shape[2], w.shape[1], device=w.device,
+                     dtype=torch.bfloat16)
+    return wk.copy_(w.transpose(1, 2))
 
 
 def stats_floats(b: int, num_groups: int, c: int) -> int:
@@ -150,7 +159,7 @@ def gn_silu_conv3_fwd(x, gamma, beta, w, bias, num_groups: int,
     out = torch.empty(b, l, cout, device=x.device, dtype=x.dtype)
     stats = torch.empty(stats_floats(b, num_groups, c), device=x.device,
                         dtype=torch.float32)
-    wk = _kernel_weight(w, x)
+    wk = _kernel_weight(w, x, forward=True)
     entry, counts, name = _entry(x, "fwd")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -192,7 +201,7 @@ def gn_silu_conv3_bwd(x, gamma, beta, w, g, num_groups: int,
     dx, dgb, dwb = torch.empty_like(x), empty(2, c), empty(nw)
     stats, dh = empty(stats_floats(b, num_groups, c)), empty(b, l, c)
     part_w, part_gn = empty(splits, nw), empty(b, 2, c)
-    wk = _kernel_weight(w, x)
+    wk = _kernel_weight(w, x, forward=False)
     size = x.element_size()
     entry, counts, name = _entry(x, "bwd")
     with torch.cuda.device(dev):

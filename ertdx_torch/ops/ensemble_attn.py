@@ -13,7 +13,14 @@ softmax(q k^T / sqrt(D)) v with one head:
 
 q, k and v may be row-strided views (the chunks of a fused QKV or KV
 projection): their last axis must be contiguous and their rows evenly
-spaced. The output is contiguous.
+spaced. The output is contiguous, in q's dtype.
+
+float32 or bfloat16 operands. The kernels compute in float32: bfloat16
+q, k and v go in as float32 copies and the output is rounded to
+bfloat16, as JAX's TPU kernels load bf16, compute in float32 and write
+q's dtype (ertdx/ops/ensemble_attn.py:101-111, :193-201). The plain
+version follows JAX's reference on either dtype (logits in float32,
+probabilities in v's dtype, ertdx/ops/attention.py:36-46).
 
 On a CUDA tensor that the port's gate (`block_self_ok`,
 `folded_cross_ok`) takes, the forward launches the kernel, and a failed
@@ -75,10 +82,13 @@ def reference_attention(q: torch.Tensor, k: torch.Tensor,
                         v: torch.Tensor) -> torch.Tensor:
     """The plain version of both kernels: softmax(q k^T / sqrt(D)) v over
     the last two axes, per chain (self) or per condition (cross), as
-    ertdx/ops/attention.py:36-47 with one head."""
+    ertdx/ops/attention.py:36-47 with one head: the logits accumulated,
+    scaled and softmaxed in float32 (or wider), the probabilities cast to
+    v's dtype for the product with v. The float32 function on float32."""
     scale = 1.0 / math.sqrt(q.shape[-1])
-    logits = torch.matmul(q, k.transpose(-1, -2)) * scale
-    return torch.matmul(torch.softmax(logits, dim=-1), v)
+    f32 = torch.promote_types(q.dtype, torch.float32)
+    logits = torch.matmul(q.to(f32), k.to(f32).transpose(-1, -2)) * scale
+    return torch.matmul(torch.softmax(logits, dim=-1).to(v.dtype), v)
 
 
 def _row_stride(name: str, t: torch.Tensor) -> int:
@@ -100,24 +110,37 @@ def _check_cuda(name: str, t: torch.Tensor, shape, device) -> int:
                          f"{t.device}")
     if t.device != device:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: the kernel takes float32, got {t.dtype}")
+    if t.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name}: the kernel takes float32 or bfloat16, "
+                        f"got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, the kernel "
                          f"expects {tuple(shape)}")
-    return _row_stride(name, t)
+    return _row_stride(name, t) if t.dtype == torch.float32 else 0
+
+
+def _upcast(q, k, v):
+    """float32 copies of bfloat16 operands, with their row strides: the
+    kernels load float32 (JAX's kernels load bf16 and compute in
+    float32)."""
+    q, k, v = (t.to(torch.float32, memory_format=torch.contiguous_format)
+               for t in (q, k, v))
+    return q, k, v, [_row_stride(n, t) for n, t in zip("qkv", (q, k, v))]
 
 
 def block_self_attention_fwd(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor) -> torch.Tensor:
-    """The self-attention kernel: q, k, v (N, P, D) -> (N, P, D). One
-    launch on the current stream."""
+    """The self-attention kernel: q, k, v (N, P, D) -> (N, P, D) in q's
+    dtype. One launch on the current stream."""
     n, p, d = q.shape
     if not block_self_ok(n, p, d):
         raise ValueError(f"block self-attention kernel does not take "
                          f"N={n}, P={p}, D={d}")
     lds = [_check_cuda(name, t, (n, p, d), q.device)
            for name, t in (("q", q), ("k", k), ("v", v))]
+    dtype = q.dtype
+    if {t.dtype for t in (q, k, v)} != {torch.float32}:
+        q, k, v, lds = _upcast(q, k, v)
     out = torch.empty(n, p, d, device=q.device, dtype=torch.float32)
     lib = _build.load().lib
     with torch.cuda.device(q.device):
@@ -127,13 +150,13 @@ def block_self_attention_fwd(q: torch.Tensor, k: torch.Tensor,
                                        n, p, d, stream)
     _build.raise_on(rc, "block_self_attention")
     launches["block_self_attention"] += 1
-    return out
+    return out.to(dtype)
 
 
 def folded_cross_attention_fwd(q: torch.Tensor, k: torch.Tensor,
                                v: torch.Tensor) -> torch.Tensor:
     """The cross-attention kernel: q (B, Lq, D), k, v (B, Lk, D) ->
-    (B, Lq, D). One launch on the current stream."""
+    (B, Lq, D) in q's dtype. One launch on the current stream."""
     b, lq, d = q.shape
     lk = k.shape[1]
     if not folded_cross_ok(b, lq, lk, d):
@@ -142,6 +165,9 @@ def folded_cross_attention_fwd(q: torch.Tensor, k: torch.Tensor,
     ldq = _check_cuda("q", q, (b, lq, d), q.device)
     ldk = _check_cuda("k", k, (b, lk, d), q.device)
     ldv = _check_cuda("v", v, (b, lk, d), q.device)
+    dtype = q.dtype
+    if {t.dtype for t in (q, k, v)} != {torch.float32}:
+        q, k, v, (ldq, ldk, ldv) = _upcast(q, k, v)
     out = torch.empty(b, lq, d, device=q.device, dtype=torch.float32)
     lib = _build.load().lib
     with torch.cuda.device(q.device):
@@ -151,7 +177,7 @@ def folded_cross_attention_fwd(q: torch.Tensor, k: torch.Tensor,
                                          ldk, ldv, b, lq, lk, d, stream)
     _build.raise_on(rc, "folded_cross_attention")
     launches["folded_cross_attention"] += 1
-    return out
+    return out.to(dtype)
 
 
 class _KernelAttention(torch.autograd.Function):

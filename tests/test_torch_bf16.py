@@ -14,8 +14,8 @@ is held against flax's `CondUNet(dtype=bfloat16)` with the same params:
   bf16;
 * the fused-core path of a bf16 model (`mega_plan`, and
   `mega_denoise_ensemble` on the CPU against JAX's interpret kernels);
-* `build_model`'s refusal of the fp32-only ensemble kernels (the GN,
-  fused-conv and flash knobs build and run in bf16), and the precision
+* `build_model` with every kernel knob in bf16 (the GN, fused-conv,
+  flash and ensemble knobs build and run in bf16), and the precision
   helper (`ertdx_torch.precision.fp32_precision`) inside the entry
   points.
 
@@ -367,33 +367,29 @@ def test_mega_denoise_of_a_bf16_model_matches_jax_interpret(pair):
 
 
 # ---------------------------------------------------------------------------
-# 7-8. refusals, and the precision helper
+# 7-8. the kernel knobs in bf16, and the precision helper
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("knob,value", [
     ("pallas_gn", True), ("pallas_conv", True),
     ("pallas_conv_min_width", 256), ("ensemble_pallas", True),
     ("attn_flash_min_logits", 1)])
-def test_build_model_refuses_bf16_with_fp32_only_kernels(knob, value):
-    """Only the ensemble attention kernels are float32-only now: bf16 with
-    `ensemble_pallas` is refused, naming ROADMAP.md queue 2; the GN,
-    fused-conv and flash knobs build in bf16 and run a bf16 forward on the
-    CPU (their plain versions, as JAX runs them off the TPU)."""
+def test_build_model_builds_every_kernel_knob_in_bf16(knob, value):
+    """Every kernel knob builds in bf16 and runs a bf16 forward on the CPU
+    (their plain versions, as JAX runs them off the TPU); the ensemble
+    kernels' knob too, since their bf16 operands go in as float32 copies
+    (tests/test_torch_ensemble_bf16.py holds that model against flax's)."""
     cfg = dataclasses.replace(configs.V5E8_DP.model, **{knob: value})
-    if knob == "ensemble_pallas":
-        with pytest.raises(NotImplementedError, match=f"{knob}.*queue 2"):
-            build_model(cfg, device="cpu")
-    else:
-        small = dataclasses.replace(cfg, **KW, cond_length=96)
-        model = build_model(small, device="cpu")
-        assert model.compute_dtype == BF16
-        cond, x, t = _inputs(7)
-        with torch.no_grad():
-            tokens, vec = model.encode_condition(torch.from_numpy(cond))
-            out = model(torch.from_numpy(x), torch.from_numpy(t).long(),
-                        torch.from_numpy(cond))
-        assert tokens.dtype == vec.dtype == BF16
-        assert out.dtype == torch.float32 and torch.isfinite(out).all()
+    small = dataclasses.replace(cfg, **KW, cond_length=96)
+    model = build_model(small, device="cpu")
+    assert model.compute_dtype == BF16
+    cond, x, t = _inputs(7)
+    with torch.no_grad():
+        tokens, vec = model.encode_condition(torch.from_numpy(cond))
+        out = model(torch.from_numpy(x), torch.from_numpy(t).long(),
+                    torch.from_numpy(cond))
+    assert tokens.dtype == vec.dtype == BF16
+    assert out.dtype == torch.float32 and torch.isfinite(out).all()
     # the same knob in float32 builds, and so does the preset in bf16
     build_model(dataclasses.replace(cfg, dtype="float32"), device="cpu")
 

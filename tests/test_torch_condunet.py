@@ -137,15 +137,17 @@ def test_build_model_configs3_and_refusals():
                for b in g.blocks)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(ModelConfig(name="refmlp"), device="cpu")
-    # a bf16 model builds with float32 params, with the GN kernels too;
-    # bf16 with a kernel that takes float32 only is refused
+    # a bf16 model builds with float32 params, with the GN kernels too,
+    # and with the ensemble kernels (bf16 operands go in as float32
+    # copies)
     bf = build_model(ModelConfig(name="condunet", dtype="bfloat16",
                                  pallas_gn=True), device="cpu")
     assert bf.compute_dtype == torch.bfloat16
     assert {p.dtype for p in bf.parameters()} == {torch.float32}
-    with pytest.raises(NotImplementedError, match="ensemble_pallas"):
-        build_model(ModelConfig(name="condunet", dtype="bfloat16",
-                                ensemble_pallas=True), device="cpu")
+    be = build_model(ModelConfig(name="condunet", dtype="bfloat16",
+                                 ensemble_pallas=True), device="cpu")
+    assert be.compute_dtype == torch.bfloat16
+    assert all(b.ensemble_pallas for b in be.blocks)
 
 
 def test_build_model_needs_a_card_or_cpu(monkeypatch):

@@ -249,6 +249,46 @@ def test_folded_cross_kernel_matches_plain(cuda, b, lq, lk, d, fused):
     assert torch.equal(got, again)
 
 
+@pytest.mark.parametrize("kind,shape_q,shape_kv", [
+    ("self", (2000, 29, 128), (2000, 29, 128)),    # the per-block path's
+    ("self", (7, 17, 64), (7, 17, 64)),
+    ("cross", (2, 29 * 1000, 128), (2, 147, 128)),
+    ("cross", (3, 40, 64), (3, 61, 64)),
+])
+def test_ensemble_kernels_on_bf16_operands(cuda, kind, shape_q, shape_kv):
+    """bf16 q, k, v (chunks of a fused projection) go through the float32
+    kernels as float32 copies, the output in bf16: against the plain
+    version computed in float32 from the same bf16 inputs within one bf16
+    rounding of the output (2^-8 x max(1, max|plain|)); reruns
+    bit-identical, one launch a call."""
+    from ertdx_torch.ops import ensemble_attn as ea
+
+    g = torch.Generator(device=cuda).manual_seed(shape_q[1] + 3)
+    d = shape_q[-1]
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=cuda).bfloat16()
+
+    if kind == "self":
+        q, k, v = rnd(*shape_q[:-1], 3 * d).chunk(3, dim=-1)
+    else:
+        q = rnd(*shape_q)
+        k, v = rnd(*shape_kv[:-1], 2 * d).chunk(2, dim=-1)
+    fn = ea.block_self_attention if kind == "self" else \
+        ea.folded_cross_attention
+    name = "block_self_attention" if kind == "self" else \
+        "folded_cross_attention"
+    ea.reset_launches()
+    got = fn(q, k, v)
+    again = fn(q, k, v)
+    torch.cuda.synchronize()
+    assert ea.launches[name] == 2 and got.dtype == torch.bfloat16
+    want = ea.reference_attention(q.float(), k.float(), v.float())
+    assert float((got.float() - want).abs().max()) <= \
+        2.0 ** -8 * max(1.0, float(want.abs().max()))
+    assert torch.equal(got, again)
+
+
 def test_ensemble_gate_false_runs_the_plain_version(cuda):
     from ertdx_torch.ops import ensemble_attn as ea
 
@@ -964,7 +1004,11 @@ def test_groupnorm_bf16_kernels_match_plain(cuda, b, l, c, shift):
 # cg = 9: one-value GN units), the GN backward streamed
 CONV_BF16_CASES = [(2, 37, 16, 16), (3, 61, 64, 72), (4, 147, 256, 256),
                    (2, 294, 128, 256), (5, 1, 16, 16), (2, 129, 64, 64),
-                   (3, 20, 72, 16), (1, 1900, 128, 64)]
+                   (3, 20, 72, 16), (1, 1900, 128, 64),
+                   # Cout not a multiple of the wgmma's 64 with L below
+                   # the 128-row tile; Cout over one 256-wide column
+                   # block; C over 256 with a ragged 256-wide block
+                   (3, 5, 64, 72), (1, 70, 64, 320), (2, 33, 320, 136)]
 
 
 @pytest.mark.parametrize("b,l,c,cout", CONV_BF16_CASES)
