@@ -2043,46 +2043,88 @@ def check_distill(at, ckdir, ds, dev, card) -> dict:
 # 15. bfloat16: V5E8_DP in its own dtype
 # ---------------------------------------------------------------------------
 
-# the bf16 kernels of csrc/slab_attn_bf16.cu, by the name in their symbol
-SLAB_BF16_KERNELS = ("slab_fwd_bf16_kernel", "slab_bwd_dq_bf16_kernel",
-                     "slab_bwd_dkv_bf16_kernel")
+# the bf16 kernels of csrc/slab_attn_bf16.cu (wgmma and TMA), by the name
+# in their symbol: the forward and the one-launch backward
+SLAB_BF16_KERNELS = ("slab_fwd_wgmma_kernel", "slab_bwd_wgmma_kernel")
 SLAB_BF16_WANT = {"slab_attention_fwd": 0, "slab_attention_bwd": 0,
                   "slab_attention_fwd_bf16": 1, "slab_attention_bwd_bf16": 1}
+# phase 15 (a)'s shapes: phase 6's, then two key chunks past 160 keys and
+# the longest L (tests/test_torch_gpu.py's SLAB_BF16_CASES)
+SLAB_BF16_CASES = SLAB_CASES + [(2, 200, 128, 2), (1, 256, 128, 2)]
 
 
-def check_bf16_tensor_cores(path, kernels=SLAB_BF16_KERNELS) -> None:
-    """The bf16 MMAs (HMMA.16816.F32.BF16) in the SASS of each of
-    `kernels` (the bf16 slab kernels);
-    raises where one has none or is missing. Logs and returns where the
-    toolkit has no cuobjdump."""
-    counts = sass_counts(path, lambda line: next(
-        (k for k in kernels if k in line), None), "HMMA.16816.F32.BF16")
-    if counts is None:
-        log("sass: no cuobjdump; the bf16 tensor-core check is not made")
+def check_bf16_tensor_cores(path, report: str,
+                            kernels=SLAB_BF16_KERNELS) -> None:
+    """Phase 2: Hopper's bf16 warpgroup MMAs (HGMMA.*.F32.BF16) in the
+    SASS of every instance of `kernels` (the bf16 slab kernels, dh 32 and
+    64), and no mma.sync (HMMA.16816) in them; raises where one of them
+    has no instance, or an instance has no HGMMA or has an HMMA.16816.
+    Logs the counts and ptxas' wgmma remarks on them (a serialised wgmma
+    pipeline). Logs and returns where the toolkit has no cuobjdump."""
+    def kernel_of(line):
+        return next((k for k in kernels if k in line), None)
+
+    hgmma = sass_counts(path, kernel_of, HGMMA_BF16)
+    if hgmma is None:
+        log("sass: no cuobjdump; the bf16 slab wgmma check is not made")
         return
-    log("sass: HMMA.16816.F32.BF16 per bf16 kernel: " + "; ".join(
-        f"{k} {n}" for k, n in sorted(counts.items())))
-    bare = [k for k, n in counts.items() if n == 0]
-    bare += [k for k in kernels
-             if not any(name.startswith(k) for name in counts)]
-    if bare:
-        raise RuntimeError(f"bf16 kernels without bf16 MMAs: {bare}")
+    hmma = sass_counts(path, kernel_of, "HMMA.16816")
+    log("sass: HGMMA.*.F32.BF16 / HMMA.16816 per bf16 slab kernel: " +
+        "; ".join(f"{k} {n} / {hmma[k]}" for k, n in sorted(hgmma.items())))
+    remarks = [line.strip() for line in report.splitlines()
+               if re.search(r"\(C75\d\d\)", line)
+               and any(k in line for k in kernels)]
+    log("ptxas wgmma remarks on the bf16 slab kernels: "
+        + (" | ".join(remarks) or "none"))
+    bad = [k for k, n in hgmma.items() if n == 0 or hmma[k]]
+    bad += [k for k in kernels if not any(n.startswith(k) for n in hgmma)]
+    if bad:
+        raise RuntimeError(f"bf16 slab kernels without HGMMA, with mma.sync "
+                           f"or missing: {bad}")
 
 
-def check_slab_bf16(sa, dev, report: str, path, card: str) -> dict:
+def graph_ms(fn, launches: int = 20, reps: int = 5, stream=None) -> float:
+    """A call's device time without the host: `launches` calls of fn
+    captured in one CUDA graph, replayed `reps` times between two CUDA
+    events, the mean a call. `stream`: the stream to capture on (an
+    autograd backward runs on its forward's stream, so that forward must
+    have run on the capturing stream); by default a new one."""
+    side = stream or torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (reps * launches)
+
+
+def check_slab_bf16(sa, dev, card: str) -> dict:
     """Phase 15 (a): the bf16 slab kernels against the plain version in
     float32 from the same bf16 inputs, with the bf16 plain version's own
-    error beside it; reruns bit-identical; ptxas' spill lines; bf16 MMAs
-    in the SASS; timed beside the float32 kernels, the bf16 plain version
-    and F.scaled_dot_product_attention in bf16 (the yardstick)."""
+    error beside it; reruns bit-identical; timed (CUDA events, and a
+    CUDA graph's replay for the device time) beside the float32 kernels,
+    the bf16 plain version and one F.scaled_dot_product_attention call in
+    bf16 on q, k, v laid out as (B, H, L, dh) before it (the yardstick,
+    cuDNN's kernels), with the profiler's device time of both."""
     import torch.nn.functional as F
 
-    check_no_spill(report, SLAB_BF16_KERNELS)
-    check_bf16_tensor_cores(path)
     gen = torch.Generator(device=dev).manual_seed(SEED + 15)
     bf16 = torch.bfloat16
     results = {}
-    for b, l, c, nh in SLAB_CASES:
+    for b, l, c, nh in SLAB_BF16_CASES:
         dh = c // nh
         qkv = torch.randn(b, l, 3 * c, generator=gen, device=dev).to(bf16)
         do = torch.randn(b, l, c, generator=gen, device=dev).to(bf16)
@@ -2121,71 +2163,96 @@ def check_slab_bf16(sa, dev, report: str, path, card: str) -> dict:
         if (b, l, c, nh) != SLAB_CASES[0]:
             continue
 
-        def heads(z):
-            return z.reshape(b, l, nh, dh).transpose(1, 2)
-
-        def sdpa(z):
-            q, k, v = z.split(c, dim=-1)
-            out = F.scaled_dot_product_attention(heads(q), heads(k),
-                                                 heads(v))
-            return out.transpose(1, 2).reshape(b, l, c)
-
         def backward_of(fn, z0, g0):
             z = z0.detach().requires_grad_(True)
             out = fn(z)
             return lambda: torch.autograd.grad(out, z, g0,
                                                retain_graph=True)
 
-        def sdpa_fwd_bwd():
-            z = qkv.detach().requires_grad_(True)
-            sdpa(z).backward(do)
+        # the yardstick: q, k, v and dO laid out as contiguous (B, H, L,
+        # dh) before the timed call, so that one SDPA call is timed
+        q, k, v, dob = (z.reshape(b, l, nh, dh).transpose(1, 2).contiguous()
+                        for z in (*qkv.split(c, dim=-1), do))
+        qg, kg, vg = (z.detach().requires_grad_(True) for z in (q, k, v))
+        lib_stream = torch.cuda.Stream(device=dev)  # the backward's
+        lib_stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(lib_stream):
+            out_g = F.scaled_dot_product_attention(qg, kg, vg)
+        torch.cuda.current_stream(dev).wait_stream(lib_stream)
+
+        def sdpa_fwd():
+            return F.scaled_dot_product_attention(q, k, v)
+
+        def sdpa_bwd():
+            return torch.autograd.grad(out_g, (qg, kg, vg), dob,
+                                       retain_graph=True)
+
+        def kern_fwd():
+            return sa.slab_attention_fwd_bf16(qkv, nh)
+
+        def kern_bwd():
+            return sa.slab_attention_bwd_bf16(qkv, do, nh)
 
         with torch.no_grad():
-            fwd_ms = time_ms(lambda: sa.slab_attention_fwd_bf16(qkv, nh))
+            fwd_ms = time_ms(kern_fwd)
             fwd_f32 = time_ms(lambda: sa.slab_attention_fwd(q32, nh))
             fwd_plain = time_ms(lambda: sa.reference_slab_attention(qkv,
                                                                     nh))
-            fwd_lib = time_ms(lambda: sdpa(qkv))
-        bwd_ms = time_ms(lambda: sa.slab_attention_bwd_bf16(qkv, do, nh))
+            fwd_lib = time_ms(sdpa_fwd)
+        bwd_ms = time_ms(kern_bwd)
         bwd_f32 = time_ms(lambda: sa.slab_attention_bwd(q32, do32, nh))
         bwd_plain = time_ms(backward_of(
             lambda z: sa.reference_slab_attention(z, nh), qkv, do))
-        bwd_lib = time_ms(backward_of(sdpa, qkv, do))
-        fwd_bwd_lib = time_ms(sdpa_fwd_bwd)
+        bwd_lib = time_ms(sdpa_bwd)
+        # device time without the host: CUDA graphs of 20 calls (the
+        # wrappers' launches in them are not main-path launches)
+        counts = dict(sa.launches_bf16)
+        graph = {"fwd": graph_ms(kern_fwd), "bwd": graph_ms(kern_bwd)}
+        sa.launches_bf16.update(counts)
+        for key, fn, st in (("fwd_lib", sdpa_fwd, None),
+                            ("bwd_lib", sdpa_bwd, lib_stream)):
+            try:
+                graph[key] = graph_ms(fn, stream=st)
+            except RuntimeError as exc:     # a yardstick, not a check
+                log(f"SDPA {key}: no CUDA-graph time ({exc})")
+                graph[key] = None
         prod = b * nh * l * l * dh
         io = {"fwd": 2 * (b * l * 3 * c + b * l * c),
               "bwd": 2 * (2 * b * l * 3 * c + b * l * c)}
-        for name, flops, nbytes, ms, f32_ms, plain_ms, lib_ms in (
-                ("slab_attention_fwd_bf16", 4 * prod, io["fwd"], fwd_ms,
-                 fwd_f32, fwd_plain, fwd_lib),
-                ("slab_attention_bwd_bf16", 10 * prod, io["bwd"], bwd_ms,
-                 bwd_f32, bwd_plain, bwd_lib)):
+        for name, key, flops, nbytes, ms, f32_ms, plain_ms, lib_ms in (
+                ("slab_attention_fwd_bf16", "fwd", 4 * prod, io["fwd"],
+                 fwd_ms, fwd_f32, fwd_plain, fwd_lib),
+                ("slab_attention_bwd_bf16", "bwd", 10 * prod, io["bwd"],
+                 bwd_ms, bwd_f32, bwd_plain, bwd_lib)):
             bd = bound(flops, nbytes, tc_rate=PEAK_BF16_FLOPS)
+            dev_ms, lib_dev = graph[key], graph[key + "_lib"]
             results[name].update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                                 fp32_kernel_ms=f32_ms, **bd,
+                                 fp32_kernel_ms=f32_ms, graph_ms=dev_ms,
+                                 library_graph_ms=lib_dev, **bd,
                                  shape=f"B={b} L={l} C={c} H={nh}")
-            log(f"{name} B={b} L={l} C={c} H={nh}: kernel {ms:.4f} ms, "
-                f"the float32 kernel(s) {f32_ms:.4f} ms, bf16 plain "
-                f"{plain_ms:.4f} ms, SDPA bf16 {lib_ms:.4f} ms, bound "
-                f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}: {flops:.3e} "
-                f"flops at 989 TFLOP/s, {nbytes:.3e} bytes), "
-                f"{100 * bd['bound_ms'] / ms:.1f} % of the bound, achieved "
-                f"{flops / ms / 1e9:.2f} TFLOP/s, "
-                f"{nbytes / ms / 1e6:.1f} GB/s; {card}")
+            lib_text = "not measured" if lib_dev is None else \
+                f"{lib_dev:.4f} ms"
+            log(f"{name} B={b} L={l} C={c} H={nh}: kernel {ms:.4f} ms "
+                f"(graph replay {dev_ms:.4f}), the float32 kernel(s) "
+                f"{f32_ms:.4f} ms, bf16 plain {plain_ms:.4f} ms, one SDPA "
+                f"call on laid-out operands {lib_ms:.4f} ms (graph replay "
+                f"{lib_text}), bound {bd['bound_ms']:.4f} ms "
+                f"({bd['bound_by']}: {flops:.3e} flops at 989 TFLOP/s, "
+                f"{nbytes:.3e} bytes), {100 * bd['bound_ms'] / ms:.1f} % of "
+                f"the bound by events, {100 * bd['bound_ms'] / dev_ms:.1f} % "
+                f"by the graph, achieved {flops / dev_ms / 1e9:.2f} TFLOP/s, "
+                f"{nbytes / dev_ms / 1e6:.1f} GB/s; {card}")
         log("slab bf16 forward's kernel, profiler device time a call: "
-            + kernel_names(lambda: sa.slab_attention_fwd_bf16(qkv, nh)))
-        log("slab bf16 backward's kernels, profiler device time a call: "
-            + kernel_names(lambda: sa.slab_attention_bwd_bf16(qkv, do, nh)))
-        log("SDPA bf16's route, forward and backward (profiler kernel "
-            "names, device time): " + kernel_names(sdpa_fwd_bwd))
-        occ = sa.blocks_per_sm(l, dh, bf16=True)
-        threads = occ.pop("threads")
-        log(f"bf16 kernels' resident blocks per SM at L={l}, dh={dh} "
-            f"({threads} threads each): {occ}")
-        log(f"SDPA bf16 forward+backward (one call each, reshapes "
-            f"included): {fwd_bwd_lib:.4f} ms; bf16 slab kernels "
-            f"forward+backward {fwd_ms + bwd_ms:.4f} ms; float32 slab "
-            f"kernels {fwd_f32 + bwd_f32:.4f} ms")
+            + kernel_names(kern_fwd))
+        log("slab bf16 backward's kernel, profiler device time a call: "
+            + kernel_names(kern_bwd))
+        log("SDPA bf16 forward on laid-out operands (profiler kernel "
+            "names, device time): " + kernel_names(sdpa_fwd))
+        log("SDPA bf16 backward on laid-out operands: "
+            + kernel_names(sdpa_bwd))
+        log(f"bf16 kernels' launch plan at L={l}, dh={dh}: "
+            f"{sa.bf16_plan(l, dh)}; {sa.BF16_WARPGROUPS} warpgroups a "
+            f"block, one block an SM")
     return results
 
 
@@ -3189,7 +3256,9 @@ def main() -> int:
     check_tensor_cores(kernels.path)
     check_no_spill(kernels.report, GN_KERNELS)
     check_wgmma(kernels.path, kernels.report)
-    check_no_spill(kernels.report, CONV_BF16_KERNELS + GN_BF16_KERNELS)
+    check_bf16_tensor_cores(kernels.path, kernels.report)
+    check_no_spill(kernels.report, CONV_BF16_KERNELS + GN_BF16_KERNELS
+                   + SLAB_BF16_KERNELS)
     phase("build", t0)
 
     # 3. kernels against their plain versions
@@ -3364,7 +3433,7 @@ def main() -> int:
     # 15. bfloat16: V5E8_DP in its own dtype; (a) the bf16 slab kernels,
     # (b) train steps, (c) train(), (d) a configs[3] ensemble from it
     t0 = time.perf_counter()
-    slab_bf16 = check_slab_bf16(sa, dev, kernels.report, kernels.path, card)
+    slab_bf16 = check_slab_bf16(sa, dev, card)
     phase("bf16 slab kernels", t0)
     ckdir = tempfile.mkdtemp(prefix="ertdx_torch_bf16_")
     try:
@@ -3466,7 +3535,8 @@ def main() -> int:
          "bound_by": r["bound_by"], "bound_tc_ms": r["bound_tc_ms"],
          "bound_fp32_ms": r["bound_fp32_ms"],
          "library_ms": r.get("library_ms"), "shape": r["shape"],
-         **({"tflops": r["tflops"]} if "tflops" in r else {})}
+         **{k: r[k] for k in ("tflops", "graph_ms", "library_graph_ms")
+            if k in r}}
         for name, r in {**results, **slab, **ensemble, **gnconv,
                         **flash, **slab_bf16, **gnconv_bf16}.items()]}
     log(f"[phase] total: {time.perf_counter() - t_all:.3f} s")

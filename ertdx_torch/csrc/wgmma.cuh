@@ -1,13 +1,14 @@
 // Hopper's warpgroup tensor-core product and tensor memory accelerator
-// for the bf16 GEMMs of the fused GN+SiLU+conv3 (gn_conv.cu): hand-written
-// PTX wrappers, in the idiom of bf16mma.cuh and tf32x3.cuh. sm_90a only
+// for the bf16 GEMMs of the fused GN+SiLU+conv3 (gn_conv.cu) and the bf16
+// slab attention (slab_attn_bf16.cu): hand-written PTX wrappers, in the
+// idiom of bf16mma.cuh and tf32x3.cuh. sm_90a only
 // (wgmma exists for that target alone). Device code, and the host code
 // that encodes a TMA tensor map.
 //
-// * wgmma.mma_async m64n64k16, f32 += bf16 x bf16, in the RS form: A (64 x
-//   16) from registers, B (16 x 64) from shared memory by a matrix
-//   descriptor. Four warps issue it together; warp w of the warpgroup
-//   holds rows 16 w .. 16 w + 15 of A and of the accumulator, in the
+// * wgmma.mma_async m64n64k16 and m64n32k16, f32 += bf16 x bf16, in the
+//   RS form: A (64 x 16) from registers, B (16 x N) from shared memory by
+//   a matrix descriptor. Four warps issue it together; warp w of the
+//   warpgroup holds rows 16 w .. 16 w + 15 of A and of the accumulator, in the
 //   mma.m16n8k16 layouts (bf16mma.cuh) repeated along N: with lane = 4 g
 //   + t, accumulator register 4 i + e is row g + 8 (e >> 1), column 8 i +
 //   2 t + (e & 1). The product is asynchronous: fence before the first
@@ -25,7 +26,9 @@
 //   along k; each wgmma here reads one 64-wide panel, so the stride
 //   between 64-wide atoms along n is never used, and LBO = SBO = 1024
 //   (the 8-row group stride) holds whichever of the two the hardware
-//   reads for it. Tiles start on 1024-byte boundaries (base offset 0).
+//   reads for it; with 64-byte swizzle the same for rows of 32 n values
+//   (LBO = SBO = 512). Tiles start on 1024-byte boundaries (base offset
+//   0).
 // * TMA: `cp.async.bulk.tensor` 2-D and 3-D loads into shared memory,
 //   completing on an mbarrier with a transaction count; out-of-range
 //   elements, negative coordinates included, land as zeros. Tensor maps
@@ -36,10 +39,10 @@
 //   swizzle's width, and TMA writes 16-byte chunk c of row r at chunk c ^
 //   (r >> 1 & 3) (64-byte rows) or c ^ (r & 7) (128-byte rows): what
 //   `sw64` / `sw128` give for an ldmatrix row address.
-// * mbarriers (init, arrive with an expected transaction count, try_wait
-//   on a phase parity), a named barrier, and `fence.proxy.async`, which
-//   orders a thread's generic accesses to a tile before a later TMA fill
-//   of it.
+// * mbarriers (init, arrive, arrive with an expected transaction count,
+//   try_wait on a phase parity), a named barrier, and
+//   `fence.proxy.async`, which orders a thread's generic accesses to a
+//   tile before a later TMA fill of it.
 //   `mbar_wait` gives up with a trap after 2^22 failed tries (seconds),
 //   so a barrier that never completes ends the kernel with an error
 //   instead of hanging the card.
@@ -88,6 +91,13 @@ __device__ __forceinline__ bool mbar_try_wait(uint64_t* bar,
       : "r"(saddr(bar)), "r"(parity)
       : "memory");
   return ok != 0;
+}
+
+// a plain arrival (no transaction count)
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   saddr(bar))
+               : "memory");
 }
 
 // Wait for the completion of the barrier's phase of parity `parity`.
@@ -219,6 +229,40 @@ __device__ __forceinline__ void mma_rs_n64(float (&d)[32],
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "n"(TNSP_B),
         "r"(1));
+}
+
+// d (64 x 32, float32) += a (64 x 16 bf16, registers) b (16 x 32 bf16,
+// shared memory by descriptor); the accumulator layout of mma_rs_n64 cut
+// to 4 n tiles.
+template <int TNSP_B>
+__device__ __forceinline__ void mma_rs_n32(float (&d)[16],
+                                           const uint32_t (&a)[4],
+                                           uint64_t b) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %22, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, %21;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "n"(TNSP_B),
+        "r"(1));
+}
+
+// The RS product by the accumulator's width: 32 registers a thread are
+// N = 64, 16 are N = 32.
+template <int TNSP_B>
+__device__ __forceinline__ void mma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                       uint64_t b) {
+  mma_rs_n64<TNSP_B>(d, a, b);
+}
+template <int TNSP_B>
+__device__ __forceinline__ void mma_rs(float (&d)[16], const uint32_t (&a)[4],
+                                       uint64_t b) {
+  mma_rs_n32<TNSP_B>(d, a, b);
 }
 
 // ---- host: TMA tensor maps ----------------------------------------------

@@ -57,9 +57,8 @@ SIGNATURES = {
     "ertdx_slab_fwd": [_P] * 2 + [_I] * 4 + [_P],
     "ertdx_slab_bwd": [_P] * 5 + [_I] * 4 + [_P],
     "ertdx_slab_blocks_per_sm": [_I, _I, _P],
-    "ertdx_slab_fwd_bf16": [_P] * 2 + [_I] * 4 + [_P],
-    "ertdx_slab_bwd_bf16": [_P] * 5 + [_I] * 4 + [_P],
-    "ertdx_slab_bf16_blocks_per_sm": [_I, _I, _P],
+    "ertdx_slab_fwd_bf16": [_P] * 2 + [_I] * 5 + [_P],
+    "ertdx_slab_bwd_bf16": [_P] * 3 + [_I] * 5 + [_P],
     "ertdx_block_self_attn": [_P] * 4 + [_L] * 3 + [_I] * 3 + [_P],
     "ertdx_folded_cross_attn": [_P] * 4 + [_L] * 3 + [_I] * 4 + [_P],
     "ertdx_flash_fwd": [_P] * 6 + [_I] * 5 + [_F, _P],

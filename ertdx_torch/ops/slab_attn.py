@@ -10,26 +10,27 @@ deepest-stage self-attention, read straight from the fused QKV slab:
     dqkv (B, L, 3C)  dQ | dK | dV in the slab's layout
 
 On CUDA tensors the forward launches the forward kernel and the backward
-the backward kernels (a dQ pass and a dK/dV pass, see the CUDA source);
-on CPU tensors both are the plain version under autograd. Where the
-port's gate `slab_attention_ok` is false the plain version runs on any
-device, as JAX's `_sa_fwd` (:309-314) takes its XLA reference; where it
-is true a failed build or launch raises. `launches` counts the float32
-kernels' launches and `launches_bf16` the bfloat16 kernels', and nothing
-else.
+the backward kernels (float32: a dQ pass and a dK/dV pass; bfloat16: one
+launch, see the CUDA sources); on CPU tensors both are the plain version
+under autograd. Where the port's gate `slab_attention_ok` is false the
+plain version runs on any device, as JAX's `_sa_fwd` (:309-314) takes
+its XLA reference; where it is true a failed build or launch raises.
+`launches` counts the float32 kernels' launches and `launches_bf16` the
+bfloat16 kernels', and nothing else.
 
 The kernels dispatch on the slab's dtype. A float32 slab runs the
 kernels of csrc/slab_attn.cu, every product as 3xTF32 on the tensor
 cores (csrc/tf32x3.cuh), fp32-class, as the TPU kernel's HIGHEST: for
 them `accurate` has no effect. A bfloat16 slab (a bf16 model's encoder)
 runs those of csrc/slab_attn_bf16.cu, the TPU kernel's DEFAULT class: one
-bf16 MMA a product with float32 accumulation and a float32 softmax, P
-and dS rounded to bf16 for their products, the output and dQKV in bf16;
-with `accurate=True` it runs the float32 kernels on the upcast slab (the
-HIGHEST class) and returns bf16. All of them stage the slab with 16-byte
-cp.async: the kernel wrappers refuse a slab that does not start on a
-16-byte boundary, and `slab_attention` copies one
-(`_build.contiguous16`).
+bf16 warpgroup MMA (wgmma) a product with float32 accumulation and a
+float32 softmax, P and dS rounded to bf16 for their products, the output
+and dQKV in bf16; their operands land by TMA in a ring of head slots
+whose depth `bf16_plan` picks. With `accurate=True` a bf16 slab runs the
+float32 kernels on the upcast slab (the HIGHEST class) and returns bf16.
+All of them read the slab from 16-byte boundaries (cp.async or TMA): the
+kernel wrappers refuse a slab that does not start on one, and
+`slab_attention` copies one (`_build.contiguous16`).
 
 The plain version computes in the dtypes of JAX's plain version
 (ertdx/ops/slab_attn.py:66-83): the logits in float32, the
@@ -47,6 +48,11 @@ from . import _build
 # what the CUDA kernels take (csrc/slab_attn.cu: L_MAX, DH, shared memory)
 KERNEL_HEAD_DIMS = (32, 64)
 KERNEL_L_MAX = 256
+# an H100 block's shared memory, the bf16 kernels' warpgroups a block and
+# the deepest rings of head slots they take (csrc/slab_attn_bf16.cu)
+SMEM_MAX = 232448
+BF16_WARPGROUPS = {"fwd": 3, "bwd": 3}
+BF16_MAX_STAGES = {"fwd": 4, "bwd": 3}
 
 launches = {"slab_attention_fwd": 0, "slab_attention_bwd": 0}
 launches_bf16 = {"slab_attention_fwd_bf16": 0, "slab_attention_bwd_bf16": 0}
@@ -66,6 +72,31 @@ def slab_attention_ok(b: int, l: int, c: int, num_heads: int) -> bool:
     return (b >= 1 and num_heads >= 1 and c % num_heads == 0
             and c // num_heads in KERNEL_HEAD_DIMS
             and 1 <= l <= KERNEL_L_MAX)
+
+
+def bf16_plan(l: int, dh: int) -> dict:
+    """The bf16 kernels' launch plan at (L, dh), as
+    csrc/slab_attn_bf16.cu lays out its shared memory: a head's rows
+    padded to `lp` (L rounded up to 32), `tiles` 64-row query (and key)
+    tiles, and the deepest ring of head slots, up to BF16_MAX_STAGES,
+    whose bytes fit SMEM_MAX: 1 KB of alignment, the slots (Q, K, V; the
+    backward's also dO and float32 lse and delta rows), a 64-row staging
+    tile a warpgroup and the barriers (two a slot; the backward's
+    three)."""
+    lp = -(-l // 32) * 32
+    rb = 2 * dh
+    slot = {"fwd": 3 * lp * rb + 16, "bwd": 4 * lp * rb + 8 * lp + 24}
+    plan = {"lp": lp, "tiles": -(-l // 64)}
+    for k in ("fwd", "bwd"):
+        fixed = 1024 + BF16_WARPGROUPS[k] * 64 * rb
+        stages = max((n for n in range(1, BF16_MAX_STAGES[k] + 1)
+                      if fixed + n * slot[k] <= SMEM_MAX), default=0)
+        if not stages:
+            raise ValueError(f"slab bf16 {k}: one slot at L={l}, dh={dh} "
+                             f"exceeds {SMEM_MAX} bytes")
+        plan[f"{k}_stages"] = stages
+        plan[f"{k}_smem"] = fixed + stages * slot[k]
+    return plan
 
 
 def reference_slab_attention(qkv: torch.Tensor,
@@ -114,11 +145,14 @@ def _fwd(qkv: torch.Tensor, num_heads: int, dtype: torch.dtype,
     _build.check_cuda("qkv", qkv, (b, l, 3 * c), dtype)
     _build.check_aligned16(qkv=qkv)
     out = torch.empty(b, l, c, device=qkv.device, dtype=qkv.dtype)
+    # the bf16 kernel takes its ring's depth
+    ring = (bf16_plan(l, dh)["fwd_stages"],) if dtype == torch.bfloat16 \
+        else ()
     lib = _build.load().lib
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
         rc = getattr(lib, entry)(qkv.data_ptr(), out.data_ptr(), b, l,
-                                 num_heads, dh, stream)
+                                 num_heads, dh, *ring, stream)
     _build.raise_on(rc, name)
     counts[name] += 1
     return out
@@ -134,15 +168,21 @@ def _bwd(qkv: torch.Tensor, do: torch.Tensor, num_heads: int,
         raise ValueError("qkv and do must share one CUDA device")
     _build.check_aligned16(qkv=qkv, do=do)
     dqkv = torch.empty_like(qkv)
-    scratch = torch.empty(2, b, num_heads, l, device=qkv.device,
-                          dtype=torch.float32)
+    if dtype == torch.bfloat16:
+        # one launch: lse and delta stay in shared memory
+        scratch, tail = (), (bf16_plan(l, dh)["bwd_stages"],)
+    else:
+        # the dQ pass's lse and delta rows for the dK/dV pass
+        lse_delta = torch.empty(2, b, num_heads, l, device=qkv.device,
+                                dtype=torch.float32)
+        scratch = (lse_delta[0].data_ptr(), lse_delta[1].data_ptr())
+        tail = ()
     lib = _build.load().lib
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream(qkv.device).cuda_stream
         rc = getattr(lib, entry)(qkv.data_ptr(), do.data_ptr(),
-                                 dqkv.data_ptr(), scratch[0].data_ptr(),
-                                 scratch[1].data_ptr(), b, l, num_heads, dh,
-                                 stream)
+                                 dqkv.data_ptr(), *scratch, b, l, num_heads,
+                                 dh, *tail, stream)
     _build.raise_on(rc, name)
     counts[name] += 1
     return dqkv
@@ -167,29 +207,28 @@ def slab_attention_bwd(qkv: torch.Tensor, do: torch.Tensor,
 def slab_attention_fwd_bf16(qkv: torch.Tensor,
                             num_heads: int) -> torch.Tensor:
     """The bfloat16 forward kernel: (B, L, 3C) -> (B, L, C), both bf16.
-    One launch on the current stream."""
+    One launch on the current stream, persistent, `bf16_plan`'s ring."""
     return _fwd(qkv, num_heads, torch.bfloat16, "ertdx_slab_fwd_bf16",
                 "slab_attention_fwd_bf16", launches_bf16)
 
 
 def slab_attention_bwd_bf16(qkv: torch.Tensor, do: torch.Tensor,
                             num_heads: int) -> torch.Tensor:
-    """The bfloat16 backward kernels: qkv (B, L, 3C) and dO (B, L, C) ->
-    dQKV (B, L, 3C), all bf16. Two launches on the current stream (dQ,
-    then dK/dV), counted as one backward."""
+    """The bfloat16 backward kernel: qkv (B, L, 3C) and dO (B, L, C) ->
+    dQKV (B, L, 3C), all bf16. One launch on the current stream, which
+    reads each input once and allocates nothing beside dQKV."""
     return _bwd(qkv, do, num_heads, torch.bfloat16, "ertdx_slab_bwd_bf16",
                 "slab_attention_bwd_bf16", launches_bf16)
 
 
-def blocks_per_sm(l: int, dh: int, bf16: bool = False) -> dict:
-    """Resident blocks per SM of the three float32 (or, with `bf16`,
-    bfloat16) kernels at (L, dh), from the CUDA occupancy calculator, and
-    the threads of a block, which all three share (needs a card)."""
+def blocks_per_sm(l: int, dh: int) -> dict:
+    """Resident blocks per SM of the three float32 kernels at (L, dh),
+    from the CUDA occupancy calculator, and the threads of a block, which
+    all three share (needs a card)."""
     out = (ctypes.c_int * 4)()
     lib = _build.load().lib
-    query = (lib.ertdx_slab_bf16_blocks_per_sm if bf16
-             else lib.ertdx_slab_blocks_per_sm)
-    _build.raise_on(query(l, dh, out), "slab occupancy query")
+    _build.raise_on(lib.ertdx_slab_blocks_per_sm(l, dh, out),
+                    "slab occupancy query")
     return dict(zip(("fwd", "bwd_dq", "bwd_dkv", "threads"), out))
 
 

@@ -825,10 +825,11 @@ def test_flash_cross_attention_on_the_kernels(cuda, masked):
 
 
 # (B, L, C, heads) of the bf16 slab kernels: the encoder's stage with a
-# ragged last tile, dh=32, a single token, two key chunks (L > 160) and
-# the longest L
+# ragged last tile, dh=32, a single token, two key chunks (L > 160), the
+# longest L, and 1200 heads, more than one a block on 132 SMs (the
+# persistent blocks' ragged last wave)
 SLAB_BF16_CASES = [(3, 147, 256, 4), (2, 65, 256, 8), (2, 1, 64, 1),
-                   (2, 200, 128, 2), (1, 256, 128, 2)]
+                   (2, 200, 128, 2), (1, 256, 128, 2), (300, 147, 256, 4)]
 
 
 def _bf16_gate(got, want32, plain_bf16):
@@ -865,6 +866,27 @@ def test_slab_bf16_kernels_match_plain(cuda, b, l, c, nh):
     # no atomics: reruns are bit-identical
     assert torch.equal(sa.slab_attention_fwd_bf16(qkv, nh), out.detach())
     assert torch.equal(sa.slab_attention_bwd_bf16(qkv, do, nh), z.grad)
+
+
+def test_slab_bf16_backward_allocates_only_dqkv(cuda):
+    """One launch that keeps lse and delta in shared memory: the peak
+    memory of a backward call is dQKV's bytes (the float32 kernels' (2,
+    B, H, L) scratch would add 301 KB here)."""
+    from ertdx_torch.ops import slab_attn as sa
+
+    g = torch.Generator(device=cuda).manual_seed(11)
+    qkv = torch.randn(64, 147, 3 * 256, generator=g, device=cuda).bfloat16()
+    do = torch.randn(64, 147, 256, generator=g, device=cuda).bfloat16()
+    sa.slab_attention_bwd_bf16(qkv, do, 4)        # the build, the caches
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    sa.reset_launches()
+    dqkv = sa.slab_attention_bwd_bf16(qkv, do, 4)
+    torch.cuda.synchronize()
+    assert sa.launches_bf16["slab_attention_bwd_bf16"] == 1
+    peak = torch.cuda.max_memory_allocated() - before
+    assert peak <= dqkv.numel() * dqkv.element_size() + 4096, peak
 
 
 def test_slab_bf16_accurate_runs_the_float32_kernels(cuda):
