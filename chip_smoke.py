@@ -168,7 +168,29 @@ non-zero and prints no result line):
    gap between two plain computations of the model; (e) one
    bf16 b256 step of the flash arm (the float32 flash kernels on upcast
    copies) against use_pallas off under (b)'s gates, one flash forward,
-   dQ and dK/dV.
+   dQ and dK/dV;
+17. the user path through the port's CLI (ertdx_torch/cli.py) at
+   V5E8_DP's full width in bf16, everything made from a seed in a
+   temporary directory: (a) generate-design --n 400, equal to
+   SurrogateDataGenerator(seed=0); (b) 4 simulations' .srv files (14
+   surveys of 4693 rows, a 259-line header, the time tokens shuffled)
+   read back exactly by gather_srv_ensemble, 396 more simulation folders
+   from seeded normals, 2 of a wrong shape and 1 missing, gather-data
+   --n 403 -> (400, 4693, 14) and (400, 29, 1) with 2 discarded and 1
+   missing; (c) train for 2 epochs at batch 256, the bf16 slab launches
+   by the epoch grid, the echo of bfloat16; (d) calibrate --temps 1.0,1.5
+   --realizations 1000 --commit on the 40-condition val split, exactly 2
+   arms x batches x 50 fused_core_stack launches, the committed echo; (e)
+   sample with no sampling flags on the test split against an in-process
+   posterior_over_dataset from the same seed (1e-6 relative), 50
+   fused_core_stack launches a batch, the valid fraction; (f) metrics
+   (JAX's keys), batched_kde_mode on a (50, 4693, 14) ensemble against the
+   float64 KDE on 63 seeded pixels (one grid step) and a constant pixel,
+   its ms; (g) `python -m ertdx_torch.cli serve` as a subprocess, three
+   requests (1, 4 and 8 conditions, 1000 members) within 1e-6 relative of
+   an in-process PosteriorService (50 fused_core_stack and 1 bf16 slab
+   forward each), ms a request by the host clock around the HTTP call,
+   and a malformed and an oversized request answered 400.
 
 Every kernel's entry in the kernels line has `bound_ms`, the least time
 the card could take: the bytes at 3.35 TB/s or the operations at the
@@ -179,8 +201,8 @@ only the keys the mask needs. Beside it `bound_tc_ms` (the 3xTF32 time;
 null for GroupNorm) and `bound_fp32_ms` (the fp32 pipe's). The last line of
 stdout is {"ok": true, "device": {...}}. The build goes
 to build/ertdx_torch_kernels/; the checkpoints of phases 7, 11, 13, 14,
-15 and 16 go to temporary directories that are removed; nothing else is
-written.
+15 and 16 and phase 17's files go to temporary directories that are
+removed; nothing else is written.
 """
 from __future__ import annotations
 
@@ -196,6 +218,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -3185,6 +3208,410 @@ def check_bf16_flash_step(at, dev, card) -> dict:
     return {k: res[k] for k in ("kernel_step_ms", "plain_step_ms")}
 
 
+# ---------------------------------------------------------------------------
+# 17. the user path: the port's CLI and posterior service at full width
+# ---------------------------------------------------------------------------
+
+# the user path's sizes: the design and the simulations (of which SRV_SIMS
+# go through .srv files), the survey grid, the posterior ensembles' members
+USER_DESIGN, SRV_SIMS, ROWS, SURVEYS, USER_MEMBERS = 400, 4, 4693, 14, 1000
+SRV_HEADER = 259
+# the requests POSTed to the service: (conditions, seed)
+SERVE_REQUESTS = ((1, 0), (4, 1), (8, 2))
+
+
+def expect_launches(label: str, got: dict, want: dict) -> None:
+    """Fail unless every counter in `want` took exactly that count."""
+    seen = {k: got.get(k, 0) for k in want}
+    log(f"{label}: launches {seen}, expected {want}")
+    if seen != want:
+        raise RuntimeError(f"{label}: launches {seen}, expected {want}")
+
+
+def run_cli(cli, argv, label, dev) -> tuple:
+    """One subcommand of the port's CLI in this process: (its standard
+    output, seconds by the host clock, the device synchronised)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    if rc != 0:
+        raise RuntimeError(f"{label}: exit code {rc}")
+    return buf.getvalue(), seconds
+
+
+def write_srv(path, values, skip_header: int) -> None:
+    """A .srv file: `skip_header` header lines, then 7 columns a row with
+    the data in column 5, written so that it parses back exactly."""
+    rows = "\n".join(f"{r + 1} 0.0 0.0 0.0 1.0 {v!r} 0.05"
+                     for r, v in enumerate(values.tolist()))
+    header = "".join(f"survey header line {i}\n" for i in range(skip_header))
+    path.write_text(header + rows + "\n")
+
+
+def make_simulations(root, design, rng, card: str) -> tuple:
+    """Simulation folders as physics.py leaves them: SRV_SIMS from .srv
+    files read back with gather_srv_ensemble, the rest from seeded normals
+    (phase 7's data), then 2 folders of the wrong shape and 1 missing.
+    Returns (the folder count, the ERT the valid folders hold)."""
+    from ertdx_torch.data import gather_srv_ensemble
+
+    n = design.shape[0]
+    srv_vals = rng.normal(50.0, 10.0, size=(SRV_SIMS, SURVEYS, ROWS))
+    dirs = []
+    t0 = time.perf_counter()
+    for s in range(SRV_SIMS):
+        d = root / f"srv_{s:04d}"
+        d.mkdir()
+        days = rng.permutation(np.arange(1, SURVEYS + 1) * 30)
+        for k, day in enumerate(days):
+            # the shuffled time tokens: survey `rank of day` holds row k's
+            rank = int(np.sum(days < day))
+            write_srv(d / f"sim_{s:04d}-E1-{day}d.srv", srv_vals[s, rank],
+                      SRV_HEADER)
+        dirs.append(d)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got = gather_srv_ensemble(dirs, "sim_")
+    read_s = time.perf_counter() - t0
+    want = srv_vals.reshape(SRV_SIMS, -1)
+    log(f"user path (b): {SRV_SIMS} simulations x {SURVEYS} .srv files x "
+        f"{ROWS} rows ({SRV_HEADER}-line header) written in {write_s:.3f} s,"
+        f" read back by gather_srv_ensemble in {read_s:.3f} s: "
+        f"{got.shape}, equal to the written values: "
+        f"{np.array_equal(got, want)} ({card})")
+    if got.shape != want.shape or not np.array_equal(got, want):
+        raise RuntimeError("gather_srv_ensemble differs from the .srv files")
+    ert = np.concatenate([got, rng.normal(
+        50.0, 10.0, size=(n - SRV_SIMS, SURVEYS * ROWS))])
+    results = root / "results"
+    bad = {n // 4: "shape", n // 2: "shape", 3 * n // 4: "missing"}
+    folders, i = n + len(bad), 0
+    for f in range(folders):
+        sim = results / f"simulation_{f:04d}"
+        if bad.get(f) == "missing":
+            continue
+        sim.mkdir(parents=True)
+        if bad.get(f) == "shape":
+            np.save(sim / "parameters.npy", design[0, :, 0])
+            np.save(sim / "data.npy", np.zeros(SURVEYS * ROWS - SURVEYS))
+            continue
+        np.save(sim / "parameters.npy", design[i, :, 0])
+        np.save(sim / "data.npy", ert[i])
+        i += 1
+    return folders, ert
+
+
+def kde_reference(pixels: np.ndarray, grid: np.ndarray) -> np.ndarray:
+    """The KDE mode in float64 on a given grid: mode_kde_calculation's
+    Gaussian kernel sum with Scott's bandwidth, argmax over `grid`.
+    pixels: (n, N) ensembles."""
+    from ertdx_torch.metrics import _scott_bandwidth
+
+    out = np.empty(pixels.shape[0])
+    for j, x in enumerate(pixels.astype(np.float64)):
+        z = (grid[:, None] - x[None, :]) / _scott_bandwidth(x)
+        out[j] = grid[np.argmax(np.exp(-0.5 * z * z).sum(axis=1))]
+    return out
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def http_json(port: int, method: str, path: str, body=None,
+              timeout: float = 300.0) -> tuple:
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request(method, path, body=None if body is None else
+                     json.dumps(body),
+                     headers={"Content-Type": "application/json"})
+        r = conn.getresponse()
+        return r.status, json.loads(r.read())
+    finally:
+        conn.close()
+
+
+def rel_gap(got, want) -> float:
+    """max |got - want| / max(|want|, tiny) over the elements."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.max(np.abs(got - want) / np.maximum(np.abs(want),
+                                                        1e-30)))
+
+
+def check_user_path(sa, cb, dev, card, root, preset="v5e8_dp") -> dict:
+    """Phase 17: the ertdiff user path through the port's CLI, at
+    `preset`'s full width, in a temporary directory `root`:
+    (a) generate-design; (b) .srv files at the survey's real size read
+    back exactly, simulation folders, gather-data; (c) train for 2 epochs
+    (launches by the epoch grid, the bf16 echo); (d) calibrate --commit
+    over two temperatures (2 arms x 50 fused_core_stack launches a batch);
+    (e) sample with the committed config against posterior_over_dataset;
+    (f) metrics, and batched_kde_mode on a (50, 4693, 14) ensemble against
+    float64; (g) serve as a subprocess, three requests against the
+    in-process service, two bad ones. Returns the times."""
+    from ertdx_torch import cli, configs, data, sample, train
+    from ertdx_torch.diffusion import schedule_from_config
+    from ertdx_torch.doe import SurrogateDataGenerator
+    from ertdx_torch.metrics import batched_kde_mode
+    from ertdx_torch.serve import PosteriorService
+
+    counts = _AllCounts(sa, cb)
+    base = configs.PRESETS[preset]
+    dev_args = [] if dev.type == "cuda" else ["--device", "cpu"]
+    times = {}
+
+    # (a) design
+    design_path = root / "design.npy"
+    run_cli(cli, ["generate-design", "--n", str(USER_DESIGN), "--method",
+                  "sobol", "--seed", "0", "--out", str(design_path)],
+            "generate-design", dev)
+    design = np.load(design_path)
+    want = SurrogateDataGenerator(seed=0).generate_training_samples(
+        USER_DESIGN, "sobol")[..., None]
+    log(f"user path (a): generate-design {design.shape}, equal to "
+        f"SurrogateDataGenerator(seed=0): {np.array_equal(design, want)}")
+    if not np.array_equal(design, want):
+        raise RuntimeError("generate-design differs from the generator")
+
+    # (b) ingest
+    rng = np.random.default_rng(SEED + 170)
+    folders, ert_flat = make_simulations(root, design, rng, card)
+    p_path, e_path = root / "sim_param.npy", root / "sim_ert.npy"
+    out, seconds = run_cli(
+        cli, ["gather-data", "--results-dir", str(root / "results"), "--n",
+              str(folders), "--surveys", str(SURVEYS), "--out-ert",
+              str(e_path), "--out-params", str(p_path)], "gather-data", dev)
+    ert, params = np.load(e_path), np.load(p_path)
+    report = {line.split(":")[0]: line.split(":")[1].strip()
+              for line in out.splitlines() if ":" in line}
+    log(f"user path (b): gather-data --n {folders} in {seconds:.3f} s "
+        f"({card}): {ert.shape} and {params.shape}; "
+        f"{report.get('Discarded simulations')} discarded, "
+        f"{report.get('Missing folders')} missing")
+    if (ert.shape != (USER_DESIGN, ROWS, SURVEYS)
+            or params.shape != (USER_DESIGN, 29, 1)
+            or report.get("Discarded simulations") != "2"
+            or report.get("Missing folders") != "1"
+            or not np.array_equal(params, design)
+            or not np.array_equal(ert[:, :, 0], ert_flat[:, :ROWS])):
+        raise RuntimeError("gather-data: wrong shapes, report or values")
+
+    # (c) train
+    ck = root / "ck"
+    common = ["--params", str(p_path), "--ert", str(e_path), "--preset",
+              preset, *dev_args]
+    counts.reset_launches()
+    out, seconds = run_cli(cli, ["train", *common, "--epochs", "2",
+                                 "--batch-size", "256", "--checkpoint-dir",
+                                 str(ck)], "train", dev)
+    n_train = int(base.train.split[0] * USER_DESIGN)
+    n_val = int(base.train.split[1] * USER_DESIGN)
+    steps = 2 * -(-n_train // 256)
+    expect_launches("user path (c) train", counts.launches,
+                    slab_rule(steps, steps + 2 * -(-n_val // 256)))
+    saved = train.saved_config(str(ck))
+    log(f"user path (c): train 2 epochs, {steps} b256 steps in "
+        f"{seconds:.3f} s ({card}); {out.strip().splitlines()[-1]}; echo "
+        f"dtype {saved['model']['dtype']!r}")
+    if saved["model"]["dtype"] != "bfloat16":
+        raise RuntimeError("train: the checkpoint does not echo bfloat16")
+    times["train_s"] = seconds
+
+    # (d) calibrate --commit on the val split
+    temps = (1.0, 1.5)
+    batches = -(-n_val // base.train.batch_size)
+    ddim = base.sample.ddim_steps
+    counts.reset_launches()
+    out, seconds = run_cli(
+        cli, ["calibrate", *common, "--checkpoint-dir", str(ck), "--temps",
+              ",".join(map(str, temps)), "--realizations",
+              str(USER_MEMBERS), "--out", str(root / "cal.json"),
+              "--commit"], "calibrate", dev)
+    arms = len(temps)
+    expect_launches("user path (d) calibrate", counts.launches, {
+        "fused_core_stack": arms * batches * ddim, "fused_core_block": 0,
+        "slab_attention_fwd_bf16": arms * batches,
+        "slab_attention_bwd_bf16": 0})
+    cal = json.loads((root / "cal.json").read_text())
+    committed = train.saved_config(str(ck))["sample"]
+    log(f"user path (d): calibrate over {temps} ({n_val} conditions x "
+        f"{USER_MEMBERS} members, DDIM-{ddim}) in {seconds:.3f} s, "
+        f"{seconds / arms:.3f} s an arm ({card}); picked "
+        f"{cal['best_temperature']}; goodness "
+        f"{[cal['records'][str(t)]['goodness'] for t in temps]}; committed "
+        f"sampler={committed['sampler']} ddim_steps="
+        f"{committed['ddim_steps']} temperature={committed['temperature']}")
+    if (committed["sampler"] != "ddim" or committed["ddim_steps"] != ddim
+            or committed["temperature"] != cal["best_temperature"]):
+        raise RuntimeError("calibrate --commit: wrong committed echo")
+    times["calibrate_arm_s"] = seconds / arms
+
+    # (e) sample with the committed config
+    u_path = root / "Uncertainty_params.npy"
+    counts.reset_launches()
+    out, seconds = run_cli(cli, ["sample", *common, "--checkpoint-dir",
+                                 str(ck), "--realizations",
+                                 str(USER_MEMBERS), "--out", str(u_path)],
+                           "sample", dev)
+    n_test = USER_DESIGN - n_train - n_val
+    test_batches = -(-n_test // base.train.batch_size)
+    expect_launches("user path (e) sample", counts.launches, {
+        "fused_core_stack": test_batches * ddim, "fused_core_block": 0,
+        "slab_attention_fwd_bf16": test_batches,
+        "slab_attention_bwd_bf16": 0})
+    pred, mask = np.load(u_path), np.load(root / "valid_mask.npy")
+    cfg = configs.experiment_from_dict(train.saved_config(str(ck)), base)
+    state, _, scalers = train.load_best_model(str(ck), cfg, device=dev)
+    ds = data.prepare_dataset(params, ert,
+                              param_scaler=scalers["param_scaler"],
+                              ert_scaler=scalers["ert_scaler"])
+    _, _, test_idx = data.split_dataset(len(ds), cfg.train.seed,
+                                        cfg.train.split)
+    ref, ref_mask = sample.posterior_over_dataset(
+        state.model.eval(), ds.conditions[test_idx],
+        schedule_from_config(cfg.diffusion), ds.param_scaler,
+        n_realizations=USER_MEMBERS, batch_size=cfg.train.batch_size,
+        scfg=cfg.sample, generator=torch.Generator(device=dev).manual_seed(
+            cfg.train.seed), device=dev)
+    gap = rel_gap(pred, ref)
+    log(f"user path (e): sample {pred.shape} in {seconds:.3f} s ({card}); "
+        f"against the in-process posterior_over_dataset: bit-identical "
+        f"{np.array_equal(pred, ref)}, max relative gap {gap:.3e} (gate "
+        f"1e-6), masks equal {np.array_equal(mask, ref_mask)}")
+    log(f"valid fraction: {float(mask.mean()):.6f}")
+    if pred.shape != (USER_MEMBERS, n_test, 29) or not gap <= 1e-6 \
+            or not np.array_equal(mask, ref_mask):
+        raise RuntimeError("sample differs from posterior_over_dataset")
+    times["sample_s"] = seconds
+
+    # (f) metrics, and the batched KDE mode on the card
+    out, _ = run_cli(cli, ["metrics", "--pred", str(u_path), "--true",
+                           str(root / "true_params.npy"), "--out",
+                           str(root / "uq.csv")], "metrics", dev)
+    scores = json.loads(out.rsplit("wrote", 1)[0])
+    log(f"user path (f): metrics {scores}")
+    if set(scores) != {"accuracy", "precision", "goodness",
+                       "crps_mean_normalized", "sbc_ks_mean"}:
+        raise RuntimeError("metrics: not the JAX package's keys")
+    ens = (rng.normal(0.0, 1.0, size=(50, ROWS, SURVEYS))
+           * rng.uniform(0.5, 2.0, size=(ROWS, SURVEYS))
+           + rng.normal(50.0, 10.0, size=(ROWS, SURVEYS)))
+    ens[:, 0, 0] = 42.0                                  # a constant pixel
+    batched_kde_mode(ens[:, :8], device=dev)             # first call: set-up
+    t0 = time.perf_counter()
+    modes = batched_kde_mode(ens, device=dev)
+    kde_s = time.perf_counter() - t0
+    flat = ens.reshape(50, -1).T
+    pick = np.concatenate([[0], rng.choice(np.arange(1, flat.shape[0]), 63,
+                                           replace=False)])
+    lo, hi = float(ens.astype(np.float32).min()), \
+        float(ens.astype(np.float32).max())
+    grid = np.linspace(lo, hi, 5000)
+    ref = kde_reference(flat[pick[1:]], grid)
+    got = modes.reshape(-1)[pick]
+    step = (hi - lo) / 4999
+    err = float(np.abs(got[1:] - ref).max())
+    log(f"user path (f): batched_kde_mode on a {ens.shape} ensemble "
+        f"(5000 grid points) in {kde_s * 1e3:.3f} ms by the host clock, "
+        f"numpy in and out ({card}); on 63 seeded pixels max |mode - "
+        f"float64| {err:.4e} against one grid step {step:.4e}; the "
+        f"constant pixel {got[0]!r}")
+    if not err <= step * (1 + 1e-6) + 4 * np.spacing(np.float32(hi)) \
+            or got[0] != np.float32(42.0):
+        raise RuntimeError("batched_kde_mode disagrees with float64")
+    times["kde_ms"] = kde_s * 1e3
+
+    # (g) serve
+    port = free_port()
+    argv = [sys.executable, "-m", "ertdx_torch.cli", "serve",
+            "--checkpoint-dir", str(ck), "--preset", preset, "--warmup",
+            "--port", str(port), "--realizations", str(USER_MEMBERS),
+            *dev_args]
+    errlog = open(root / "serve.err", "w+")
+    t0 = time.perf_counter()
+    child = subprocess.Popen(argv, cwd=os.path.dirname(os.path.abspath(
+        __file__)), stdout=subprocess.DEVNULL, stderr=errlog)
+    try:
+        while True:
+            try:
+                if http_json(port, "GET", "/healthz", timeout=5)[0] == 200:
+                    break
+            except OSError:
+                pass
+            if child.poll() is not None or time.perf_counter() - t0 > 180:
+                errlog.seek(0)
+                raise RuntimeError("serve did not answer /healthz within "
+                                   f"180 s:\n{errlog.read()[-4000:]}")
+            time.sleep(0.5)
+        log(f"user path (g): serve answered /healthz "
+            f"{time.perf_counter() - t0:.3f}"
+            f" s after its start (warm-up of {USER_MEMBERS} members "
+            f"included; {card})")
+        svc = PosteriorService(str(ck), base, device=dev)
+        raw = np.load(e_path)[test_idx]
+        per_request = []
+        for b, seed in SERVE_REQUESTS:
+            body = {"conditions": raw[:b].tolist(),
+                    "n_realizations": USER_MEMBERS, "seed": seed}
+            t1 = time.perf_counter()
+            status, answer = http_json(port, "POST", "/posterior", body)
+            ms = (time.perf_counter() - t1) * 1e3
+            if status != 200:
+                raise RuntimeError(f"serve: status {status}: {answer}")
+            counts.reset_launches()
+            t1 = time.perf_counter()
+            want = svc.posterior(raw[:b], n_realizations=USER_MEMBERS,
+                                 seed=seed)
+            local_ms = (time.perf_counter() - t1) * 1e3
+            expect_launches(f"user path (g) in-process request of {b}",
+                            counts.launches, {
+                                "fused_core_stack": ddim,
+                                "fused_core_block": 0,
+                                "slab_attention_fwd_bf16": 1,
+                                "slab_attention_bwd_bf16": 0})
+            gap = max(rel_gap(answer[k], want[k]) for k in
+                      ("mean", "std", "p25", "p50", "p75",
+                       "valid_fraction"))
+            log(f"user path (g): request of {b} condition(s), seed {seed}, "
+                f"{USER_MEMBERS} members: {ms:.3f} ms by the host clock "
+                f"around the HTTP call, {local_ms:.3f} ms for the same "
+                f"posterior() in this process ({card}); valid fraction "
+                f"{answer['valid_fraction']:.6f}; max relative gap to the "
+                f"in-process service {gap:.3e} (gate 1e-6)")
+            if not gap <= 1e-6 or set(answer) != set(want):
+                raise RuntimeError("serve differs from the in-process "
+                                   "service")
+            per_request.append(ms)
+        bad = [({"nope": 1}, "malformed"),
+               ({"conditions": raw[:9].tolist()}, "over max_batch")]
+        for body, what in bad:
+            status, answer = http_json(port, "POST", "/posterior", body)
+            log(f"user path (g): {what} request -> {status} {answer}")
+            if status != 400:
+                raise RuntimeError(f"serve: a {what} request got {status}")
+        times["request_ms"] = per_request
+    finally:
+        child.terminate()
+        try:
+            child.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            child.kill()
+            child.wait()
+        errlog.close()
+    return times
+
+
 def random_flax_tree(shapes, rng) -> dict:
     """A flax-layout tree of non-zero numpy leaves at init-like scales."""
     out = {}
@@ -3479,6 +3906,20 @@ def main() -> int:
         phase("bf16 fused-encoder arm", t0)
     finally:
         shutil.rmtree(ckdir, ignore_errors=True)
+
+    # 17. the user path: the port's CLI and posterior service
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="ertdx_torch_user_")
+    try:
+        user = check_user_path(sa, cb, dev, card, Path(root))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"user path ({card}): train {user['train_s']:.3f} s, calibrate "
+        f"{user['calibrate_arm_s']:.3f} s an arm, sample "
+        f"{user['sample_s']:.3f} s, batched_kde_mode {user['kde_ms']:.3f} "
+        f"ms, requests of {[b for b, _ in SERVE_REQUESTS]} conditions "
+        f"{[round(ms, 3) for ms in user['request_ms']]} ms")
+    phase("user path", t0)
 
     launches = {"fused_core_stack": main_launches["fused_core_stack"],
                 "fused_core_block": block_launches["fused_core_block"],

@@ -103,6 +103,11 @@ def eps_from_v(v, x, abar_t):
     return torch.sqrt(1.0 - abar_t) * x + torch.sqrt(abar_t) * v
 
 
+def x0_from_v(v, x, abar_t):
+    """x0 = alpha_t x - sigma_t v (ertdx/diffusion.py:131-133)."""
+    return torch.sqrt(abar_t) * x - torch.sqrt(1.0 - abar_t) * v
+
+
 def as_eps_denoiser(model_fn: DenoiseFn, alpha_bar: torch.Tensor,
                     parameterization: str) -> DenoiseFn:
     """Adapt a raw model-output closure to the samplers' eps contract:

@@ -2,7 +2,8 @@
 
 A copy of ertdx/params.py:101-164 (the port may not import ertdx): the
 (29, 2) physical limits, the indices of the log10-distributed parameters
-and the display names, as pure numpy data.
+and the display names, as pure numpy data, with the reference-API shims
+`ParameterLimits` and `ParameterNames`.
 """
 from __future__ import annotations
 
@@ -137,3 +138,22 @@ class ParameterSpace:
         pm = np.asarray(pm)
         ok = (pm >= self.lo) & (pm <= self.hi)
         return ok.all(axis=-1)
+
+
+def default_space() -> ParameterSpace:
+    return ParameterSpace()
+
+
+class ParameterLimits:
+    """Compatibility shim mirroring the reference's parameter limits."""
+
+    def __init__(self):
+        self.plims = _PLIMS.copy()
+        self.logparms = list(_LOGPARMS)
+
+
+class ParameterNames:
+    """Compatibility shim mirroring the reference's parameter names."""
+
+    def __init__(self):
+        self.names = list(_NAMES)

@@ -2,8 +2,10 @@
 
 Mirrors ertdx/transforms.py:32-201: the logit reparameterization with its
 1e-6 clamp and its sigmoid inverse, the per-feature MinMax scaler with
-explicit state, and the parameter-bounds mask and filter. A torch tensor
-stays a tensor on its device; a numpy array stays numpy.
+explicit state, the physical <-> unit-interval `ParameterScaler` against
+the parameter bounds (log10 space for the log-distributed parameters),
+and the parameter-bounds mask and filter. A torch tensor stays a tensor
+on its device; a numpy array stays numpy.
 """
 from __future__ import annotations
 
@@ -12,6 +14,8 @@ from typing import Tuple, Union
 
 import numpy as np
 import torch
+
+from .params import ParameterSpace
 
 Array = Union[np.ndarray, torch.Tensor]
 
@@ -93,6 +97,62 @@ class MinMaxScaler:
     def from_state_dict(cls, d: dict) -> "MinMaxScaler":
         fr = tuple(float(v) for v in np.asarray(d["feature_range"]))
         return cls(np.asarray(d["data_min"]), np.asarray(d["data_max"]), fr)
+
+
+@dataclasses.dataclass(frozen=True)
+class ParameterScaler:
+    """Physical <-> unit-interval scaling against the parameter bounds
+    (ertdx/transforms.py:127-171): linear min-max per parameter, min-max
+    in log10 space for the log-distributed ones; `descale` clamps to the
+    physical bounds and with `warn` (numpy only) prints one line per
+    clamped value, as the reference does. Works over any leading batch
+    dims, on numpy arrays or torch tensors."""
+
+    space: ParameterSpace = dataclasses.field(default_factory=ParameterSpace)
+
+    def _bounds(self, like: Array):
+        lo, hi = self.space.effective_bounds()
+        islog = self.space.log_mask
+        if isinstance(like, torch.Tensor):
+            def t(a):
+                return torch.as_tensor(a, dtype=like.dtype,
+                                       device=like.device)
+            return t(lo), t(hi), torch.as_tensor(islog, device=like.device)
+        return lo, hi, islog
+
+    def scale(self, pm: Array) -> Array:
+        """Physical (..., 29) -> unit interval [0, 1]."""
+        lo, hi, islog = self._bounds(pm)
+        if isinstance(pm, torch.Tensor):
+            x = torch.where(islog, torch.log10(torch.where(
+                islog, pm, torch.ones_like(pm))), pm)
+        else:
+            x = np.where(islog, np.log10(np.where(islog, pm, 1.0)), pm)
+        return (x - lo) / (hi - lo)
+
+    def descale(self, u: Array, warn: bool = False) -> Array:
+        """Unit interval (..., 29) -> physical, clamped to the bounds."""
+        lo, hi, islog = self._bounds(u)
+        y = lo + (hi - lo) * u
+        if isinstance(u, torch.Tensor):
+            pm = torch.where(islog, torch.pow(10.0, y), y)
+            plo = torch.as_tensor(self.space.lo, dtype=pm.dtype,
+                                  device=pm.device)
+            phi = torch.as_tensor(self.space.hi, dtype=pm.dtype,
+                                  device=pm.device)
+            return torch.minimum(torch.maximum(pm, plo), phi)
+        pm = np.where(islog, np.power(10.0, y), y)
+        plo, phi = self.space.lo, self.space.hi
+        if warn:
+            for idx in np.argwhere(pm < plo):
+                i = idx[-1]
+                print(f"Warning: Parameter {i} is set to the minimum "
+                      f"allowable of {plo[i]}")
+            for idx in np.argwhere(pm > phi):
+                i = idx[-1]
+                print(f"Warning: Parameter {i} is set to the maximum "
+                      f"allowable of {phi[i]}")
+        return np.clip(pm, plo, phi)
 
 
 def param_bounds_mask(param: Array, limits) -> Array:

@@ -11,7 +11,9 @@ directory holding:
 
 The JAX package restores what this module writes and the other way round.
 Every file is written to a temporary name beside it and renamed, so a
-crash mid-save leaves the previous checkpoint whole.
+crash mid-save leaves the previous checkpoint whole. `commit_sample_config`
+writes a calibrated sampling configuration into the config echo, as
+ertdx/utils/checkpoint.py:91-127 does.
 """
 from __future__ import annotations
 
@@ -84,3 +86,35 @@ def load_scalers(ckpt_dir) -> Dict[str, MinMaxScaler]:
                     {k.split(".", 1)[1]: z[k] for k in z.files
                      if k.startswith(name + ".")})
     return scalers
+
+
+def commit_sample_config(checkpoint_root, sample_fields: Dict[str, Any],
+                         calibration: Optional[Dict[str, Any]] = None
+                         ) -> list:
+    """Write a calibrated sampling configuration into the config echo of
+    every checkpoint under `checkpoint_root` ("best" and, if present,
+    "last"): `sample_fields` update meta["config"]["sample"], and
+    `calibration` (objective, grid, winning scores) lands under
+    meta["calibration"] as the audit record. `sample`, `serve` and every
+    `train.saved_config` reader then adopt the calibrated posterior with
+    no sampling flags (explicit flags still win). Returns the rewritten
+    meta.json paths."""
+    root = Path(checkpoint_root)
+    updated = []
+    for name in ("best", "last"):
+        p = root / name / "meta.json"
+        if not p.exists():
+            continue
+        meta = json.loads(p.read_text())
+        cfg = meta.setdefault("config", {})
+        cfg.setdefault("sample", {}).update(sample_fields)
+        if calibration is not None:
+            meta["calibration"] = calibration
+        _atomic_write(p, json.dumps(meta, indent=2,
+                                    default=_json_default).encode())
+        updated.append(p)
+    if not updated:
+        raise FileNotFoundError(
+            f"no best/ or last/ meta.json under {root} — is this a "
+            "checkpoint directory?")
+    return updated

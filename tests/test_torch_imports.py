@@ -62,7 +62,11 @@ def test_port_imports_without_jax_and_friends():
                  "ertdx_torch.data", "ertdx_torch.doe",
                  "ertdx_torch.utils.checkpoint",
                  "ertdx_torch.utils.msgpack_lite",
-                 "ertdx_torch.ops.attention", "ertdx_torch.distill"):
+                 "ertdx_torch.ops.attention", "ertdx_torch.distill",
+                 "ertdx_torch.metrics", "ertdx_torch.calibrate",
+                 "ertdx_torch.serve", "ertdx_torch.cli",
+                 "ertdx_torch.utils.logging",
+                 "ertdx_torch.utils.profiling"):
         assert name in imported
 
 
