@@ -190,7 +190,32 @@ non-zero and prints no result line):
    requests (1, 4 and 8 conditions, 1000 members) within 1e-6 relative of
    an in-process PosteriorService (50 fused_core_stack and 1 bf16 slab
    forward each), ms a request by the host clock around the HTTP call,
-   and a malformed and an oversized request answered 400.
+   and a malformed and an oversized request answered 400;
+18. the reference model and the unconditional model (models/refmlp.py,
+   models/uncond.py), which run no kernel of csrc/ (JAX computes them
+   outside Pallas): every kernel counter set to 0 before and still 0
+   after. (a) REF_DEFAULT's RefCondMLP at full width (P=29, H=128, a
+   4693 x 14 condition, batch 32, T=500, Adam at 1e-4) from random
+   weights through params_from_jax: 5 train_steps on the card against the
+   same 5 on the CPU on injected t and eps (losses within 1e-4 relative,
+   parameters within 1e-5 but for 0.1 % of the entries, which Adam's
+   sign(g) moves up to 2 lr a step), ms a step; train() for 2 epochs on
+   400 seeded examples, the best checkpoint read back by load_best_model
+   and the last bit for bit the trained model; (b) the configs[0]
+   posterior, 8 conditions x 50 members ancestral over 500 steps on the
+   realization-major path, unguided and guided at 2.0 (uncond_prob 0.1),
+   against the CPU from the same x_T and noise (1e-3 x max(1, max|u|)),
+   ms a step, the inverse pipeline; (c) a reference twin's `.pth` state
+   dict: the imported model against the twin on the card (1e-5), `sample
+   --torch-checkpoint --model refmlp` through the CLI against
+   posterior_over_dataset in process from the same seed and
+   PosteriorService.from_torch against posterior_ensemble (1e-6); (d)
+   generate-synthetic through the CLI (synthetic.py's bytes),
+   SYNTHETIC_GAUSSIAN's UncondMLP at full width (P=256, H=256, 3 blocks,
+   batch 64, T=500) for 2 epochs and a 512-member ancestral draw, finite,
+   ms a step; then tests/test_uncond.py's configs[1] acceptance check on
+   the card (8 x 8 fields, T=100, 40 epochs at batch 128 and lr 2e-3,
+   the moments and the neighbour correlation within its tolerances).
 
 Every kernel's entry in the kernels line has `bound_ms`, the least time
 the card could take: the bytes at 3.35 TB/s or the operations at the
@@ -201,8 +226,8 @@ only the keys the mask needs. Beside it `bound_tc_ms` (the 3xTF32 time;
 null for GroupNorm) and `bound_fp32_ms` (the fp32 pipe's). The last line of
 stdout is {"ok": true, "device": {...}}. The build goes
 to build/ertdx_torch_kernels/; the checkpoints of phases 7, 11, 13, 14,
-15 and 16 and phase 17's files go to temporary directories that are
-removed; nothing else is written.
+15 and 16 and the files of phases 17 and 18 go to temporary directories
+that are removed; nothing else is written.
 """
 from __future__ import annotations
 
@@ -3612,6 +3637,471 @@ def check_user_path(sa, cb, dev, card, root, preset="v5e8_dp") -> dict:
     return times
 
 
+# ---------------------------------------------------------------------------
+# 18. the reference model and the unconditional model
+# ---------------------------------------------------------------------------
+
+# (a) REF_DEFAULT's train steps, and train() on this many seeded examples;
+# (b) the configs[0] posterior: conditions x members, ancestral over T;
+# (c) the .pth route: the design the CLI samples from; (d) configs[1]'s
+# fields and the members of its draw
+REF_STEPS, REF_EXAMPLES = 5, 400
+REF_CONDITIONS, REF_MEMBERS = 8, 50
+PTH_DESIGN = 80
+UNCOND_MEMBERS = 512
+
+
+class _TorchRef(torch.nn.Module):
+    """An independent rebuild of the reference's ConditionalDiffusionModel
+    (ERT_Conditional_Diffusion.py:121-164), channel-first, whose state
+    dict is what the reference's `.pth` files hold."""
+
+    def __init__(self, param_dim=29, hidden_dim=128, channels=14):
+        super().__init__()
+        nn = torch.nn
+        self.hidden_dim = hidden_dim
+        self.condition_encoder = nn.Sequential(
+            nn.Conv1d(channels, 32, 3, stride=2, padding=1), nn.ReLU(),
+            nn.Conv1d(32, 64, 3, stride=2, padding=1), nn.ReLU(),
+            nn.AdaptiveAvgPool1d(1), nn.Flatten(),
+            nn.Linear(64, hidden_dim), nn.ReLU())
+        self.time_embed = nn.Sequential(
+            nn.Linear(hidden_dim, hidden_dim), nn.ReLU())
+        self.mlp = nn.Sequential(
+            nn.Linear(param_dim + 2 * hidden_dim, hidden_dim), nn.ReLU(),
+            nn.Linear(hidden_dim, param_dim))
+
+    def forward(self, x, t, condition):
+        half = self.hidden_dim // 2
+        freqs = torch.exp(
+            -math.log(10000.0) * torch.arange(half, dtype=torch.float32,
+                                              device=x.device) / (half - 1))
+        args = t.float()[:, None] * freqs[None]
+        temb = self.time_embed(torch.cat([torch.sin(args), torch.cos(args)],
+                                         dim=1))
+        return self.mlp(torch.cat([x, temb,
+                                   self.condition_encoder(condition)], dim=1))
+
+
+def all_launches() -> dict:
+    """Every kernel counter of the port's ops modules, by name."""
+    from ertdx_torch.ops import attention, conv, core_block, ensemble_attn
+    from ertdx_torch.ops import groupnorm, slab_attn
+    out = {}
+    for mod in (attention, conv, core_block, ensemble_attn, groupnorm,
+                slab_attn):
+        out.update(mod.launches)
+        out.update(getattr(mod, "launches_bf16", {}))
+    return out
+
+
+def reset_all_launches() -> None:
+    from ertdx_torch.ops import attention, conv, core_block, ensemble_attn
+    from ertdx_torch.ops import groupnorm, slab_attn
+    for mod in (attention, conv, core_block, ensemble_attn, groupnorm,
+                slab_attn):
+        mod.reset_launches()
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| / max(1, max |want|) of two tensors or arrays."""
+    got, want = (torch.as_tensor(a).detach().double().cpu()
+                 for a in (got, want))
+    return float((got - want).abs().max()) / max(1.0, float(
+        want.abs().max()))
+
+
+def check_draws(label, got, want, tol: float = 1e-3) -> float:
+    """Fail unless the draws agree within tol x max(1, max|want|)."""
+    err = rel_err(got, want)
+    log(f"{label}: max|du| / max(1, max|u|) = {err:.3e} (gate {tol:g})")
+    if not err <= tol:
+        raise RuntimeError(f"{label}: draws differ by {err:.3e} > {tol:g}")
+    return err
+
+
+def check_ref_steps(configs, train, dev, card) -> float:
+    """(a) REF_DEFAULT's RefCondMLP at full width: REF_STEPS train_steps on
+    the card against the same steps on the CPU, on injected t and eps.
+    Gates: each loss within 1e-4 relative; every parameter within 1e-5,
+    but for at most 0.1 % of the entries, which Adam's sign(g) may move
+    up to 2 lr a step apart where a gradient is near 0 (tests/
+    test_torch_train.py's rule). Returns ms per step on the card."""
+    from ertdx_torch.diffusion import schedule_from_config
+    from ertdx_torch.models import build_model
+    from ertdx_torch.precision import fp32_precision
+    from ertdx_torch.utils.weights import flax_shapes, params_from_jax
+
+    cfg = configs.REF_DEFAULT
+    m = cfg.model
+    rng = np.random.default_rng(SEED + 18)
+    card_model = build_model(m, device=dev)
+    tree = random_flax_tree(flax_shapes(card_model), rng)
+    params_from_jax(card_model, tree)
+    cpu_model = params_from_jax(build_model(m, device="cpu"), tree)
+    bsz, lr = cfg.train.batch_size, cfg.train.lr
+    alpha_bar = schedule_from_config(cfg.diffusion).alpha_bar
+    batches = [(rng.standard_normal((bsz, m.param_dim)).astype(np.float32),
+                rng.uniform(size=(bsz, m.cond_length, m.cond_channels)
+                            ).astype(np.float32),
+                rng.integers(0, cfg.diffusion.T, bsz),
+                rng.standard_normal((bsz, m.param_dim)).astype(np.float32))
+               for _ in range(REF_STEPS)]
+    losses = {}
+    with fp32_precision():
+        for where, model in (("card", card_model), ("cpu", cpu_model)):
+            d = next(model.parameters()).device
+            opt = train.create_optimizer(model, lr)
+            losses[where] = [float(train.train_step(
+                model, opt, *(torch.from_numpy(a).to(d) for a in (x0, c)),
+                torch.from_numpy(t).to(d), torch.from_numpy(e).to(d),
+                alpha_bar=alpha_bar, lr=lr))
+                for x0, c, t, e in batches]
+        x0, c, t, e = (torch.from_numpy(a).to(dev) for a in batches[0])
+        probe = copy.deepcopy(card_model)
+        opt = train.create_optimizer(probe, lr)
+        step_ms = time_ms(lambda: train.train_step(
+            probe, opt, x0, c, t, e, alpha_bar=alpha_bar, lr=lr), reps=5)
+        device_profile(lambda: train.train_step(
+            probe, opt, x0, c, t, e, alpha_bar=alpha_bar, lr=lr),
+            "refmlp (a) one REF_DEFAULT train step")
+    worst_loss = max(abs(a - b) / abs(b) for a, b in
+                     zip(losses["card"], losses["cpu"]))
+    diffs = torch.cat([(a.detach().cpu() - b.detach()).abs().reshape(-1)
+                       for a, b in zip(card_model.parameters(),
+                                       cpu_model.parameters())])
+    loose = int((diffs > 1e-5).sum())
+    log(f"refmlp (a): {REF_STEPS} REF_DEFAULT steps (batch {bsz}, "
+        f"condition {m.cond_length} x {m.cond_channels}, Adam lr {lr:g}) "
+        f"card vs cpu: losses card {losses['card']} cpu {losses['cpu']}, "
+        f"worst relative loss gap {worst_loss:.3e} (gate 1e-4); parameter "
+        f"gap max {float(diffs.max()):.3e}, {loose} of {diffs.numel()} "
+        f"entries above 1e-5 (gate 0.1 %, each <= {2 * lr * REF_STEPS:g})")
+    if not (worst_loss <= 1e-4 and loose <= 1e-3 * diffs.numel()
+            and float(diffs.max()) <= 2 * lr * REF_STEPS + 1e-5):
+        raise RuntimeError("refmlp (a): the card's train steps disagree "
+                           "with the CPU's")
+    log(f"refmlp (a): {step_ms:.4f} ms per REF_DEFAULT train step on the "
+        f"card (CUDA events; {card})")
+    return step_ms
+
+
+def check_ref_train(configs, data, train, dev, root) -> None:
+    """(a) train() for 2 epochs on REF_EXAMPLES seeded examples; the best
+    and last checkpoints read back, the last bit for bit the trained
+    model."""
+    from ertdx_torch.doe import SurrogateDataGenerator
+    from ertdx_torch.models import build_model
+    from ertdx_torch.utils import checkpoint as ckpt_lib
+    from ertdx_torch.utils.weights import params_from_jax
+
+    m = configs.REF_DEFAULT.model
+    rng = np.random.default_rng(SEED + 19)
+    design = SurrogateDataGenerator(seed=SEED).generate_training_samples(
+        REF_EXAMPLES, "lhs")[..., None]
+    ert = rng.normal(50.0, 10.0, size=(REF_EXAMPLES, m.cond_length,
+                                       m.cond_channels)).astype(np.float32)
+    ds = data.prepare_dataset(design, ert)
+    cfg = dataclasses.replace(
+        configs.REF_DEFAULT, train=dataclasses.replace(
+            configs.REF_DEFAULT.train, num_epochs=2,
+            step_checkpoint_every=1))
+    ckdir = root / "ref_train"
+    t0 = time.perf_counter()
+    res = train.train(cfg, ds, checkpoint_dir=str(ckdir), device=dev)
+    seconds = time.perf_counter() - t0
+    state, meta, _ = train.load_best_model(str(ckdir), configs.REF_DEFAULT,
+                                           device=dev)
+    tree, last_meta, _ = ckpt_lib.restore_checkpoint(ckdir / "last")
+    last = params_from_jax(build_model(m, device=dev), tree["params"])
+    exact = all(torch.equal(a, b) for a, b in zip(
+        last.parameters(), res.state.model.parameters()))
+    log(f"refmlp (a): train() 2 epochs on {REF_EXAMPLES} examples in "
+        f"{seconds:.3f} s ({res.steps_per_sec:.2f} steps/s), losses "
+        f"{res.train_history} val {res.val_history}; best (epoch "
+        f"{meta['epoch']}, model {meta['model']!r}) read back as "
+        f"{type(state.model).__name__}, last (epoch {last_meta['epoch']}) "
+        f"bit for bit the trained model: {exact}")
+    steps_per_epoch = res.state.step // 2
+    if not (exact and meta["model"] == "refmlp"
+            and np.isfinite(res.train_history).all()
+            and state.step == meta["epoch"] * steps_per_epoch):
+        raise RuntimeError("refmlp (a): train() or its checkpoints failed")
+
+
+def _ref_posterior_model(configs, dev, uncond_prob, seed):
+    """REF_DEFAULT's model (with uncond_prob) from random non-zero weights,
+    on the card and on the CPU."""
+    from ertdx_torch.models import build_model
+    from ertdx_torch.utils.weights import flax_shapes, params_from_jax
+    m = dataclasses.replace(configs.REF_DEFAULT.model,
+                            uncond_prob=uncond_prob)
+    card_model = build_model(m, device=dev).eval()
+    tree = random_flax_tree(flax_shapes(card_model),
+                            np.random.default_rng(seed))
+    params_from_jax(card_model, tree)
+    return card_model, params_from_jax(build_model(m, device="cpu"),
+                                       tree).eval()
+
+
+def check_ref_posterior(configs, sample, dev, card) -> float:
+    """(b) the configs[0] posterior: REF_CONDITIONS x REF_MEMBERS chains,
+    ancestral over all T=500 steps, realization-major, from injected x_T
+    and noise, on the card against the CPU (1e-3 x max(1, max|u|)); the
+    same guided at g = 2 from a model with uncond_prob = 0.1; then the
+    inverse pipeline. Returns ms per sampling step on the card."""
+    from ertdx_torch.diffusion import schedule_from_config
+    from ertdx_torch.params import ParameterSpace
+    from ertdx_torch.transforms import MinMaxScaler
+
+    cfg = configs.REF_DEFAULT
+    m, big_t = cfg.model, cfg.diffusion.T
+    schedule = schedule_from_config(cfg.diffusion)
+    rng = np.random.default_rng(SEED + 20)
+    cond = rng.uniform(size=(REF_CONDITIONS, m.cond_length,
+                             m.cond_channels)).astype(np.float32)
+    chains = REF_CONDITIONS * REF_MEMBERS
+    x_T = torch.from_numpy(rng.standard_normal(
+        (chains, m.param_dim)).astype(np.float32))
+    noise = torch.from_numpy(rng.standard_normal(
+        (big_t, chains, m.param_dim)).astype(np.float32))
+    step_ms = None
+    for label, uncond_prob, g in (("unguided", 0.0, 1.0),
+                                  ("guided g=2", 0.1, 2.0)):
+        card_model, cpu_model = _ref_posterior_model(configs, dev,
+                                                     uncond_prob, SEED + 21)
+        scfg = dataclasses.replace(cfg.sample, guidance_scale=g,
+                                   uncertainty_samples=REF_MEMBERS)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        u = sample.posterior_ensemble(
+            card_model, torch.from_numpy(cond), schedule, REF_MEMBERS, scfg,
+            x_T=x_T.to(dev), noise=noise.to(dev), device=dev)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        u_cpu = sample.posterior_ensemble(
+            cpu_model, torch.from_numpy(cond), schedule, REF_MEMBERS, scfg,
+            x_T=x_T, noise=noise, device="cpu")
+        if tuple(u.shape) != (REF_MEMBERS, REF_CONDITIONS, m.param_dim) \
+                or not torch.isfinite(u).all():
+            raise RuntimeError(f"refmlp (b) {label}: bad draws")
+        check_draws(f"refmlp (b) {label}: {REF_CONDITIONS} x {REF_MEMBERS}"
+                    f" ancestral-{big_t} card vs cpu", u, u_cpu)
+        ms = seconds / big_t * 1e3
+        log(f"refmlp (b) {label}: {seconds:.3f} s, {ms:.4f} ms per "
+            f"sampling step ({chains} chains; {card})")
+        step_ms = step_ms or ms
+    space = ParameterSpace()
+    phys, mask = sample.inverse_pipeline(u, MinMaxScaler.fit(space.plims.T),
+                                         space=space)
+    if phys.shape != tuple(u.shape) or not np.isfinite(phys).all():
+        raise RuntimeError("refmlp (b): inverse pipeline: bad output")
+    log(f"refmlp (b): inverse pipeline valid fraction "
+        f"{float(mask.mean()):.6f}")
+    return step_ms
+
+
+def check_pth_route(configs, cli, data, sample, dev, root) -> None:
+    """(c) the reference's `.pth` weights on the card: a twin's forward
+    against the imported RefCondMLP's (1e-5 x max(1, max|twin|)); `sample
+    --torch-checkpoint --model refmlp` through the CLI against
+    posterior_over_dataset in process from the same seed, and
+    PosteriorService.from_torch against posterior_ensemble in process
+    (both 1e-6 x max(1, max|draws|))."""
+    from ertdx_torch.compat import load_reference_model
+    from ertdx_torch.diffusion import schedule_from_config
+    from ertdx_torch.doe import SurrogateDataGenerator
+    from ertdx_torch.serve import PosteriorService
+
+    cfg = configs.REF_DEFAULT
+    m = cfg.model
+    torch.manual_seed(SEED + 22)
+    twin = _TorchRef(m.param_dim, m.hidden_dim, m.cond_channels).eval()
+    pth = root / "best_model.pth"
+    torch.save(twin.state_dict(), pth)
+    rng = np.random.default_rng(SEED + 23)
+    design = SurrogateDataGenerator(seed=SEED + 1).generate_training_samples(
+        PTH_DESIGN, "lhs")[..., None]
+    ert = rng.normal(50.0, 10.0, size=(PTH_DESIGN, m.cond_length,
+                                       m.cond_channels)).astype(np.float32)
+    np.save(root / "pth_param.npy", design)
+    np.save(root / "pth_ert.npy", ert)
+
+    model, _ = load_reference_model(pth, m, dev)
+    model.eval()
+    twin = twin.to(dev)
+    x = torch.randn(8, m.param_dim, device=dev)
+    t = torch.arange(8, device=dev) * 60
+    c = torch.from_numpy(ert[:8] / 100.0).to(dev)
+    with torch.no_grad():
+        err = rel_err(model(x, t, c), twin(x, t, c.transpose(1, 2)))
+    log(f"refmlp (c): imported RefCondMLP vs the reference twin on the card:"
+        f" {err:.3e} (gate 1e-5)")
+    if not err <= 1e-5:
+        raise RuntimeError("refmlp (c): the imported model disagrees with "
+                           "the twin")
+
+    out = root / "pth_u.npy"
+    _, seconds = run_cli(cli, [
+        "sample", "--params", str(root / "pth_param.npy"), "--ert",
+        str(root / "pth_ert.npy"), "--torch-checkpoint", str(pth),
+        "--model", "refmlp", "--realizations", str(REF_MEMBERS), "--seed",
+        "3", "--out", str(out)] + ([] if dev.type == "cuda" else
+                                   ["--device", "cpu"]),
+        "sample --torch-checkpoint", dev)
+    pred = np.load(out)
+    ds = data.prepare_dataset(design, ert)
+    _, _, test_idx = data.split_dataset(len(ds), 3, cfg.train.split)
+    want, _ = sample.posterior_over_dataset(
+        model, ds.conditions[test_idx], schedule_from_config(cfg.diffusion),
+        ds.param_scaler, n_realizations=REF_MEMBERS,
+        batch_size=cfg.train.batch_size, scfg=cfg.sample,
+        generator=torch.Generator(device=dev).manual_seed(3), device=dev)
+    err = rel_err(pred, want)
+    log(f"refmlp (c): sample --torch-checkpoint {pred.shape} in "
+        f"{seconds:.3f} s vs posterior_over_dataset in process: {err:.3e} "
+        f"(gate 1e-6)")
+    if pred.shape != want.shape or not err <= 1e-6:
+        raise RuntimeError("refmlp (c): the CLI's draws differ")
+
+    svc = PosteriorService.from_torch(pth, cfg, design, ert, max_batch=8,
+                                      device=dev)
+    got = svc.posterior(ert[:4], n_realizations=REF_MEMBERS, seed=4,
+                        return_draws=True)
+    cond = ds.ert_scaler.transform(ert[:4].reshape(4, -1)).reshape(
+        4, m.cond_length, m.cond_channels).astype(np.float32)
+    cond = np.concatenate([cond, np.zeros((4,) + cond.shape[1:],
+                                          np.float32)])
+    u = sample.posterior_ensemble(
+        model, torch.from_numpy(cond), schedule_from_config(cfg.diffusion),
+        REF_MEMBERS, cfg.sample,
+        generator=torch.Generator(device=dev).manual_seed(4), device=dev)
+    phys, _ = sample.device_inverse(u, ds.param_scaler, svc.space.plims)
+    err = rel_err(np.asarray(got["draws"], np.float32),
+                  phys[:, :4].cpu().numpy())
+    log(f"refmlp (c): PosteriorService.from_torch ({svc.meta}) vs "
+        f"posterior_ensemble in process: {err:.3e} (gate 1e-6), valid "
+        f"fraction {got['valid_fraction']:.4f}")
+    if not err <= 1e-6:
+        raise RuntimeError("refmlp (c): from_torch's draws differ")
+
+
+def check_synthetic(configs, cli, sample, train, dev, card, root) -> dict:
+    """(d) configs[1]: generate-synthetic through the CLI (the port's
+    synthetic.py's bytes); SYNTHETIC_GAUSSIAN's UncondMLP at full width
+    (P=256, H=256, 3 blocks, batch 64, T=500) for 2 epochs, then a
+    UNCOND_MEMBERS-member ancestral draw, finite; then tests/
+    test_uncond.py's acceptance check on the card with its settings and
+    tolerances. Returns ms per train and per sampling step."""
+    from ertdx_torch import synthetic
+    from ertdx_torch.diffusion import schedule_from_config
+    from ertdx_torch.precision import fp32_precision
+
+    fields = root / "synthetic_fields.npy"
+    run_cli(cli, ["generate-synthetic", "--out", str(fields)],
+            "generate-synthetic", dev)
+    cfg = dataclasses.replace(configs.SYNTHETIC_GAUSSIAN,
+                              train=dataclasses.replace(
+                                  configs.SYNTHETIC_GAUSSIAN.train,
+                                  num_epochs=2))
+    ds = synthetic.make_unconditional_ertdataset()
+    same = np.load(fields).tobytes() == ds.params_u.tobytes() and \
+        np.load(root / "synthetic_cond.npy").tobytes() == \
+        ds.conditions.tobytes()
+    res = train.train(cfg, ds, checkpoint_dir=str(root / "uncond"),
+                      device=dev)
+    state, meta, _ = train.load_best_model(str(root / "uncond"), cfg,
+                                           device=dev)
+    schedule = schedule_from_config(cfg.diffusion)
+    probe = copy.deepcopy(state.model)
+    opt = train.create_optimizer(probe, cfg.train.lr)
+    x0 = torch.from_numpy(ds.params_u[:cfg.train.batch_size]).to(dev)
+    cond = torch.zeros(cfg.train.batch_size, 1, 1, device=dev)
+    with fp32_precision():
+        step_ms = time_ms(lambda: train.train_step(
+            probe, opt, x0, cond, alpha_bar=schedule.alpha_bar,
+            lr=cfg.train.lr), reps=5)
+        device_profile(lambda: train.train_step(
+            probe, opt, x0, cond, alpha_bar=schedule.alpha_bar,
+            lr=cfg.train.lr), "uncond (d) one SYNTHETIC_GAUSSIAN train step")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    u = sample.posterior_ensemble(
+        state.model.eval(), torch.zeros(1, 1, 1), schedule, UNCOND_MEMBERS,
+        param_dim=cfg.model.param_dim,
+        generator=torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    torch.cuda.synchronize()
+    sample_ms = (time.perf_counter() - t0) / cfg.diffusion.T * 1e3
+    train_ms = 1e3 / res.steps_per_sec
+    log(f"uncond (d): generate-synthetic {np.load(fields).shape}, the bytes "
+        f"of synthetic.py: {same}; train() 2 epochs at batch "
+        f"{cfg.train.batch_size}: losses {res.train_history}, "
+        f"{train_ms:.4f} ms per step (host clock over the epochs, the "
+        f"first steps' set-up included); one train_step {step_ms:.4f} ms "
+        f"(CUDA events); "
+        f"{UNCOND_MEMBERS}-member ancestral-{cfg.diffusion.T} draw "
+        f"{tuple(u.shape)} in {sample_ms:.4f} ms per step, finite: "
+        f"{bool(torch.isfinite(u).all())}; meta model {meta['model']!r} "
+        f"({card})")
+    if not (same and tuple(u.shape) == (UNCOND_MEMBERS, 1, 256)
+            and torch.isfinite(u).all() and meta["model"] == "uncondmlp"):
+        raise RuntimeError("uncond (d): the configs[1] path failed")
+
+    grid = (8, 8)
+    d = grid[0] * grid[1]
+    small = synthetic.make_unconditional_ertdataset(
+        n=1024, grid=grid, length_scale=0.4, seed=0)
+    acfg = configs.ExperimentConfig(
+        diffusion=configs.DiffusionConfig(T=100),
+        model=dataclasses.replace(configs.ModelConfig(), name="uncondmlp",
+                                  param_dim=d, hidden_dim=128,
+                                  cond_length=1, cond_channels=1),
+        train=dataclasses.replace(configs.TrainConfig(), num_epochs=40,
+                                  batch_size=128, lr=2e-3,
+                                  checkpoint_dir="", log_every=1000))
+    ares = train.train(acfg, small, device=dev)
+    x = sample.posterior_ensemble(
+        ares.state.model.eval(), torch.zeros(1, 1, 1),
+        schedule_from_config(acfg.diffusion), 512, param_dim=d,
+        generator=torch.Generator(device=dev).manual_seed(0),
+        device=dev).cpu().numpy().reshape(512, d)
+    g = x.reshape(512, *grid)
+    c_near = float(np.corrcoef(g[:, 4, 4], g[:, 4, 5])[0, 1])
+    dmean = abs(float(x.mean()) - float(small.params_u.mean()))
+    dstd = abs(float(x.std()) - float(small.params_u.std()))
+    drop = ares.train_history[-1] / ares.train_history[0]
+    log(f"uncond (d): configs[1] acceptance on the card: loss ratio "
+        f"{drop:.4f} (gate < 0.8), |dmean| {dmean:.4f} (< 0.15), |dstd| "
+        f"{dstd:.4f} (< 0.25), neighbour correlation {c_near:.4f} (> 0.2)")
+    if not (drop < 0.8 and dmean < 0.15 and dstd < 0.25 and c_near > 0.2):
+        raise RuntimeError("uncond (d): the configs[1] check failed")
+    return {"train_ms": train_ms, "step_ms": step_ms,
+            "sample_ms": sample_ms}
+
+
+def check_other_models(sample, dev, card, root) -> dict:
+    """Phase 18: the reference and unconditional models on the card, (a)
+    to (d). Their path runs no kernel of csrc/ (JAX computes both models
+    outside Pallas): every kernel counter is set to 0 before and read
+    after, and must stay 0."""
+    from ertdx_torch import cli, configs, data, train
+
+    reset_all_launches()
+    ref_step_ms = check_ref_steps(configs, train, dev, card)
+    check_ref_train(configs, data, train, dev, root)
+    ref_sample_ms = check_ref_posterior(configs, sample, dev, card)
+    check_pth_route(configs, cli, data, sample, dev, root)
+    uncond = check_synthetic(configs, cli, sample, train, dev, card, root)
+    launched = {k: v for k, v in all_launches().items() if v}
+    log(f"refmlp / uncond path: kernel launches {launched or 'none'}")
+    if launched:
+        raise RuntimeError(f"the MLP models' path launched {launched}")
+    return {"ref_step_ms": ref_step_ms, "ref_sample_ms": ref_sample_ms,
+            "uncond_train_ms": uncond["train_ms"],
+            "uncond_step_ms": uncond["step_ms"],
+            "uncond_sample_ms": uncond["sample_ms"]}
+
+
 def random_flax_tree(shapes, rng) -> dict:
     """A flax-layout tree of non-zero numpy leaves at init-like scales."""
     out = {}
@@ -3920,6 +4410,24 @@ def main() -> int:
         f"ms, requests of {[b for b, _ in SERVE_REQUESTS]} conditions "
         f"{[round(ms, 3) for ms in user['request_ms']]} ms")
     phase("user path", t0)
+
+    # 18. the reference model and the unconditional model: (a) REF_DEFAULT
+    # train steps and train(), (b) the configs[0] posterior, (c) the .pth
+    # route, (d) SYNTHETIC_GAUSSIAN and the configs[1] check
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="ertdx_torch_mlp_")
+    try:
+        mlp = check_other_models(sample, dev, card, Path(root))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"reference and unconditional models ({card}): REF_DEFAULT "
+        f"{mlp['ref_step_ms']:.4f} ms per train step (batch 32), "
+        f"{mlp['ref_sample_ms']:.4f} ms per sampling step (400 chains); "
+        f"SYNTHETIC_GAUSSIAN {mlp['uncond_step_ms']:.4f} ms per train "
+        f"step (batch 64; {mlp['uncond_train_ms']:.4f} by the host clock "
+        f"over train()), {mlp['uncond_sample_ms']:.4f} ms per sampling "
+        f"step ({UNCOND_MEMBERS} chains)")
+    phase("reference and unconditional models", t0)
 
     launches = {"fused_core_stack": main_launches["fused_core_stack"],
                 "fused_core_block": block_launches["fused_core_block"],

@@ -2,7 +2,13 @@
 
 A package of its own beside the JAX reference (`ertdx/`): it imports
 `torch` and never `jax`, `flax`, `optax`, `msgpack` or `ertdx`. Module
-names mirror `ertdx/`. It serves posterior ensembles with every sampler
+names mirror `ertdx/`. It has the JAX package's three models: the
+reference's RefCondMLP (configs[0], the default; `compat.py` loads the
+reference's `.pth` weights into it), UncondMLP on the synthetic fields of
+`synthetic.py` (configs[1]), and the flagship CondUNet (configs[2]-[4]).
+The two MLPs train and sample on the generic path, realization-major, as
+in JAX, with no kernel of their own (JAX runs them outside Pallas). The
+CondUNet serves posterior ensembles with every sampler
 of the JAX package (ancestral, DDIM, pd, DPM-Solver++), with and without
 classifier-free guidance, on the fused-core kernels of
 `csrc/core_block.cu` or, below their chain threshold, on the per-block
@@ -12,7 +18,7 @@ it trains the CondUNet with the encoder's slab attention kernels of
 `pallas_conv_min_width`), the GroupNorm+SiLU and GN+SiLU+conv3 kernels of
 `csrc/groupnorm.cu` and `csrc/gn_conv.cu`, or, in the flash arm
 (`attn_flash_min_logits`), the flash attention kernels of
-`csrc/flash_attn.cu`. A model computes in float32 or, with
+`csrc/flash_attn.cu`. A CondUNet computes in float32 or, with
 `ModelConfig.dtype="bfloat16"` (the throughput preset's), in bfloat16 by
 flax's rules, its slab attention then on the bf16 kernels of
 `csrc/slab_attn_bf16.cu`. `distill.py` distills a trained model into a

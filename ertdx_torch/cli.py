@@ -9,13 +9,16 @@ PyTorch versions of the kernels). `train`, `sample`, `calibrate`,
 `distill` and `serve` read and write the JAX package's checkpoint
 directories, so either package restores what the other wrote.
 
+All three models run: the presets ref_default (refmlp, the default) and
+synthetic_gaussian (uncondmlp, on the fields `generate-synthetic`
+writes) as well as the CondUNet's, and `sample` and `serve` take the
+reference's `.pth` weights with --torch-checkpoint (compat.py).
+
 What the port has not yet got raises SystemExit naming its ROADMAP.md
 queue item: `simulate` and `plot`, and the --plot, --plots-dir and
 --diagnostics flags (queue 1 item 4: physics.py, plots.py);
-`generate-synthetic`, --torch-checkpoint, --model refmlp and the
-refmlp / uncondmlp presets, ref_default (the JAX parser's default
-preset) among them (item 3); --mesh-data (item 5); and `bench`, which
-runs the JAX package's own benchmark.
+--mesh-data (item 5); and `bench`, which runs the JAX package's own
+benchmark.
 """
 from __future__ import annotations
 
@@ -29,8 +32,6 @@ import numpy as np
 
 #: what each ROADMAP.md queue 1 item the CLI cites still lacks
 _QUEUE_ITEMS = {
-    3: "the other models: refmlp, uncondmlp, their presets, compat.py "
-       "and synthetic.py",
     4: "the host-side modules physics.py and plots.py",
     5: "data and tensor parallelism",
 }
@@ -49,8 +50,6 @@ def _check_mesh(args) -> None:
 def _load_cfg(args, adopt_checkpoint: bool = False
               ) -> "configs.ExperimentConfig":
     from . import configs
-    if args.preset in ("ref_default", "synthetic_gaussian"):
-        _not_ported(f"the preset {args.preset!r} (refmlp / uncondmlp)", 3)
     cfg = configs.PRESETS[args.preset]
     if adopt_checkpoint and getattr(args, "checkpoint_dir", None):
         # restore commands: the checkpoint's config echo is the source of
@@ -103,8 +102,6 @@ def _load_cfg(args, adopt_checkpoint: bool = False
         cfg = dataclasses.replace(
             cfg, diffusion=dataclasses.replace(
                 cfg.diffusion, schedule=args.beta_schedule))
-    if cfg.model.name != "condunet":
-        _not_ported(f"the model {cfg.model.name!r}", 3)
     return cfg
 
 
@@ -190,7 +187,14 @@ def cmd_generate_design(args) -> int:
 
 
 def cmd_generate_synthetic(args) -> int:
-    _not_ported("generate-synthetic", 3)
+    from .synthetic import make_unconditional_dataset
+    fields, cond = make_unconditional_dataset(
+        args.n, (args.grid, args.grid), args.length_scale, args.seed)
+    np.save(args.out, fields)
+    np.save(Path(args.out).with_name("synthetic_cond.npy"), cond)
+    print(f"wrote {args.out}: {fields.shape} Gaussian fields "
+          f"(grid {args.grid}x{args.grid})")
+    return 0
 
 
 def cmd_simulate(args) -> int:
@@ -248,14 +252,28 @@ def cmd_sample(args) -> int:
         raise SystemExit(
             "one of --checkpoint-dir / --torch-checkpoint is required")
     if args.torch_checkpoint:
-        _not_ported("--torch-checkpoint (the reference's .pth weights)", 3)
+        # the reference's .pth state dict: the trained weights carried
+        # over, the scalers refit from the data arrays as the reference's
+        # own inference cells do
+        if args.ema:
+            raise SystemExit("--ema has no meaning for --torch-checkpoint")
+        if cfg.model.name != "refmlp":
+            raise SystemExit("--torch-checkpoint maps onto the reference "
+                             "architecture: use --model refmlp")
     sim_param = np.load(args.params)
     ert = np.load(args.ert)
     gen, dev = _generator(args, cfg)
-    state, meta, scalers = load_best_model(args.checkpoint_dir, cfg,
-                                           device=dev)
-    if args.ema:
-        _use_ema(state)
+    if args.torch_checkpoint:
+        from .compat import load_reference_model
+        model, _ = load_reference_model(args.torch_checkpoint, cfg.model,
+                                        dev)
+        scalers = {}
+    else:
+        state, meta, scalers = load_best_model(args.checkpoint_dir, cfg,
+                                               device=dev)
+        if args.ema:
+            _use_ema(state)
+        model = state.model
     ds = data_lib.prepare_dataset(sim_param, ert,
                                   param_scaler=scalers.get("param_scaler"),
                                   ert_scaler=scalers.get("ert_scaler"))
@@ -264,7 +282,7 @@ def cmd_sample(args) -> int:
     sch = schedule_from_config(cfg.diffusion)
     scfg = _sampler_overrides(args, cfg.sample)
     pred, mask = posterior_over_dataset(
-        state.model.eval(), ds.conditions[test_idx], sch, ds.param_scaler,
+        model.eval(), ds.conditions[test_idx], sch, ds.param_scaler,
         n_realizations=args.realizations, batch_size=cfg.train.batch_size,
         scfg=scfg, a=ds.a, b=ds.b, generator=gen, device=dev)
     np.save(args.out, pred)
@@ -448,12 +466,19 @@ def cmd_serve(args) -> int:
     from .serve import PosteriorService, serve
     cfg = _load_cfg(args, adopt_checkpoint=True)
     if args.torch_checkpoint:
-        _not_ported("--torch-checkpoint (the reference's .pth weights)", 3)
-    if not args.checkpoint_dir:
+        if not (args.params and args.ert):
+            raise SystemExit("--torch-checkpoint needs --params/--ert "
+                             "(scalers are refit from the training data, "
+                             "as the reference's inference cells do)")
+        svc = PosteriorService.from_torch(
+            args.torch_checkpoint, cfg, np.load(args.params),
+            np.load(args.ert), max_batch=args.max_batch, device=args.device)
+    elif not args.checkpoint_dir:
         raise SystemExit(
             "one of --checkpoint-dir / --torch-checkpoint is required")
-    svc = PosteriorService(args.checkpoint_dir, cfg,
-                           max_batch=args.max_batch, device=args.device)
+    else:
+        svc = PosteriorService(args.checkpoint_dir, cfg,
+                               max_batch=args.max_batch, device=args.device)
     if args.warmup:
         print("warming up the serving path...", flush=True)
         svc.warmup(n_realizations=args.realizations, scfg=cfg.sample)
@@ -490,7 +515,7 @@ def build_parser() -> argparse.ArgumentParser:
 
     gs = sub.add_parser("generate-synthetic",
                         help="synthetic Gaussian resistivity fields "
-                             "(configs[1]; not ported yet)")
+                             "(configs[1])")
     gs.add_argument("--n", type=int, default=2048)
     gs.add_argument("--grid", type=int, default=16)
     gs.add_argument("--length-scale", type=float, default=0.25)
@@ -580,7 +605,7 @@ def build_parser() -> argparse.ArgumentParser:
     sa.add_argument("--ert", required=True)
     sa.add_argument("--checkpoint-dir", default=None)
     sa.add_argument("--torch-checkpoint", default=None,
-                    help="reference .pth state dict (not ported yet)")
+                    help="reference .pth state dict")
     sa.add_argument("--preset", default="ref_default")
     sa.add_argument("--model", choices=["refmlp", "condunet"], default=None)
     sa.add_argument("--realizations", type=int, default=50)
@@ -720,8 +745,7 @@ def build_parser() -> argparse.ArgumentParser:
                                       "over a checkpoint")
     sv.add_argument("--checkpoint-dir", default=None)
     sv.add_argument("--torch-checkpoint", default=None,
-                    help="serve a reference .pth state dict (not ported "
-                         "yet)")
+                    help="serve a reference .pth state dict")
     sv.add_argument("--params", default=None)
     sv.add_argument("--ert", default=None)
     sv.add_argument("--preset", default="ref_default")

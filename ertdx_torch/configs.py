@@ -2,11 +2,13 @@
 
 The field names and defaults match the JAX package so that a checkpoint's
 `meta.json` config echo means the same thing to both packages
-(ertdx/configs.py:13-200). Only the presets the port runs are here:
-FULL_CONDITIONAL (configs[2]), DDIM_ENSEMBLE (configs[3]) and V5E8_DP
-(configs[4], the throughput training preset, which computes in bfloat16
-with float32 parameters; the port builds it in its own dtype and trains
-it on one device: give it MeshConfig()).
+(ertdx/configs.py:13-200). The presets are the JAX package's five, in
+its order: REF_DEFAULT (configs[0], the reference's RefCondMLP, the
+CLI's default), SYNTHETIC_GAUSSIAN (configs[1], UncondMLP on synthetic
+Gaussian fields), FULL_CONDITIONAL (configs[2]), DDIM_ENSEMBLE
+(configs[3]) and V5E8_DP (configs[4], the throughput training preset,
+which computes in bfloat16 with float32 parameters; the port builds it
+in its own dtype and trains it on one device: give it MeshConfig()).
 """
 from __future__ import annotations
 
@@ -109,6 +111,19 @@ class ExperimentConfig:
     name: str = "default"
 
 
+# configs[0]: the reference default, the RefCondMLP conditional DDPM.
+REF_DEFAULT = ExperimentConfig(name="ref_default")
+
+# configs[1]: unconditional DDPM on synthetic Gaussian fields (the
+# schedule and sampler tolerance check; synthetic.py, models/uncond.py).
+SYNTHETIC_GAUSSIAN = ExperimentConfig(
+    name="synthetic_gaussian",
+    model=dataclasses.replace(ModelConfig(), name="uncondmlp",
+                              param_dim=256, hidden_dim=256, cond_length=1,
+                              cond_channels=1),
+    train=dataclasses.replace(TrainConfig(), num_epochs=50, batch_size=64),
+)
+
 # configs[2]: full conditional CondUNet at the native 4693 x 14 grid.
 FULL_CONDITIONAL = ExperimentConfig(
     name="full_conditional",
@@ -138,7 +153,8 @@ V5E8_DP = ExperimentConfig(
     mesh=MeshConfig(data=8, model=1),
 )
 
-PRESETS = {c.name: c for c in (FULL_CONDITIONAL, DDIM_ENSEMBLE, V5E8_DP)}
+PRESETS = {c.name: c for c in (REF_DEFAULT, SYNTHETIC_GAUSSIAN,
+                               FULL_CONDITIONAL, DDIM_ENSEMBLE, V5E8_DP)}
 
 
 def split_seed_of(tcfg: TrainConfig) -> int:

@@ -131,7 +131,7 @@ def _make_teacher_fn(guidance: float):
             return teacher.encode_condition(cond)
 
         def call(teacher, x, t, ctxs):
-            return teacher.denoise_ensemble(x, t, ctxs, 1)
+            return teacher.denoise(x, t, ctxs)
         return prep, call
 
     def prep(teacher, cond, n_batch):
@@ -142,8 +142,8 @@ def _make_teacher_fn(guidance: float):
 
     def call(teacher, x, t, ctxs):
         ctx_c, ctx_u = ctxs
-        out_c = teacher.denoise_ensemble(x, t, ctx_c, 1)
-        out_u = teacher.denoise_ensemble(x, t, ctx_u, 1)
+        out_c = teacher.denoise(x, t, ctx_c)
+        out_u = teacher.denoise(x, t, ctx_u)
         return out_u + guidance * (out_c - out_u)
     return prep, call
 
@@ -158,7 +158,7 @@ def _weighted_mean(per_ex, w):
 
 def _student_loss(student, x, t, cond, a, s, x0_tgt, ab, student_kind, w):
     ctx_s = student.encode_condition(cond)
-    out_s = student.denoise_ensemble(x, t, ctx_s, 1)
+    out_s = student.denoise(x, t, ctx_s)
     x0_pred = _x0_from_out(out_s, x, a, s, student_kind)
     per_ex = torch.mean(_snr_weight(ab) * (x0_pred - x0_tgt) ** 2, dim=-1)
     return _weighted_mean(per_ex, w)

@@ -455,6 +455,10 @@ class CondUNet(nn.Module):
         emb = get_timestep_embedding(t, self.hidden_dim)
         return self.time_mlp2(F.silu(self.time_mlp1(emb)))
 
+    def denoise(self, x, t, cond_ctx):
+        """Denoise (B, P) chains, one a condition."""
+        return self.denoise_ensemble(x, t, cond_ctx, 1)
+
     def denoise_ensemble(self, x, t, cond_ctx, n_real: int):
         """Denoise (B*n_real, P) condition-major chains against a batch-B
         condition context, which is never tiled across the chains."""

@@ -1,15 +1,19 @@
 """Posterior-ensemble sampling on the port.
 
-Mirrors ertdx/sample.py:79-568: the condition is encoded ONCE per run, all
-realizations fold into the chain axis in condition-major order
-(chain = b * R + r), and the denoiser core runs on the fused CUDA kernels
+Mirrors ertdx/sample.py:79-568: the condition is encoded ONCE per run and
+all realizations fold into the chain axis. A model with
+`denoise_ensemble` (the CondUNet) lays the chains out condition-major
+(chain = b * R + r) and runs its denoiser core on the fused CUDA kernels
 whenever `mega_plan` engages them, else on the per-block module path
 (whose attention goes through ops/ensemble_attn.py with
-`ensemble_pallas`). Every sampler of the JAX package is here: ancestral
-(the default), DDIM, pd and DPM-Solver++(2M), with classifier-free
-guidance, limited-interval guidance, and the dataset drivers
-`posterior_over_dataset` and `posterior_over_dataset_mixture`. Draws come
-out as (R, B, P).
+`ensemble_pallas`). Any other model (RefCondMLP, UncondMLP) takes JAX's
+generic path: realization-major chains (chain = r * B + b), the whole
+context tiled across the realizations, `model.denoise` at every step.
+Every sampler of the JAX package is here: ancestral (the default), DDIM,
+pd and DPM-Solver++(2M), with classifier-free guidance, limited-interval
+guidance, and the dataset loops `posterior_over_dataset` and
+`posterior_over_dataset_mixture`. Draws come out as (R, B, P) on both
+paths.
 
 Random draws come from a `torch.Generator`, or are injected (`x_T`,
 `noise`, and per batch or per member in the drivers), so that a test can
@@ -104,11 +108,13 @@ def posterior_ensemble(model, condition, schedule: DiffusionSchedule,
     (B, L, C) `condition`, on `device` (CUDA unless "cpu" is asked for).
 
     `scfg` defaults to `SampleConfig(uncertainty_samples=n_realizations)`:
-    the ancestral chain over all T steps, as in JAX. `x_T`
-    ((R*B, P), condition-major) replaces the prior draw and `noise`
-    ((steps, R*B, P)) the per-step draws of ancestral and DDIM, so a
-    caller can inject another framework's; otherwise both come from
-    `generator`. With `guidance_scale != 1` every step combines
+    the ancestral chain over all T steps, as in JAX. `x_T` ((R*B, P))
+    replaces the prior draw and `noise` ((steps, R*B, P)) the per-step
+    draws of ancestral and DDIM, so a caller can inject another
+    framework's; otherwise both come from `generator`. Both are in the
+    chain order of the path taken, as JAX's: condition-major (b * R + r)
+    for a model with `denoise_ensemble`, realization-major (r * B + b)
+    for the others. With `guidance_scale != 1` every step combines
     eps_u + g (eps_c - eps_u), the null context running through the same
     path as the condition; with a `guidance_interval` (lo, hi) only the
     steps with round(lo T) <= t < round(hi T) are guided and the others
@@ -137,19 +143,24 @@ def posterior_ensemble(model, condition, schedule: DiffusionSchedule,
     b = condition.shape[0]
     r = n_realizations
     big_t = schedule.num_steps
+    cond_major = hasattr(model, "denoise_ensemble")
     with torch.no_grad():
         cond_ctx = model.encode_condition(condition)
         plan = mega_plan(model, r, b, cond_len=condition.shape[1],
-                         device=dev)
+                         device=dev) if cond_major else None
         weights = mega_weights(model) if plan is not None else None
 
         def mk(ctx):
-            """The denoiser for one context, on the fused core or the
-            per-block module path."""
+            """The denoiser for one context: on the fused core or the
+            per-block module path, or, for a model without
+            `denoise_ensemble`, on the context tiled realization-major."""
             if plan is not None:
                 return lambda x, t: mega_denoise_ensemble(
                     model, x, t, ctx, r, weights=weights, **plan)
-            return lambda x, t: model.denoise_ensemble(x, t, ctx, r)
+            if cond_major:
+                return lambda x, t: model.denoise_ensemble(x, t, ctx, r)
+            ctx_tiled = ctx.repeat(r, *([1] * (ctx.dim() - 1)))
+            return lambda x, t: model.denoise(x, t, ctx_tiled)
 
         if guided:
             g = float(scfg.guidance_scale)
@@ -178,21 +189,37 @@ def posterior_ensemble(model, condition, schedule: DiffusionSchedule,
                                   model.parameterization)
         u = _run_sampler(scfg, denoise, (r * b, p), schedule, temperature,
                          truncate_steps, generator, x_T, noise, dev)
-    return u.reshape(b, r, p).transpose(0, 1)
+    if cond_major:
+        return u.reshape(b, r, p).transpose(0, 1)
+    return u.reshape(r, b, p)
+
+
+def bounds_mask(phys, limits):
+    """`transforms.param_bounds_mask`, or every row valid where the draws
+    are not points of the parameter space (their width is not its:
+    configs[1]'s fields have no physical bounds, and JAX's mask raises a
+    broadcasting error on them)."""
+    if phys.shape[-1] == np.asarray(limits).shape[0]:
+        return transforms.param_bounds_mask(phys, limits)
+    if isinstance(phys, torch.Tensor):
+        return torch.ones(phys.shape[:-1], dtype=torch.bool,
+                          device=phys.device)
+    return np.ones(phys.shape[:-1], dtype=bool)
 
 
 def inverse_pipeline(u, param_scaler, a: float = 0.0, b: float = 1.0,
                      space: Optional[ParameterSpace] = None
                      ) -> Tuple[np.ndarray, np.ndarray]:
     """Unconstrained draws -> physical parameters and a row-validity mask,
-    on the host: sigmoid inverse -> MinMax inverse -> bounds mask."""
+    on the host: sigmoid inverse -> MinMax inverse -> bounds mask
+    (`bounds_mask`)."""
     space = space or ParameterSpace()
     x = transforms.inverse_transform(u, a, b)
     phys = param_scaler.inverse(x)
     if isinstance(phys, torch.Tensor):
         phys = phys.detach().cpu().numpy()
     phys = np.asarray(phys)
-    return phys, np.asarray(transforms.param_bounds_mask(phys, space.plims))
+    return phys, np.asarray(bounds_mask(phys, space.plims))
 
 
 def device_inverse(u: torch.Tensor, scaler: transforms.MinMaxScaler,
@@ -200,7 +227,7 @@ def device_inverse(u: torch.Tensor, scaler: transforms.MinMaxScaler,
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The inverse pipeline on `u`'s device, in float32: (phys, mask)."""
     phys = scaler.inverse(transforms.inverse_transform(u, a, b))
-    return phys, transforms.param_bounds_mask(phys, limits)
+    return phys, bounds_mask(phys, limits)
 
 
 # the drivers' `device_inverse` argument shadows the function's name

@@ -4,11 +4,13 @@ Mirrors ertdx/serve.py: `PosteriorService` loads the best checkpoint
 once (its config echo wins over the caller's config, as in JAX) and
 answers inversion requests: raw ERT (B, L, C) -> MinMax scale with the
 checkpointed ert_scaler -> zero-pad to `max_batch` -> the posterior
-ensemble on the card (`sample.posterior_ensemble`: the encoder once, the
-fused core for every sampler step) -> sigmoid and MinMax inverse and the
-bounds mask on the card (`sample.device_inverse`) -> the pad rows sliced
-off on the host -> summary statistics over the valid draws. That is the
-function JAX's fused serving program computes. `serve()` and
+ensemble on the card (`sample.posterior_ensemble`: the encoder once, then
+a CondUNet's fused core, or another model's `denoise`, for every sampler
+step) -> sigmoid and MinMax inverse and the bounds mask on the card
+(`sample.device_inverse`) -> the pad rows sliced off on the host ->
+summary statistics over the valid draws. That is the function JAX's
+fused serving program computes. `PosteriorService.from_torch` serves the
+reference's `.pth` weights instead (compat.py). `serve()` and
 `make_server()` put it behind a stdlib ThreadingHTTPServer JSON API:
 GET /healthz, POST /posterior.
 
@@ -27,7 +29,9 @@ from typing import Optional
 import numpy as np
 import torch
 
+from . import data as data_lib
 from . import resolve_device
+from .compat import load_reference_model
 from .configs import ExperimentConfig, SampleConfig, experiment_from_dict
 from .diffusion import schedule_from_config
 from .params import ParameterSpace
@@ -81,28 +85,52 @@ class PosteriorService:
             with torch.no_grad():
                 for name, param in model.named_parameters():
                     param.copy_(state.ema_params[name])
-        self.cfg = cfg
-        self.device = next(model.parameters()).device
-        self.max_batch = int(max_batch)
-        self.model = model.eval()
-        self.meta = {k: meta[k] for k in ("epoch", "best_val_loss", "model")
-                     if k in meta}
-        self.param_scaler = scalers["param_scaler"]
-        self.ert_scaler = scalers["ert_scaler"]
-        self.schedule = schedule_from_config(cfg.diffusion)
-        self.space = ParameterSpace()
-        self._lock = threading.Lock()
+        self._init_common(
+            cfg, model, {k: meta[k] for k in ("epoch", "best_val_loss",
+                                              "model") if k in meta},
+            scalers["param_scaler"], scalers["ert_scaler"], max_batch)
 
     @classmethod
     def from_torch(cls, torch_checkpoint, cfg: ExperimentConfig,
                    sim_param: np.ndarray, ert_sim: np.ndarray,
-                   max_batch: int = 8, mesh=None) -> "PosteriorService":
-        """Serving the reference scripts' `.pth` weights needs the
-        reference architecture and its loader, not ported yet."""
-        raise NotImplementedError(
-            "PosteriorService.from_torch needs the reference architecture "
-            "(refmlp) and compat.py, which are not ported yet (ROADMAP.md "
-            "queue 1 item 3: the other models)")
+                   max_batch: int = 8, mesh=None,
+                   device=None) -> "PosteriorService":
+        """Serve weights trained by the reference scripts (a `.pth` state
+        dict, compat.py) on `device` (CUDA unless "cpu" is asked for).
+        The scalers are refit from the training arrays, as the
+        reference's own inference cells do
+        (ERT_Conditional_Diffusion.py:233-261); cfg.model must be the
+        reference architecture (refmlp)."""
+        if cfg.model.name != "refmlp":
+            raise ValueError("from_torch maps onto the reference "
+                             "architecture: cfg.model.name must be "
+                             "'refmlp'")
+        if mesh is not None:
+            raise NotImplementedError(
+                "PosteriorService.from_torch(mesh=...): data parallelism "
+                "is not ported yet (ROADMAP.md queue 1 item 5); the port "
+                "serves on one device")
+        ds = data_lib.prepare_dataset(np.asarray(sim_param),
+                                      np.asarray(ert_sim))
+        model, _ = load_reference_model(torch_checkpoint, cfg.model,
+                                        device)
+        self = cls.__new__(cls)
+        self._init_common(cfg, model, {"model": "refmlp (torch import)"},
+                          ds.param_scaler, ds.ert_scaler, max_batch)
+        return self
+
+    def _init_common(self, cfg, model, meta, param_scaler, ert_scaler,
+                     max_batch) -> None:
+        self.cfg = cfg
+        self.device = next(model.parameters()).device
+        self.max_batch = int(max_batch)
+        self.model = model.eval()
+        self.meta = meta
+        self.param_scaler = param_scaler
+        self.ert_scaler = ert_scaler
+        self.schedule = schedule_from_config(cfg.diffusion)
+        self.space = ParameterSpace()
+        self._lock = threading.Lock()
 
     def _scale_conditions(self, ert: np.ndarray) -> np.ndarray:
         n, length, ch = ert.shape
@@ -115,7 +143,8 @@ class PosteriorService:
                   draws: Optional[dict] = None) -> dict:
         """Raw ERT (B, L, C) -> physical posterior stats (+draws).
         `draws` ({"x_T": ..., "noise": ...} over max_batch conditions,
-        condition-major) replaces the seeded generator's numbers."""
+        in the chain order of `posterior_ensemble`'s path for the model)
+        replaces the seeded generator's numbers."""
         ert = np.asarray(ert, np.float32)
         if ert.ndim != 3:
             raise ValueError(f"conditions must be (B, L, C), got {ert.shape}")

@@ -171,7 +171,7 @@ def _predict(model, x_noisy, t, cond, drop):
                          "uncond_prob > 0 (the null context)")
     ctx = model.drop_condition(model.encode_condition(cond),
                                drop.to(device=cond.device, dtype=torch.bool))
-    return model.denoise_ensemble(x_noisy, t, ctx, 1)
+    return model.denoise(x_noisy, t, ctx)
 
 
 def train_step(model, opt, x0, cond, t=None, noise=None, w=None, *,

@@ -1,9 +1,13 @@
-"""Carry CondUNet parameters and Adam state between the port and JAX.
+"""Carry model parameters and Adam state between the port and JAX.
 
 `params_from_jax(model, tree)` takes the flax tree as nested dicts of
-numpy arrays (`variables["params"]` of ertdx's CondUNet) and copies each
-leaf into the matching torch parameter; `params_to_jax(model)` is its
-inverse. The layouts:
+numpy arrays (`variables["params"]` of ertdx's CondUNet, RefCondMLP or
+UncondMLP) and copies each leaf into the matching torch parameter;
+`params_to_jax(model)` is its inverse. The tree's names are keyed on the
+model's type (`model_paths`): `flax_path` for the CondUNet,
+`refmlp_path` (`conv1/Conv_0/kernel`, `cond_proj/Dense_0/bias`, ...,
+`null_vec`) and `uncond_path` (`inp/kernel`, `blocks_{i}_{0,1}/bias`,
+...), the names flax gives the JAX models. The layouts:
 
 * Dense kernel (in, out) -> Linear weight (out, in), transposed;
 * Conv kernel (k, in, out) -> Conv1d weight (out, in, k);
@@ -37,6 +41,9 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from ..models.refmlp import RefCondMLP
+from ..models.uncond import UncondMLP
 
 _BLOCK = {"ada1.proj": ("AdaLN_0", "Dense_0"),
           "ada2.proj": ("AdaLN_1", "Dense_0"),
@@ -102,17 +109,42 @@ def flax_path(name: str, depth: int, fused: frozenset = frozenset()
     return base + (fleaf,)
 
 
+def refmlp_path(name: str) -> tuple:
+    """The flax tree path of the torch parameter `name` of a RefCondMLP:
+    each layer wraps one nn.Conv or nn.Dense (TorchConv1d, TorchDense;
+    ertdx/models/refmlp.py:43-55)."""
+    if name == "null_vec":
+        return (name,)
+    layer, leaf = name.split(".")
+    inner = "Conv_0" if layer.startswith("conv") else "Dense_0"
+    return (layer, inner, {"weight": "kernel", "bias": "bias"}[leaf])
+
+
+def uncond_path(name: str) -> tuple:
+    """The flax tree path of the torch parameter `name` of an UncondMLP:
+    `blocks.i.j` is flax's `blocks_i_j` (ertdx/models/uncond.py:24-31)."""
+    *mod, leaf = name.split(".")
+    return ("_".join(mod), {"weight": "kernel", "bias": "bias"}[leaf])
+
+
+def model_paths(model: torch.nn.Module) -> dict:
+    """{torch parameter name: flax tree path} for the model's type."""
+    if isinstance(model, RefCondMLP):
+        path = refmlp_path
+    elif isinstance(model, UncondMLP):
+        path = uncond_path
+    else:
+        fused = fused_blocks(model)
+        return {name: flax_path(name, model.depth, fused)
+                for name, _ in model.named_parameters()}
+    return {name: path(name) for name, _ in model.named_parameters()}
+
+
 def _reversed_axes(name: str) -> bool:
     """Whether the torch tensor holds the flax kernel with its axes
     reversed: Linear and Conv1d weights do; FusedGNConv keeps flax's
     (3, C, Cout) layout, which its CUDA kernels read."""
     return name.endswith(".weight")
-
-
-def _paths(model: torch.nn.Module) -> dict:
-    fused = fused_blocks(model)
-    return {name: flax_path(name, model.depth, fused)
-            for name, _ in model.named_parameters()}
 
 
 def _flatten(tree, prefix=()):
@@ -164,7 +196,7 @@ def unravel_like(shapes: dict, flat) -> dict:
 def flax_shapes(model: torch.nn.Module) -> dict:
     """The flax parameter layout of `model`: a nested dict of shapes."""
     tree: dict = {}
-    paths = _paths(model)
+    paths = model_paths(model)
     for name, param in model.named_parameters():
         path = paths[name]
         shape = tuple(param.shape)
@@ -182,7 +214,7 @@ def named_to_jax(model: torch.nn.Module, named: dict) -> dict:
     parameter} -> a flax-layout tree of float32 numpy arrays (kernels
     transposed back)."""
     tree: dict = {}
-    paths = _paths(model)
+    paths = model_paths(model)
     for name, param in model.named_parameters():
         path = paths[name]
         arr = named[name].detach().to("cpu", torch.float32).numpy()
@@ -196,8 +228,8 @@ def named_to_jax(model: torch.nn.Module, named: dict) -> dict:
 
 
 def params_to_jax(model: torch.nn.Module) -> dict:
-    """The model's parameters as a flax CondUNet tree (the inverse of
-    `params_from_jax`)."""
+    """The model's parameters as the JAX model's flax tree (the inverse
+    of `params_from_jax`)."""
     return named_to_jax(model, dict(model.named_parameters()))
 
 
@@ -205,7 +237,7 @@ def named_from_jax(model: torch.nn.Module, tree) -> dict:
     """A flax-layout tree -> {torch name: float32 CPU tensor shaped like
     the parameter}. Raises on a missing or unused leaf or a wrong shape."""
     flat = dict(_flatten(tree))
-    want = _paths(model)
+    want = model_paths(model)
     missing = sorted("/".join(p) for p in set(want.values()) - set(flat))
     unused = sorted("/".join(p) for p in set(flat) - set(want.values()))
     if missing or unused:
@@ -266,8 +298,8 @@ def adam_state_from_jax(opt: torch.optim.Optimizer, model: torch.nn.Module,
 
 
 def params_from_jax(model: torch.nn.Module, tree) -> torch.nn.Module:
-    """Load a flax CondUNet parameter tree into `model`, in place, and
-    return the model."""
+    """Load the JAX model's flax parameter tree into `model` (of the same
+    type), in place, and return the model."""
     named = named_from_jax(model, tree)
     with torch.no_grad():
         for name, param in model.named_parameters():

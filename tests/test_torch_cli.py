@@ -299,16 +299,12 @@ def test_pipeline_serves_over_http(pipeline):
      "item 4"),
     (["train", "--params", "p", "--ert", "e", "--preset", "v5e8_dp",
       "--plot"], "item 4"),
-    (["generate-synthetic"], "item 3"),
-    (["train", "--params", "p", "--ert", "e"], "item 3"),
-    (["train", "--params", "p", "--ert", "e", "--preset",
-      "synthetic_gaussian"], "item 3"),
-    (["train", "--params", "p", "--ert", "e", "--preset", "v5e8_dp",
-      "--model", "refmlp"], "item 3"),
     (["sample", "--params", "p", "--ert", "e", "--preset", "v5e8_dp",
-      "--torch-checkpoint", "w.pth"], "item 3"),
+      "--torch-checkpoint", "w.pth"], "use --model refmlp"),
+    (["sample", "--params", "p", "--ert", "e", "--torch-checkpoint",
+      "w.pth", "--ema"], "--ema has no meaning"),
     (["serve", "--preset", "v5e8_dp", "--torch-checkpoint", "w.pth"],
-     "item 3"),
+     "needs --params/--ert"),
     (["train", "--params", "p", "--ert", "e", "--preset", "v5e8_dp",
       "--mesh-data", "8"], "item 5"),
     (["sample", "--params", "p", "--ert", "e", "--preset", "v5e8_dp",

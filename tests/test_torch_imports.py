@@ -66,7 +66,9 @@ def test_port_imports_without_jax_and_friends():
                  "ertdx_torch.metrics", "ertdx_torch.calibrate",
                  "ertdx_torch.serve", "ertdx_torch.cli",
                  "ertdx_torch.utils.logging",
-                 "ertdx_torch.utils.profiling"):
+                 "ertdx_torch.utils.profiling",
+                 "ertdx_torch.models.refmlp", "ertdx_torch.models.uncond",
+                 "ertdx_torch.compat", "ertdx_torch.synthetic"):
         assert name in imported
 
 
