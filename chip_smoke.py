@@ -215,7 +215,27 @@ non-zero and prints no result line):
    batch 64, T=500) for 2 epochs and a 512-member ancestral draw, finite,
    ms a step; then tests/test_uncond.py's configs[1] acceptance check on
    the card (8 x 8 fields, T=100, 40 epochs at batch 128 and lr 2e-3,
-   the moments and the neighbour correlation within its tolerances).
+   the moments and the neighbour correlation within its tolerances);
+19. the physics loop (physics.py, the .srv C++ reader, plots.py through
+   the CLI): (a) the configs[3] posterior as phase 4 builds it (8 x 1000,
+   DDIM-50, exactly 50 fused_core_stack launches) and the inverse
+   pipeline on the host in float64; (b) the first 50 valid members of
+   condition 0 through `python -m ertdx_torch.cli simulate --mode
+   keywords --no-mpi --concurrency 6` on tests/fixtures/
+   pflotran_template.in, PFLOTRAN a stand-in Python script (no numpy)
+   that this script writes, whose 14 .srv files of 4693 rows (a 259-line
+   header) are a fixed function of the spliced values: every run's
+   parameters.npy equal to its member and data.npy to that function of
+   its input file, exactly, all 700 files read by the C++ reader
+   (ertdx_torch/csrc/srv_reader.cpp, built by g++), none by numpy; 5
+   members again through run_posterior_validation in this process, the
+   same data; one simulation's 14 files read by the C++ reader and by
+   np.genfromtxt, timed; (c) gather-data --n 50 -> (50, 4693, 14) and
+   (50, 29, 1), ensemble_statistics on the card and wsse_per_simulation
+   against condition 0's survey, the KDE mode within one grid step of the
+   CPU's on every 32nd pixel, the rest against the host's within 1e-6;
+   `plot`, which writes six figures, or without matplotlib (as on the
+   card's machine) exits non-zero naming it; (d) the times.
 
 Every kernel's entry in the kernels line has `bound_ms`, the least time
 the card could take: the bytes at 3.35 TB/s or the operations at the
@@ -225,8 +245,9 @@ tensor cores' 989 TFLOP/s for the bf16 kernels; for the flash kernels
 only the keys the mask needs. Beside it `bound_tc_ms` (the 3xTF32 time;
 null for GroupNorm) and `bound_fp32_ms` (the fp32 pipe's). The last line of
 stdout is {"ok": true, "device": {...}}. The build goes
-to build/ertdx_torch_kernels/; the checkpoints of phases 7, 11, 13, 14,
-15 and 16 and the files of phases 17 and 18 go to temporary directories
+to build/ertdx_torch_kernels/ and the .srv reader's to
+build/ertdx_torch_srv/; the checkpoints of phases 7, 11, 13, 14, 15 and
+16 and the files of phases 17, 18 and 19 go to temporary directories
 that are removed; nothing else is written.
 """
 from __future__ import annotations
@@ -4102,6 +4123,341 @@ def check_other_models(sample, dev, card, root) -> dict:
             "uncond_sample_ms": uncond["sample_ms"]}
 
 
+# the physics loop: the members pushed through the forward model by the
+# CLI, of which PHYS_VALIDATE again through run_posterior_validation
+PHYS_MEMBERS, PHYS_VALIDATE, PHYS_CONCURRENCY = 50, 5, 6
+PHYS_TEMPLATE = Path(__file__).resolve().parent / "tests" / "fixtures" / \
+    "pflotran_template.in"
+# The stand-in PFLOTRAN of phase 19: a Python script without numpy that
+# takes `-pflotranin <file>`, reads the values on the input file's
+# parameter lines and writes 14 surveys of 4693 rows (a 259-line header,
+# the data in column 5, written by repr so that they parse back exactly)
+# as a fixed function of them. chip_smoke runs the same two functions to
+# check every run's data.
+PFLOTRAN_STANDIN = r"""
+import sys
+
+KEYS = ("ARCHIE_CEMENTATION_EXPONENT", "ARCHIE_SATURATION_EXPONENT",
+        "ARCHIE_TORTUOSITY_CONSTANT", "POROSITY",
+        "SURFACE_ELECTRICAL_CONDUCTIVITY", "PERM_X", "PERM_Y", "PERM_Z",
+        "ALPHA", "M", "LIQUID_RESIDUAL_SATURATION", "WATER_CONDUCTIVITY")
+SURVEYS, ROWS, HEADER = 14, 4693, 259
+
+
+def spliced(path):
+    # the values of the parameter lines, in file order
+    vals = []
+    with open(path) as f:
+        for line in f:
+            tok = line.split()
+            if len(tok) >= 2 and tok[0] in KEYS:
+                vals.append(float(tok[1]))
+    return vals
+
+
+def response(vals):
+    # SURVEYS lists of ROWS transfer resistances
+    out = []
+    for s in range(SURVEYS):
+        base = 0.0
+        for k, v in enumerate(vals):
+            base += v * ((k + s) % 7 + 1)
+        lead = vals[s % len(vals)]
+        out.append([base * (1.0 + r / ROWS) + lead * r
+                    for r in range(ROWS)])
+    return out
+
+
+if __name__ == "__main__":
+    inp = sys.argv[sys.argv.index("-pflotranin") + 1]
+    stem = inp[:-3] if inp.endswith(".in") else inp
+    header = "".join(f"survey header line {i}\n" for i in range(HEADER))
+    for s, col in enumerate(response(spliced(inp))):
+        rows = "".join(f"{r + 1} 0.0 0.0 0.0 1.0 {v!r} 0.05\n"
+                       for r, v in enumerate(col))
+        with open(f"{stem}-E1-{(s + 1) * 30}d.srv", "w") as f:
+            f.write(header + rows)
+"""
+
+
+def write_standin(root: Path) -> tuple:
+    """The stand-in PFLOTRAN as an executable in `root`, and its two
+    functions (spliced, response) in this process."""
+    path = root / "pflotran_standin.py"
+    path.write_text(f"#!{sys.executable}\n" + PFLOTRAN_STANDIN)
+    path.chmod(0o755)
+    ns = {"__name__": "pflotran_standin"}
+    exec(compile(PFLOTRAN_STANDIN, str(path), "exec"), ns)
+    return path, ns["spliced"], ns["response"]
+
+
+def run_module_cli(argv, label, dev, timeout: float = 900.0):
+    """`python -m ertdx_torch.cli <argv>` as a subprocess from the root of
+    the checkout: (the process, seconds by the host clock)."""
+    repo = Path(__file__).resolve().parent
+    env = {**os.environ,
+           "PYTHONPATH": os.pathsep.join(
+               [str(repo)] + [p for p in [os.environ.get("PYTHONPATH")]
+                              if p])}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "ertdx_torch.cli", *argv],
+                          cwd=repo, env=env, capture_output=True, text=True,
+                          timeout=timeout)
+    seconds = time.perf_counter() - t0
+    log(f"{label}: python -m ertdx_torch.cli {argv[0]} exit "
+        f"{proc.returncode} in {seconds:.3f} s")
+    return proc, seconds
+
+
+def check_physics_loop(dev, card, root) -> dict:
+    """Phase 19: the physics loop in a temporary directory `root`.
+    (a) the configs[3] posterior (CondUNet at DDIM_ENSEMBLE's full width,
+    random weights from SEED through params_from_jax, 8 conditions x 1000
+    members, DDIM-50) with exactly 50 fused_core_stack launches, and the
+    inverse pipeline on the host; (b) the first PHYS_MEMBERS valid members
+    of condition 0 through `python -m ertdx_torch.cli simulate --mode
+    keywords --no-mpi` on tests/fixtures/pflotran_template.in with the
+    stand-in PFLOTRAN, each run's parameters and data checked exactly,
+    every .srv file read by the C++ reader; PHYS_VALIDATE of them again
+    through run_posterior_validation in this process; (c) gather-data,
+    ensemble_statistics on `dev` (its batched_kde_mode) and
+    wsse_per_simulation against condition 0's survey, held against the
+    CPU's on a strided set of pixels that keeps the KDE grid (one grid
+    step for the mode, 1e-6 relative for the rest), and `plot`, which
+    writes six figures or, without matplotlib, exits naming it; (d) the
+    times. Returns them."""
+    from ertdx_torch import cli, configs, sample
+    from ertdx_torch.data import SrvFormat, gather_srv_data
+    from ertdx_torch.diffusion import schedule_from_config
+    from ertdx_torch.metrics import (batched_kde_mode, ensemble_statistics,
+                                     wsse_per_simulation)
+    from ertdx_torch.models import build_model
+    from ertdx_torch.params import ParameterSpace
+    from ertdx_torch.physics import (ForwardModelRunner, PflotranSimulator,
+                                     RunnerConfig, SimulationManager,
+                                     run_posterior_validation)
+    from ertdx_torch.transforms import MinMaxScaler
+    from ertdx_torch.utils import srv_native
+    from ertdx_torch.utils.weights import flax_shapes, params_from_jax
+
+    times = {}
+    # (a) the posterior, as phase 4 builds it
+    cfg = configs.DDIM_ENSEMBLE
+    model = build_model(cfg.model, device=dev).eval()
+    rng = np.random.default_rng(SEED)
+    params_from_jax(model, random_flax_tree(flax_shapes(model), rng))
+    schedule = schedule_from_config(cfg.diffusion)
+    n_cond, n_real = 8, cfg.sample.uncertainty_samples
+    cond = torch.from_numpy(rng.standard_normal(
+        (n_cond, cfg.model.cond_length, cfg.model.cond_channels)
+    ).astype(np.float32)).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    x_T = torch.randn(n_cond * n_real, cfg.model.param_dim, generator=gen,
+                      device=dev)
+    with torch.no_grad():
+        model.encode_condition(cond[:1])
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    reset_all_launches()
+    t0 = time.perf_counter()
+    u = sample.posterior_ensemble(model, cond, schedule, n_real, cfg.sample,
+                                  x_T=x_T, device=dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    times["posterior_s"] = time.perf_counter() - t0
+    launches = all_launches()
+    log(f"physics loop (a): posterior {tuple(u.shape)} in "
+        f"{times['posterior_s']:.3f} s; launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    expect_launches("physics loop (a)", launches,
+                    {"fused_core_stack": cfg.sample.ddim_steps,
+                     "fused_core_block": 0})
+    space = ParameterSpace()
+    scaler = MinMaxScaler.fit(space.plims.T)
+    # the draws on the host first: the inverse then runs in float64, as
+    # the JAX package's closure loop hands them over
+    phys, mask = sample.inverse_pipeline(u.cpu().numpy(), scaler,
+                                         space=space)
+    valid = np.nonzero(mask[:, 0])[0]
+    log(f"physics loop (a): inverse pipeline {phys.dtype} {phys.shape}, "
+        f"valid fraction {float(mask.mean()):.6f}, condition 0 "
+        f"{valid.size} of {n_real}")
+    if phys.dtype != np.float64 or valid.size < PHYS_MEMBERS:
+        raise RuntimeError("physics loop (a): too few valid members")
+    members = np.ascontiguousarray(phys[valid[:PHYS_MEMBERS], 0, :])
+    members_path = root / "members.npy"
+    np.save(members_path, members)
+
+    # (b) the forward runs through the CLI, on the stand-in
+    standin, spliced, response = write_standin(root)
+    srv_native.load()                 # built once, before the runs
+    rows, surveys = 4693, 14
+    proc, seconds = run_module_cli(
+        ["simulate", "--template", str(PHYS_TEMPLATE), "--params",
+         str(members_path), "--pflotran", str(standin), "--no-mpi",
+         "--mode", "keywords", "--concurrency", str(PHYS_CONCURRENCY),
+         "--surveys", str(surveys), "--measurements", str(rows),
+         "--workdir", str(root / "runs"), "--results-dir",
+         str(root / "results"), "--max-retries", "0"],
+        "physics loop (b) simulate", dev)
+    if proc.returncode != 0:
+        raise RuntimeError(f"simulate failed:\n{proc.stdout[-2000:]}\n"
+                           f"{proc.stderr[-4000:]}")
+    times["forward_s"] = seconds
+    read = [ln for ln in proc.stdout.splitlines()
+            if ln.startswith(".srv files read:")]
+    want_read = (f".srv files read: {PHYS_MEMBERS * surveys} by the C++ "
+                 f"reader, 0 by numpy")
+    log(f"physics loop (b): {PHYS_MEMBERS} forward runs ({surveys} .srv "
+        f"files of {rows} rows each, {PHYS_CONCURRENCY} at a time) in "
+        f"{seconds:.3f} s ({card}); {read}")
+    if read != [want_read]:
+        raise RuntimeError(f"simulate: {read}, expected {want_read!r}")
+    prefix = "ertdx_run"
+    for i in range(PHYS_MEMBERS):
+        sim = root / "results" / f"simulation_{i:04d}"
+        inp = root / "runs" / f"run_{i:04d}" / f"{prefix}_{i:04d}.in"
+        vals = spliced(inp)
+        want = np.asarray(response(vals), dtype=np.float64).ravel()
+        porosity = next(float(line.split()[1]) for line in open(inp)
+                        if line.split()[:1] == ["POROSITY"])
+        got_p = np.load(sim / "parameters.npy")
+        got_d = np.load(sim / "data.npy")
+        if not (np.array_equal(got_p, members[i])
+                and got_p.dtype == np.float64
+                and np.array_equal(got_d, want)
+                and porosity == float(f"{members[i][0]:12.4e}")):
+            raise RuntimeError(f"physics loop (b): run {i} differs from "
+                               f"its member or from the stand-in")
+    log(f"physics loop (b): all {PHYS_MEMBERS} runs' parameters.npy equal "
+        f"their members and data.npy the stand-in's response to the "
+        f"spliced values, exactly")
+
+    val_root = root / "validation"
+    runner = ForwardModelRunner(
+        PflotranSimulator(str(PHYS_TEMPLATE), prefix, mode="keywords"),
+        cfg=RunnerConfig(pflotran_path=str(standin), use_mpi=False,
+                         n_surveys=surveys, measurements_per_survey=rows),
+        workdir=str(val_root / "runs"))
+    mgr = SimulationManager(base_dir=str(val_root / "results"))
+    before = dict(srv_native.reads)
+    t0 = time.perf_counter()
+    completed = run_posterior_validation(runner, mgr,
+                                         members[:PHYS_VALIDATE],
+                                         progress=lambda msg: None)
+    times["validation_s"] = time.perf_counter() - t0
+    read = {k: srv_native.reads[k] - before[k] for k in before}
+    same = all(np.array_equal(
+        np.load(val_root / "results" / f"simulation_{i:04d}" / "data.npy"),
+        np.load(root / "results" / f"simulation_{i:04d}" / "data.npy"))
+        for i in completed)
+    log(f"physics loop (b): run_posterior_validation of {PHYS_VALIDATE} "
+        f"members in {times['validation_s']:.3f} s: completed {completed}, "
+        f"reads {read}, data equal to the CLI's: {same}")
+    if (completed != list(range(PHYS_VALIDATE)) or not same
+            or read != {"native": PHYS_VALIDATE * surveys, "numpy": 0}):
+        raise RuntimeError("physics loop (b): run_posterior_validation")
+
+    # one simulation's 14 files: the C++ reader against np.genfromtxt
+    fmt = SrvFormat()
+    run0 = root / "runs" / "run_0000"
+    paths = sorted(run0.glob(f"{prefix}_0000-*.srv"),
+                   key=lambda q: int(q.name.split("-")[2][:-5]))
+    native_ms, numpy_ms = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        flat = gather_srv_data(f"{prefix}_0000", str(run0), fmt)
+        native_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        ref = np.concatenate([np.genfromtxt(q, skip_header=fmt.skip_header,
+                                            usecols=fmt.usecols)
+                              for q in paths])
+        numpy_ms.append((time.perf_counter() - t0) * 1e3)
+        if not np.array_equal(flat, ref):
+            raise RuntimeError("the C++ reader differs from np.genfromtxt")
+    times["read_native_ms"] = statistics.median(native_ms)
+    times["read_numpy_ms"] = statistics.median(numpy_ms)
+    # where a run's time goes: the stand-in alone, one input file
+    t0 = time.perf_counter()
+    subprocess.run([str(standin), "-pflotranin",
+                    str(run0 / f"{prefix}_0000.in")], cwd=root, check=True)
+    times["standin_ms"] = (time.perf_counter() - t0) * 1e3
+    log(f"physics loop (d): one simulation's {len(paths)} .srv files read "
+        f"in {times['read_native_ms']:.3f} ms by gather_srv_data (C++) "
+        f"against {times['read_numpy_ms']:.3f} ms by np.genfromtxt "
+        f"(medians of 3, warm page cache; {card}); the stand-in alone "
+        f"{times['standin_ms']:.3f} ms a run")
+
+    # (c) re-ingest and statistics
+    e_path, p_path = root / "sim_ert.npy", root / "sim_param.npy"
+    out, seconds = run_cli(
+        cli, ["gather-data", "--results-dir", str(root / "results"), "--n",
+              str(PHYS_MEMBERS), "--surveys", str(surveys), "--out-ert",
+              str(e_path), "--out-params", str(p_path)], "gather-data", dev)
+    ert, params = np.load(e_path), np.load(p_path)
+    log(f"physics loop (c): gather-data --n {PHYS_MEMBERS} in "
+        f"{seconds:.3f} s: {ert.shape} and {params.shape}")
+    if (ert.shape != (PHYS_MEMBERS, rows, surveys)
+            or params.shape != (PHYS_MEMBERS, 29, 1)
+            or not np.array_equal(params[..., 0], members)):
+        raise RuntimeError("physics loop (c): gather-data")
+    conditional = cond[0].cpu().numpy().astype(np.float64)
+    t0 = time.perf_counter()
+    stats = ensemble_statistics(ert, conditional, device=dev)
+    wsse = wsse_per_simulation(ert, conditional)
+    times["stats_ms"] = (time.perf_counter() - t0) * 1e3
+    # everything but the KDE mode again on the host, from the card's mode
+    host = ensemble_statistics(ert, conditional, mode=stats["mode"],
+                               device="cpu")
+    worst = max(rel_gap(stats[k], host[k]) for k in host)
+    # the KDE mode on the CPU on every 32nd pixel and on the pixels that
+    # hold the ensemble's minimum and maximum, so that the grid is the same
+    flat_sim = ert.reshape(PHYS_MEMBERS, -1)
+    pix = np.unique(np.r_[np.arange(0, flat_sim.shape[1], 32),
+                          np.argmin(flat_sim) % flat_sim.shape[1],
+                          np.argmax(flat_sim) % flat_sim.shape[1]])
+    cpu_mode = batched_kde_mode(flat_sim[:, pix, None], device="cpu")
+    step = float(flat_sim.max() - flat_sim.min()) / 4999
+    mode_gap = float(np.abs(stats["mode"].ravel()[pix] - cpu_mode.ravel())
+                     .max())
+    log(f"physics loop (c): ensemble_statistics at {ert.shape} on {dev} and "
+        f"wsse_per_simulation {wsse.shape} in {times['stats_ms']:.3f} ms "
+        f"({card}); the mode against the CPU's on {pix.size} pixels "
+        f"{mode_gap:.4e} (one grid step {step:.4e}); the other statistics "
+        f"against the host's worst relative gap {worst:.3e} (gate 1e-6)")
+    if not (mode_gap <= step * (1 + 1e-4) and worst <= 1e-6
+            and np.isfinite(wsse).all()
+            and all(np.isfinite(np.asarray(v, float)).all()
+                    for v in stats.values())):
+        raise RuntimeError("physics loop (c): statistics differ from the "
+                           "CPU's")
+
+    np.save(root / "cond0.npy", conditional)
+    import importlib.util
+    has_mpl = importlib.util.find_spec("matplotlib") is not None
+    dev_args = [] if dev.type == "cuda" else ["--device", "cpu"]
+    proc, seconds = run_module_cli(
+        ["plot", "--sim", str(e_path), "--conditional",
+         str(root / "cond0.npy"), "--out-dir", str(root / "figs"),
+         *dev_args], "physics loop (c) plot", dev)
+    figs = sorted(q.name for q in (root / "figs").glob("*.png")) \
+        if (root / "figs").exists() else []
+    if has_mpl:
+        ok = proc.returncode == 0 and len(figs) == 6
+        log(f"physics loop (c): matplotlib present: plot wrote {figs} in "
+            f"{seconds:.3f} s")
+    else:
+        last = (proc.stderr.strip().splitlines() or [""])[-1]
+        ok = proc.returncode != 0 and "matplotlib" in last and not figs
+        log(f"physics loop (c): matplotlib absent: plot exited "
+            f"{proc.returncode} after {seconds:.3f} s naming it: {last!r}")
+    if not ok:
+        raise RuntimeError(f"plot: exit {proc.returncode}, figures {figs}:"
+                           f"\n{proc.stderr[-3000:]}")
+    times["plot_s"] = seconds
+    return times
+
+
 def random_flax_tree(shapes, rng) -> dict:
     """A flax-layout tree of non-zero numpy leaves at init-like scales."""
     out = {}
@@ -4428,6 +4784,23 @@ def main() -> int:
         f"over train()), {mlp['uncond_sample_ms']:.4f} ms per sampling "
         f"step ({UNCOND_MEMBERS} chains)")
     phase("reference and unconditional models", t0)
+
+    # 19. the physics loop: (a) the configs[3] posterior, (b) 50 members
+    # through `simulate` on a stand-in PFLOTRAN and 5 through
+    # run_posterior_validation, (c) gather-data, statistics and `plot`
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="ertdx_torch_physics_")
+    try:
+        loop = check_physics_loop(dev, card, Path(root))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    loop["phase_s"] = time.perf_counter() - t0
+    log(f"physics loop ({card}): {PHYS_MEMBERS} forward runs "
+        f"{loop['forward_s']:.3f} s; one simulation's 14 .srv files "
+        f"{loop['read_native_ms']:.3f} ms native against "
+        f"{loop['read_numpy_ms']:.3f} ms by np.genfromtxt; the phase "
+        f"{loop['phase_s']:.3f} s")
+    phase("physics loop", t0)
 
     launches = {"fused_core_stack": main_launches["fused_core_stack"],
                 "fused_core_block": block_launches["fused_core_block"],

@@ -22,7 +22,11 @@ it trains the CondUNet with the encoder's slab attention kernels of
 `ModelConfig.dtype="bfloat16"` (the throughput preset's), in bfloat16 by
 flax's rules, its slab attention then on the bf16 kernels of
 `csrc/slab_attn_bf16.cu`. `distill.py` distills a trained model into a
-few-step student for the pd sampler.
+few-step student for the pd sampler. On the host, `physics.py` runs
+PFLOTRAN over parameter sets and reads each run's `.srv` files back with
+the C++ reader of `csrc/srv_reader.cpp` (built by g++,
+`utils/srv_native.py`), and `plots.py` draws the figures (matplotlib,
+imported only when a figure is drawn).
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; without a card and without that argument they raise.

@@ -14,11 +14,15 @@ synthetic_gaussian (uncondmlp, on the fields `generate-synthetic`
 writes) as well as the CondUNet's, and `sample` and `serve` take the
 reference's `.pth` weights with --torch-checkpoint (compat.py).
 
+`simulate` runs PFLOTRAN (or any program that takes `-pflotranin
+<file>` and writes the .srv files) over a parameter design through
+physics.py and reads each run back on the C++ .srv reader; `plot` (its
+statistics on `--device`) and the --plot, --plots-dir and --diagnostics
+flags draw with matplotlib, imported only when a figure is drawn.
+
 What the port has not yet got raises SystemExit naming its ROADMAP.md
-queue item: `simulate` and `plot`, and the --plot, --plots-dir and
---diagnostics flags (queue 1 item 4: physics.py, plots.py);
---mesh-data (item 5); and `bench`, which runs the JAX package's own
-benchmark.
+queue item: --mesh-data (item 5); and `bench`, which runs the JAX
+package's own benchmark.
 """
 from __future__ import annotations
 
@@ -32,7 +36,6 @@ import numpy as np
 
 #: what each ROADMAP.md queue 1 item the CLI cites still lacks
 _QUEUE_ITEMS = {
-    4: "the host-side modules physics.py and plots.py",
     5: "data and tensor parallelism",
 }
 
@@ -172,15 +175,15 @@ def cmd_generate_design(args) -> int:
     import warnings
 
     from .doe import SurrogateDataGenerator
-    if args.diagnostics:
-        _not_ported("--diagnostics", 4)
     gen = SurrogateDataGenerator(seed=args.seed)
     with warnings.catch_warnings():
         # scipy's Sobol balance warning (non-power-of-2 n) is expected
         # for user-chosen design sizes; the scrambled points stay valid
         warnings.filterwarnings(
             "ignore", message=".*balance properties of Sobol.*")
-        params = gen.generate_training_samples(args.n, method=args.method)
+        params = gen.generate_training_samples(
+            args.n, method=args.method, plot_diagnostics=args.diagnostics,
+            output_dir=str(Path(args.out).parent))
     np.save(args.out, params[..., None])  # (N, 29, 1) reference layout
     print(f"wrote {args.out}: {params.shape[0]} x {params.shape[1]} design")
     return 0
@@ -198,7 +201,33 @@ def cmd_generate_synthetic(args) -> int:
 
 
 def cmd_simulate(args) -> int:
-    _not_ported("simulate", 4)
+    from .data import SrvFormat
+    from .physics import (ForwardModelRunner, PflotranSimulator,
+                          RunnerConfig, SimulationManager)
+    from .utils import srv_native
+    sim = PflotranSimulator(args.template, args.prefix, mode=args.mode,
+                            output_dir=args.workdir)
+    cfg = RunnerConfig(pflotran_path=args.pflotran, timeout_s=args.timeout,
+                       max_concurrent=args.concurrency,
+                       max_retries=args.max_retries,
+                       n_surveys=args.surveys,
+                       measurements_per_survey=args.measurements,
+                       srv_format=SrvFormat(skip_header=args.srv_skip_header,
+                                            usecols=args.srv_usecols),
+                       use_mpi=not args.no_mpi)
+    mgr = SimulationManager(base_dir=args.results_dir)
+    runner = ForwardModelRunner(sim, cfg=cfg, workdir=args.workdir,
+                                manager=mgr)
+    params = np.load(args.params)
+    if params.ndim == 3:
+        params = params.squeeze(-1)
+    before = dict(srv_native.reads)
+    runner.run_simulations_with_params(params)
+    print(f"results under {mgr.base_output_dir}")
+    read = {k: srv_native.reads[k] - before[k] for k in before}
+    print(f".srv files read: {read['native']} by the C++ reader, "
+          f"{read['numpy']} by numpy")
+    return 0
 
 
 def cmd_gather_data(args) -> int:
@@ -221,8 +250,6 @@ def cmd_train(args) -> int:
     from .utils.profiling import trace
     cfg = _load_cfg(args)
     _check_mesh(args)
-    if args.plot:
-        _not_ported("--plot", 4)
     sim_param = np.load(args.params)
     ert = np.load(args.ert)
     ds = data_lib.prepare_dataset(sim_param, ert)
@@ -234,6 +261,11 @@ def cmd_train(args) -> int:
                     device=args.device, logger=logger, resume=args.resume)
     print(f"best val loss {res.best_val_loss:.6f} at epoch "
           f"{res.best_epoch + 1}; {res.steps_per_sec:.2f} steps/sec")
+    if args.plot:
+        from .plots import plot_loss_curves
+        plot_loss_curves(res.train_history, res.val_history,
+                         path=str(Path(cfg.train.checkpoint_dir)
+                                  / "loss_curves.png"))
     return 0
 
 
@@ -437,8 +469,6 @@ def cmd_metrics(args) -> int:
     from .metrics import (crps_ensemble, per_parameter_uq, sbc_ranks,
                           sbc_uniformity, uq_scores)
     from .utils.logging import write_csv
-    if args.plots_dir:
-        _not_ported("--plots-dir", 4)
     pred = np.load(args.pred)
     true = np.load(args.true)
     joint = uq_scores(pred, true)
@@ -455,11 +485,44 @@ def cmd_metrics(args) -> int:
     rows = per_parameter_uq(pred, true)
     write_csv(args.out, rows)
     print(f"wrote {args.out}")
+    if args.plots_dir:
+        # joint + per-parameter coverage figures (the reference's loop,
+        # ERT_Conditional_Diffusion.py:1139-1262)
+        from .params import ParameterSpace
+        from .plots import plot_coverage
+        out = Path(args.plots_dir)
+        plot_coverage(pred.reshape(pred.shape[0], -1), true.reshape(-1),
+                      path=str(out / "coverage_joint.png"))
+        names = ParameterSpace().names
+        for j in range(pred.shape[-1]):
+            plot_coverage(pred[..., j], true[..., j],
+                          title=names[j] if j < len(names) else f"p{j}",
+                          path=str(out / f"coverage_param_{j:02d}.png"))
+        print(f"coverage figures under {out}")
     return 0
 
 
 def cmd_plot(args) -> int:
-    _not_ported("plot", 4)
+    from .metrics import ensemble_statistics, wsse_per_simulation
+    sim = np.load(args.sim)
+    cond = np.load(args.conditional)
+    out = Path(args.out_dir)
+    # the statistics first (the KDE mode on --device), then the figures
+    stats = ensemble_statistics(sim, cond, device=args.device)
+    wsse = wsse_per_simulation(sim, cond)
+    from . import plots
+    plots.plot_ensemble_grid(stats, cond, path=str(out / "ensemble_grid.png"))
+    plots.plot_wsse_per_survey(wsse, path=str(out / "wsse.png"))
+    plots.plot_best_sim_panels(sim, cond, wsse.sum(axis=1),
+                               path=str(out / "best_sims.png"))
+    plots.plot_estimate_vs_conditional(stats["mean"], cond, "Ensemble Mean",
+                                       path=str(out / "mean_vs_cond.png"))
+    plots.plot_estimate_vs_conditional(stats["mode"], cond, "Ensemble Mode",
+                                       path=str(out / "mode_vs_cond.png"))
+    plots.plot_mse_distribution(sim, cond,
+                                path=str(out / "mse_distribution.png"))
+    print(f"figures under {out}")
+    return 0
 
 
 def cmd_serve(args) -> int:
@@ -523,8 +586,7 @@ def build_parser() -> argparse.ArgumentParser:
     gs.add_argument("--out", default="synthetic_fields.npy")
     gs.set_defaults(fn=cmd_generate_synthetic)
 
-    s = sub.add_parser("simulate", help="run PFLOTRAN forward simulations "
-                                        "(not ported yet)")
+    s = sub.add_parser("simulate", help="run PFLOTRAN forward simulations")
     s.add_argument("--template", required=True)
     s.add_argument("--params", required=True)
     s.add_argument("--prefix", default="ertdx_run")
@@ -732,13 +794,14 @@ def build_parser() -> argparse.ArgumentParser:
     m.add_argument("--out", default="Parameter_uncertainty_metrics.csv")
     m.add_argument("--plots-dir", default=None,
                    help="also write the joint + per-parameter coverage "
-                        "figures here (not ported yet)")
+                        "figures here")
     m.set_defaults(fn=cmd_metrics)
 
-    pl = sub.add_parser("plot", help="ensemble figures (not ported yet)")
+    pl = sub.add_parser("plot", help="ensemble figures")
     pl.add_argument("--sim", required=True)
     pl.add_argument("--conditional", required=True)
     pl.add_argument("--out-dir", default="figures")
+    _device_flag(pl)
     pl.set_defaults(fn=cmd_plot)
 
     sv = sub.add_parser("serve", help="posterior-inversion HTTP service "

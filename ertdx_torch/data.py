@@ -5,10 +5,12 @@ Mirrors ertdx/data.py:45-416:
   * `.srv` parsing with a configurable layout (`SrvFormat`: header lines,
     data column, filename time token), files of one simulation sorted by
     survey time (a stable sort over the lexicographic order), the
-    ragged-file and non-finite checks. The parser is the JAX package's
-    numpy fallback (np.genfromtxt), so the arrays, the exception types
-    and the messages are those of JAX's readers without their C++ fast
-    path, which gives the same arrays;
+    ragged-file and non-finite checks. As in JAX, the files go through
+    the C++ reader (utils/srv_native.py, built with g++ at first use):
+    one simulation's files, or a whole ensemble's, in one threaded batch
+    call; a file that trips it is parsed with np.genfromtxt, which gives
+    the same array. The arrays, the exception types and the messages are
+    those of JAX's readers on the same path;
   * the re-ingest of simulation_{i:04d}/{data,parameters}.npy folders
     with the most-common-shape filter and its report, and the flat-vector
     -> (measurements, surveys) refold;
@@ -30,6 +32,7 @@ from typing import Iterator, Optional, Tuple
 import numpy as np
 
 from .transforms import MinMaxScaler, transform_to_unconstrained
+from .utils import srv_native
 
 
 # --------------------------------------------------------------------------
@@ -80,9 +83,13 @@ def _srv_time(fname: str, fmt: SrvFormat) -> float:
 
 
 def read_srv_file(path: str, fmt: SrvFormat = SrvFormat()) -> np.ndarray:
-    """One .srv file's data column (float64)."""
-    out = np.genfromtxt(path, skip_header=fmt.skip_header,
-                        usecols=fmt.usecols)
+    """One .srv file's data column (float64): the C++ reader, or
+    np.genfromtxt where the file trips it."""
+    out = srv_native.read_srv_column(path, fmt.skip_header, fmt.usecols)
+    if out is None:
+        out = np.genfromtxt(path, skip_header=fmt.skip_header,
+                            usecols=fmt.usecols)
+        srv_native.count_read("numpy")
     _check_finite(out, str(path), fmt)
     return out
 
@@ -104,10 +111,22 @@ def gather_srv_data(prefix: str, directory: str = ".",
                     fmt: SrvFormat = SrvFormat()) -> np.ndarray:
     """All '<prefix>*.srv' files of `directory` sorted by survey time,
     flattened (the reference's ERTDataHandler.gather_data with an
-    explicit directory). Files of different lengths raise numpy's
-    inhomogeneous-shape ValueError."""
-    data = [read_srv_file(p, fmt)
-            for p in _sorted_srv_paths(directory, prefix, fmt)]
+    explicit directory). The files are parsed in one batch call to the
+    C++ reader; files of different lengths raise a ValueError (numpy's
+    inhomogeneous-shape one where a file fell back to numpy)."""
+    paths = _sorted_srv_paths(directory, prefix, fmt)
+    res = srv_native.read_srv_batch(paths, fmt.skip_header, fmt.usecols,
+                                    return_counts=True)
+    if res is not None:
+        batch, counts = res
+        if len(set(counts.tolist())) > 1:
+            # the fast path must not shift rows across surveys
+            raise ValueError(
+                f"ragged .srv files in {directory!r}: per-file rows "
+                f"{sorted(set(counts.tolist()))}")
+        _check_finite(batch, f"{prefix}*.srv in {directory!r}", fmt)
+        return batch
+    data = [read_srv_file(p, fmt) for p in paths]
     return np.array(data).flatten()
 
 
@@ -130,9 +149,15 @@ def gather_srv_ensemble(directories, prefix: str,
             raise ValueError(
                 f"{d!r} has {len(paths)} survey files, expected {per_sim}")
         all_paths.extend(paths)
-    parts = [read_srv_file(p, fmt) for p in all_paths]
-    counts = np.array([p.size for p in parts], dtype=np.int64)
-    batch = np.concatenate(parts)
+    # one C++ batch call over every simulation's files
+    res = srv_native.read_srv_batch(all_paths, fmt.skip_header,
+                                    fmt.usecols, return_counts=True)
+    if res is None:
+        parts = [read_srv_file(p, fmt) for p in all_paths]
+        counts = np.array([p.size for p in parts], dtype=np.int64)
+        batch = np.concatenate(parts)
+    else:
+        batch, counts = res
     if len(set(counts.tolist())) > 1:
         bad = {all_paths[i]: int(c) for i, c in enumerate(counts)
                if c != counts[0]}

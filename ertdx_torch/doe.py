@@ -98,8 +98,9 @@ class SurrogateDataGenerator:
     def generate_training_samples(self, n_samples: int, method: str = "lhs",
                                   plot_diagnostics: bool = False,
                                   output_dir: str = ".") -> np.ndarray:
-        """(n_samples, P) physical parameter vectors. The diagnostics
-        figures need plots.py, which is not ported yet."""
+        """(n_samples, P) physical parameter vectors; with
+        `plot_diagnostics` also the sampling diagnostics figures in
+        `output_dir` (plots.py, which needs matplotlib)."""
         d = self.space.dim
         if method == "lhs":
             sampler = qmc.LatinHypercube(d=d, seed=self.seed)
@@ -112,7 +113,6 @@ class SurrogateDataGenerator:
         scaled = lo + (hi - lo) * unit
         parameters = np.where(self.space.log_mask, 10.0 ** scaled, scaled)
         if plot_diagnostics:
-            raise NotImplementedError(
-                "plot_diagnostics=True needs plots.py, which is not ported "
-                "yet (ROADMAP.md queue 1 item 4)")
+            from . import plots
+            plots.plot_sampling_diagnostics(parameters, output_dir=output_dir)
         return parameters

@@ -4,7 +4,9 @@ Parser parity (the same argv gives the same namespace, less `fn` and the
 port's `--device`), byte-equal outputs of `generate-design`,
 `gather-data` and `metrics`, one `train -> calibrate --commit -> sample
 -> serve` run on --device cpu whose checkpoint the JAX package restores,
-and the refusals, each naming its ROADMAP.md queue item."""
+and the refusals, each naming its ROADMAP.md queue item. `simulate`,
+`plot` and the figure flags are held against JAX's CLI in
+tests/test_torch_physics.py and tests/test_torch_plots.py."""
 from __future__ import annotations
 
 import dataclasses
@@ -81,6 +83,12 @@ ARGVS = [
     ["plot", "--sim", "s", "--conditional", "c"],
     ["generate-synthetic", "--n", "4"],
     ["bench"],
+    ["simulate", "--params", "p", "--template", "t", "--prefix", "run",
+     "--pflotran", "pf", "--workdir", "w", "--results-dir", "r", "--mode",
+     "keywords", "--timeout", "5", "--concurrency", "2", "--max-retries",
+     "1", "--surveys", "3", "--measurements", "4", "--srv-skip-header",
+     "2", "--srv-usecols", "4"],
+    ["plot", "--conditional", "c", "--sim", "s", "--out-dir", "figs"],
 ]
 
 
@@ -291,28 +299,30 @@ def test_pipeline_serves_over_http(pipeline):
         proc.wait(timeout=30)
 
 
+# the ids are those the cases had when five more (simulate, plot and the
+# figure flags, now ported: tests/test_torch_plots.py and
+# tests/test_torch_physics.py) came first
 @pytest.mark.parametrize("argv,item", [
-    (["simulate", "--template", "t", "--params", "p"], "item 4"),
-    (["plot", "--sim", "s", "--conditional", "c"], "item 4"),
-    (["generate-design", "--n", "4", "--diagnostics"], "item 4"),
-    (["metrics", "--pred", "u", "--true", "t", "--plots-dir", "f"],
-     "item 4"),
-    (["train", "--params", "p", "--ert", "e", "--preset", "v5e8_dp",
-      "--plot"], "item 4"),
-    (["sample", "--params", "p", "--ert", "e", "--preset", "v5e8_dp",
-      "--torch-checkpoint", "w.pth"], "use --model refmlp"),
-    (["sample", "--params", "p", "--ert", "e", "--torch-checkpoint",
-      "w.pth", "--ema"], "--ema has no meaning"),
-    (["serve", "--preset", "v5e8_dp", "--torch-checkpoint", "w.pth"],
-     "needs --params/--ert"),
-    (["train", "--params", "p", "--ert", "e", "--preset", "v5e8_dp",
-      "--mesh-data", "8"], "item 5"),
-    (["sample", "--params", "p", "--ert", "e", "--preset", "v5e8_dp",
-      "--checkpoint-dir", "ck", "--mesh-data", "2"], "item 5"),
-    (["distill", "--params", "p", "--ert", "e", "--checkpoint-dir", "ck",
-      "--out-dir", "o", "--preset", "v5e8_dp", "--mesh-data", "2"],
-     "item 5"),
-    (["bench"], "benchmark"),
+    pytest.param(["sample", "--params", "p", "--ert", "e", "--preset",
+                  "v5e8_dp", "--torch-checkpoint", "w.pth"],
+                 "use --model refmlp", id="argv5-use --model refmlp"),
+    pytest.param(["sample", "--params", "p", "--ert", "e",
+                  "--torch-checkpoint", "w.pth", "--ema"],
+                 "--ema has no meaning", id="argv6---ema has no meaning"),
+    pytest.param(["serve", "--preset", "v5e8_dp", "--torch-checkpoint",
+                  "w.pth"], "needs --params/--ert",
+                 id="argv7-needs --params/--ert"),
+    pytest.param(["train", "--params", "p", "--ert", "e", "--preset",
+                  "v5e8_dp", "--mesh-data", "8"], "item 5",
+                 id="argv8-item 5"),
+    pytest.param(["sample", "--params", "p", "--ert", "e", "--preset",
+                  "v5e8_dp", "--checkpoint-dir", "ck", "--mesh-data", "2"],
+                 "item 5", id="argv9-item 5"),
+    pytest.param(["distill", "--params", "p", "--ert", "e",
+                  "--checkpoint-dir", "ck", "--out-dir", "o", "--preset",
+                  "v5e8_dp", "--mesh-data", "2"], "item 5",
+                 id="argv10-item 5"),
+    pytest.param(["bench"], "benchmark", id="argv11-benchmark"),
 ])
 def test_refusals_name_their_queue_item(argv, item):
     with pytest.raises(SystemExit) as e:

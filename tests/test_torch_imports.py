@@ -68,7 +68,9 @@ def test_port_imports_without_jax_and_friends():
                  "ertdx_torch.utils.logging",
                  "ertdx_torch.utils.profiling",
                  "ertdx_torch.models.refmlp", "ertdx_torch.models.uncond",
-                 "ertdx_torch.compat", "ertdx_torch.synthetic"):
+                 "ertdx_torch.compat", "ertdx_torch.synthetic",
+                 "ertdx_torch.physics", "ertdx_torch.plots",
+                 "ertdx_torch.utils.srv_native"):
         assert name in imported
 
 

@@ -93,14 +93,28 @@ def test_parameter_sampler_non_convergence_raises_as_jax():
 
 @pytest.mark.parametrize("method", ["lhs", "sobol"])
 def test_design_matches_jax_and_diagnostics_refuse(method, tmp_path):
+    """The design equals JAX's; with plot_diagnostics=True (which the port
+    refused before plots.py was ported) it writes JAX's two figures too,
+    each from the same design (tests/test_torch_plots.py compares what
+    the figures draw)."""
     want = jdoe.SurrogateDataGenerator(seed=5).generate_training_samples(
         64, method, output_dir=str(tmp_path))
     gen = doe.SurrogateDataGenerator(seed=5)
     np.testing.assert_array_equal(
         gen.generate_training_samples(64, method, output_dir=str(tmp_path)),
         want)
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        gen.generate_training_samples(8, method, plot_diagnostics=True)
+    dirs = {"jax": tmp_path / "jax", "port": tmp_path / "port"}
+    got = {
+        "jax": jdoe.SurrogateDataGenerator(seed=5).generate_training_samples(
+            8, method, plot_diagnostics=True, output_dir=str(dirs["jax"])),
+        "port": gen.generate_training_samples(
+            8, method, plot_diagnostics=True, output_dir=str(dirs["port"]))}
+    np.testing.assert_array_equal(got["port"], got["jax"])
+    names = {k: sorted(f.name for f in d.iterdir()) for k, d in dirs.items()}
+    assert names["port"] == names["jax"] == [
+        "parameter_correlations.png", "sampling_diagnostics.png"]
+    for f in dirs["port"].iterdir():
+        assert f.stat().st_size > 1000
 
 
 def test_x0_from_v_matches_jax():

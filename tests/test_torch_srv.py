@@ -2,12 +2,18 @@
 
 Every case writes its files with copies of tests/test_data.py's writers
 and runs both packages on them: the same array, or the same exception
-type and message. The port parses with numpy (np.genfromtxt), which is
-the JAX package's own fallback, so messages are compared against JAX
-with its C++ fast path switched off; arrays are compared against both of
-JAX's paths.
+type and message. Both packages parse with their C++ reader and fall
+back to numpy (np.genfromtxt) file by file, so each case runs twice: the
+port against JAX on their C++ readers (JAX's library is built with `make
+-C csrc` where it is missing, as tests/test_native.py builds it), and
+the port against JAX with both C++ readers switched off.
 """
 from __future__ import annotations
+
+import os
+import subprocess
+import time
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -15,6 +21,33 @@ import pytest
 from ertdx import data as jdata
 from ertdx.utils import srv_native
 from ertdx_torch import data as tdata
+from ertdx_torch.utils import srv_native as tnative
+
+REPO = Path(__file__).resolve().parent.parent
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_native():
+    """JAX's C++ reader. Where it is missing it is built as
+    tests/test_native.py builds it (make -C csrc), into a file of its own
+    that is then renamed into place, so that no process loads it half
+    written; probed again a few times, since tests/test_native.py may be
+    writing the library in place at the same moment."""
+    lib = REPO / "ertdx" / "utils" / "_srv_reader.so"
+    for _ in range(5):
+        srv_native._TRIED = False
+        if srv_native.available():
+            return srv_native
+        tmp = lib.with_name(f".{os.getpid()}{lib.name}")
+        r = subprocess.run(["make", "-C", str(REPO / "csrc"),
+                            f"TARGET={tmp}"], capture_output=True,
+                           text=True)
+        assert r.returncode == 0, r.stdout + r.stderr
+        os.replace(tmp, lib)
+        time.sleep(0.5)
+    srv_native._TRIED = False
+    assert srv_native.available(), "make -C csrc did not build the reader"
+    return srv_native
 
 
 def _write_srv(path, n_rows, value, skip_header, n_cols=7):
@@ -50,24 +83,32 @@ def _jax_numpy_path(monkeypatch):
     monkeypatch.setattr(srv_native, "read_srv_column", lambda *a, **k: None)
 
 
+def _port_numpy_path(monkeypatch):
+    monkeypatch.setattr(tnative, "read_srv_batch", lambda *a, **k: None)
+    monkeypatch.setattr(tnative, "read_srv_column", lambda *a, **k: None)
+
+
 def _agree(monkeypatch, name, *args, fmt_pair=None):
-    """Run `name` in both packages (JAX on its numpy path, and on its
-    default path for arrays); assert the same array or exception. Returns
-    the port's outcome."""
+    """Run `name` in both packages, on their C++ readers and again on
+    their numpy paths; assert the same array or exception (type and
+    message) each time. Returns the port's outcome on its C++ reader."""
     jargs = args + ((fmt_pair[0],) if fmt_pair else ())
     targs = args + ((fmt_pair[1],) if fmt_pair else ())
     got = _outcome(getattr(tdata, name), *targs)
-    default = _outcome(getattr(jdata, name), *jargs)
+    want = _outcome(getattr(jdata, name), *jargs)
     with monkeypatch.context() as m:
         _jax_numpy_path(m)
-        want = _outcome(getattr(jdata, name), *jargs)
-    assert got[0] == want[0], (got, want)
-    if got[0] == "ok":
-        np.testing.assert_array_equal(got[1], want[1])
-        if default[0] == "ok":
-            np.testing.assert_array_equal(got[1], default[1])
-    else:
-        assert got[1:] == want[1:]
+        _port_numpy_path(m)
+        got_np = _outcome(getattr(tdata, name), *targs)
+        want_np = _outcome(getattr(jdata, name), *jargs)
+    for g, w in ((got, want), (got_np, want_np)):
+        assert g[0] == w[0], (g, w)
+        if g[0] == "ok":
+            np.testing.assert_array_equal(g[1], w[1])
+        else:
+            assert g[1:] == w[1:]
+    if got[0] == "ok" and got_np[0] == "ok":
+        np.testing.assert_array_equal(got[1], got_np[1])
     return got
 
 
