@@ -235,7 +235,32 @@ non-zero and prints no result line):
    against condition 0's survey, the KDE mode within one grid step of the
    CPU's on every 32nd pixel, the rest against the host's within 1e-6;
    `plot`, which writes six figures, or without matplotlib (as on the
-   card's machine) exits non-zero naming it; (d) the times.
+   card's machine) exits non-zero naming it; (d) the times;
+20. the mesh on one card (ertdx_torch/parallel/), ranks started by
+   torch.multiprocessing (spawn) on a TCP store, each failing the phase
+   if it fails or outlives its timeout; phase 7's model and batch
+   (V5E8_DP, float32, attn_slab, b256, condition 4693 x 14). (a) Two
+   ranks share the one card over gloo (NCCL refuses two ranks on one
+   device), make_mesh(data=2): five DP train_steps, 128 rows a rank,
+   from non-zero weights and the global draws of a single-process run of
+   the same five steps, held to phase 7's gates against it, one slab
+   forward and one backward a rank a step, ms a step (two ranks on one
+   card: not a scaling figure); (b) the same world: train(mesh=) for 2
+   epochs on 400 examples, histories within 1e-5 relative of train() in
+   this process, rank 0 alone writing the checkpoints, which the port's
+   reader restores; (c) the same world: the configs[3] posterior on 16
+   conditions x 1000 members, DDIM-50, 8000 chains a rank on the fused
+   core, exactly 50 fused_core_stack launches a rank, the draws within
+   phase 4's 1e-3 of this process's 16 x 1000 run from the same x_T; (d)
+   make_mesh(data=1, model=2) over the same ranks: one TP train_step
+   (tp_shard_params' 34 leaves) against the single process's first
+   step under phase 7's gates, the sharded layers and the kernel route
+   of the kernel-read weights logged; (e) a 1-rank NCCL world, cuDNN
+   deterministic: (a)'s mesh path for one step and a 2 x 1000 DDIM-50
+   ensemble, each within 1e-6 relative of the no-mesh path; (f) `python -m
+   torch.distributed.run --standalone --nproc-per-node 2 -m
+   ertdx_torch.cli train --mesh-data 2` for one epoch, its history
+   equal to (b)'s first epoch within 1e-5.
 
 Every kernel's entry in the kernels line has `bound_ms`, the least time
 the card could take: the bytes at 3.35 TB/s or the operations at the
@@ -247,7 +272,7 @@ null for GroupNorm) and `bound_fp32_ms` (the fp32 pipe's). The last line of
 stdout is {"ok": true, "device": {...}}. The build goes
 to build/ertdx_torch_kernels/ and the .srv reader's to
 build/ertdx_torch_srv/; the checkpoints of phases 7, 11, 13, 14, 15 and
-16 and the files of phases 17, 18 and 19 go to temporary directories
+16 and the files of phases 17, 18, 19 and 20 go to temporary directories
 that are removed; nothing else is written.
 """
 from __future__ import annotations
@@ -4458,6 +4483,508 @@ def check_physics_loop(dev, card, root) -> dict:
     return times
 
 
+# ---------------------------------------------------------------------------
+# 20. the mesh on one card
+# ---------------------------------------------------------------------------
+
+MESH_RANKS = 2
+MESH_EXAMPLES = 400
+MESH_CONDS = 16
+MESH_TIMEOUT = 420.0
+# tp_shard_params' min_dim (JAX's default) and the leaves it shards at
+# V5E8_DP's widths
+TP_MIN_DIM = 256
+TP_LEAVES = 34
+
+
+def mesh_posterior_cfg(configs):
+    """The configs[3] model and sampler of phase 20 (c) and (e)."""
+    return configs.DDIM_ENSEMBLE
+
+
+def sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def mesh_model(cfg, dev, seed: int):
+    """cfg's model on `dev` with non-zero weights from `seed`, alike in
+    every process."""
+    from ertdx_torch.models import build_model
+    from ertdx_torch.utils.weights import flax_shapes, params_from_jax
+    model = build_model(cfg.model, dev)
+    params_from_jax(model, random_flax_tree(
+        flax_shapes(model), np.random.default_rng(seed)))
+    return model
+
+
+def mesh_batches(cfg, dev, steps: int = TRAIN_STEPS) -> list:
+    """Phase 20 (a)'s global batches and draws (x0, cond, t, eps), drawn
+    alike in every process from one seed."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 20)
+    b, m = cfg.train.batch_size, cfg.model
+    return [(torch.randn(b, m.param_dim, generator=gen, device=dev),
+             torch.rand(b, m.cond_length, m.cond_channels, generator=gen,
+                        device=dev),
+             torch.randint(0, cfg.diffusion.T, (b,), generator=gen,
+                           device=dev),
+             torch.randn(b, m.param_dim, generator=gen, device=dev))
+            for _ in range(steps)]
+
+
+def mesh_dataset(cfg, n: int):
+    """Phase 20 (b) and (f)'s examples: (params (n, 29, 1), ert (n, L, C)
+    float32)."""
+    from ertdx_torch.doe import SurrogateDataGenerator
+    p = SurrogateDataGenerator(seed=SEED).generate_training_samples(n, "lhs")
+    ert = np.random.default_rng(SEED + 21).normal(
+        50.0, 10.0, size=(n, cfg.model.cond_length, cfg.model.cond_channels)
+    ).astype(np.float32)
+    return p[..., None], ert
+
+
+def mesh_posterior_inputs(pcfg, dev, n_cond: int):
+    """Phase 20 (c)'s model, conditions and prior draw, alike in every
+    process."""
+    model = mesh_model(pcfg, dev, SEED + 22).eval()
+    m = pcfg.model
+    cond = torch.from_numpy(np.random.default_rng(SEED + 23).standard_normal(
+        (n_cond, m.cond_length, m.cond_channels)).astype(np.float32)).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 24)
+    x_T = torch.randn(n_cond * pcfg.sample.uncertainty_samples, m.param_dim,
+                      generator=gen, device=dev)
+    return model, cond, x_T
+
+
+def _named(model, tensors) -> dict:
+    """{name: whole tensor on the CPU} of per-parameter tensors, gathered
+    over a model axis (a collective where leaves are sharded)."""
+    from ertdx_torch.parallel.mesh import whole_tensor
+    return {n: whole_tensor(model, n, t).cpu() for n, t in tensors}
+
+
+def _mesh_steps(train, sa, model, batches, cfg, dev, mesh):
+    """train_steps on `mesh`: losses, ms, slab launches a step, step-1
+    gradients and the parameters after the last step (whole)."""
+    from ertdx_torch.diffusion import schedule_from_config
+    alpha_bar = schedule_from_config(cfg.diffusion).alpha_bar.to(dev)
+    lr = train.make_lr(cfg.train, TRAIN_STEPS)
+    opt = train.create_optimizer(model, lr)
+    out = {"losses": [], "ms": [], "counts": []}
+    for x0, cond, t, noise in batches:
+        before = dict(sa.launches)
+        sync(dev)
+        t0 = time.perf_counter()
+        loss = train.train_step(model, opt, x0, cond, t, noise,
+                                alpha_bar=alpha_bar, lr=lr, mesh=mesh)
+        sync(dev)
+        out["ms"].append((time.perf_counter() - t0) * 1e3)
+        out["losses"].append(float(loss))
+        out["counts"].append({k: sa.launches[k] - before[k]
+                              for k in sa.launches})
+        if "g1" not in out:
+            out["g1"] = _named(model, ((n, p.grad) for n, p in
+                                       model.named_parameters()))
+    out["params"] = _named(model, model.named_parameters())
+    return out
+
+
+def mesh_job_steps(rank, spec, dev):
+    """(a) five DP steps on make_mesh(data=2)."""
+    from ertdx_torch import configs, train
+    from ertdx_torch.ops import slab_attn as sa
+    from ertdx_torch.parallel import make_mesh
+    cfg = configs.experiment_from_dict(spec["cfg"])
+    mesh = make_mesh(data=spec["world"], device=dev)
+    model = mesh_model(cfg, dev, SEED + 20)
+    return _mesh_steps(train, sa, model, mesh_batches(cfg, dev), cfg, dev,
+                       mesh)
+
+
+def mesh_job_train(rank, spec, dev):
+    """(b) train(mesh=) for 2 epochs; rank 0 alone writes."""
+    from ertdx_torch import configs, train
+    from ertdx_torch.data import prepare_dataset
+    from ertdx_torch.ops import slab_attn as sa
+    from ertdx_torch.parallel import make_mesh
+    cfg = configs.experiment_from_dict(spec["cfg"])
+    ds = prepare_dataset(*mesh_dataset(cfg, spec["examples"]))
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, num_epochs=2, step_checkpoint_every=1))
+    writes = []
+    save = train.ckpt_lib.save_checkpoint
+    train.ckpt_lib.save_checkpoint = lambda *a, **k: (writes.append(
+        str(a[0])), save(*a, **k))
+    before = dict(sa.launches)
+    try:
+        sync(dev)
+        t0 = time.perf_counter()
+        res = train.train(cfg, ds, checkpoint_dir=spec["ckdir"], device=dev,
+                          mesh=make_mesh(data=spec["world"], device=dev))
+        sync(dev)
+    finally:
+        train.ckpt_lib.save_checkpoint = save
+    return {"train": res.train_history, "val": res.val_history,
+            "writes": writes, "s": time.perf_counter() - t0,
+            "steps": res.state.step,
+            "counts": {k: sa.launches[k] - before[k] for k in sa.launches},
+            "params": _named(res.state.model,
+                             res.state.model.named_parameters())}
+
+
+def mesh_job_posterior(rank, spec, dev):
+    """(c) the configs[3] posterior over the conditions on the mesh."""
+    from ertdx_torch import configs, sample
+    from ertdx_torch.diffusion import schedule_from_config
+    from ertdx_torch.ops import core_block as cb
+    from ertdx_torch.parallel import make_mesh
+    pcfg = configs.experiment_from_dict(spec["pcfg"])
+    model, cond, x_T = mesh_posterior_inputs(pcfg, dev, spec["conds"])
+    mesh = make_mesh(data=spec["world"], device=dev)
+    with torch.no_grad():           # first encoder call: library set-up
+        model.encode_condition(cond[:1])
+    sync(dev)
+    cb.reset_launches()
+    t0 = time.perf_counter()
+    u = sample.posterior_ensemble(
+        model, cond, schedule_from_config(pcfg.diffusion),
+        pcfg.sample.uncertainty_samples, pcfg.sample, x_T=x_T, device=dev,
+        mesh=mesh)
+    sync(dev)
+    return {"u": u.cpu(), "s": time.perf_counter() - t0,
+            "launches": dict(cb.launches)}
+
+
+def mesh_job_tp(rank, spec, dev):
+    """(d) one TP step on make_mesh(data=1, model=2)."""
+    from ertdx_torch import configs, train
+    from ertdx_torch.ops import slab_attn as sa
+    from ertdx_torch.parallel import make_mesh, tp_shard_params
+    cfg = configs.experiment_from_dict(spec["cfg"])
+    mesh = make_mesh(data=1, model=spec["world"], device=dev)
+    model = tp_shard_params(mesh_model(cfg, dev, SEED + 20), mesh,
+                            min_dim=spec["tp_min_dim"])
+    out = _mesh_steps(train, sa, model, mesh_batches(cfg, dev)[:1], cfg,
+                      dev, mesh)
+    out["leaves"] = sorted(model.tp_leaves)
+    out["fused_conv"] = any(hasattr(m, "fused1") for m in model.modules())
+    return out
+
+
+def mesh_job_nccl(rank, spec, dev):
+    """(e) in a 1-rank NCCL world: (a)'s mesh path for one step and a
+    2 x 1000 DDIM-50 ensemble, each beside the no-mesh path. With cuDNN's
+    default algorithms two steps of the same code differed by up to
+    7.4e-7 relative on the card, so cuDNN runs its deterministic ones
+    here."""
+    from ertdx_torch import configs, sample, train
+    from ertdx_torch.diffusion import schedule_from_config
+    from ertdx_torch.ops import slab_attn as sa
+    from ertdx_torch.parallel import make_mesh
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    cfg = configs.experiment_from_dict(spec["cfg"])
+    mesh = make_mesh(data=1, device=dev)
+    batches = mesh_batches(cfg, dev)[:1]
+    out = {"backend": torch.distributed.get_backend()}
+    for tag, m in (("mesh", mesh), ("plain", None)):
+        model = mesh_model(cfg, dev, SEED + 20)
+        out[tag] = _mesh_steps(train, sa, model, batches, cfg, dev, m)
+    pcfg = configs.experiment_from_dict(spec["pcfg"])
+    model, cond, x_T = mesh_posterior_inputs(pcfg, dev, 2)
+    sch = schedule_from_config(pcfg.diffusion)
+    for tag, m in (("u_mesh", mesh), ("u_plain", None)):
+        out[tag] = sample.posterior_ensemble(
+            model, cond, sch, pcfg.sample.uncertainty_samples, pcfg.sample,
+            x_T=x_T, device=dev, mesh=m).cpu()
+    return out
+
+
+def mesh_rank(rank: int, world: int, port: int, spec_path: str) -> None:
+    """One rank of a phase 20 world (spawned): join the group, run the
+    spec's jobs, write each job's result to <root>/<job>.r<rank>.pt."""
+    import pickle
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    with open(spec_path, "rb") as f:
+        spec = pickle.load(f)
+    os.environ["LOCAL_RANK"] = str(rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if spec["device"] == "cpu":
+        torch.set_num_threads(1)
+    from ertdx_torch.parallel.mesh import rank_device
+    from ertdx_torch.parallel.multihost import init_distributed
+    dev = rank_device(spec["device"])
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    init_distributed(f"localhost:{port}", world, rank,
+                     device=spec["device"])
+    try:
+        for job in spec["jobs"]:
+            result = globals()[f"mesh_job_{job}"](rank, spec, dev)
+            torch.save(result, Path(spec["root"]) / f"{job}.r{rank}.pt")
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def run_mesh_world(world: int, spec: dict, root: Path) -> list:
+    """Start `world` ranks of `mesh_rank` (spawn), wait for all, and
+    return each rank's results {job: result}. A rank that fails or a
+    world past MESH_TIMEOUT kills every rank and fails the phase."""
+    import pickle
+    import torch.multiprocessing as tmp
+
+    spec = {**spec, "world": world, "root": str(root)}
+    spec_path = root / f"spec_{'_'.join(spec['jobs'])}.pkl"
+    with open(spec_path, "wb") as f:
+        pickle.dump(spec, f)
+    ctx = tmp.get_context("spawn")
+    port = free_port()
+    procs = [ctx.Process(target=mesh_rank,
+                         args=(r, world, port, str(spec_path)))
+             for r in range(world)]
+    for proc in procs:
+        proc.start()
+    deadline = time.monotonic() + MESH_TIMEOUT
+    try:
+        while any(proc.exitcode is None for proc in procs):
+            bad = [r for r, proc in enumerate(procs)
+                   if proc.exitcode not in (None, 0)]
+            if bad:
+                raise RuntimeError(f"mesh world {spec['jobs']}: rank(s) "
+                                   f"{bad} failed")
+            if time.monotonic() > deadline:
+                raise RuntimeError(f"mesh world {spec['jobs']}: past "
+                                   f"{MESH_TIMEOUT} s")
+            time.sleep(0.1)
+        bad = [r for r, proc in enumerate(procs) if proc.exitcode != 0]
+        if bad:
+            raise RuntimeError(f"mesh world {spec['jobs']}: rank(s) {bad} "
+                               "failed")
+    finally:
+        for proc in procs:
+            if proc.exitcode is None:
+                proc.kill()
+            proc.join()
+    return [{job: torch.load(root / f"{job}.r{r}.pt", weights_only=False)
+             for job in spec["jobs"]} for r in range(world)]
+
+
+def _mesh_gates(label, got, want, lr, steps, g_key="g1") -> None:
+    """Phase 7's gates for a mesh run against the single process: losses
+    within max(1e-5, 0) x max(1, loss) (the single process reruns bit
+    for bit), step-1 gradients at 1e-4 x max(1, max|g|), parameters
+    within 2 lr a step of each other but for 0.1 % of the entries."""
+    for step, (a, c) in enumerate(zip(got["losses"], want["losses"])):
+        if not abs(a - c) <= 1e-5 * max(1.0, abs(c)):
+            raise RuntimeError(f"{label} step {step + 1}: loss {a} vs the "
+                               f"single process {c}")
+    worst = _compare_grads(label, got[g_key], want[g_key])
+    diffs = torch.cat([(got["params"][n] - w).abs().reshape(-1)
+                       for n, w in want["params"].items()])
+    share = float((diffs > 1e-5).float().mean())
+    log(f"{label}: losses {got['losses']} vs {want['losses']}; step-1 "
+        f"gradients worst err/tol {worst:.3f}; params max|d| "
+        f"{float(diffs.max()):.3e} (bound {2 * lr * steps:.1e}), share > "
+        f"1e-5 {share:.3e} (limit 1e-3)")
+    if not (float(diffs.max()) <= 2 * lr * steps + 1e-6 and share <= 1e-3):
+        raise RuntimeError(f"{label}: parameters disagree with the single "
+                           "process")
+
+
+def check_mesh_cli(cfg, first_epoch, root: Path, card: str) -> float:
+    """(f) the CLI's train --mesh-data 2 under torch.distributed.run for
+    one epoch, against (b)'s first epoch."""
+    params, ert = mesh_dataset(cfg, MESH_EXAMPLES)
+    np.save(root / "p.npy", params)
+    np.save(root / "e.npy", ert)
+    env = {**os.environ, "PYTHONPATH": os.path.dirname(
+        os.path.abspath(__file__))}
+    for key in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR",
+                "MASTER_PORT"):
+        env.pop(key, None)
+    argv = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+            "--nproc-per-node", str(MESH_RANKS), "-m", "ertdx_torch.cli",
+            "train", "--params", str(root / "p.npy"), "--ert",
+            str(root / "e.npy"), "--preset", "v5e8_dp", "--dtype",
+            cfg.model.dtype, "--epochs", "1", "--checkpoint-dir",
+            str(root / "cli_ck"), "--log-file", str(root / "cli.jsonl"),
+            "--mesh-data", str(MESH_RANKS)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(argv, cwd=str(root), env=env, capture_output=True,
+                          text=True, timeout=MESH_TIMEOUT)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"CLI on the mesh: exit {proc.returncode}\n"
+                           f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    recs = [json.loads(line) for line in
+            (root / "cli.jsonl").read_text().splitlines()]
+    hist = [(r["train_loss"], r["val_loss"]) for r in recs
+            if "train_loss" in r]
+    printed = proc.stdout.count("best val loss")
+    log(f"CLI train --mesh-data {MESH_RANKS} (torch.distributed.run, "
+        f"{seconds:.3f} s by the host clock; {card}): history {hist} vs "
+        f"(b)'s first epoch {first_epoch}; 'best val loss' printed "
+        f"{printed} time(s)")
+    if len(hist) != 1 or printed != 1 or not all(
+            abs(g - w) <= 1e-5 * max(1.0, abs(w))
+            for g, w in zip(hist[0], first_epoch)):
+        raise RuntimeError("CLI on the mesh disagrees with (b)'s first "
+                           "epoch")
+    return seconds
+
+
+def check_mesh_phase(dev, card: str, root: Path) -> dict:
+    """Phase 20: the mesh on one card, (a)-(f)."""
+    from ertdx_torch import configs, sample, train
+    from ertdx_torch.data import prepare_dataset
+    from ertdx_torch.diffusion import schedule_from_config
+    from ertdx_torch.ops import core_block as cb
+    from ertdx_torch.ops import slab_attn as sa
+    from ertdx_torch.utils import checkpoint as ckpt_lib
+    from ertdx_torch.utils.weights import named_from_jax
+
+    cfg = train_cfg(configs)
+    pcfg = mesh_posterior_cfg(configs)
+    lr = cfg.train.lr
+    spec = {"cfg": dataclasses.asdict(cfg), "pcfg": dataclasses.asdict(pcfg),
+            "device": dev.type, "examples": MESH_EXAMPLES,
+            "conds": MESH_CONDS, "ckdir": str(root / "ck"),
+            "tp_min_dim": TP_MIN_DIM}
+
+    # the single process's references
+    t0 = time.perf_counter()
+    single = _mesh_steps(train, sa, mesh_model(cfg, dev, SEED + 20),
+                         mesh_batches(cfg, dev), cfg, dev, None)
+    step1 = _mesh_steps(train, sa, mesh_model(cfg, dev, SEED + 20),
+                        mesh_batches(cfg, dev)[:1], cfg, dev, None)
+    ds = prepare_dataset(*mesh_dataset(cfg, MESH_EXAMPLES))
+    ref = train.train(dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, num_epochs=2, checkpoint_dir="")), ds, device=dev)
+    model, cond, x_T = mesh_posterior_inputs(pcfg, dev, MESH_CONDS)
+    sync(dev)
+    t_u = time.perf_counter()
+    u_single = sample.posterior_ensemble(
+        model, cond, schedule_from_config(pcfg.diffusion),
+        pcfg.sample.uncertainty_samples, pcfg.sample, x_T=x_T,
+        device=dev).cpu()
+    single_u_s = time.perf_counter() - t_u
+    del model, cond, x_T
+    log(f"mesh references in this process: {time.perf_counter() - t0:.3f} "
+        f"s; steps {single['losses']}, train() {ref.train_history} / "
+        f"{ref.val_history}, the {MESH_CONDS} x "
+        f"{pcfg.sample.uncertainty_samples} posterior in {single_u_s:.3f} s")
+
+    # (a)-(d): two ranks on the one card over gloo
+    t0 = time.perf_counter()
+    ranks = run_mesh_world(MESH_RANKS, {**spec, "jobs": [
+        "steps", "train", "posterior", "tp"]}, root)
+    log(f"mesh world of {MESH_RANKS} ranks over gloo on {dev}: "
+        f"{time.perf_counter() - t0:.3f} s, the ranks' start included")
+    out = {}
+    for r, res in enumerate(ranks):
+        a = res["steps"]
+        _mesh_gates(f"(a) rank {r} DP steps", a, single, lr, TRAIN_STEPS)
+        for step, cnt in enumerate(a["counts"]):
+            expect_launches(f"(a) rank {r} step {step + 1}", cnt,
+                            {"slab_attention_fwd": 1,
+                             "slab_attention_bwd": 1})
+        ms = statistics.median(a["ms"][1:])
+        log(f"(a) rank {r}: {ms:.3f} ms a DP step (median of steps "
+            f"2-{TRAIN_STEPS}, 128 rows a rank; two ranks share one card, "
+            f"so this says nothing about scaling; {card}); the single "
+            f"process {statistics.median(single['ms'][1:]):.3f} ms a b256 "
+            f"step; step times {[round(t, 3) for t in a['ms']]}")
+        out.setdefault("dp_step_ms", []).append(ms)
+
+        b = res["train"]
+        for got, want in ((b["train"], ref.train_history),
+                          (b["val"], ref.val_history)):
+            if not np.allclose(got, want, rtol=1e-5, atol=0.0):
+                raise RuntimeError(f"(b) rank {r}: history {got} vs the "
+                                   f"single process {want}")
+        log(f"(b) rank {r}: train(mesh=) {b['s']:.3f} s, {b['steps']} "
+            f"steps, history {b['train']} / {b['val']}, checkpoint writes "
+            f"{len(b['writes'])}, slab launches {b['counts']}")
+        if (r == 0) != bool(b["writes"]):
+            raise RuntimeError(f"(b) rank {r} wrote {b['writes']}")
+
+        c = res["posterior"]
+        expect_launches(f"(c) rank {r}", c["launches"],
+                        {"fused_core_stack": pcfg.sample.ddim_steps})
+        du = float((c["u"] - u_single).abs().max())
+        dmean = float((c["u"].mean(0) - u_single.mean(0)).abs().max())
+        dstd = float((c["u"].std(0) - u_single.std(0)).abs().max())
+        log(f"(c) rank {r}: {MESH_CONDS // MESH_RANKS} conditions x "
+            f"{pcfg.sample.uncertainty_samples} a rank in {c['s']:.3f} s "
+            f"(this process: {MESH_CONDS} in {single_u_s:.3f} s; {card}); "
+            f"vs the single process max|du|={du:.3e} max|dmean|="
+            f"{dmean:.3e} max|dstd|={dstd:.3e}")
+        if not (du <= 1e-3 and dmean <= 1e-3 and dstd <= 1e-3
+                and tuple(c["u"].shape) == tuple(u_single.shape)):
+            raise RuntimeError(f"(c) rank {r}: draws disagree")
+
+        d = res["tp"]
+        _mesh_gates(f"(d) rank {r} TP step", d, step1, lr, 1)
+        expect_launches(f"(d) rank {r}", d["counts"][0],
+                        {"slab_attention_fwd": 1, "slab_attention_bwd": 1})
+        if r == 0:
+            log(f"(d) tp_shard_params sharded {len(d['leaves'])} leaves: "
+                f"{d['leaves']}")
+            conv = ("in this model" if d["fused_conv"]
+                    else "not in this model: pallas_conv is off")
+            log("(d) kernel routes: the slab kernels read the gathered "
+                f"QKV activations; a fused GN+SiLU+conv3 kernel ({conv}) "
+                "and the fused core (mega_weights) take their weights "
+                "gathered whole (full_param), as GSPMD replicates a "
+                f"pallas_call's operands; {d['ms'][0]:.3f} ms the TP step")
+            if len(d["leaves"]) != TP_LEAVES:
+                raise RuntimeError(f"(d) {len(d['leaves'])} sharded leaves,"
+                                   f" expected {TP_LEAVES}")
+
+    # rank 0's checkpoints restore in the port's reader
+    best, meta, _ = train.load_best_model(spec["ckdir"], cfg, device=dev)
+    tree, _, _ = ckpt_lib.restore_checkpoint(Path(spec["ckdir"]) / "last")
+    last = named_from_jax(best.model, tree["params"])
+    same = all(torch.equal(last[n], p) for n, p in
+               ranks[0]["train"]["params"].items())
+    log(f"(b) checkpoints: best (epoch {meta['epoch']}) restores; last "
+        f"equals rank 0's trained parameters bit for bit: {same}")
+    if not same:
+        raise RuntimeError("(b) the last checkpoint differs from rank 0's "
+                           "parameters")
+
+    # (e): a 1-rank NCCL world (gloo on the CPU)
+    t0 = time.perf_counter()
+    (e,) = run_mesh_world(1, {**spec, "jobs": ["nccl"]}, root)
+    e = e["nccl"]
+
+    def rel_step(a, b):
+        """The loss's and the parameters' largest relative gaps."""
+        dl = abs(a["losses"][0] - b["losses"][0]) / max(
+            1.0, abs(b["losses"][0]))
+        dp = max(float((a["params"][n] - p).abs().max())
+                 / max(1.0, float(p.abs().max()))
+                 for n, p in b["params"].items())
+        return dl, dp
+
+    dl, dp = rel_step(e["mesh"], e["plain"])
+    du = float((e["u_mesh"] - e["u_plain"]).abs().max()) / max(
+        1.0, float(e["u_plain"].abs().max()))
+    log(f"(e) 1-rank {e['backend']} world ({time.perf_counter() - t0:.3f} "
+        f"s): mesh vs no-mesh step loss {dl:.3e}, params {dp:.3e}, 2 x "
+        f"{pcfg.sample.uncertainty_samples} DDIM ensemble {du:.3e} "
+        f"(relative; gate 1e-6)")
+    if not (dl <= 1e-6 and dp <= 1e-6 and du <= 1e-6):
+        raise RuntimeError("(e) the 1-rank mesh differs from no mesh")
+
+    # (f): the CLI under torch.distributed.run
+    out["cli_s"] = check_mesh_cli(
+        cfg, (ref.train_history[0], ref.val_history[0]), root, card)
+    return out
+
+
 def random_flax_tree(shapes, rng) -> dict:
     """A flax-layout tree of non-zero numpy leaves at init-like scales."""
     out = {}
@@ -4801,6 +5328,21 @@ def main() -> int:
         f"{loop['read_numpy_ms']:.3f} ms by np.genfromtxt; the phase "
         f"{loop['phase_s']:.3f} s")
     phase("physics loop", t0)
+
+    # 20. the mesh on one card: (a)-(d) two ranks over gloo, (e) a 1-rank
+    # NCCL world, (f) the CLI under torch.distributed.run
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="ertdx_torch_mesh_")
+    try:
+        meshed = check_mesh_phase(dev, card, Path(root))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"mesh on one card ({card}): DP step "
+        f"{[round(ms, 3) for ms in meshed['dp_step_ms']]} ms a rank (two "
+        f"ranks share one card: not a scaling figure); the CLI "
+        f"{meshed['cli_s']:.3f} s; the phase "
+        f"{time.perf_counter() - t0:.3f} s")
+    phase("mesh on one card", t0)
 
     launches = {"fused_core_stack": main_launches["fused_core_stack"],
                 "fused_core_block": block_launches["fused_core_block"],

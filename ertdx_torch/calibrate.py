@@ -10,7 +10,9 @@ for).
 Every arm sees the same random numbers, as every arm of JAX's sweep
 samples from the same key: the arms start from one state of
 `generator` (restored before each arm), or take the same injected
-per-batch `draws` (the `draws` of `posterior_over_dataset`).
+per-batch `draws` (the `draws` of `posterior_over_dataset`). `mesh`
+passes through to `posterior_over_dataset` (a collective: every rank
+calls the calibration alike and gets the same records).
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ import torch
 from .configs import SampleConfig
 from .diffusion import DiffusionSchedule
 from .metrics import per_parameter_uq, uq_scores
+from .parallel.mesh import check_mesh
 from .sample import posterior_over_dataset
 
 DEFAULT_GRID = (1.0, 1.25, 1.5, 2.0, 3.0)
@@ -31,22 +34,15 @@ DEFAULT_GUIDANCE_GRID = (0.5, 0.7, 1.0, 1.5)
 _OBJECTIVES = ("goodness", "accuracy", "precision")
 
 
-def _check_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "calibration with mesh=...: data parallelism is not ported yet "
-            "(ROADMAP.md queue 1 item 5); the port calibrates on one device")
-
-
 class _Arms:
     """Runs one grid point after another from the same random numbers."""
 
     def __init__(self, model, val_conditions, val_true, schedule,
                  param_scaler, n_realizations, batch_size, a, b,
-                 generator, draws, device):
+                 generator, draws, device, mesh):
         self.kw = dict(n_realizations=n_realizations,
                        batch_size=batch_size, a=a, b=b, draws=draws,
-                       device=device)
+                       device=device, mesh=mesh)
         self.model, self.schedule = model, schedule
         self.conditions, self.true = val_conditions, val_true
         self.param_scaler = param_scaler
@@ -105,11 +101,12 @@ def calibrate_temperature(model, val_conditions: np.ndarray,
     """
     if objective not in _OBJECTIVES:
         raise ValueError(f"unknown objective {objective!r}")
-    _check_mesh(mesh)
+    mesh = check_mesh(mesh)
     base = scfg or SampleConfig(uncertainty_samples=n_realizations)
     val_true = np.asarray(val_true)
     arm = _Arms(model, val_conditions, val_true, schedule, param_scaler,
-                n_realizations, batch_size, a, b, generator, draws, device)
+                n_realizations, batch_size, a, b, generator, draws, device,
+                mesh)
 
     records: Dict[str, dict] = {}
     best_temp, best_val = None, -np.inf
@@ -210,11 +207,12 @@ def calibrate_guidance(model, val_conditions: np.ndarray,
     guidance closest to 1.0, then the lower guidance."""
     if objective not in _OBJECTIVES:
         raise ValueError(f"unknown objective {objective!r}")
-    _check_mesh(mesh)
+    mesh = check_mesh(mesh)
     base = scfg or SampleConfig(uncertainty_samples=n_realizations)
     val_true = np.asarray(val_true)
     arm = _Arms(model, val_conditions, val_true, schedule, param_scaler,
-                n_realizations, batch_size, a, b, generator, draws, device)
+                n_realizations, batch_size, a, b, generator, draws, device,
+                mesh)
 
     records: Dict[str, dict] = {}
     for g in guidance_scales:

@@ -20,9 +20,19 @@ physics.py and reads each run back on the C++ .srv reader; `plot` (its
 statistics on `--device`) and the --plot, --plots-dir and --diagnostics
 flags draw with matplotlib, imported only when a figure is drawn.
 
-What the port has not yet got raises SystemExit naming its ROADMAP.md
-queue item: --mesh-data (item 5); and `bench`, which runs the JAX
-package's own benchmark.
+`train`, `sample` and `distill` take `--mesh-data N`: a data-parallel
+mesh of N ranks, one process a rank, launched as
+
+    python -m torch.distributed.run --standalone --nproc-per-node N \
+        -m ertdx_torch.cli <command> ... --mesh-data N
+
+(the process group starts from the launcher's environment; NCCL when
+each rank has a card of its own, gloo on the CPU and where ranks share
+one). Without a launcher the process is a world of one, and a mesh
+larger than the world raises JAX's message. Only rank 0 writes files
+and prints.
+
+`bench`, which runs the JAX package's own benchmark, raises.
 """
 from __future__ import annotations
 
@@ -34,20 +44,20 @@ from pathlib import Path
 
 import numpy as np
 
-#: what each ROADMAP.md queue 1 item the CLI cites still lacks
-_QUEUE_ITEMS = {
-    5: "data and tensor parallelism",
-}
-
-
-def _not_ported(what: str, item: int):
-    raise SystemExit(f"{what} is not ported yet (ROADMAP.md queue 1 item "
-                     f"{item}: {_QUEUE_ITEMS[item]})")
-
-
-def _check_mesh(args) -> None:
-    if args.mesh_data:
-        _not_ported("--mesh-data", 5)
+def _mesh(args):
+    """The --mesh-data mesh, or None without the flag. Under a launcher
+    the process group starts from its environment (main() ends it);
+    make_mesh's ValueError (a mesh larger than the world) exits with its
+    message."""
+    if not args.mesh_data:
+        return None
+    from .parallel.mesh import make_mesh
+    from .parallel.multihost import init_from_env
+    init_from_env(args.device)
+    try:
+        return make_mesh(data=args.mesh_data, device=args.device)
+    except ValueError as exc:
+        raise SystemExit(str(exc)) from exc
 
 
 def _load_cfg(args, adopt_checkpoint: bool = False
@@ -125,13 +135,13 @@ def _split_seed(args, cfg) -> int:
     return split_seed_of(cfg.train)
 
 
-def _generator(args, cfg):
-    """A torch.Generator on the command's device, seeded by --seed (else
-    the config's train seed)."""
+def _generator(args, cfg, mesh=None):
+    """A torch.Generator on the command's device (the mesh's), seeded by
+    --seed (else the config's train seed)."""
     import torch
 
-    from . import resolve_device
-    dev = resolve_device(args.device)
+    from .parallel.mesh import mesh_device
+    dev = mesh_device(mesh, args.device)
     seed = args.seed if args.seed is not None else cfg.train.seed
     return torch.Generator(device=dev).manual_seed(int(seed)), dev
 
@@ -245,20 +255,24 @@ def cmd_gather_data(args) -> int:
 
 def cmd_train(args) -> int:
     from . import data as data_lib
+    from .parallel.mesh import is_writer
     from .train import train
     from .utils.logging import MetricsLogger
     from .utils.profiling import trace
     cfg = _load_cfg(args)
-    _check_mesh(args)
+    mesh = _mesh(args)
     sim_param = np.load(args.params)
     ert = np.load(args.ert)
     ds = data_lib.prepare_dataset(sim_param, ert)
-    logger = MetricsLogger(args.log_file, echo=True)
+    logger = MetricsLogger(args.log_file, echo=True) if is_writer() else None
     with trace(args.profile):
-        # one device: the preset's mesh is the JAX package's, and JAX's
-        # CLI too trains on one device without --mesh-data
+        # the preset's MeshConfig is the JAX package's; as JAX's CLI, the
+        # port trains on a mesh only with --mesh-data
         res = train(cfg, ds, checkpoint_dir=cfg.train.checkpoint_dir,
-                    device=args.device, logger=logger, resume=args.resume)
+                    device=args.device, logger=logger, resume=args.resume,
+                    mesh=mesh)
+    if not is_writer():
+        return 0
     print(f"best val loss {res.best_val_loss:.6f} at epoch "
           f"{res.best_epoch + 1}; {res.steps_per_sec:.2f} steps/sec")
     if args.plot:
@@ -272,11 +286,11 @@ def cmd_train(args) -> int:
 def cmd_sample(args) -> int:
     from . import data as data_lib
     from .diffusion import schedule_from_config
+    from .parallel.mesh import is_writer
     from .sample import posterior_over_dataset
     from .train import load_best_model
     from .transforms import inverse_transform
     cfg = _load_cfg(args, adopt_checkpoint=True)
-    _check_mesh(args)
     if args.ema:
         cfg = dataclasses.replace(
             cfg, train=dataclasses.replace(cfg.train, ema_decay=0.999))
@@ -292,9 +306,10 @@ def cmd_sample(args) -> int:
         if cfg.model.name != "refmlp":
             raise SystemExit("--torch-checkpoint maps onto the reference "
                              "architecture: use --model refmlp")
+    mesh = _mesh(args)
     sim_param = np.load(args.params)
     ert = np.load(args.ert)
-    gen, dev = _generator(args, cfg)
+    gen, dev = _generator(args, cfg, mesh)
     if args.torch_checkpoint:
         from .compat import load_reference_model
         model, _ = load_reference_model(args.torch_checkpoint, cfg.model,
@@ -316,7 +331,9 @@ def cmd_sample(args) -> int:
     pred, mask = posterior_over_dataset(
         model.eval(), ds.conditions[test_idx], sch, ds.param_scaler,
         n_realizations=args.realizations, batch_size=cfg.train.batch_size,
-        scfg=scfg, a=ds.a, b=ds.b, generator=gen, device=dev)
+        scfg=scfg, a=ds.a, b=ds.b, generator=gen, device=dev, mesh=mesh)
+    if not is_writer():
+        return 0
     np.save(args.out, pred)
     np.save(Path(args.out).with_name("valid_mask.npy"), mask)
     # true params for UQ comparison
@@ -434,10 +451,11 @@ def cmd_distill(args) -> int:
     """Progressively distill a trained checkpoint to few-step sampling."""
     from . import data as data_lib
     from .distill import DistillConfig, distill
+    from .parallel.mesh import is_writer
     from .utils.checkpoint import load_scalers
     from .utils.logging import MetricsLogger
     cfg = _load_cfg(args, adopt_checkpoint=True)
-    _check_mesh(args)
+    mesh = _mesh(args)
     sim_param = np.load(args.params)
     ert = np.load(args.ert)
     # scalers only; the teacher itself is restored inside distill()
@@ -452,9 +470,12 @@ def cmd_distill(args) -> int:
         cosine_lr=not args.constant_lr, batch_size=args.batch_size,
         seed=args.seed, use_ema_teacher=args.ema,
         guidance_scale=args.guidance)
-    logger = MetricsLogger(args.log_file, echo=True)
+    logger = MetricsLogger(args.log_file, echo=True) if is_writer() else None
     res = distill(cfg, dcfg, ds, teacher_dir=args.checkpoint_dir,
-                  out_dir=args.out_dir, logger=logger, device=args.device)
+                  out_dir=args.out_dir, logger=logger, device=args.device,
+                  mesh=mesh)
+    if not is_writer():
+        return 0
     for s in res.stages:
         print(f"stage {s.kind}@{s.student_steps}: "
               f"loss {s.losses[0]:.5f} -> {s.losses[-1]:.5f} "
@@ -831,8 +852,14 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> int:
+    import torch.distributed as dist
     args = build_parser().parse_args(argv)
-    return args.fn(args)
+    started = dist.is_initialized()
+    try:
+        return args.fn(args)
+    finally:
+        if dist.is_initialized() and not started:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -316,9 +316,11 @@ def split_dataset(n: int, seed: int = 42,
 
 def batch_iterator(params_u: np.ndarray, conditions: np.ndarray,
                    batch_size: int, *, shuffle: bool, seed: int = 0,
-                   epoch: int = 0, drop_remainder: bool = False
-                   ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
-    """(x0, cond) numpy batches in a seeded per-epoch order."""
+                   epoch: int = 0, drop_remainder: bool = False,
+                   mesh=None) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+    """(x0, cond) numpy batches in a seeded per-epoch order. With `mesh`
+    a batch whose rows divide the data axis yields this rank's rows
+    (ertdx/data.py:363-400); another batch comes whole."""
     n = params_u.shape[0]
     order = np.arange(n)
     if shuffle:
@@ -327,6 +329,9 @@ def batch_iterator(params_u: np.ndarray, conditions: np.ndarray,
     stop = (n // batch_size) * batch_size if drop_remainder else n
     for s in range(0, stop, batch_size):
         idx = order[s:s + batch_size]
+        rows = None if mesh is None else mesh.rows(len(idx))
+        if rows is not None:
+            idx = idx[rows]
         yield params_u[idx], conditions[idx]
 
 

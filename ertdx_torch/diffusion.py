@@ -5,6 +5,10 @@ Mirrors ertdx/diffusion.py:52-503. The JAX samplers draw their randomness
 from threefry keys; here every sampler takes a `torch.Generator`, or an
 injected prior draw `x_T` (and, for the noisy samplers, per-step noise),
 so that a test can hand it JAX's own draws and compare like with like.
+A sampler given `rows` (a slice of the chain axis) runs those chains of
+the global `shape` only: each draw is made at the global shape and
+sliced, so that a rank of a data-parallel mesh draws exactly the single
+process's numbers.
 
 Per-step coefficients are computed once in float32 on the host, as the
 JAX scan computes them in float32, and enter the tensor arithmetic as
@@ -136,15 +140,29 @@ def ddim_timesteps(T: int, num_steps: int) -> torch.Tensor:
                                       dtype=torch.float32)).to(torch.int64)
 
 
-def _prior(shape, x_T, generator, device, dtype) -> torch.Tensor:
-    """The prior draw: `x_T` when injected, else N(0, I) from `generator`."""
+def _rows(t: torch.Tensor, rows: Optional[slice]) -> torch.Tensor:
+    return t if rows is None else t[rows]
+
+
+def _prior(shape, x_T, generator, device, dtype, rows=None) -> torch.Tensor:
+    """The prior draw: `x_T` when injected, else N(0, I) from `generator`;
+    with `rows`, that slice of the global draw."""
     if x_T is None:
-        return torch.randn(shape, generator=generator, device=device,
-                           dtype=dtype)
+        return _rows(torch.randn(shape, generator=generator, device=device,
+                                 dtype=dtype), rows)
     if tuple(x_T.shape) != tuple(shape):
         raise ValueError(f"x_T has shape {tuple(x_T.shape)}, expected "
                          f"{tuple(shape)}")
-    return x_T.to(device=device, dtype=dtype)
+    return _rows(x_T, rows).to(device=device, dtype=dtype)
+
+
+def _step_noise(noise, i, shape, generator, x, dtype, rows):
+    """Step i's draw: the injected row of `noise`, else N(0, I) at the
+    global `shape` from `generator`; with `rows`, this rank's slice."""
+    if noise is not None:
+        return _rows(noise[i], rows).to(device=x.device, dtype=dtype)
+    return _rows(torch.randn(shape, generator=generator, device=x.device,
+                             dtype=dtype), rows)
 
 
 def _check_noise(noise, num_steps: int, shape) -> None:
@@ -164,7 +182,8 @@ def sample_ddim(denoise_fn: DenoiseFn, shape, schedule: DiffusionSchedule,
                 generator: Optional[torch.Generator] = None,
                 x_T: Optional[torch.Tensor] = None,
                 noise: Optional[torch.Tensor] = None,
-                device=None, dtype=torch.float32) -> torch.Tensor:
+                device=None, dtype=torch.float32,
+                rows: Optional[slice] = None) -> torch.Tensor:
     """DDIM over an evenly spaced timestep subsequence
     (ertdx/diffusion.py:272-322).
 
@@ -175,8 +194,8 @@ def sample_ddim(denoise_fn: DenoiseFn, shape, schedule: DiffusionSchedule,
     JAX's `step_keys` order them. Otherwise both come from `generator`.
     """
     ts = ddim_timesteps(schedule.num_steps, num_steps)
-    n = shape[0]
-    x = _prior(shape, x_T, generator, device, dtype)
+    x = _prior(shape, x_T, generator, device, dtype, rows)
+    n = x.shape[0]
     _check_noise(noise, num_steps, shape)
     temperature = _temperature(temperature, x.device, dtype)
 
@@ -200,10 +219,7 @@ def sample_ddim(denoise_fn: DenoiseFn, shape, schedule: DiffusionSchedule,
         x0_hat = (x - c_eps * eps_hat) / c_div
         x_new = c_x0 * x0_hat + dir_coef * eps_hat
         if eta != 0.0:
-            z = (noise[i].to(device=x.device, dtype=dtype)
-                 if noise is not None else
-                 torch.randn(shape, generator=generator, device=x.device,
-                             dtype=dtype))
+            z = _step_noise(noise, i, shape, generator, x, dtype, rows)
             x_new = x_new + sigma * temperature * z
         x = x_new
     return x
@@ -215,7 +231,8 @@ def sample_ancestral(denoise_fn: DenoiseFn, shape,
                      *, generator: Optional[torch.Generator] = None,
                      x_T: Optional[torch.Tensor] = None,
                      noise: Optional[torch.Tensor] = None,
-                     device=None, dtype=torch.float32) -> torch.Tensor:
+                     device=None, dtype=torch.float32,
+                     rows: Optional[slice] = None) -> torch.Tensor:
     """Ancestral DDPM reverse chain (ertdx/diffusion.py:203-253).
 
     x <- (x - (1 - alpha_t) / (sqrt(1 - abar_t) + 1e-8) eps_hat)
@@ -231,8 +248,8 @@ def sample_ancestral(denoise_fn: DenoiseFn, shape,
     num_steps = big_t if truncate_steps is None else int(truncate_steps)
     if num_steps > big_t:
         raise ValueError(f"truncate_steps {num_steps} > schedule T {big_t}")
-    n = shape[0]
-    x = _prior(shape, x_T, generator, device, dtype)
+    x = _prior(shape, x_T, generator, device, dtype, rows)
+    n = x.shape[0]
     _check_noise(noise, num_steps, shape)
     temperature = _temperature(temperature, x.device, dtype)
     betas = schedule.betas.to(torch.float32)
@@ -245,10 +262,7 @@ def sample_ancestral(denoise_fn: DenoiseFn, shape,
         eps_hat = denoise_fn(x, t_batch)
         x = (x - coef * eps_hat) / c_div
         if t > 0:
-            z = (noise[i].to(device=x.device, dtype=dtype)
-                 if noise is not None else
-                 torch.randn(shape, generator=generator, device=x.device,
-                             dtype=dtype))
+            z = _step_noise(noise, i, shape, generator, x, dtype, rows)
             x = x + float(torch.sqrt(betas[t])) * temperature * z
     return x
 
@@ -270,14 +284,15 @@ def sample_pd(denoise_fn: DenoiseFn, shape, schedule: DiffusionSchedule,
               num_steps: int = 4, temperature=1.0, *,
               generator: Optional[torch.Generator] = None,
               x_T: Optional[torch.Tensor] = None,
-              device=None, dtype=torch.float32) -> torch.Tensor:
+              device=None, dtype=torch.float32,
+              rows: Optional[slice] = None) -> torch.Tensor:
     """Deterministic DDIM (eta = 0) over `pd_grid(T, num_steps)`, the chain
     a distilled student was trained on (ertdx/diffusion.py:350-384).
     `temperature` tempers the prior: x_T is the raw N(0, I) draw and the
     chain starts from temperature * x_T."""
     ts = pd_grid(schedule.num_steps, num_steps)
-    n = shape[0]
-    x = _prior(shape, x_T, generator, device, dtype)
+    x = _prior(shape, x_T, generator, device, dtype, rows)
+    n = x.shape[0]
     x = _temperature(temperature, x.device, dtype) * x
     abar = schedule.alpha_bar.to(torch.float32)
     abar_seq = abar[ts]
@@ -321,7 +336,8 @@ def sample_dpmpp_2m(denoise_fn: DenoiseFn, shape,
                     temperature=1.0, *,
                     generator: Optional[torch.Generator] = None,
                     x_T: Optional[torch.Tensor] = None,
-                    device=None, dtype=torch.float32) -> torch.Tensor:
+                    device=None, dtype=torch.float32,
+                    rows: Optional[slice] = None) -> torch.Tensor:
     """DPM-Solver++(2M) on the uniform-log-SNR grid
     (ertdx/diffusion.py:426-503). From point s to point u:
 
@@ -335,8 +351,8 @@ def sample_dpmpp_2m(denoise_fn: DenoiseFn, shape,
     prior, as in `sample_pd`. Scalar coefficients are float32, as JAX's.
     """
     ts = lambda_timesteps(schedule, num_steps)
-    n = shape[0]
-    x = _prior(shape, x_T, generator, device, dtype)
+    x = _prior(shape, x_T, generator, device, dtype, rows)
+    n = x.shape[0]
     x = _temperature(temperature, x.device, dtype) * x
     abar_seq = schedule.alpha_bar.to(torch.float32)[ts]
     alpha_seq = torch.sqrt(abar_seq)

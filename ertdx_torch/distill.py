@@ -1,9 +1,10 @@
 """Progressive distillation (Salimans & Ho 2022, arXiv:2202.00512).
 
-Mirrors ertdx/distill.py on one device. A stage halves the step count: a
-student (a copy of the teacher's weights, predicting v) learns to take in
-ONE DDIM (eta=0) step what the teacher takes in two on the grid twice as
-fine (`pd_grid` nests exactly under halving); its regression target is
+Mirrors ertdx/distill.py, on one device or a data-parallel mesh
+(`distill(mesh=)`, with `train.train_step`'s rules). A stage halves the
+step count: a student (a copy of the teacher's weights, predicting v)
+learns to take in ONE DDIM (eta=0) step what the teacher takes in two on
+the grid twice as fine (`pd_grid` nests exactly under halving); its regression target is
 `one_step_target`, weighted by the truncated SNR max(abar/(1-abar), 1).
 An eps teacher (or a guided one) first goes through a same-grid
 conversion stage that regresses the student's x0 onto the teacher's.
@@ -47,10 +48,11 @@ import torch
 
 from . import configs as configs_lib
 from . import data as data_lib
-from . import resolve_device
 from . import train as train_lib
 from .configs import ExperimentConfig
 from .diffusion import pd_grid, schedule_from_config
+from .parallel.mesh import (all_reduce_, data_all_reduce_grads, is_writer,
+                            mesh_device, sharded_rows)
 from .precision import fp32_precision
 
 
@@ -148,20 +150,24 @@ def _make_teacher_fn(guidance: float):
     return prep, call
 
 
-def _weighted_mean(per_ex, w):
-    """Plain mean for the train path (w=None); padded-row-exact weighted
-    mean for validation."""
-    if w is None:
-        return torch.mean(per_ex)
-    return torch.sum(per_ex * w) / torch.clamp(torch.sum(w), min=1.0)
-
-
-def _student_loss(student, x, t, cond, a, s, x0_tgt, ab, student_kind, w):
+def _student_loss(student, x, t, cond, a, s, x0_tgt, ab, student_kind, w,
+                  shard):
     ctx_s = student.encode_condition(cond)
     out_s = student.denoise(x, t, ctx_s)
     x0_pred = _x0_from_out(out_s, x, a, s, student_kind)
     per_ex = torch.mean(_snr_weight(ab) * (x0_pred - x0_tgt) ** 2, dim=-1)
-    return _weighted_mean(per_ex, w)
+    return train_lib._sharded_loss(
+        per_ex, None if w is None else (w, shard[1]), shard[0])
+
+
+def _local(mesh, x0, cond, draws, w):
+    """This rank's rows of a global batch and its draws under `mesh`:
+    (x0, cond, draws, w, shard, shards), shard = (global rows, global w),
+    the whole batch's when it does not shard."""
+    n = x0.shape[0]
+    rows, shards = train_lib._shard(mesh, n)
+    x0_l, cond, w_l, *draws = train_lib._take(rows, x0, cond, w, *draws)
+    return x0_l, cond, draws, w_l, (n, w), shards
 
 
 class EpochFns(NamedTuple):
@@ -175,7 +181,7 @@ class EpochFns(NamedTuple):
 
 def make_distill_epoch(schedule, n_student: int, teacher_kind: str,
                        student_kind: str = "v", guidance: float = 1.0,
-                       device=None) -> EpochFns:
+                       device=None, mesh=None) -> EpochFns:
     """One halving stage: teacher at 2 n_student grid points, student at
     n_student (ertdx/distill.py:181-253). `schedule` is the teacher's.
     The batch loss is
@@ -184,7 +190,9 @@ def make_distill_epoch(schedule, n_student: int, teacher_kind: str,
                    generator=None)
 
     with `i` (B,) the student grid indices and `noise` (B, P), drawn from
-    `generator` (i first) unless given."""
+    `generator` (i first) unless given. With `mesh` the batch and the
+    draws are global and each rank scores its rows (`train_step`'s
+    rules)."""
     T = schedule.num_steps
     ts_stu = pd_grid(T, n_student).numpy()
     ts_tea = pd_grid(T, 2 * n_student).numpy()
@@ -211,6 +219,9 @@ def make_distill_epoch(schedule, n_student: int, teacher_kind: str,
         if noise is None:
             noise = torch.randn(x0.shape, generator=generator,
                                 device=x0.device, dtype=x0.dtype)
+        x0, cond, (i, noise), w, shard, shards = _local(mesh, x0, cond,
+                                                       (i, noise), w)
+        b = x0.shape[0]
         i = i.to(device=t_tbl.device, dtype=torch.int64)
         t, t_mid = t_tbl[i, 0], t_tbl[i, 1]
         ab = ab_tbl[i]
@@ -220,7 +231,8 @@ def make_distill_epoch(schedule, n_student: int, teacher_kind: str,
         a_dst, s_dst = torch.sqrt(ab_dst), torch.sqrt(1.0 - ab_dst)
         x = a_t * x0 + s_t * noise.to(x0.device)
 
-        with torch.no_grad():       # two teacher DDIM (eta=0) steps
+        # two teacher DDIM (eta=0) steps
+        with torch.no_grad(), sharded_rows(shards):
             ctx_t = t_prep(teacher, cond, b)
             out1 = t_call(teacher, x, t, ctx_t)
             eps1 = _eps_from_out(out1, x, a_t, s_t, teacher_kind)
@@ -231,14 +243,16 @@ def make_distill_epoch(schedule, n_student: int, teacher_kind: str,
             x0h2 = _x0_from_out(out2, x_mid, a_mid, s_mid, teacher_kind)
             x_dst = a_dst * x0h2 + s_dst * eps2
             x0_tgt = one_step_target(x, x_dst, ab_t, ab_dst)
-        return _student_loss(student, x, t, cond, a_t, s_t, x0_tgt, ab_t,
-                             student_kind, w)
+        with sharded_rows(shards):
+            return _student_loss(student, x, t, cond, a_t, s_t, x0_tgt,
+                                 ab_t, student_kind, w, shard)
 
-    return _build_epoch(batch_loss)
+    return _build_epoch(batch_loss, mesh)
 
 
 def make_convert_epoch(schedule, teacher_kind: str, student_kind: str = "v",
-                       guidance: float = 1.0, device=None) -> EpochFns:
+                       guidance: float = 1.0, device=None,
+                       mesh=None) -> EpochFns:
     """Same-grid conversion: the student's x0 regresses onto the teacher's
     (guided, with guidance != 1) x0 at uniformly drawn t
     (ertdx/distill.py:264-298). The batch loss takes `t` (B,) and `noise`
@@ -256,20 +270,24 @@ def make_convert_epoch(schedule, teacher_kind: str, student_kind: str = "v",
         if noise is None:
             noise = torch.randn(x0.shape, generator=generator,
                                 device=x0.device, dtype=x0.dtype)
+        x0, cond, (t, noise), w, shard, shards = _local(mesh, x0, cond,
+                                                       (t, noise), w)
+        b = x0.shape[0]
         t = t.to(device=abar_all.device, dtype=torch.int64)
         ab = abar_all[t][:, None]
         a, s = torch.sqrt(ab), torch.sqrt(1.0 - ab)
         x = a * x0 + s * noise.to(x0.device)
-        with torch.no_grad():
+        with torch.no_grad(), sharded_rows(shards):
             out_t = t_call(teacher, x, t, t_prep(teacher, cond, b))
             x0_tgt = _x0_from_out(out_t, x, a, s, teacher_kind)
-        return _student_loss(student, x, t, cond, a, s, x0_tgt, ab,
-                             student_kind, w)
+        with sharded_rows(shards):
+            return _student_loss(student, x, t, cond, a, s, x0_tgt, ab,
+                                 student_kind, w, shard)
 
-    return _build_epoch(batch_loss)
+    return _build_epoch(batch_loss, mesh)
 
 
-def _build_epoch(batch_loss: Callable) -> EpochFns:
+def _build_epoch(batch_loss: Callable, mesh=None) -> EpochFns:
     """The epoch and validation loops around a batch loss (the port of
     ertdx/distill.py:301-352's scans).
 
@@ -280,7 +298,12 @@ def _build_epoch(batch_loss: Callable) -> EpochFns:
           replaces the generator's.
     val(model, teacher, x0_all, cond_all, batch_idx, w_all,
         generator=None, draws=None) -> the weighted mean loss over the
-        live rows (w > 0)."""
+        live rows (w > 0).
+    Under `mesh` a batch that shards has its gradients, losses and
+    validation numerators summed over the data axis."""
+
+    def sharded(idx) -> bool:
+        return mesh is not None and mesh.rows(len(idx)) is not None
 
     def epoch(state, teacher, x0_all, cond_all, batch_idx, generator=None,
               draws=None):
@@ -292,6 +315,9 @@ def _build_epoch(batch_loss: Callable) -> EpochFns:
             loss = batch_loss(model, teacher, x0_all[idx], cond_all[idx],
                               *d, generator=generator)
             loss.backward()
+            if sharded(idx):
+                data_all_reduce_grads(model, mesh)
+                loss = all_reduce_(loss.detach().clone(), mesh.data_group)
             step_lr = train_lib.lr_at(state.lr,
                                       train_lib.optimizer_steps(opt))
             for group in opt.param_groups:
@@ -308,6 +334,8 @@ def _build_epoch(batch_loss: Callable) -> EpochFns:
             d = draws[n] if draws is not None else (None, None)
             loss = batch_loss(model, teacher, x0_all[idx], cond_all[idx],
                               *d, w=w, generator=generator)
+            if sharded(idx):
+                loss = all_reduce_(loss.clone(), mesh.data_group)
             num = num + loss * w.sum()
             den = den + w.sum()
         return num / torch.clamp(torch.as_tensor(den), min=1.0)
@@ -348,13 +376,13 @@ def distill(cfg: ExperimentConfig, dcfg: DistillConfig,
     asked for). The checkpoint's config echo wins over `cfg`. The final
     student is saved under `out_dir`/best with an echo carrying
     parameterization="v" and sampler="pd"/pd_steps=target. `logger`
-    receives one dict per epoch. `mesh` is not ported (ROADMAP.md queue 1
-    item 5) and raises."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "distill(mesh=...): data parallelism is not ported yet "
-            "(ROADMAP.md queue 1 item 5); the port distills on one device")
-    dev = resolve_device(device)
+    receives one dict per epoch. With `mesh` (a collective) the student
+    step and the teacher targets follow `train.train_step`'s rules: each
+    batch that divides the data axis shards over it, the draws global;
+    only rank 0 writes the student and calls `logger`."""
+    dev = mesh_device(mesh, device)
+    if mesh is not None and not is_writer():
+        logger = None
     saved = train_lib.saved_config(teacher_dir) or {}
     if saved:
         cfg = configs_lib.experiment_from_dict(saved, base=cfg)
@@ -418,10 +446,11 @@ def distill(cfg: ExperimentConfig, dcfg: DistillConfig,
 
     def run_stage(kind, student_steps, n_epochs, teacher, stage, tkind, g):
         if kind == "convert":
-            fns = make_convert_epoch(schedule, tkind, guidance=g, device=dev)
+            fns = make_convert_epoch(schedule, tkind, guidance=g, device=dev,
+                                     mesh=mesh)
         else:
             fns = make_distill_epoch(schedule, student_steps, tkind,
-                                     guidance=g, device=dev)
+                                     guidance=g, device=dev, mesh=mesh)
         state = fresh_state(teacher, n_epochs)
         losses, vlosses = [], []
         t0 = time.perf_counter()

@@ -60,6 +60,7 @@ from ..ops.ensemble_attn import block_self_attention, folded_cross_attention
 from ..ops.groupnorm import (check_groups, groupnorm_silu,
                              reference_groupnorm_silu)
 from ..ops.slab_attn import reference_slab_attention, slab_attention
+from ..parallel.mesh import full_param, global_rows
 from .common import (Conv1d, Dense, LayerNorm, compute_dtype,
                      get_timestep_embedding)
 
@@ -145,8 +146,9 @@ class FusedGNConv(nn.Module):
 
     def forward(self, x):
         fn = gn_silu_conv3 if self.use_pallas else reference_gn_silu_conv3
-        return fn(x, self.gn_scale, self.gn_bias, self.kernel, self.bias,
-                  self.num_groups, GN_EPS)
+        return fn(x, self.gn_scale, self.gn_bias,
+                  full_param(self, "kernel"), self.bias, self.num_groups,
+                  GN_EPS)
 
 
 class ResBlock1D(nn.Module):
@@ -187,8 +189,9 @@ class SelfAttention1D(nn.Module):
     through the packed-head slab attention. Otherwise, with `use_pallas`,
     the flash kernels engage when the padded length lp reaches
     FLASH_MIN_LEN or, with `flash_min_logits` > 0, when b h lp^2
-    reaches it: q, k and v are zero-padded to lp, the pad keys masked and
-    the output sliced back to l. Without them (or with `use_pallas` off)
+    reaches it, b the global batch under a mesh (`global_rows`): q, k
+    and v are zero-padded to lp, the pad keys masked and the output
+    sliced back to l. Without them (or with `use_pallas` off)
     the plain attention runs on the raw length."""
 
     def __init__(self, channels: int, num_heads: int, slab: bool = False,
@@ -221,7 +224,8 @@ class SelfAttention1D(nn.Module):
         pallas_ok = self.use_pallas and (
             lp >= FLASH_MIN_LEN
             or (self.flash_min_logits > 0
-                and b * self.num_heads * lp * lp >= self.flash_min_logits))
+                and global_rows(b) * self.num_heads * lp * lp
+                >= self.flash_min_logits))
         if not pallas_ok:
             a = reference_attention(q, k, v)
         else:
@@ -325,7 +329,8 @@ class CoreBlock(nn.Module):
 
     `ensemble_pallas` sends both attentions through ops/ensemble_attn.py
     when the block has one head, fold > 1 and at least
-    `ensemble_min_chains` chains (ertdx/models/condunet.py:315-340); those
+    `ensemble_min_chains` chains, counted over the global batch under a
+    mesh (ertdx/models/condunet.py:315-340); those
     ops run their CUDA kernels where their shape gate takes the tensors
     and the plain version elsewhere. Same parameters either way."""
 
@@ -359,7 +364,7 @@ class CoreBlock(nn.Module):
     def forward(self, x, cond_tokens, cvec, fold: int = 1):
         b, p, d = x.shape
         fused = (self.ensemble_pallas and self.num_heads == 1 and fold > 1
-                 and b >= self.ensemble_min_chains)
+                 and global_rows(b) >= self.ensemble_min_chains)
         q, k, v = self.qkv(self.ada1(x, cvec)).chunk(3, dim=-1)
         if fused:
             a = block_self_attention(q, k, v)
@@ -466,7 +471,7 @@ class CondUNet(nn.Module):
         cvec = self.embed_time(t) + (
             torch.repeat_interleave(cond_vec, n_real, dim=0)
             if n_real > 1 else cond_vec)
-        tokens = self.lift(x[..., None]) + self.pos_emb[None]
+        tokens = self.lift(x[..., None]) + full_param(self, "pos_emb")[None]
         for blk in self.blocks:
             tokens = blk(tokens, cond_tokens, cvec, fold=n_real)
         return self.head(self.out_norm(tokens))[..., 0]

@@ -31,6 +31,8 @@ import torch.nn.functional as F
 
 from ..ops.core_block import (WEIGHT_KEYS, _ln, fused_core_block,
                               fused_core_stack, kernel_supports)
+from ..parallel.mesh import (DATA_AXIS, MODEL_AXIS, all_gather_cat,
+                             full_param)
 from .common import get_timestep_embedding
 
 # Engage the fused-core path only above this TOTAL chain count
@@ -56,7 +58,7 @@ def extract_core_weights(model, i: int) -> dict:
     blk = model.blocks[i]
 
     def t(lin):
-        return lin.weight.detach().t().contiguous()
+        return full_param(lin, "weight").detach().t().contiguous()
 
     return {
         "ada": [(t(a.proj), a.proj.bias.detach())
@@ -72,7 +74,9 @@ def extract_core_weights(model, i: int) -> dict:
 
 
 def mega_weights(model) -> dict:
-    """Every weight the fused path reads, gathered once per run."""
+    """Every weight the fused path reads, gathered once per run (whole,
+    where tensor parallelism holds a column shard: the kernels take every
+    weight, as GSPMD replicates a pallas_call's operands)."""
     blocks = [extract_core_weights(model, i)
               for i in range(model.num_blocks)]
     d = model.hidden_dim
@@ -80,9 +84,10 @@ def mega_weights(model) -> dict:
         "blocks": blocks,
         "stack": {key: torch.stack([w[key] for w in blocks])
                   for key in WEIGHT_KEYS},
-        "lift_w": model.lift.weight.detach().reshape(1, d).contiguous(),
+        "lift_w": full_param(model.lift, "weight").detach().reshape(
+            1, d).contiguous(),
         "lift_b": model.lift.bias.detach().reshape(1, d),
-        "pos_emb": model.pos_emb.detach(),
+        "pos_emb": full_param(model, "pos_emb").detach(),
         "on_scale": model.out_norm.weight.detach().reshape(1, d),
         "on_bias": model.out_norm.bias.detach().reshape(1, d),
         "head_w": model.head.weight.detach().reshape(d, 1).contiguous(),
@@ -91,23 +96,33 @@ def mega_weights(model) -> dict:
 
 
 def mega_plan(model, n_real: int, batch: int = 1,
-              cond_len: Optional[int] = None, device=None) -> Optional[dict]:
+              cond_len: Optional[int] = None, device=None,
+              mesh=None) -> Optional[dict]:
     """The fused-core plan, or None for the plain module path.
 
     Requires the `ensemble_mega` flag, a single-head core (float32 or
     bfloat16: both run the float32 kernels), tensors on a CUDA device,
-    at least MIN_TOTAL_CHAINS chains, and a core shape the CUDA kernels
+    at least MIN_TOTAL_CHAINS chains PER DEVICE, and a core shape the
+    CUDA kernels
     take (ops/core_block.kernel_supports: D=128, P <= 32,
     Lk <= 256), which replaces the TPU's VMEM estimators. The one-launch
     stack kernel is always preferred; the per-block kernel stays
     reachable through `mega_denoise_ensemble(stack=False)`, the
-    per-block variant and A/B comparator."""
+    per-block variant and A/B comparator. With a mesh the condition batch
+    must divide the data axis and the model axis must be 1
+    (ertdx/models/mega.py:103-111): conditions then shard over `data`,
+    each rank running the kernel on its own."""
     if not getattr(model, "ensemble_mega", False):
         return None
     if getattr(model, "core_heads", 0) != 1:
         return None
     if device is None or torch.device(device).type != "cuda":
         return None
+    if mesh is not None:
+        n_d = mesh.shape[DATA_AXIS]
+        if batch % n_d or mesh.shape[MODEL_AXIS] != 1:
+            return None
+        batch //= n_d
     if n_real * batch < MIN_TOTAL_CHAINS:
         return None
     p, d, nb = model.param_dim, model.hidden_dim, model.num_blocks
@@ -123,8 +138,8 @@ def _cvec_silu(model, t, cond_vec, d):
     from the float32 parameters whatever the model's dtype, as JAX's."""
     temb = get_timestep_embedding(t[:1], d)
     m1, m2 = model.time_mlp1, model.time_mlp2
-    h = F.silu(F.linear(temb, m1.weight, m1.bias))
-    return F.silu(F.linear(h, m2.weight, m2.bias) + cond_vec)
+    h = F.silu(F.linear(temb, full_param(m1, "weight"), m1.bias))
+    return F.silu(F.linear(h, full_param(m2, "weight"), m2.bias) + cond_vec)
 
 
 def _block_mods_kv(w, sc, cond_tokens):
@@ -178,3 +193,29 @@ def mega_denoise_ensemble(model, x, t, cond_ctx, n_real: int, *, p: int,
     tokens = x3.reshape(n, p, d)
     tokens = _ln(tokens) * w["on_scale"] + w["on_bias"]
     return (tokens @ w["head_w"] + w["head_b"])[..., 0]
+
+
+def mega_denoise_ensemble_sharded(model, x, t, cond_ctx, n_real: int, mesh,
+                                  **plan):
+    """The fused-core denoise with the conditions sharded over `data`
+    (ertdx/models/mega.py:222-255): x (B*n_real, P) condition-major, t
+    and the (B-row) context are global on every rank; each rank runs the
+    kernel on its own conditions' block (`Mesh.condition_rows`, as
+    `posterior_ensemble` slices them) and the blocks are all-gathered,
+    so every rank returns the global eps_hat. The condition batch must
+    divide the data axis, as JAX's shard_map requires. A collective:
+    every rank of the mesh calls it. No entry point calls it
+    (`posterior_ensemble` slices once and gathers once at the end); it
+    is the port of JAX's function and is held against it by the tests."""
+    tokens, vec = cond_ctx
+    split = mesh.condition_rows(tokens.shape[0], n_real)
+    if split is None:
+        if mesh.shape[DATA_AXIS] == 1:
+            return mega_denoise_ensemble(model, x, t, cond_ctx, n_real,
+                                         **plan)
+        raise ValueError(f"{tokens.shape[0]} conditions do not divide "
+                         f"the data axis {mesh.shape[DATA_AXIS]}")
+    conds, chains = split
+    out = mega_denoise_ensemble(model, x[chains], t[chains],
+                                (tokens[conds], vec[conds]), n_real, **plan)
+    return all_gather_cat(out, mesh.data_group)

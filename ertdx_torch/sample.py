@@ -32,11 +32,13 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from . import resolve_device, transforms
+from . import transforms
 from .configs import SampleConfig
 from .diffusion import (DiffusionSchedule, as_eps_denoiser, sample_ancestral,
                         sample_ddim, sample_dpmpp_2m, sample_pd)
 from .models.mega import mega_denoise_ensemble, mega_plan, mega_weights
+from .parallel.mesh import (DATA_AXIS, all_gather_cat, mesh_device,
+                            sharded_rows)
 from .params import ParameterSpace
 from .precision import fp32_precision
 
@@ -71,11 +73,13 @@ def _check_config(model, scfg: SampleConfig, truncate_steps) -> tuple:
 
 
 def _run_sampler(scfg: SampleConfig, denoise, shape, schedule,
-                 temperature, truncate_steps, generator, x_T, noise, dev):
-    """The sampler `scfg` names, its step budget clamped to T. pd and
+                 temperature, truncate_steps, generator, x_T, noise, dev,
+                 rows=None):
+    """The sampler `scfg` names, its step budget clamped to T, on the
+    chains `rows` of the global `shape` (all of them by default). pd and
     dpmpp draw no per-step noise, so `noise` raises there."""
     big_t = schedule.num_steps
-    kw = dict(generator=generator, x_T=x_T, device=dev)
+    kw = dict(generator=generator, x_T=x_T, device=dev, rows=rows)
     if scfg.sampler in ("pd", "dpmpp") and noise is not None:
         raise ValueError(f"the {scfg.sampler!r} sampler draws no per-step "
                          "noise")
@@ -103,7 +107,7 @@ def posterior_ensemble(model, condition, schedule: DiffusionSchedule,
                        noise: Optional[torch.Tensor] = None,
                        param_dim: Optional[int] = None,
                        truncate_steps: Optional[int] = None,
-                       device=None) -> torch.Tensor:
+                       device=None, mesh=None) -> torch.Tensor:
     """Sample (n_realizations, B, P) unconstrained parameter draws for the
     (B, L, C) `condition`, on `device` (CUDA unless "cpu" is asked for).
 
@@ -119,8 +123,19 @@ def posterior_ensemble(model, condition, schedule: DiffusionSchedule,
     path as the condition; with a `guidance_interval` (lo, hi) only the
     steps with round(lo T) <= t < round(hi T) are guided and the others
     skip the null pass (the decision reads t[0] on the host, one
-    synchronisation per step)."""
-    dev = resolve_device(device)
+    synchronisation per step).
+
+    With `mesh` (a collective: every rank calls it alike, with the global
+    condition and draws) the chains shard over the data axis: a model with
+    `denoise_ensemble` shards its conditions when B divides the axis (a
+    rank runs chains b * R + r of its own conditions, contiguous rows,
+    and encodes only those), the others their realization-major chains
+    when R * B divides it (ertdx/sample.py:144-151, 213-219); otherwise
+    the call runs replicated. Every draw is made at the global shape and
+    sliced, no collective runs inside the reverse loop, and the draws are
+    all-gathered once at the end: every rank returns the global
+    (R, B, P), equal to the single process's."""
+    dev = mesh_device(mesh, device)
     model_dev = next(model.parameters()).device
     if model_dev.type != dev.type or (dev.index is not None
                                       and model_dev != dev):
@@ -142,56 +157,82 @@ def posterior_ensemble(model, condition, schedule: DiffusionSchedule,
     condition = torch.as_tensor(condition, dtype=torch.float32).to(dev)
     b = condition.shape[0]
     r = n_realizations
-    big_t = schedule.num_steps
     cond_major = hasattr(model, "denoise_ensemble")
-    with torch.no_grad():
-        cond_ctx = model.encode_condition(condition)
-        plan = mega_plan(model, r, b, cond_len=condition.shape[1],
-                         device=dev) if cond_major else None
-        weights = mega_weights(model) if plan is not None else None
-
-        def mk(ctx):
-            """The denoiser for one context: on the fused core or the
-            per-block module path, or, for a model without
-            `denoise_ensemble`, on the context tiled realization-major."""
-            if plan is not None:
-                return lambda x, t: mega_denoise_ensemble(
-                    model, x, t, ctx, r, weights=weights, **plan)
-            if cond_major:
-                return lambda x, t: model.denoise_ensemble(x, t, ctx, r)
-            ctx_tiled = ctx.repeat(r, *([1] * (ctx.dim() - 1)))
-            return lambda x, t: model.denoise(x, t, ctx_tiled)
-
-        if guided:
-            g = float(scfg.guidance_scale)
-            null_ctx = model.drop_condition(
-                cond_ctx, torch.ones(b, dtype=torch.bool, device=dev))
-            fn_c, fn_u = mk(cond_ctx), mk(null_ctx)
-
-            def guided_fn(x, t):
-                eps_u = fn_u(x, t)
-                return eps_u + g * (fn_c(x, t) - eps_u)
-
-            if interval == (0.0, 1.0):
-                denoise = guided_fn
-            else:
-                lo_idx = int(round(interval[0] * big_t))
-                hi_idx = int(round(interval[1] * big_t))
-
-                def denoise(x, t):
-                    t0 = int(t[0])
-                    return (guided_fn(x, t) if lo_idx <= t0 < hi_idx
-                            else fn_c(x, t))
-        else:
-            denoise = mk(cond_ctx)
-
-        denoise = as_eps_denoiser(denoise, schedule.alpha_bar,
-                                  model.parameterization)
-        u = _run_sampler(scfg, denoise, (r * b, p), schedule, temperature,
-                         truncate_steps, generator, x_T, noise, dev)
+    rows, shards = None, 1
+    if mesh is not None:
+        if not cond_major:
+            rows = mesh.rows(r * b)
+        elif (split := mesh.condition_rows(b, r)) is not None:
+            conds, rows = split
+            condition = condition[conds]
+        shards = 1 if rows is None else mesh.shape[DATA_AXIS]
+    with torch.no_grad(), sharded_rows(shards):
+        u = _ensemble(model, condition, schedule, r, b, p, scfg, guided,
+                      interval, temperature, truncate_steps, generator,
+                      x_T, noise, dev, mesh, rows)
+    if rows is not None:
+        u = all_gather_cat(u, mesh.data_group)
     if cond_major:
         return u.reshape(b, r, p).transpose(0, 1)
     return u.reshape(r, b, p)
+
+
+def _ensemble(model, condition, schedule, r, b, p, scfg, guided, interval,
+              temperature, truncate_steps, generator, x_T, noise, dev,
+              mesh, rows):
+    """The chains `rows` (all by default) of the (r * b, P) ensemble for
+    the global batch of b conditions; `condition` holds the conditions
+    those chains belong to (all b on the realization-major path)."""
+    big_t = schedule.num_steps
+    cond_major = hasattr(model, "denoise_ensemble")
+    cond_ctx = model.encode_condition(condition)
+    plan = mega_plan(model, r, b, cond_len=condition.shape[1],
+                     device=dev, mesh=mesh) if cond_major else None
+    weights = mega_weights(model) if plan is not None else None
+
+    def mk(ctx):
+        """The denoiser for one context: on the fused core or the
+        per-block module path, or, for a model without
+        `denoise_ensemble`, on the context tiled realization-major."""
+        if plan is not None:
+            return lambda x, t: mega_denoise_ensemble(
+                model, x, t, ctx, r, weights=weights, **plan)
+        if cond_major:
+            return lambda x, t: model.denoise_ensemble(x, t, ctx, r)
+        ctx_tiled = ctx.repeat(r, *([1] * (ctx.dim() - 1)))
+        if rows is not None:
+            ctx_tiled = ctx_tiled[rows]
+        return lambda x, t: model.denoise(x, t, ctx_tiled)
+
+    if guided:
+        g = float(scfg.guidance_scale)
+        null_ctx = model.drop_condition(
+            cond_ctx, torch.ones(condition.shape[0], dtype=torch.bool,
+                                 device=dev))
+        fn_c, fn_u = mk(cond_ctx), mk(null_ctx)
+
+        def guided_fn(x, t):
+            eps_u = fn_u(x, t)
+            return eps_u + g * (fn_c(x, t) - eps_u)
+
+        if interval == (0.0, 1.0):
+            denoise = guided_fn
+        else:
+            lo_idx = int(round(interval[0] * big_t))
+            hi_idx = int(round(interval[1] * big_t))
+
+            def denoise(x, t):
+                t0 = int(t[0])
+                return (guided_fn(x, t) if lo_idx <= t0 < hi_idx
+                        else fn_c(x, t))
+    else:
+        denoise = mk(cond_ctx)
+
+    denoise = as_eps_denoiser(denoise, schedule.alpha_bar,
+                              model.parameterization)
+    return _run_sampler(scfg, denoise, (r * b, p), schedule,
+                        temperature, truncate_steps, generator, x_T,
+                        noise, dev, rows)
 
 
 def bounds_mask(phys, limits):
@@ -255,7 +296,8 @@ def posterior_over_dataset(model, conditions, schedule: DiffusionSchedule,
                            device_inverse: bool = True,
                            generator: Optional[torch.Generator] = None,
                            draws: Optional[Sequence[dict]] = None,
-                           device=None) -> Tuple[np.ndarray, np.ndarray]:
+                           device=None, mesh=None
+                           ) -> Tuple[np.ndarray, np.ndarray]:
     """The posterior ensemble over a whole (N, L, C) set of conditions, in
     batches of `batch_size`: (pred (R, N, P) physical parameters, valid
     (R, N) mask), as numpy arrays (ertdx/sample.py:410-520).
@@ -267,7 +309,9 @@ def posterior_over_dataset(model, conditions, schedule: DiffusionSchedule,
     MinMaxScaler; False, or another scaler, runs it on the host.
     `draws[i]` holds the keyword arguments (`x_T`, `noise`) of batch i's
     `posterior_ensemble`, in place of JAX's `fold_in(key, i)`; without
-    `draws` every batch draws from `generator`."""
+    `draws` every batch draws from `generator`. With `mesh` every batch
+    runs `posterior_ensemble(mesh=)` (a collective; every rank returns
+    the whole result)."""
     space = space or ParameterSpace()
     conditions = torch.as_tensor(conditions, dtype=torch.float32)
     n = conditions.shape[0]
@@ -284,7 +328,7 @@ def posterior_over_dataset(model, conditions, schedule: DiffusionSchedule,
             cond = torch.cat([cond, pad], dim=0)
         outs.append(posterior_ensemble(
             model, cond, schedule, n_realizations, scfg,
-            generator=generator, device=device,
+            generator=generator, device=device, mesh=mesh,
             **(draws[bi] if draws is not None else {})))
     u_all = torch.cat(outs, dim=1)[:, :n]
     if device_inverse and isinstance(param_scaler, transforms.MinMaxScaler):
@@ -304,7 +348,7 @@ def posterior_over_dataset_mixture(members, conditions,
                                    space: Optional[ParameterSpace] = None,
                                    generator: Optional[torch.Generator] = None,
                                    draws: Optional[Sequence] = None,
-                                   device=None
+                                   device=None, mesh=None
                                    ) -> Tuple[np.ndarray, np.ndarray]:
     """Equal-weight mixture over independently trained models
     (ertdx/sample.py:522-568): the n_realizations budget splits as evenly
@@ -328,7 +372,8 @@ def posterior_over_dataset_mixture(members, conditions,
             model, conditions, schedule, param_scaler, n_realizations=share,
             batch_size=batch_size, scfg=scfg, a=a, b=b, space=space,
             generator=generator,
-            draws=draws[i] if draws is not None else None, device=device)
+            draws=draws[i] if draws is not None else None, device=device,
+            mesh=mesh)
         preds.append(p)
         masks.append(m)
     return np.concatenate(preds, axis=0), np.concatenate(masks, axis=0)

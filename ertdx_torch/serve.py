@@ -16,7 +16,11 @@ GET /healthz, POST /posterior.
 
 A request's `seed` seeds a torch.Generator on the service's device. One
 lock guards the device call: the generator and the kernels' launch
-counters are not thread-safe.
+counters are not thread-safe. With `mesh` the service runs
+`posterior_ensemble(mesh=)`, so `posterior` and `warmup` are
+collectives: every rank of the mesh calls them with the same request,
+and every rank returns the same answer. The HTTP server has no
+follower loop (JAX's CLI `serve` has no mesh either).
 """
 from __future__ import annotations
 
@@ -30,10 +34,10 @@ import numpy as np
 import torch
 
 from . import data as data_lib
-from . import resolve_device
 from .compat import load_reference_model
 from .configs import ExperimentConfig, SampleConfig, experiment_from_dict
 from .diffusion import schedule_from_config
+from .parallel.mesh import mesh_device
 from .params import ParameterSpace
 from .sample import device_inverse, posterior_ensemble
 from .train import load_best_model, saved_config
@@ -69,15 +73,10 @@ class PosteriorService:
 
     def __init__(self, checkpoint_dir: str, cfg: ExperimentConfig,
                  max_batch: int = 8, mesh=None, device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "PosteriorService(mesh=...): data parallelism is not ported "
-                "yet (ROADMAP.md queue 1 item 5); the port serves on one "
-                "device")
+        dev = mesh_device(mesh, device)
         saved = saved_config(checkpoint_dir)
         if saved:
             cfg = experiment_from_dict(saved, base=cfg)
-        dev = resolve_device(device)
         state, meta, scalers = load_best_model(checkpoint_dir, cfg,
                                                device=dev)
         model = state.model
@@ -88,7 +87,8 @@ class PosteriorService:
         self._init_common(
             cfg, model, {k: meta[k] for k in ("epoch", "best_val_loss",
                                               "model") if k in meta},
-            scalers["param_scaler"], scalers["ert_scaler"], max_batch)
+            scalers["param_scaler"], scalers["ert_scaler"], max_batch,
+            mesh)
 
     @classmethod
     def from_torch(cls, torch_checkpoint, cfg: ExperimentConfig,
@@ -105,23 +105,19 @@ class PosteriorService:
             raise ValueError("from_torch maps onto the reference "
                              "architecture: cfg.model.name must be "
                              "'refmlp'")
-        if mesh is not None:
-            raise NotImplementedError(
-                "PosteriorService.from_torch(mesh=...): data parallelism "
-                "is not ported yet (ROADMAP.md queue 1 item 5); the port "
-                "serves on one device")
+        dev = mesh_device(mesh, device)
         ds = data_lib.prepare_dataset(np.asarray(sim_param),
                                       np.asarray(ert_sim))
-        model, _ = load_reference_model(torch_checkpoint, cfg.model,
-                                        device)
+        model, _ = load_reference_model(torch_checkpoint, cfg.model, dev)
         self = cls.__new__(cls)
         self._init_common(cfg, model, {"model": "refmlp (torch import)"},
-                          ds.param_scaler, ds.ert_scaler, max_batch)
+                          ds.param_scaler, ds.ert_scaler, max_batch, mesh)
         return self
 
     def _init_common(self, cfg, model, meta, param_scaler, ert_scaler,
-                     max_batch) -> None:
+                     max_batch, mesh=None) -> None:
         self.cfg = cfg
+        self.mesh = mesh
         self.device = next(model.parameters()).device
         self.max_batch = int(max_batch)
         self.model = model.eval()
@@ -170,7 +166,7 @@ class PosteriorService:
             u = posterior_ensemble(
                 self.model, torch.from_numpy(cond).to(self.device),
                 self.schedule, n_realizations, scfg, generator=gen,
-                device=self.device, **(draws or {}))
+                device=self.device, mesh=self.mesh, **(draws or {}))
             phys, mask = device_inverse(u, self.param_scaler,
                                         self.space.plims, 0.0, 1.0)
             phys, mask = phys.cpu().numpy(), mask.cpu().numpy()

@@ -50,11 +50,12 @@ import torch
 
 from . import configs as configs_lib
 from . import data as data_lib
-from . import resolve_device
 from .configs import ExperimentConfig
 from .diffusion import (min_snr_weight, prediction_target, q_sample,
                         schedule_from_config)
 from .models import build_model
+from .parallel.mesh import (all_reduce_, barrier, data_all_reduce_grads,
+                            is_writer, mesh_device, sharded_rows)
 from .precision import fp32_precision
 from .utils import checkpoint as ckpt_lib
 from .utils.weights import (adam_state_from_jax, adam_state_to_jax,
@@ -144,13 +145,6 @@ def ema_update(ema: dict, model: torch.nn.Module, decay: float) -> None:
 # steps
 # ---------------------------------------------------------------------------
 
-def weighted_eps_mse(eps_hat, eps, w):
-    """Mean squared error per example, weighted by w over the batch
-    (ertdx/train.py:110-117)."""
-    per_ex = torch.mean((eps_hat - eps) ** 2, dim=-1)
-    return torch.sum(per_ex * w) / torch.clamp(torch.sum(w), min=1.0)
-
-
 def _draws(x0, t, noise, T: int, generator):
     if t is None:
         t = torch.randint(0, T, (x0.shape[0],), generator=generator,
@@ -174,12 +168,38 @@ def _predict(model, x_noisy, t, cond, drop):
     return model.denoise(x_noisy, t, ctx)
 
 
+def _shard(mesh, n: int):
+    """(rows, shards) of an n-row global batch under `mesh`: this rank's
+    slice and the number of data shards, or (None, 1) when the batch runs
+    whole (no mesh, one data rank, or n not divisible by the data axis,
+    where JAX keeps the batch replicated)."""
+    rows = None if mesh is None else mesh.rows(n)
+    return rows, (1 if rows is None else mesh.shape["data"])
+
+
+def _take(rows, *tensors):
+    """Rows `rows` of each tensor (None stays None; rows=None keeps
+    them all)."""
+    return tuple(a if a is None or rows is None else a[rows]
+                 for a in tensors)
+
+
+def _sharded_loss(per_ex, w, n: int):
+    """This rank's share of the global batch loss: its sum over the
+    global count n, or over the global sum of w, which every rank holds
+    (w = (this rank's w, the global w); ertdx/train.py:110-117's
+    weighted_eps_mse). Without a mesh it is the batch's mean."""
+    if w is None:
+        return torch.sum(per_ex) / n
+    return torch.sum(per_ex * w[0]) / torch.clamp(torch.sum(w[1]), min=1.0)
+
+
 def train_step(model, opt, x0, cond, t=None, noise=None, w=None, *,
                alpha_bar, lr: Optional[LR] = None, generator=None,
                parameterization: str = "eps",
                loss_weighting: str = "none", snr_gamma: float = 5.0,
                ema: Optional[dict] = None, ema_decay: float = 0.0,
-               drop: Optional[torch.Tensor] = None):
+               drop: Optional[torch.Tensor] = None, mesh=None):
     """One optimizer step on the batch (x0 (B, P), cond (B, L, C)).
 
     t and noise are drawn from `generator` unless given. A model with
@@ -191,29 +211,41 @@ def train_step(model, opt, x0, cond, t=None, noise=None, w=None, *,
     loss only. `lr` (a float or a schedule) sets the step's learning rate
     from the optimizer's count; None keeps the optimizer's. The gradients
     stay in the parameters' .grad after the step. Returns the loss
-    (a detached 0-d tensor)."""
+    (a detached 0-d tensor).
+
+    With `mesh` (a collective: every rank calls it with the same global
+    batch and draws) each rank keeps its rows of the batch and of every
+    draw (drawn at the global shape), its loss is its sum over the
+    global count (or the global sum of w), one all_reduce sums the
+    gradients over the data axis, and every rank takes the same Adam
+    and EMA step; the loss returned is the global batch's."""
+    if loss_weighting not in ("none", "min_snr"):
+        raise ValueError(f"unknown loss_weighting {loss_weighting!r} "
+                         "(expected 'none' or 'min_snr')")
     alpha_bar = alpha_bar.to(x0.device)
+    n = x0.shape[0]
     t, noise = _draws(x0, t, noise, alpha_bar.shape[0], generator)
     uncond_prob = getattr(model, "uncond_prob", 0.0)
     if drop is None and uncond_prob > 0.0:
-        drop = torch.rand(x0.shape[0], generator=generator,
+        drop = torch.rand(n, generator=generator,
                           device=x0.device) < uncond_prob
+    rows, shards = _shard(mesh, n)
+    w_all = w
+    x0, cond, t, noise, w, drop = _take(rows, x0, cond, t, noise, w, drop)
     x_noisy = q_sample(x0, t, noise, alpha_bar)
     target = prediction_target(x0, noise, t, alpha_bar, parameterization)
     opt.zero_grad(set_to_none=True)
-    out = _predict(model, x_noisy, t, cond, drop)
-    if loss_weighting == "none":
-        loss = (torch.mean((out - target) ** 2) if w is None
-                else weighted_eps_mse(out, target, w))
-    elif loss_weighting == "min_snr":
-        per_ex = torch.mean((out - target) ** 2, dim=-1) * min_snr_weight(
-            t, alpha_bar, parameterization, snr_gamma)
-        loss = (torch.mean(per_ex) if w is None else
-                torch.sum(per_ex * w) / torch.clamp(torch.sum(w), min=1.0))
-    else:
-        raise ValueError(f"unknown loss_weighting {loss_weighting!r} "
-                         "(expected 'none' or 'min_snr')")
+    with sharded_rows(shards):
+        out = _predict(model, x_noisy, t, cond, drop)
+    per_ex = torch.mean((out - target) ** 2, dim=-1)
+    if loss_weighting == "min_snr":
+        per_ex = per_ex * min_snr_weight(t, alpha_bar, parameterization,
+                                         snr_gamma)
+    loss = _sharded_loss(per_ex, None if w is None else (w, w_all), n)
     loss.backward()
+    if rows is not None:
+        data_all_reduce_grads(model, mesh)
+        loss = all_reduce_(loss.detach().clone(), mesh.data_group)
     if lr is not None:
         step_lr = lr_at(lr, optimizer_steps(opt))
         for group in opt.param_groups:
@@ -226,15 +258,24 @@ def train_step(model, opt, x0, cond, t=None, noise=None, w=None, *,
 
 @torch.no_grad()
 def eval_step(model, x0, cond, w, *, alpha_bar, generator=None,
-              parameterization: str = "eps"):
+              parameterization: str = "eps", mesh=None):
     """The weighted validation loss of one padded batch, t and eps drawn
     from `generator` (unweighted by min-SNR, as in
-    ertdx/train.py:389-410)."""
+    ertdx/train.py:389-410). With `mesh` each rank scores its rows and
+    the numerators are all-reduced over the data axis: the global
+    batch's loss on every rank."""
     alpha_bar = alpha_bar.to(x0.device)
     t, noise = _draws(x0, None, None, alpha_bar.shape[0], generator)
-    x_noisy = q_sample(x0, t, noise, alpha_bar)
-    target = prediction_target(x0, noise, t, alpha_bar, parameterization)
-    return weighted_eps_mse(model(x_noisy, t, cond), target, w)
+    rows, shards = _shard(mesh, x0.shape[0])
+    x0_l, cond_l, t, noise, w_l = _take(rows, x0, cond, t, noise, w)
+    x_noisy = q_sample(x0_l, t, noise, alpha_bar)
+    target = prediction_target(x0_l, noise, t, alpha_bar, parameterization)
+    with sharded_rows(shards):
+        out = model(x_noisy, t, cond_l)
+    num = all_reduce_(torch.sum(torch.mean((out - target) ** 2, dim=-1)
+                                * w_l),
+                      None if rows is None else mesh.data_group)
+    return num / torch.clamp(torch.sum(w), min=1.0)
 
 
 # ---------------------------------------------------------------------------
@@ -299,7 +340,7 @@ def _restore(state: TrainState, tree: dict) -> None:
 def train(cfg: ExperimentConfig, dataset: data_lib.ERTDataset,
           checkpoint_dir: Optional[str] = None, device=None,
           logger: Optional[Callable[[dict], None]] = None,
-          resume: bool = False) -> TrainResult:
+          resume: bool = False, mesh=None) -> TrainResult:
     """Train `cfg`'s model on `dataset` with best-val checkpointing.
 
     Runs on the CUDA device unless device="cpu". Each epoch trains over
@@ -311,9 +352,19 @@ def train(cfg: ExperimentConfig, dataset: data_lib.ERTDataset,
     histories, ertdx/train.py:569-590); without one it starts fresh.
     `epochs_per_dispatch` only changes how the JAX package dispatches;
     the port computes the same epochs one at a time. `logger` receives
-    one dict per logged epoch (and one on resuming)."""
+    one dict per logged epoch (and one on resuming).
+
+    With `mesh` (a collective: every rank calls it alike) every batch
+    whose size divides the data axis shards over it (`train_step`,
+    `eval_step`), else it runs replicated, as JAX keeps it; every rank
+    ends with the same state and histories, which equal the single
+    process's. Only rank 0 writes checkpoints and calls `logger`; the
+    ranks wait for it after each write, and `resume` reads on every
+    rank."""
     tcfg = cfg.train
-    dev = resolve_device(device)
+    dev = mesh_device(mesh, device)
+    if mesh is not None and not is_writer():
+        logger = None
     checkpoint_dir = checkpoint_dir or tcfg.checkpoint_dir
 
     train_idx, val_idx, _ = data_lib.split_dataset(
@@ -376,7 +427,7 @@ def train(cfg: ExperimentConfig, dataset: data_lib.ERTDataset,
                 model, state.opt, x0_tr[idx], cond_tr[idx], lr=lr,
                 generator=gen, loss_weighting=tcfg.loss_weighting,
                 snr_gamma=tcfg.snr_gamma, ema=state.ema_params,
-                ema_decay=tcfg.ema_decay, **step_kw))
+                ema_decay=tcfg.ema_decay, mesh=mesh, **step_kw))
         epoch_loss = float(torch.stack(losses).mean())   # synchronizes
         step_time += time.perf_counter() - t0
         step_count += len(losses)
@@ -389,7 +440,7 @@ def train(cfg: ExperimentConfig, dataset: data_lib.ERTDataset,
         den = torch.zeros((), device=dev)
         for idx, w in zip(v_idx, v_w):
             vloss = eval_step(model, x0_va[idx], cond_va[idx], w,
-                              generator=vgen, **step_kw)
+                              generator=vgen, mesh=mesh, **step_kw)
             num += vloss * w.sum()
             den += w.sum()
         val_loss = float(num / torch.clamp(den, min=1.0))
@@ -451,13 +502,19 @@ def _state_tree(state: TrainState) -> dict:
 
 
 def _save(checkpoint_dir, name, state, dataset, cfg, meta_extra) -> None:
+    """Write a checkpoint. Every rank of a world builds the tree (which
+    gathers tensor-parallel shards), rank 0 alone writes it, and the
+    ranks wait for the write."""
     meta = {"param_dim": dataset.param_dim, "model": cfg.model.name,
             "config": dataclasses.asdict(cfg)}
     meta.update(meta_extra)
-    ckpt_lib.save_checkpoint(
-        f"{checkpoint_dir}/{name}", _state_tree(state), meta,
-        scalers={"param_scaler": dataset.param_scaler,
-                 "ert_scaler": dataset.ert_scaler})
+    tree = _state_tree(state)
+    if is_writer():
+        ckpt_lib.save_checkpoint(
+            f"{checkpoint_dir}/{name}", tree, meta,
+            scalers={"param_scaler": dataset.param_scaler,
+                     "ert_scaler": dataset.ert_scaler})
+    barrier()
 
 
 def saved_config(checkpoint_dir: str) -> Optional[dict]:

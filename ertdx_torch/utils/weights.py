@@ -36,6 +36,13 @@ are the single vectors of `optax.flatten(optax.adam(...))`
 (flat_optimizer, ertdx/train.py:73-76): the leaves of the flax tree
 concatenated in jax's flattening order, dict keys sorted at every level
 (`ravel_tree`, `unravel_like`).
+
+A model whose leaves tensor parallelism has column-sharded
+(`parallel.mesh.tp_shard_params`) carries the whole tree both ways:
+`named_to_jax` (and so `params_to_jax`, the Adam state and the
+checkpoint writer) all-gathers each shard over the model axis, a
+collective every rank of the mesh calls; the readers check whole shapes
+and load each rank's slice.
 """
 from __future__ import annotations
 
@@ -44,6 +51,7 @@ import torch
 
 from ..models.refmlp import RefCondMLP
 from ..models.uncond import UncondMLP
+from ..parallel.mesh import shard_of, whole_tensor
 
 _BLOCK = {"ada1.proj": ("AdaLN_0", "Dense_0"),
           "ada2.proj": ("AdaLN_1", "Dense_0"),
@@ -193,13 +201,31 @@ def unravel_like(shapes: dict, flat) -> dict:
     return tree
 
 
+def _whole_shape(model, name: str, param) -> tuple:
+    """The parameter's shape before any tensor-parallel sharding."""
+    shape = list(param.shape)
+    info = shard_of(model, name)
+    if info is not None:
+        shape[info.dim] *= info.size
+    return tuple(shape)
+
+
+def _local_slice(model, name: str, whole: torch.Tensor) -> torch.Tensor:
+    """This rank's slice of a whole parameter-shaped tensor."""
+    info = shard_of(model, name)
+    if info is None:
+        return whole
+    k = whole.shape[info.dim] // info.size
+    return whole.narrow(info.dim, info.index * k, k)
+
+
 def flax_shapes(model: torch.nn.Module) -> dict:
     """The flax parameter layout of `model`: a nested dict of shapes."""
     tree: dict = {}
     paths = model_paths(model)
     for name, param in model.named_parameters():
         path = paths[name]
-        shape = tuple(param.shape)
+        shape = _whole_shape(model, name, param)
         if path[-1] == "kernel" and _reversed_axes(name):
             shape = shape[::-1]
         node = tree
@@ -217,7 +243,8 @@ def named_to_jax(model: torch.nn.Module, named: dict) -> dict:
     paths = model_paths(model)
     for name, param in model.named_parameters():
         path = paths[name]
-        arr = named[name].detach().to("cpu", torch.float32).numpy()
+        arr = whole_tensor(model, name, named[name]).to(
+            "cpu", torch.float32).numpy()
         if path[-1] == "kernel" and _reversed_axes(name):
             arr = arr.transpose()
         node = tree
@@ -235,7 +262,8 @@ def params_to_jax(model: torch.nn.Module) -> dict:
 
 def named_from_jax(model: torch.nn.Module, tree) -> dict:
     """A flax-layout tree -> {torch name: float32 CPU tensor shaped like
-    the parameter}. Raises on a missing or unused leaf or a wrong shape."""
+    the (whole) parameter}. Raises on a missing or unused leaf or a wrong
+    shape."""
     flat = dict(_flatten(tree))
     want = model_paths(model)
     missing = sorted("/".join(p) for p in set(want.values()) - set(flat))
@@ -249,9 +277,10 @@ def named_from_jax(model: torch.nn.Module, tree) -> dict:
         arr = np.asarray(flat[path])
         if path[-1] == "kernel" and _reversed_axes(name):
             arr = arr.transpose()
-        if tuple(arr.shape) != tuple(param.shape):
+        if tuple(arr.shape) != _whole_shape(model, name, param):
             raise ValueError(f"{'/'.join(path)}: tree gives {arr.shape}, "
-                             f"model has {tuple(param.shape)}")
+                             f"model has "
+                             f"{_whole_shape(model, name, param)}")
         out[name] = torch.from_numpy(np.array(arr, dtype=np.float32,
                                               order="C"))
     return out
@@ -293,8 +322,10 @@ def adam_state_from_jax(opt: torch.optim.Optimizer, model: torch.nn.Module,
     for name, param in model.named_parameters():
         opt.state[param] = {
             "step": torch.tensor(float(count), dtype=torch.float32),
-            "exp_avg": mu[name].to(param.device),
-            "exp_avg_sq": nu[name].to(param.device)}
+            "exp_avg": _local_slice(model, name, mu[name]).to(
+                param.device).contiguous(),
+            "exp_avg_sq": _local_slice(model, name, nu[name]).to(
+                param.device).contiguous()}
 
 
 def params_from_jax(model: torch.nn.Module, tree) -> torch.nn.Module:
@@ -303,5 +334,6 @@ def params_from_jax(model: torch.nn.Module, tree) -> torch.nn.Module:
     named = named_from_jax(model, tree)
     with torch.no_grad():
         for name, param in model.named_parameters():
-            param.copy_(named[name].to(param.dtype))
+            param.copy_(_local_slice(model, name, named[name]).to(
+                param.dtype))
     return model

@@ -454,10 +454,10 @@ def test_entry_points_run_without_tf32(tf32_on, monkeypatch, entry):
 
     cond = np.zeros((2, 96, 4), np.float32)
     if entry == "train":
-        monkeypatch.setattr(train, "resolve_device", stop)
+        monkeypatch.setattr(train, "mesh_device", stop)
         run = lambda: train.train(_small_cfg(), None, device="cpu")
     elif entry == "distill":
-        monkeypatch.setattr(distill, "resolve_device", stop)
+        monkeypatch.setattr(distill, "mesh_device", stop)
         run = lambda: distill.distill(_small_cfg(), distill.DistillConfig(),
                                       None, "teacher", device="cpu")
     else:

@@ -146,7 +146,8 @@ def test_ties_and_nan_match_jax(monkeypatch):
         lambda: jcal.calibrate_temperature(None, None, conds, true, None,
                                            None, None,
                                            objective="sharpness"))
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
+    # a mesh is ported (tests/test_torch_dp_sample.py); a non-mesh raises
+    with pytest.raises(TypeError, match="make_mesh"):
         cal.calibrate_temperature(None, conds, true, None, None, mesh=1)
 
 

@@ -312,16 +312,18 @@ def test_pipeline_serves_over_http(pipeline):
     pytest.param(["serve", "--preset", "v5e8_dp", "--torch-checkpoint",
                   "w.pth"], "needs --params/--ert",
                  id="argv7-needs --params/--ert"),
+    # --mesh-data is ported: in a world of one a larger mesh exits with
+    # JAX's make_mesh message (the ids are the cases' old ones)
     pytest.param(["train", "--params", "p", "--ert", "e", "--preset",
-                  "v5e8_dp", "--mesh-data", "8"], "item 5",
-                 id="argv8-item 5"),
+                  "v5e8_dp", "--mesh-data", "8"],
+                 "mesh 8x1 needs 8 devices, have 1", id="argv8-item 5"),
     pytest.param(["sample", "--params", "p", "--ert", "e", "--preset",
                   "v5e8_dp", "--checkpoint-dir", "ck", "--mesh-data", "2"],
-                 "item 5", id="argv9-item 5"),
+                 "mesh 2x1 needs 2 devices, have 1", id="argv9-item 5"),
     pytest.param(["distill", "--params", "p", "--ert", "e",
                   "--checkpoint-dir", "ck", "--out-dir", "o", "--preset",
-                  "v5e8_dp", "--mesh-data", "2"], "item 5",
-                 id="argv10-item 5"),
+                  "v5e8_dp", "--mesh-data", "2"],
+                 "mesh 2x1 needs 2 devices, have 1", id="argv10-item 5"),
     pytest.param(["bench"], "benchmark", id="argv11-benchmark"),
 ])
 def test_refusals_name_their_queue_item(argv, item):

@@ -14,7 +14,8 @@
   with EMA: a conversion stage and one halving, `save_stages`, the
   student's echo and meta, JAX's `load_best_model` restoring the same
   weights without flags, and the port serving it with `sample_pd`.
-* The refusals of tests/test_distill.py:283-352, and `mesh`.
+* The refusals of tests/test_distill.py:283-352, and a `mesh`
+  that is not one.
 """
 from __future__ import annotations
 
@@ -242,6 +243,7 @@ def test_start_steps_clamp_and_refusals(teachers):
         distill.distill(cfg, distill.DistillConfig(
             target_steps=4, start_steps=4, convert_epochs=0, **base), ds,
             dirs["eps"], device="cpu")
-    with pytest.raises(NotImplementedError, match="item 5"):
+    # a mesh is ported (tests/test_torch_dp_sample.py); a non-mesh raises
+    with pytest.raises(TypeError, match="make_mesh"):
         distill.distill(cfg, distill.DistillConfig(**base), ds, dirs["v"],
                         mesh=object(), device="cpu")

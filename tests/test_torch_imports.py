@@ -70,7 +70,9 @@ def test_port_imports_without_jax_and_friends():
                  "ertdx_torch.models.refmlp", "ertdx_torch.models.uncond",
                  "ertdx_torch.compat", "ertdx_torch.synthetic",
                  "ertdx_torch.physics", "ertdx_torch.plots",
-                 "ertdx_torch.utils.srv_native"):
+                 "ertdx_torch.utils.srv_native",
+                 "ertdx_torch.parallel", "ertdx_torch.parallel.mesh",
+                 "ertdx_torch.parallel.multihost"):
         assert name in imported
 
 

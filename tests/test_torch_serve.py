@@ -138,7 +138,8 @@ def test_service_adopts_the_echo_and_seeds(served):
     # the .pth import maps onto refmlp only (tests/test_torch_compat.py)
     with pytest.raises(ValueError, match="'refmlp'"):
         serve.PosteriorService.from_torch("w.pth", port.cfg, None, None)
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
+    # a mesh is ported (tests/test_torch_dp_sample.py); a non-mesh raises
+    with pytest.raises(TypeError, match="make_mesh"):
         serve.PosteriorService("ck", port.cfg, mesh=object())
 
 
