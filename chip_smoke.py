@@ -12,26 +12,34 @@ non-zero and prints no result line):
    of the library counts the HMMA.1688.F32.TF32 instructions of each
    slab, flash, fused-core, ensemble attention and fused-conv GEMM kernel
    and fails if one has none (they run their products on the tensor
-   cores); ptxas' lines of every GN kernel (staged and streamed), where
-   a spill fails; the bf16 MMAs (HMMA.16816.F32.BF16) of the bf16 fused
+   cores; the fused core's one-pass instances instead have bf16 MMAs,
+   HMMA.16816.F32.BF16, and no TF32 one, its 3xTF32 instances no bf16
+   one); ptxas' lines of both fused-core kernels (each mode's instance)
+   and of every GN kernel (staged and streamed), where a spill fails; the bf16 MMAs (HMMA.16816.F32.BF16) of the bf16 fused
    conv's GEMMs, and ptxas' lines of every bf16 GN and fused-conv kernel,
    where a spill fails;
 3. kernels: fused_core_stack and fused_core_block at full width (D=128,
    nb=4, P=29, Lk=147) and at the kernels' limits (P=17 with Lk=61, P=32
-   with Lk=256), every weight non-zero, held against their plain PyTorch
-   versions (max abs error <= 1e-4 * max(1, max|plain|)), a rerun and
-   accurate=True bit-identical to the first run, ptxas' spill line of
-   both kernels (a spill fails), timed with CUDA events with their share
-   of the TF32 MMA rate; one JSON line {"kernels": [...]};
+   with Lk=256), every weight non-zero, in both modes: accurate=True
+   (3xTF32) held against the plain PyTorch versions (max abs error <=
+   1e-4 * max(1, max|plain|)); accurate=False (one bf16 pass a product,
+   JAX's default) held against the float32 function computed in float64
+   (rms error within 0.8-1.25x of the plain one-pass version's, max error
+   <= 5e-2 * max(1, max|exact|), the stack's outputs bf16 values); reruns
+   bit-identical in both modes, timed with CUDA events in both modes with
+   their share of the TF32 MMA rate or of the bf16 bound; one JSON line
+   {"kernels": [...]};
 4. main path: the configs[3] posterior ensemble (CondUNet at
    DDIM_ENSEMBLE's full width, random weights from a seed carried over by
    params_from_jax, 8 conditions x 1000 members, DDIM-50, eta=0) through
-   ertdx_torch.sample.posterior_ensemble, with exactly 50 fused_core_stack
-   launches, held against the plain module path from the same x_T; then
-   the inverse pipeline;
+   ertdx_torch.sample.posterior_ensemble, with ensemble_mega_accurate=True
+   (the float32 function), exactly 50 fused_core_stack launches, held
+   against the plain module path from the same x_T; then the inverse
+   pipeline (phase 21 runs the preset's default mode);
 5. per-block path: the same DDIM run over 2 of the conditions through
-   mega_denoise_ensemble(stack=False), i.e. fused_core_block, held against
-   the main path's draws, with its ms per DDIM step;
+   mega_denoise_ensemble(stack=False, accurate=True), i.e.
+   fused_core_block, held against the main path's draws, with its ms per
+   DDIM step;
 6. slab kernels: slab_attention's CUDA forward and backward (both on
    3xTF32 tensor cores) at the encoder's training shape
    (B=256, L=147, C=256, 4 heads), at B=4 with 8 heads (dh=32) and at an
@@ -117,8 +125,8 @@ non-zero and prints no result line):
    and dK/dV launch per step, a profile of one step of each path;
    (b) train() for 2 epochs on 400 examples, launches by the epoch grid;
    (c) a configs[3] posterior ensemble (8 conditions x 1000 members,
-   DDIM-50) from that checkpoint: one flash forward per call, draws
-   within 1e-3 of the all-plain path;
+   DDIM-50) from that checkpoint with ensemble_mega_accurate=True: one
+   flash forward per call, draws within 1e-3 of the all-plain path;
 14. distillation of phase 13's checkpoint as an eps teacher: the first
    batch's loss and gradients on the kernel path against the plain path,
    then distill() with a conversion stage and one halving (8 -> 4), one
@@ -250,7 +258,8 @@ non-zero and prints no result line):
    this process, rank 0 alone writing the checkpoints, which the port's
    reader restores; (c) the same world: the configs[3] posterior on 16
    conditions x 1000 members, DDIM-50, 8000 chains a rank on the fused
-   core, exactly 50 fused_core_stack launches a rank, the draws within
+   core with ensemble_mega_accurate=True, exactly 50 fused_core_stack
+   launches a rank, the draws within
    phase 4's 1e-3 of this process's 16 x 1000 run from the same x_T; (d)
    make_mesh(data=1, model=2) over the same ranks: one TP train_step
    (tp_shard_params' 34 leaves) against the single process's first
@@ -260,13 +269,25 @@ non-zero and prints no result line):
    ensemble, each within 1e-6 relative of the no-mesh path; (f) `python -m
    torch.distributed.run --standalone --nproc-per-node 2 -m
    ertdx_torch.cli train --mesh-data 2` for one epoch, its history
-   equal to (b)'s first epoch within 1e-5.
+   equal to (b)'s first epoch within 1e-5;
+21. the default main path: configs[3] as shipped
+   (ensemble_mega_accurate=False, JAX's default), phase 4's random
+   weights, conditions and x_T: 8 x 1000 members, DDIM-50, eta 0,
+   exactly 50 one-pass fused_core_stack launches and no 3xTF32 one, then
+   the inverse pipeline; held against the same run with accurate=True:
+   the ensemble mean and std of each condition and parameter within 5e-2
+   * max(1, |.|), the draws' max gap reported; the first step's denoiser
+   call held to phase 3's one-pass rule against the float64 function;
+   ms per DDIM step of both modes, in turns; the per-block variant over 2
+   conditions in the one-pass mode (200 one-pass fused_core_block
+   launches), its mean and std within the same band of the stack's.
 
 Every kernel's entry in the kernels line has `bound_ms`, the least time
 the card could take: the bytes at 3.35 TB/s or the operations at the
 fastest rate of their class, 3xTF32 on the tensor cores for float32
 matrix products (the fp32 pipe for GroupNorm, which has none), the bf16
-tensor cores' 989 TFLOP/s for the bf16 kernels; for the flash kernels
+tensor cores' 989 TFLOP/s for the bf16 kernels and the fused core's
+one-pass mode (its `_onepass` entries); for the flash kernels
 only the keys the mask needs. Beside it `bound_tc_ms` (the 3xTF32 time;
 null for GroupNorm) and `bound_fp32_ms` (the fp32 pipe's). The last line of
 stdout is {"ok": true, "device": {...}}. The build goes
@@ -491,10 +512,12 @@ def sass_counts(path, kernel_of, instruction: str):
 
 def check_tensor_cores(path) -> None:
     """Phase 2: the TF32 MMAs (HMMA.1688.F32.TF32) in the SASS of each
-    slab, flash, fused-core, ensemble attention and fused-conv kernel of
-    the built library; raises where one has none, or where a fused-core,
-    ensemble or fused-conv kernel is missing. Logs and returns where the
-    toolkit has no cuobjdump."""
+    slab, flash, 3xTF32 fused-core, ensemble attention and fused-conv
+    kernel of the built library, and the fused core's one-pass instances
+    (template argument 1) on bf16 MMAs (HMMA.16816.F32.BF16) alone;
+    raises where a kernel lacks its MMAs or has the other mode's, or
+    where a fused-core instance, ensemble or fused-conv kernel is
+    missing. Logs and returns where the toolkit has no cuobjdump."""
     def kernel_of(line):
         fn = TENSOR_CORE_KERNEL.search(line)
         return None if fn is None else fn.group(1)
@@ -503,13 +526,26 @@ def check_tensor_cores(path) -> None:
     if counts is None:
         log("sass: no cuobjdump; the tensor-core check is not made")
         return
+    bf16 = sass_counts(path, kernel_of, "HMMA.16816.F32.BF16")
     log("sass: HMMA.1688.F32.TF32 per tensor-core kernel: " + "; ".join(
         f"{k} {n}" for k, n in sorted(counts.items())))
-    bare = [k for k, n in counts.items() if n == 0]
+    log("sass: HMMA.16816.F32.BF16 in the fused core's instances: " +
+        "; ".join(f"{k} {n}" for k, n in sorted(bf16.items())
+                  if k.startswith(CORE_KERNELS)))
+    onepass = [f"{k}<1>" for k in CORE_KERNELS]
+    bare = [k for k, n in counts.items() if n == 0 and k not in onepass]
     bare += [k for k in CORE_KERNELS + ENSEMBLE_KERNELS + CONV_KERNELS
              if not any(name.startswith(k) for name in counts)]
+    bare += [k for k in onepass + [f"{k}<0>" for k in CORE_KERNELS]
+             if k not in counts]
     if not counts or bare:
-        raise RuntimeError(f"kernels without TF32 MMAs: {bare}")
+        raise RuntimeError(f"kernels without TF32 MMAs, or missing: {bare}")
+    wrong = [k for k in onepass if counts[k] or not bf16[k]]
+    wrong += [k for k in counts if k.startswith(CORE_KERNELS)
+              and k not in onepass and bf16[k]]
+    if wrong:
+        raise RuntimeError(f"fused-core instances with the other mode's "
+                           f"MMAs or without their own: {wrong}")
 
 
 def check_no_spill(report: str, kernels) -> None:
@@ -537,84 +573,132 @@ def ptxas_lines(report: str, kernel: str) -> list:
     return lines
 
 
-def check_kernels(cb, dev, report: str, card: str) -> dict:
-    """Phase 3: both kernels against their plain versions, reruns and
-    accurate=True bit-identical, ptxas' spill line of each (a spill
-    fails), timed with their share of the TF32 MMA rate."""
-    for kernel in CORE_KERNELS:
-        lines = ptxas_lines(report, kernel)
-        log(f"ptxas {kernel}: " + " | ".join(lines))
-        spills = [int(n) for line in lines for n in
-                  re.findall(r"(\d+) bytes spill", line)]
-        if not lines or any(spills):
-            raise RuntimeError(f"{kernel}: no ptxas report or it spills")
+def onepass_gate(tag, got, onepass_plain, exact, stack: bool) -> dict:
+    """The one-pass rule (tests/test_torch_core_onepass.py): `got`'s rms
+    error against the float64 function `exact` within 0.8-1.25x of the
+    plain one-pass version's, its max error at most 5e-2 x max(1,
+    max|exact|), and, for the stack, every output a bf16 value; raises
+    where it fails. Returns the errors."""
+    def rms(a):
+        return float(a.double().square().mean().sqrt())
+
+    r = {"rms_err_exact": rms(got - exact),
+         "plain_rms_err_exact": rms(onepass_plain - exact),
+         "max_err_exact": float((got - exact).abs().max()),
+         "max_abs_err": float((got - onepass_plain).abs().max())}
+    band = 5e-2 * max(1.0, float(exact.abs().max()))
+    ratio = r["rms_err_exact"] / max(r["plain_rms_err_exact"], 1e-300)
+    bf16 = not stack or not bool((got.view(torch.int32) & 0xFFFF).any())
+    log(f"{tag} one-pass: rms error vs float64 {r['rms_err_exact']:.3e} "
+        f"(plain one-pass {r['plain_rms_err_exact']:.3e}, ratio "
+        f"{ratio:.4f}, gate 0.8-1.25); max error {r['max_err_exact']:.3e} "
+        f"(band {band:.3e}); max|kernel - plain one-pass| "
+        f"{r['max_abs_err']:.3e}" + ("; outputs bf16 values: " +
+                                       str(bf16) if stack else ""))
+    if not (torch.isfinite(got).all() and 0.8 <= ratio <= 1.25
+            and r["max_err_exact"] <= band and bf16):
+        raise RuntimeError(f"{tag}: the one-pass kernel misses its rule")
+    return r
+
+
+def _double(args):
+    return [({key: val.double() for key, val in a.items()}
+             if isinstance(a, dict) else a.double()) for a in args]
+
+
+def check_kernels(cb, dev, card: str) -> dict:
+    """Phase 3: both kernels in both modes. accurate=True (3xTF32)
+    against the plain version; accurate=False (one bf16 pass a product)
+    under `onepass_gate` against the float32 plain version computed in
+    float64; reruns bit-identical in both modes, the first case of each
+    kernel timed in both modes with its share of the TF32 MMA rate (3 MMAs
+    a product) or of the bf16 bound. Returns {name: record}, the one-pass
+    mode's under name + "_onepass"."""
     gen = torch.Generator(device=dev).manual_seed(SEED)
     results = {}
     for name, b, r, p, lk in KERNEL_CASES:
-        nb = NB if name == "fused_core_stack" else 1
+        stack = name == "fused_core_stack"
+        nb = NB if stack else 1
         a = core_inputs(gen, b, r, nb, dev, p, lk)
-        if name == "fused_core_stack":
+        if stack:
             args = (a["x"], a["mods"], a["k"], a["v"], a["ws"], a["lift_w"],
                     a["lift_b"], a["pos_emb"], a["on_scale"], a["on_bias"],
                     a["head_w"], a["head_b"])
-            kernel = lambda acc=False: cb.fused_core_stack(
-                *args, p=p, chunk=r, accurate=acc)
-            plain = lambda: cb.fused_core_stack_plain(*args, p=p)
-            ins = [a["x"], a["mods"], a["k"], a["v"], *a["ws"].values(),
-                   a["lift_w"], a["lift_b"], a["pos_emb"], a["on_scale"],
-                   a["on_bias"], a["head_w"], a["head_b"]]
+            wrapper, plain_fn, onepass_fn = (
+                cb.fused_core_stack, cb.fused_core_stack_plain,
+                cb.fused_core_stack_onepass_plain)
             out_bytes = a["x"].numel() * 4
         else:
             w = {key: val[0].contiguous() for key, val in a["ws"].items()}
-            mods = a["mods"][:, :6].contiguous()
-            args = (a["x3"], mods, a["k"], a["v"], w)
-            kernel = lambda acc=False: cb.fused_core_block(
-                *args, p=p, chunk=r, accurate=acc)
-            plain = lambda: cb.fused_core_block_plain(*args, p=p)
-            ins = [a["x3"], mods, a["k"], a["v"], *w.values()]
+            args = (a["x3"], a["mods"][:, :6].contiguous(), a["k"], a["v"],
+                    w)
+            wrapper, plain_fn, onepass_fn = (
+                cb.fused_core_block, cb.fused_core_block_plain,
+                cb.fused_core_block_onepass_plain)
             out_bytes = a["x3"].numel() * 4
+        ins = [t for arg in args for t in
+               (arg.values() if isinstance(arg, dict) else [arg])]
+        kernel = lambda acc: wrapper(*args, p=p, chunk=r, accurate=acc)
+        plain = lambda: plain_fn(*args, p=p)
+        onepass_plain = lambda: onepass_fn(*args, p=p)
         tag = f"{name} B={b} R={r} P={p} Lk={lk}"
         with torch.no_grad():
-            got = kernel()
-            again = kernel()
-            accurate = kernel(True)
+            got, again = kernel(True), kernel(True)
+            one, one_again = kernel(False), kernel(False)
             torch.cuda.synchronize()
-            want = plain()
+            want, want_one = plain(), onepass_plain()
+            exact = plain_fn(*_double(args), p=p)
             torch.cuda.synchronize()
         if not torch.isfinite(got).all():
             raise RuntimeError(f"{tag}: non-finite output")
-        same = torch.equal(got, again) and torch.equal(got, accurate)
+        same = torch.equal(got, again) and torch.equal(one, one_again)
         err = float((got - want).abs().max())
         scale = float(want.abs().max())
         tol = 1e-4 * max(1.0, scale)
-        log(f"{tag}: max_abs_err={err:.3e} "
+        log(f"{tag}: accurate=True max_abs_err={err:.3e} "
             f"max_rel_err={err / max(scale, 1e-30):.3e} max|plain|="
-            f"{scale:.4f} tol={tol:.3e}; rerun and accurate=True "
-            f"bit-identical: {same}")
+            f"{scale:.4f} tol={tol:.3e}; reruns bit-identical in both "
+            f"modes: {same}")
         if not err <= tol:
             raise RuntimeError(f"{tag}: error {err} > {tol}")
         if not same:
-            raise RuntimeError(f"{tag}: a rerun or accurate=True differs")
+            raise RuntimeError(f"{tag}: a rerun differs")
+        gate = onepass_gate(tag, one, want_one, exact, stack)
         rows = b * r * p
         flops = nb * rows * 2 * D * (14 * D + 2 * p + 2 * lk)
         nbytes = sum(t.numel() * 4 for t in ins) + out_bytes
         entry = results.setdefault(name, {"max_abs_err": 0.0})
         entry["max_abs_err"] = max(entry["max_abs_err"], err)
+        entry1 = results.setdefault(name + "_onepass", {"max_abs_err": 0.0})
+        for key, val in gate.items():
+            entry1[key] = max(entry1.get(key, 0.0), val)
         if r == KERNEL_CASES[0][2]:
             with torch.no_grad():
-                ms = time_ms(kernel)
+                ms = time_ms(lambda: kernel(True))
+                ms1 = time_ms(lambda: kernel(False))
                 plain_ms = time_ms(plain)
+                plain1_ms = time_ms(onepass_plain)
             bd = bound(flops, nbytes)
+            bd1 = bound(flops, nbytes, tc_rate=PEAK_BF16_FLOPS)
             # 3 TF32 MMAs a product: the share of the tensor cores' TF32
             # peak that the counted operations, tripled, reach
             share = 3 * flops / (ms * 1e-3) / PEAK_TF32_FLOPS
-            entry.update(ms=ms, plain_ms=plain_ms, **bd, flops=flops,
-                         bytes=nbytes, shape=f"B={b} R={r}",
-                         tf32_share=share)
-            log(f"{tag}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-                f"{bound_text(bd, flops, nbytes)}, achieved "
-                f"{flops / ms / 1e9:.2f} TFLOP/s, {100 * share:.1f} % of "
-                f"the TF32 MMA rate (3 MMAs a product); {card}")
+            common = dict(flops=flops, bytes=nbytes, shape=f"B={b} R={r}")
+            entry.update(ms=ms, plain_ms=plain_ms, **bd, **common,
+                         tflops=flops / ms / 1e9, tf32_share=share)
+            entry1.update(ms=ms1, plain_ms=plain1_ms, **bd1, **common,
+                          tflops=flops / ms1 / 1e9,
+                          bound_share=bd1["bound_ms"] / ms1)
+            log(f"{tag}: accurate=True kernel {ms:.3f} ms, plain "
+                f"{plain_ms:.3f} ms, {bound_text(bd, flops, nbytes)}, "
+                f"achieved {flops / ms / 1e9:.2f} TFLOP/s, {100 * share:.1f}"
+                f" % of the TF32 MMA rate (3 MMAs a product); {card}")
+            log(f"{tag}: accurate=False (one pass) kernel {ms1:.3f} ms, "
+                f"plain one-pass {plain1_ms:.3f} ms, bound "
+                f"{bd1['bound_ms']:.4f} ms at the bf16 rate "
+                f"({bd1['bound_by']}), achieved {flops / ms1 / 1e9:.2f} "
+                f"TFLOP/s, {100 * bd1['bound_ms'] / ms1:.1f} % of the bound,"
+                f" {ms / ms1:.3f}x the 3xTF32 kernel's speed; {card}")
     return results
 
 
@@ -1970,15 +2054,17 @@ def check_flash_train_entry(at, ckdir, dev, card):
 
 def check_flash_serving(at, cb, ckdir, dev, card) -> None:
     """Phase 13 (c): a configs[3] posterior ensemble (DDIM-50, 8
-    conditions x 1000 members on the fused core) from phase 13's trained
-    flash-arm model: one flash forward per call (the condition is encoded
-    once), draws within 1e-3 of the all-plain path."""
+    conditions x 1000 members on the fused core in its float32 mode,
+    ensemble_mega_accurate=True) from phase 13's trained flash-arm model:
+    one flash forward per call (the condition is encoded once), draws
+    within 1e-3 of the all-plain path."""
     from ertdx_torch import configs, sample, train
     from ertdx_torch.diffusion import schedule_from_config
 
     cfg = flash_arm_cfg(configs)
     state, _, _ = train.load_best_model(ckdir, cfg, device=dev)
     model = state.model.eval()
+    model.ensemble_mega_accurate = True
     plain = plain_attention(model)
     plain.ensemble_mega = False
     scfg = configs.DDIM_ENSEMBLE.sample
@@ -4498,8 +4584,11 @@ TP_LEAVES = 34
 
 
 def mesh_posterior_cfg(configs):
-    """The configs[3] model and sampler of phase 20 (c) and (e)."""
-    return configs.DDIM_ENSEMBLE
+    """The configs[3] model and sampler of phase 20 (c) and (e), the fused
+    core in its float32 mode (held at phase 4's 1e-3)."""
+    cfg = configs.DDIM_ENSEMBLE
+    return dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, ensemble_mega_accurate=True))
 
 
 def sync(dev) -> None:
@@ -4985,6 +5074,165 @@ def check_mesh_phase(dev, card: str, root: Path) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# 21. the default main path: the fused core's one-pass mode
+# ---------------------------------------------------------------------------
+
+def serving_setup(dev):
+    """configs[3] as shipped (DDIM_ENSEMBLE: random weights from SEED
+    through params_from_jax), its 8 conditions and x_T: phases 4 and
+    21."""
+    from ertdx_torch import configs
+    from ertdx_torch.models import build_model
+    from ertdx_torch.utils.weights import flax_shapes, params_from_jax
+    cfg = configs.DDIM_ENSEMBLE
+    model = build_model(cfg.model, device=dev).eval()
+    rng = np.random.default_rng(SEED)
+    params_from_jax(model, random_flax_tree(flax_shapes(model), rng))
+    n_cond = 8
+    cond = torch.from_numpy(rng.standard_normal(
+        (n_cond, cfg.model.cond_length, cfg.model.cond_channels)
+    ).astype(np.float32)).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    x_T = torch.randn(n_cond * cfg.sample.uncertainty_samples,
+                      cfg.model.param_dim, generator=gen, device=dev)
+    return cfg, model, cond, x_T
+
+
+def moments_gap(label, u, ref) -> float:
+    """Fail unless the ensemble mean and std of each condition and
+    parameter of u (members, conditions, P) lie within 5e-2 x max(1,
+    |ref's|) of ref's; log them and the draws' max gap, return it."""
+    gaps = {}
+    for stat, fn in (("mean", lambda a: a.mean(0)),
+                     ("std", lambda a: a.std(0))):
+        a, b = fn(u), fn(ref)
+        gaps[stat] = float(((a - b).abs() / b.abs().clamp(min=1.0)).max())
+    du = float((u - ref).abs().max())
+    log(f"{label}: max|dmean| / max(1, |mean|) = {gaps['mean']:.3e}, "
+        f"max|dstd| / max(1, |std|) = {gaps['std']:.3e} (gate 5e-2); the "
+        f"draws' max gap {du:.3e}, max|u| {float(ref.abs().max()):.4f}")
+    if not (torch.isfinite(u).all() and max(gaps.values()) <= 5e-2):
+        raise RuntimeError(f"{label}: the ensemble moments disagree")
+    return du
+
+
+def check_onepass_serving(cb, dev, card) -> dict:
+    """Phase 21: configs[3] as shipped, in the fused core's one-pass
+    mode, JAX's default: (a) 8 x 1000 members by DDIM-50 with exactly 50
+    one-pass fused_core_stack launches and no 3xTF32 one, then the
+    inverse pipeline; (b) the same run with accurate=True from the same
+    x_T, the moments within `moments_gap`'s band; (c) the first step's
+    denoiser call (its kernel inputs captured in (a)) under
+    `onepass_gate`; (d) both modes' ms per DDIM step, in turns (one-pass,
+    accurate, accurate, one-pass; reruns bit-identical); (e) the
+    per-block variant over 2 conditions in the one-pass mode, 200
+    one-pass fused_core_block launches, its moments against (a)'s."""
+    from ertdx_torch import sample
+    from ertdx_torch.diffusion import sample_ddim, schedule_from_config
+    from ertdx_torch.models import mega
+    from ertdx_torch.params import ParameterSpace
+    from ertdx_torch.transforms import MinMaxScaler
+
+    cfg, model, cond, x_T = serving_setup(dev)
+    if model.ensemble_mega_accurate:
+        raise RuntimeError("configs[3] does not ship JAX's default mode")
+    schedule = schedule_from_config(cfg.diffusion)
+    n_cond, n_real = cond.shape[0], cfg.sample.uncertainty_samples
+    steps, nb = cfg.sample.ddim_steps, cfg.model.num_blocks
+    first = []
+    stack_fn = mega.fused_core_stack
+
+    def capture(*args, **kw):
+        if not first:
+            first.append(([a.clone() if torch.is_tensor(a) else a
+                           for a in args], kw))
+        return stack_fn(*args, **kw)
+
+    def run(label, accurate):
+        model.ensemble_mega_accurate = accurate
+        cb.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        u = sample.posterior_ensemble(model, cond, schedule, n_real,
+                                      cfg.sample, x_T=x_T, device=dev)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / steps * 1e3
+        one = cb.onepass_launches["fused_core_stack"]
+        expect_launches(label, {"one-pass": one, "3xTF32":
+                                cb.launches["fused_core_stack"] - one},
+                        {"one-pass": 0 if accurate else steps,
+                         "3xTF32": steps if accurate else 0})
+        return u, ms
+
+    mega.fused_core_stack = capture
+    try:
+        u1, ms1 = run("(a) one-pass ensemble", False)
+    finally:
+        mega.fused_core_stack = stack_fn
+    if tuple(u1.shape) != (n_real, n_cond, cfg.model.param_dim):
+        raise RuntimeError("(a) one-pass ensemble: wrong shape")
+    space = ParameterSpace()
+    phys, mask = sample.inverse_pipeline(
+        u1, MinMaxScaler.fit(space.plims.T), space=space)
+    if phys.shape != tuple(u1.shape) or not np.isfinite(phys).all():
+        raise RuntimeError("(a) inverse pipeline: bad output")
+    log(f"(a) inverse pipeline: valid fraction {float(mask.mean()):.6f}")
+
+    u3, ms3 = run("(b) accurate=True ensemble", True)
+    du = moments_gap("(b) one-pass vs accurate=True", u1, u3)
+
+    args, kw = first[0]
+    p = kw["p"]
+    with torch.no_grad():
+        got = stack_fn(*args, **kw)
+        torch.cuda.synchronize()
+        onepass_gate("(c) the first step's denoiser call", got,
+                     cb.fused_core_stack_onepass_plain(*args, p=p),
+                     cb.fused_core_stack_plain(*_double(args), p=p),
+                     stack=True)
+
+    u3b, ms3b = run("(d) accurate=True again", True)
+    u1b, ms1b = run("(d) one-pass again", False)
+    if not (torch.equal(u1, u1b) and torch.equal(u3, u3b)):
+        raise RuntimeError("(d) a rerun differs")
+    log(f"(d) ms per DDIM step (8 x 1000, host clock, in turns): one-pass "
+        f"{ms1:.3f} / {ms1b:.3f} (the first with the input capture), "
+        f"accurate=True {ms3:.3f} / {ms3b:.3f}; reruns bit-identical; "
+        f"{card}")
+
+    nb_cond = 2
+    model.ensemble_mega_accurate = False
+    with torch.no_grad():
+        ctx = model.encode_condition(cond[:nb_cond])
+        weights = mega.mega_weights(model)
+        cb.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ub = sample_ddim(
+            lambda x, t: mega.mega_denoise_ensemble(
+                model, x, t, ctx, n_real, p=cfg.model.param_dim,
+                d=cfg.model.hidden_dim, num_blocks=nb, chunk=n_real,
+                accurate=False, stack=False, weights=weights),
+            (nb_cond * n_real, cfg.model.param_dim), schedule, steps,
+            x_T=x_T[:nb_cond * n_real], device=dev)
+        torch.cuda.synchronize()
+        block_ms = (time.perf_counter() - t0) / steps * 1e3
+    expect_launches("(e) per-block one-pass", {
+        "one-pass": cb.onepass_launches["fused_core_block"],
+        "3xTF32": cb.launches["fused_core_block"]
+        - cb.onepass_launches["fused_core_block"]},
+        {"one-pass": steps * nb, "3xTF32": 0})
+    ub = ub.reshape(nb_cond, n_real, -1).transpose(0, 1)
+    moments_gap("(e) per-block one-pass vs the stack", ub, u1[:, :nb_cond])
+    log(f"(e) per-block one-pass: {block_ms:.3f} ms per DDIM step "
+        f"({nb_cond} conditions x {n_real} members; {card})")
+    return {"onepass_step_ms": [ms1, ms1b], "accurate_step_ms": [ms3, ms3b],
+            "du": du, "block_step_ms": block_ms,
+            "launches": {"fused_core_stack_onepass": steps,
+                         "fused_core_block_onepass": steps * nb}}
+
+
 def random_flax_tree(shapes, rng) -> dict:
     """A flax-layout tree of non-zero numpy leaves at init-like scales."""
     out = {}
@@ -5012,7 +5260,6 @@ def main() -> int:
     try:
         from ertdx_torch import configs, sample
         from ertdx_torch.diffusion import schedule_from_config, sample_ddim
-        from ertdx_torch.models import build_model
         from ertdx_torch.models.mega import (mega_denoise_ensemble,
                                              mega_weights)
         from ertdx_torch.ops import _build
@@ -5024,7 +5271,6 @@ def main() -> int:
         from ertdx_torch.ops import slab_attn as sa
         from ertdx_torch.params import ParameterSpace
         from ertdx_torch.transforms import MinMaxScaler
-        from ertdx_torch.utils.weights import flax_shapes, params_from_jax
     except ImportError as exc:
         print(f"chip_smoke: the ertdx_torch package is missing ({exc}); "
               "run from the root of the repository", file=sys.stderr)
@@ -5054,7 +5300,7 @@ def main() -> int:
         if "registers" in line or "Compiling entry" in line
         or "bytes stack frame" in line))
     check_tensor_cores(kernels.path)
-    check_no_spill(kernels.report, GN_KERNELS)
+    check_no_spill(kernels.report, CORE_KERNELS + GN_KERNELS)
     check_wgmma(kernels.path, kernels.report)
     check_bf16_tensor_cores(kernels.path, kernels.report)
     check_no_spill(kernels.report, CONV_BF16_KERNELS + GN_BF16_KERNELS
@@ -5063,23 +5309,17 @@ def main() -> int:
 
     # 3. kernels against their plain versions
     t0 = time.perf_counter()
-    results = check_kernels(cb, dev, kernels.report, card)
+    results = check_kernels(cb, dev, card)
     phase("kernels", t0)
 
     # 4. main path: the configs[3] ensemble
     t0 = time.perf_counter()
-    cfg = configs.DDIM_ENSEMBLE
-    model = build_model(cfg.model, device=dev).eval()
-    rng = np.random.default_rng(SEED)
-    params_from_jax(model, random_flax_tree(flax_shapes(model), rng))
+    cfg, model, cond, x_T = serving_setup(dev)
+    # the float32 function (3xTF32), held to the plain module path at
+    # 1e-3; phase 21 runs the preset's default, JAX's one-pass mode
+    model.ensemble_mega_accurate = True
     schedule = schedule_from_config(cfg.diffusion)
-    n_cond, n_real = 8, cfg.sample.uncertainty_samples
-    cond = torch.from_numpy(rng.standard_normal(
-        (n_cond, cfg.model.cond_length, cfg.model.cond_channels)
-    ).astype(np.float32)).to(dev)
-    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
-    x_T = torch.randn(n_cond * n_real, cfg.model.param_dim, generator=gen,
-                      device=dev)
+    n_cond, n_real = cond.shape[0], cfg.sample.uncertainty_samples
     steps = cfg.sample.ddim_steps
     with torch.no_grad():           # first encoder call: library set-up
         model.encode_condition(cond[:1])
@@ -5144,7 +5384,8 @@ def main() -> int:
             lambda x, t: mega_denoise_ensemble(
                 model, x, t, ctx, n_real, p=cfg.model.param_dim,
                 d=cfg.model.hidden_dim, num_blocks=cfg.model.num_blocks,
-                chunk=n_real, stack=False, weights=weights),
+                chunk=n_real, accurate=model.ensemble_mega_accurate,
+                stack=False, weights=weights),
             (nb_cond * n_real, cfg.model.param_dim), schedule, steps,
             x_T=x_T[:nb_cond * n_real], device=dev)
         torch.cuda.synchronize()
@@ -5344,6 +5585,16 @@ def main() -> int:
         f"{time.perf_counter() - t0:.3f} s")
     phase("mesh on one card", t0)
 
+    # 21. the default main path: configs[3] in the one-pass mode
+    t0 = time.perf_counter()
+    onepass = check_onepass_serving(cb, dev, card)
+    one_ms = [round(ms, 3) for ms in onepass["onepass_step_ms"]]
+    acc_ms = [round(ms, 3) for ms in onepass["accurate_step_ms"]]
+    log(f"one-pass main path ({card}): {one_ms} ms per DDIM step against "
+        f"{acc_ms} with accurate=True; the draws' max gap "
+        f"{onepass['du']:.3e}; per-block {onepass['block_step_ms']:.3f}")
+    phase("one-pass main path", t0)
+
     launches = {"fused_core_stack": main_launches["fused_core_stack"],
                 "fused_core_block": block_launches["fused_core_block"],
                 **train_launches,
@@ -5353,9 +5604,12 @@ def main() -> int:
                 **{k: v for k, v in bf16_launches.items()
                    if k.endswith("_bf16")},
                 **{k: v for k, v in fused16_launches.items()
-                   if k.endswith("_bf16") and not k.startswith("slab_")}}
+                   if k.endswith("_bf16") and not k.startswith("slab_")},
+                **onepass["launches"]}
     replaces = {"fused_core_stack": "ertdx/ops/core_block.py:440",
                 "fused_core_block": "ertdx/ops/core_block.py:281",
+                "fused_core_stack_onepass": "ertdx/ops/core_block.py:440",
+                "fused_core_block_onepass": "ertdx/ops/core_block.py:281",
                 "slab_attention_fwd": "ertdx/ops/slab_attn.py:147",
                 "slab_attention_bwd": "ertdx/ops/slab_attn.py:184",
                 "block_self_attention": "ertdx/ops/ensemble_attn.py:151",
@@ -5375,6 +5629,8 @@ def main() -> int:
                 "gn_silu_conv3_bwd_bf16": "ertdx/ops/conv.py:109"}
     sources = {"fused_core_stack": "ertdx_torch/csrc/core_block.cu",
                "fused_core_block": "ertdx_torch/csrc/core_block.cu",
+               "fused_core_stack_onepass": "ertdx_torch/csrc/core_block.cu",
+               "fused_core_block_onepass": "ertdx_torch/csrc/core_block.cu",
                "slab_attention_fwd": "ertdx_torch/csrc/slab_attn.cu",
                "slab_attention_bwd": "ertdx_torch/csrc/slab_attn.cu",
                "block_self_attention": "ertdx_torch/csrc/ensemble_attn.cu",
@@ -5399,8 +5655,9 @@ def main() -> int:
          "bound_by": r["bound_by"], "bound_tc_ms": r["bound_tc_ms"],
          "bound_fp32_ms": r["bound_fp32_ms"],
          "library_ms": r.get("library_ms"), "shape": r["shape"],
-         **{k: r[k] for k in ("tflops", "graph_ms", "library_graph_ms")
-            if k in r}}
+         **{k: r[k] for k in ("tflops", "graph_ms", "library_graph_ms",
+                              "rms_err_exact", "plain_rms_err_exact",
+                              "max_err_exact") if k in r}}
         for name, r in {**results, **slab, **ensemble, **gnconv,
                         **flash, **slab_bf16, **gnconv_bf16}.items()]}
     log(f"[phase] total: {time.perf_counter() - t_all:.3f} s")

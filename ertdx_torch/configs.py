@@ -48,7 +48,10 @@ class ModelConfig:
     ensemble_min_chains: int = 1024
     ensemble_mega: bool = True     # fused-core ensemble sampling
                                    # (models/mega.py, ops/core_block.py)
-    ensemble_mega_accurate: bool = False  # no effect in the port yet
+    ensemble_mega_accurate: bool = False  # the fused core's numeric mode
+                                   # (ops/core_block.py): False, JAX's
+                                   # default, one bf16 pass a product;
+                                   # True the float32 function (3xTF32)
     attn_flash_min_logits: int = 0  # encoder flash attention (ops/
                                     # attention.py) once b h lp^2 reaches
                                     # it; 0 = only at lp >= 1024

@@ -19,8 +19,13 @@ A bfloat16 model takes this path as JAX's does (ertdx/models/mega.py:
 82-99, 167-173): only its condition encoder, which runs once a run,
 computes in bfloat16; `mega_denoise_ensemble` casts the context and the
 chains to float32 once, at entry, and everything after it (the time
-MLP, the AdaLN rows, the cross K/V and the fused-core kernels) computes
-in float32 from the float32 parameters.
+MLP, the AdaLN rows, the cross K/V and the fused-core kernels' inputs)
+is float32 from the float32 parameters.
+
+The kernels' numeric mode is the model's `ensemble_mega_accurate`, as
+in JAX (ertdx/models/mega.py:116-132): False, the default, runs JAX's
+one-pass mode (each product one bf16 pass, float32 accumulation), True
+the float32 function (3xTF32 on the card); see ops/core_block.py.
 """
 from __future__ import annotations
 
@@ -101,7 +106,8 @@ def mega_plan(model, n_real: int, batch: int = 1,
     """The fused-core plan, or None for the plain module path.
 
     Requires the `ensemble_mega` flag, a single-head core (float32 or
-    bfloat16: both run the float32 kernels), tensors on a CUDA device,
+    bfloat16: both run the kernels on float32 inputs), tensors on a CUDA
+    device,
     at least MIN_TOTAL_CHAINS chains PER DEVICE, and a core shape the
     CUDA kernels
     take (ops/core_block.kernel_supports: D=128, P <= 32,
@@ -111,7 +117,8 @@ def mega_plan(model, n_real: int, batch: int = 1,
     per-block variant and A/B comparator. With a mesh the condition batch
     must divide the data axis and the model axis must be 1
     (ertdx/models/mega.py:103-111): conditions then shard over `data`,
-    each rank running the kernel on its own."""
+    each rank running the kernel on its own. `accurate` is the model's
+    `ensemble_mega_accurate`: the kernels' numeric mode."""
     if not getattr(model, "ensemble_mega", False):
         return None
     if getattr(model, "core_heads", 0) != 1:
@@ -158,8 +165,10 @@ def mega_denoise_ensemble(model, x, t, cond_ctx, n_real: int, *, p: int,
 
     stack=True runs lift -> all blocks -> head as ONE kernel launch;
     stack=False launches one kernel per block, with lift, out-norm and
-    head in plain PyTorch. `weights` (from `mega_weights`) saves
-    regathering them at every step."""
+    head in plain PyTorch (float32 in both modes). `accurate` selects the
+    kernels' mode (False: one bf16 pass a product, JAX's default).
+    `weights` (from `mega_weights`) saves regathering them at every
+    step."""
     w = weights if weights is not None else mega_weights(model)
     # a bfloat16 model hands over a bf16 context: the kernel side computes
     # in float32, so cast once here (ertdx/models/mega.py:167-173)

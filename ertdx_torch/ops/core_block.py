@@ -14,15 +14,25 @@ csrc/core_block.cu. Argument layouts are the JAX package's:
           w2 (nb,4D,D), biases bso/bco/b2 (nb,D), b1 (nb,4D); dense
           kernels in (in, out) layout
 
-A wrapper given CPU tensors computes the plain PyTorch version; given
-CUDA tensors it launches its kernel or raises — it never falls back. The
-plain versions are also the oracle the kernels are held against on the
-card. `launches` counts kernel launches only.
+`accurate` selects JAX's numeric mode (ertdx/ops/core_block.py::_dot),
+and each mode has its kernel and its plain version:
 
-`accurate` selects the TPU kernels' bf16_3x mode in JAX; the CUDA
-kernels run their products on the tensor cores in 3xTF32 (three TF32
-MMAs a product, fp32-class, at least as exact as bf16_3x) whatever its
-value, so it selects nothing yet: both values give the same bits.
+* `accurate=False`, JAX's default: every product that JAX's `_dot`
+  computes is one bf16 pass with float32 accumulation, its operands
+  rounded to bf16 to nearest even (`round_bf16`, `mm_onepass`). The
+  stack also rounds what JAX's one-hot relayout products round (the
+  chains' x, pos_emb, the head's tokens and weights, eps plus the head
+  bias), so every output of the one-pass stack is a bf16 value. The
+  kernels run each product as one bf16 mma.sync m16n8k16.
+* `accurate=True`: the float32 function; the kernels run each product
+  in 3xTF32 (three TF32 MMAs, fp32-class, at least as exact as JAX's
+  bf16_3x).
+
+A wrapper given CPU tensors computes the plain PyTorch version of the
+mode asked for; given CUDA tensors it launches that mode's kernel or
+raises — it never falls back. The plain versions are also the oracle the
+kernels are held against on the card. `launches` counts kernel launches
+of both modes, `onepass_launches` those of the one-pass kernels alone.
 """
 from __future__ import annotations
 
@@ -40,11 +50,13 @@ KERNEL_P_MAX = 32
 KERNEL_LK_MAX = 256
 
 launches = {"fused_core_stack": 0, "fused_core_block": 0}
+onepass_launches = {"fused_core_stack": 0, "fused_core_block": 0}
 
 
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    for counts in (launches, onepass_launches):
+        for name in counts:
+            counts[name] = 0
 
 
 def kernel_supports(p: int, d: int, lk: int) -> bool:
@@ -63,54 +75,95 @@ def _ln(x):
     return F.layer_norm(x, x.shape[-1:], eps=LN_EPS)
 
 
-def _block_plain(x, mods, k, v, w, p: int):
-    """One CoreBlock on (B, R*P, D) condition-major rows."""
+def round_bf16(a: torch.Tensor) -> torch.Tensor:
+    """a rounded to bf16 to nearest even, in a's dtype: JAX's
+    `astype(bfloat16)` bit for bit, a NaN included (the quiet NaN of its
+    sign; PyTorch's CPU cast gives another NaN)."""
+    r = a.to(torch.bfloat16).to(a.dtype)
+    return torch.where(torch.isnan(a),
+                       torch.copysign(torch.full_like(a, math.nan), a), r)
+
+
+def mm_onepass(a, b):
+    """a @ b as JAX's one-pass `_dot` computes it: both operands rounded
+    to bf16, the exact products summed in a's dtype (float32)."""
+    return round_bf16(a) @ round_bf16(b)
+
+
+def _block_plain(x, mods, k, v, w, p: int, mm=torch.matmul):
+    """One CoreBlock on (B, R*P, D) condition-major rows, every product
+    through mm."""
     b, rows, d = x.shape
     scale = 1.0 / math.sqrt(d)
     s1, h1, s2, h2, s3, h3 = (mods[:, j:j + 1, :] for j in range(6))
 
-    qkv = (_ln(x) * (1.0 + s1) + h1) @ w["wqkv"]
+    qkv = mm(_ln(x) * (1.0 + s1) + h1, w["wqkv"])
     q, kk, vv = (z.reshape(b * rows // p, p, d)
                  for z in qkv.split(d, dim=-1))
-    att = torch.softmax((q * scale) @ kk.transpose(1, 2), dim=-1)
-    a = (att @ vv).reshape(b, rows, d)
-    x = x + a @ w["wso"] + w["bso"]
+    att = torch.softmax(mm(q * scale, kk.transpose(1, 2)), dim=-1)
+    a = mm(att, vv).reshape(b, rows, d)
+    x = x + mm(a, w["wso"]) + w["bso"]
 
-    q = ((_ln(x) * (1.0 + s2) + h2) @ w["wcq"]) * scale
-    att = torch.softmax(q @ k.transpose(1, 2), dim=-1)
-    x = x + (att @ v) @ w["wco"] + w["bco"]
+    q = mm(_ln(x) * (1.0 + s2) + h2, w["wcq"]) * scale
+    att = torch.softmax(mm(q, k.transpose(1, 2)), dim=-1)
+    x = x + mm(mm(att, v), w["wco"]) + w["bco"]
 
-    h = F.gelu((_ln(x) * (1.0 + s3) + h3) @ w["w1"] + w["b1"],
+    h = F.gelu(mm(_ln(x) * (1.0 + s3) + h3, w["w1"]) + w["b1"],
                approximate="tanh")
-    return x + h @ w["w2"] + w["b2"]
+    return x + mm(h, w["w2"]) + w["b2"]
 
 
-def fused_core_block_plain(x3, mods, k, v, w, *, p: int):
+def _block(x3, mods, k, v, w, p: int, mm):
     g, rows, d = x3.shape
     b = mods.shape[0]
-    out = _block_plain(x3.reshape(b, g // b * rows, d), mods, k, v, w, p)
+    out = _block_plain(x3.reshape(b, g // b * rows, d), mods, k, v, w, p,
+                       mm)
     return out.reshape(g, rows, d)
 
 
-def fused_core_stack_plain(x, mods, k, v, ws, lift_w, lift_b, pos_emb,
-                           on_scale, on_bias, head_w, head_b, *, p: int):
+def fused_core_block_plain(x3, mods, k, v, w, *, p: int):
+    return _block(x3, mods, k, v, w, p, torch.matmul)
+
+
+def fused_core_block_onepass_plain(x3, mods, k, v, w, *, p: int):
+    return _block(x3, mods, k, v, w, p, mm_onepass)
+
+
+def _stack(x, mods, k, v, ws, lift_w, lift_b, pos_emb, on_scale, on_bias,
+           head_w, head_b, p: int, onepass: bool):
+    mm, rnd = ((mm_onepass, round_bf16) if onepass
+               else (torch.matmul, lambda a: a))
     g, chunk, _ = x.shape
     b = mods.shape[0]
     nb = ws["wqkv"].shape[0]
     d = lift_w.shape[-1]
     lk = k.shape[1]
     r = g // b * chunk
-    cur = (x.reshape(b * r, p, 1) * lift_w.reshape(1, 1, d)
-           + lift_b.reshape(1, 1, d) + pos_emb[None]).reshape(b, r * p, d)
+    cur = (rnd(x).reshape(b * r, p, 1) * lift_w.reshape(1, 1, d)
+           + lift_b.reshape(1, 1, d) + rnd(pos_emb)[None]
+           ).reshape(b, r * p, d)
     k4 = k.reshape(b, nb, lk, d)
     v4 = v.reshape(b, nb, lk, d)
     for i in range(nb):
         w = {key: val[i] for key, val in ws.items()}
         cur = _block_plain(cur, mods[:, 6 * i:6 * i + 6], k4[:, i], v4[:, i],
-                           w, p)
+                           w, p, mm)
     tok = _ln(cur) * on_scale.reshape(1, 1, d) + on_bias.reshape(1, 1, d)
-    eps = tok @ head_w.reshape(d, 1) + head_b.reshape(1, 1, 1)
+    eps = rnd(mm(tok, head_w.reshape(d, 1)) + head_b.reshape(1, 1, 1))
     return eps.reshape(g, chunk, p)
+
+
+def fused_core_stack_plain(x, mods, k, v, ws, lift_w, lift_b, pos_emb,
+                           on_scale, on_bias, head_w, head_b, *, p: int):
+    return _stack(x, mods, k, v, ws, lift_w, lift_b, pos_emb, on_scale,
+                  on_bias, head_w, head_b, p, onepass=False)
+
+
+def fused_core_stack_onepass_plain(x, mods, k, v, ws, lift_w, lift_b,
+                                   pos_emb, on_scale, on_bias, head_w,
+                                   head_b, *, p: int):
+    return _stack(x, mods, k, v, ws, lift_w, lift_b, pos_emb, on_scale,
+                  on_bias, head_w, head_b, p, onepass=True)
 
 
 # ---------------------------------------------------------------------------
@@ -151,6 +204,12 @@ def _check_weights(ws, nb: int, d: int, stacked: bool) -> None:
         _check(key, ws[key], shape)
 
 
+def _count(name: str, accurate: bool) -> None:
+    launches[name] += 1
+    if not accurate:
+        onepass_launches[name] += 1
+
+
 def _same_device(tensors) -> None:
     if len({t.device for t in tensors}) != 1:
         raise ValueError("the kernel's tensors must share one CUDA device")
@@ -160,14 +219,15 @@ def fused_core_stack(x, mods, k, v, ws, lift_w, lift_b, pos_emb, on_scale,
                      on_bias, head_w, head_b, *, p: int, chunk: int,
                      accurate: bool = False):
     """The whole denoiser core, (B*n_chunks, chunk, P) chains -> eps of the
-    same shape. One CUDA launch on the current stream."""
-    del accurate   # 3xTF32 for both values; see the module docstring
+    same shape, in the mode `accurate` selects. One CUDA launch on the
+    current stream."""
     tensors = [x, mods, k, v, *(ws[key] for key in WEIGHT_KEYS), lift_w,
                lift_b, pos_emb, on_scale, on_bias, head_w, head_b]
     if _on_cpu(tensors):
-        return fused_core_stack_plain(x, mods, k, v, ws, lift_w, lift_b,
-                                      pos_emb, on_scale, on_bias, head_w,
-                                      head_b, p=p)
+        plain = (fused_core_stack_plain if accurate
+                 else fused_core_stack_onepass_plain)
+        return plain(x, mods, k, v, ws, lift_w, lift_b, pos_emb, on_scale,
+                     on_bias, head_w, head_b, p=p)
     _same_device(tensors)
     g, chunk_, p_ = x.shape
     b = mods.shape[0]
@@ -195,23 +255,26 @@ def fused_core_stack(x, mods, k, v, ws, lift_w, lift_b, pos_emb, on_scale,
     _check("head_b", head_b, (1, 1))
     out = torch.empty_like(x)
     lib = _build.load().lib
+    entry = lib.ertdx_core_stack if accurate else lib.ertdx_core_stack_onepass
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.ertdx_core_stack(*(t.data_ptr() for t in tensors),
-                                  out.data_ptr(), b, r, p, nb, lk, stream)
+        rc = entry(*(t.data_ptr() for t in tensors), out.data_ptr(), b, r,
+                   p, nb, lk, stream)
     _build.raise_on(rc, "fused_core_stack")
-    launches["fused_core_stack"] += 1
+    _count("fused_core_stack", accurate)
     return out
 
 
 def fused_core_block(x3, mods, k, v, w, *, p: int, chunk: int,
                      accurate: bool = False):
     """One CoreBlock over (B*n_chunks, chunk*P, D) condition-major chain
-    slabs. One CUDA launch on the current stream."""
-    del accurate   # 3xTF32 for both values; see the module docstring
+    slabs, in the mode `accurate` selects. One CUDA launch on the current
+    stream."""
     tensors = [x3, mods, k, v, *(w[key] for key in WEIGHT_KEYS)]
     if _on_cpu(tensors):
-        return fused_core_block_plain(x3, mods, k, v, w, p=p)
+        plain = (fused_core_block_plain if accurate
+                 else fused_core_block_onepass_plain)
+        return plain(x3, mods, k, v, w, p=p)
     _same_device(tensors)
     g, rows, d = x3.shape
     b = mods.shape[0]
@@ -230,10 +293,11 @@ def fused_core_block(x3, mods, k, v, w, *, p: int, chunk: int,
     _check_weights(w, 1, d, stacked=False)
     out = torch.empty_like(x3)
     lib = _build.load().lib
+    entry = lib.ertdx_core_block if accurate else lib.ertdx_core_block_onepass
     with torch.cuda.device(x3.device):
         stream = torch.cuda.current_stream(x3.device).cuda_stream
-        rc = lib.ertdx_core_block(*(t.data_ptr() for t in tensors),
-                                  out.data_ptr(), b, r, p, lk, stream)
+        rc = entry(*(t.data_ptr() for t in tensors), out.data_ptr(), b, r,
+                   p, lk, stream)
     _build.raise_on(rc, "fused_core_block")
-    launches["fused_core_block"] += 1
+    _count("fused_core_block", accurate)
     return out

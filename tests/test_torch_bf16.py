@@ -354,7 +354,7 @@ def test_mega_denoise_of_a_bf16_model_matches_jax_interpret(pair):
     with torch.no_grad():
         got = mega.mega_denoise_ensemble(
             tm, torch.from_numpy(x), tt, ctx, n_real, p=29, d=32,
-            num_blocks=2, chunk=n_real, stack=True)
+            num_blocks=2, chunk=n_real, accurate=True, stack=True)
         module = tm.denoise_ensemble(torch.from_numpy(x), tt, ctx, n_real)
     assert got.dtype == module.dtype == torch.float32
     # float32 after the cast: tests/test_torch_core_block.py's gate

@@ -3,7 +3,10 @@
 The port's `mega_denoise_ensemble` on CPU tensors runs the plain PyTorch
 versions of fused_core_stack / fused_core_block; the JAX package's runs
 its Pallas kernels in interpret mode. Same perturbed weights, same
-inputs, tolerance 2e-5 as tests/test_ops.py's mega parity.
+inputs, tolerance 2e-5 as tests/test_ops.py's mega parity. JAX's kernels
+compute in float32 on the CPU whatever their mode, so the port's side
+passes accurate=True (its float32 function); tests/test_torch_core_
+onepass.py holds the one-pass mode.
 """
 from __future__ import annotations
 
@@ -43,7 +46,7 @@ def test_plain_core_matches_jax_interpret(n_real, stack):
         got = mega.mega_denoise_ensemble(
             tm, t32(x), torch.from_numpy(t).long(),
             tuple(t32(a) for a in ctx), n_real, p=29, d=32, num_blocks=2,
-            chunk=n_real, stack=stack)
+            chunk=n_real, accurate=True, stack=stack)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5,
                                atol=2e-5)
     # CPU tensors take the plain versions: no kernel launch is counted
@@ -61,7 +64,7 @@ def test_mega_matches_module_path():
         for stack in (True, False):
             got = mega.mega_denoise_ensemble(
                 tm, t32(x), tt, tctx, n_real, p=29, d=32, num_blocks=2,
-                chunk=n_real, stack=stack)
+                chunk=n_real, accurate=True, stack=stack)
             np.testing.assert_allclose(got.numpy(), ref.numpy(),
                                        rtol=2e-5, atol=2e-5)
 
@@ -80,14 +83,14 @@ def test_plain_stack_equals_blocks():
     lw, lb, pe = f(1, d), f(1, d), f(p, d)
     ons, onb, hw, hb = f(1, d), f(1, d), f(d, 1), f(1, 1)
     got = cb.fused_core_stack(x, mods, k, v, ws, lw, lb, pe, ons, onb, hw,
-                              hb, p=p, chunk=r)
+                              hb, p=p, chunk=r, accurate=True)
     cur = (x.reshape(b * r, p, 1) * lw + lb + pe).reshape(b, r * p, d)
     for i in range(nb):
         w = {key: val[i] for key, val in ws.items()}
         cur = cb.fused_core_block(cur, mods[:, 6 * i:6 * i + 6],
                                   k.reshape(b, nb, lk, d)[:, i],
                                   v.reshape(b, nb, lk, d)[:, i], w, p=p,
-                                  chunk=r)
+                                  chunk=r, accurate=True)
     want = (cb._ln(cur) * ons + onb) @ hw + hb
     np.testing.assert_allclose(got.numpy(), want.reshape(b, r, p).numpy(),
                                rtol=1e-5, atol=1e-5)
@@ -127,6 +130,9 @@ def test_mega_plan_gates():
     plan = mega.mega_plan(model(), 1000, 8, cond_len=4693, device="cuda")
     assert plan == {"p": 29, "d": 128, "num_blocks": 2, "chunk": 1000,
                     "accurate": False, "stack": True}
+    plan = mega.mega_plan(model(ensemble_mega_accurate=True), 1000, 8,
+                          cond_len=4693, device="cuda")
+    assert plan["accurate"] is True
     assert mega.mega_plan(model(), big, 1, 4693, device="cpu") is None
     assert mega.mega_plan(model(), big, 1, 4693, device=None) is None
     assert mega.mega_plan(model(ensemble_mega=False), big, 1, 4693,

@@ -13,7 +13,8 @@ and CLI on a 2-rank gloo world.
   process does;
 * `posterior_over_dataset(mesh=)` against JAX's (per-batch draws);
 * `mega_denoise_ensemble_sharded` against JAX's `denoise_ensemble` (JAX's
-  own test of its sharded kernel is slow-marked), at JAX's 2e-5;
+  own test of its sharded kernel is slow-marked), at JAX's 2e-5, the
+  fused core in its float32 mode (accurate=True);
 * `distill(mesh=)`, `calibrate_temperature` / `calibrate_guidance(mesh=)`
   and `PosteriorService(mesh=)` against one process at 1e-6;
 * the CLI's `train` and `sample` under `python -m torch.distributed.run
@@ -159,7 +160,7 @@ def _mega_inputs():
     return ({"args": {"seed": 3}, "tree": params, "cond": cond, "x": x,
              "t": t.astype(np.int64), "R": r,
              "plan": dict(p=29, d=32, num_blocks=2, chunk=r,
-                          accurate=False, stack=True)},
+                          accurate=True, stack=True)},
             lambda: np.asarray(denoise(params, jnp.asarray(cond),
                                        jnp.asarray(x), jnp.asarray(t))))
 

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """A/B of fused-core kernel variants on one NVIDIA GPU.
 
-    python3 tools/core_ab.py [--draws] [name ...]
+    python3 tools/core_ab.py [--onepass] [--draws] [--before PATH]
+                             [name ...]
 
 Builds ertdx_torch/csrc/core_block.cu as it stands ("base") and in the
 variants of VARIANTS below, each a list of exact text substitutions in
@@ -10,12 +11,20 @@ started together, into build/core_ab/. Then, in turns (the variants in
 order, then in reverse), times fused_core_stack at B=8, R=1000 and
 fused_core_block at B=2, R=1000 (chip_smoke.py's phase-3 inputs, CUDA
 events) and prints each variant's max abs error against the plain
-version and whether a rerun is bit-identical. With --draws it also runs
-phase 4's configs[3] DDIM-50 ensemble through each variant and prints
-the draws' gaps to the plain module path. The "diag_" variants compute
-wrong results on purpose: they remove one kind of work to show its
-cost. A variant whose build spills is reported and timed all the same.
-Nothing here is imported by the port; it needs nvcc and a card.
+version and whether a rerun is bit-identical. The mode is the 3xTF32
+one (accurate=True; the VARIANTS change its products), or with
+--onepass the one-pass mode (accurate=False, JAX's default), against
+its plain one-pass version. With --draws it also runs phase 4's
+configs[3] DDIM-50 ensemble in that mode through each variant and prints
+the draws' gaps to the plain module path. --before PATH builds an
+earlier core_block.cu (e.g. the parent's: `git show
+HEAD~1:ertdx_torch/csrc/core_block.cu > build/parent/core_block.cu`) as
+the variant "before" (alone with base where no variant is named), times
+it in the 3xTF32 mode and says whether this tree's accurate=True output
+is bit for bit before's on every case of chip_smoke.py's phase 3. The "diag_" variants compute wrong results on
+purpose: they remove one kind of work to show its cost. A variant whose
+build spills is reported and timed all the same. Nothing here is
+imported by the port; it needs nvcc and a card.
 """
 from __future__ import annotations
 
@@ -40,11 +49,13 @@ OUT = os.path.join(ROOT, "build", "core_ab")
 
 _PART = """      float part[MT][NT][4];
       zero(part);
-      chunk_mma<NTB>(part, A, lda, ch * KC, cur, NTB ? LDK : LDW);
+      chunk_mma<NTB, ONEPASS>(part, A, lda, ch * KC, cur,
+                              NTB ? LDK : LDW);
       add_part(acc, part);"""
 _TILE_PART = """    float part[MT][NT][4];
     zero(part);
-    chunk_mma<NTB>(part, A, lda, k0, NTB ? Bs + k0 : Bs + k0 * ldb, ldb);
+    chunk_mma<NTB, ONEPASS>(part, A, lda, k0,
+                            NTB ? Bs + k0 : Bs + k0 * ldb, ldb);
     add_part(acc, part);"""
 _MMA3 = "      for (int i = 0; i < MT; ++i) mma3(part[i][j], a[i], f);"
 _TILES = "constexpr int WM = 32, WN = 16;"
@@ -56,10 +67,10 @@ VARIANTS = {
     # how a product's k steps add up (base: each 32-deep chunk from zero,
     # added in fp32)
     "acc_on_mma": [
-        (_PART, "      chunk_mma<NTB>(acc, A, lda, ch * KC, cur, "
+        (_PART, "      chunk_mma<NTB, ONEPASS>(acc, A, lda, ch * KC, cur, "
                 "NTB ? LDK : LDW);"),
-        (_TILE_PART, "    chunk_mma<NTB>(acc, A, lda, k0, NTB ? Bs + k0 "
-                     ": Bs + k0 * ldb, ldb);")],
+        (_TILE_PART, "    chunk_mma<NTB, ONEPASS>(acc, A, lda, k0, NTB ? "
+                     "Bs + k0 : Bs + k0 * ldb, ldb);")],
     "acc_per_step": [
         (_MMA3, "      for (int i = 0; i < MT; ++i) "
                 "mma3_add(part[i][j], a[i], f);")],
@@ -95,7 +106,9 @@ VARIANTS = {
 
 
 def build(names, source="core_block.cu", variants=None,
-          entry_points=("ertdx_core_stack", "ertdx_core_block"), out=OUT,
+          entry_points=("ertdx_core_stack", "ertdx_core_block",
+                        "ertdx_core_stack_onepass",
+                        "ertdx_core_block_onepass"), out=OUT,
           before=None) -> dict:
     """name -> (the variant's library, ptxas' report). Each variant is
     `source` (in csrc/; a list of sources builds them into one library)
@@ -152,30 +165,23 @@ def build(names, source="core_block.cu", variants=None,
             raise SystemExit(f"{name}: nvcc failed\n{report[-3000:]}")
         lib = ctypes.CDLL(os.path.join(out, name, "lib.so"))
         for fn in entry_points:
+            if name == "before" and not hasattr(lib, fn):
+                continue           # an entry point the earlier tree lacks
             getattr(lib, fn).argtypes = _build.SIGNATURES[fn]
             getattr(lib, fn).restype = ctypes.c_int
         libs[name] = (lib, report)
     return libs
 
 
-def draws_setup(dev):
-    """Phase 4's model, conditions and x_T, and the plain path's draws."""
-    from ertdx_torch import configs, sample
+def draws_setup(dev, accurate: bool):
+    """Phase 4's model (the fused core in the mode `accurate` selects),
+    conditions and x_T, and the plain path's draws."""
+    from ertdx_torch import sample
     from ertdx_torch.diffusion import schedule_from_config
-    from ertdx_torch.models import build_model
-    from ertdx_torch.utils.weights import flax_shapes, params_from_jax
 
-    cfg = configs.DDIM_ENSEMBLE
-    model = build_model(cfg.model, device=dev).eval()
-    rng = np.random.default_rng(cs.SEED)
-    params_from_jax(model, cs.random_flax_tree(flax_shapes(model), rng))
+    cfg, model, cond, x_T = cs.serving_setup(dev)
+    model.ensemble_mega_accurate = accurate
     schedule = schedule_from_config(cfg.diffusion)
-    cond = torch.from_numpy(rng.standard_normal(
-        (8, cfg.model.cond_length, cfg.model.cond_channels)
-    ).astype(np.float32)).to(dev)
-    gen = torch.Generator(device=dev).manual_seed(cs.SEED + 1)
-    x_T = torch.randn(8 * 1000, cfg.model.param_dim, generator=gen,
-                      device=dev)
 
     def run():
         return sample.posterior_ensemble(model, cond, schedule, 1000,
@@ -187,19 +193,51 @@ def draws_setup(dev):
     return run, plain
 
 
+def same_as_before(libs, dev) -> list:
+    """For each case of chip_smoke.py's phase 3 (its inputs, drawn in its
+    order from its seed): whether base's accurate=True output equals
+    before's bit for bit. Sets _build.load; the caller restores it."""
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED)
+    out = []
+    for name, b, r, p, lk in cs.KERNEL_CASES:
+        stack = name == "fused_core_stack"
+        a = cs.core_inputs(gen, b, r, cs.NB if stack else 1, dev, p, lk)
+        if stack:
+            args = (a["x"], a["mods"], a["k"], a["v"], a["ws"], a["lift_w"],
+                    a["lift_b"], a["pos_emb"], a["on_scale"], a["on_bias"],
+                    a["head_w"], a["head_b"])
+            fn = cb.fused_core_stack
+        else:
+            args = (a["x3"], a["mods"][:, :6].contiguous(), a["k"], a["v"],
+                    {key: val[0].contiguous() for key, val in a["ws"].items()})
+            fn = cb.fused_core_block
+        got = {}
+        for lib_name in ("base", "before"):
+            lib = types.SimpleNamespace(lib=libs[lib_name][0])
+            _build.load = lambda lib=lib: lib
+            with torch.no_grad():
+                got[lib_name] = fn(*args, p=p, chunk=r, accurate=True)
+        out.append(f"{name} B={b} R={r} P={p} Lk={lk} "
+                   f"{torch.equal(got['base'], got['before'])}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("core_ab: no CUDA device", file=sys.stderr)
         return 2
     args = sys.argv[1:]
-    draws = "--draws" in args
-    names = ["base"] + ([a for a in args if a != "--draws"]
-                        or list(VARIANTS))
+    draws, onepass = "--draws" in args, "--onepass" in args
+    before = args[args.index("--before") + 1] if "--before" in args \
+        else None
+    asked = [a for a in args if not a.startswith("--") and a != before]
+    names = ["base"] + (asked or ([] if before else list(VARIANTS))) + \
+        (["before"] if before else [])
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     t0 = time.perf_counter()
-    libs = build(names)
+    libs = build(names, before=before)
     print(f"built {len(libs)} variants in {time.perf_counter() - t0:.1f} s"
           f"; {cs.card_line()}", flush=True)
     for name, (_, report) in libs.items():
@@ -215,16 +253,31 @@ def main() -> int:
     a = cs.core_inputs(gen, 2, 1000, 1, dev)
     block_args = (a["x3"], a["mods"][:, :6].contiguous(), a["k"], a["v"],
                   {key: val[0].contiguous() for key, val in a["ws"].items()})
-    stack = lambda: cb.fused_core_stack(*stack_args, p=cs.P, chunk=1000)
-    block = lambda: cb.fused_core_block(*block_args, p=cs.P, chunk=1000)
+    accurate = not onepass
+    stack = lambda: cb.fused_core_stack(*stack_args, p=cs.P, chunk=1000,
+                                        accurate=accurate)
+    block = lambda: cb.fused_core_block(*block_args, p=cs.P, chunk=1000,
+                                        accurate=accurate)
     with torch.no_grad():
-        stack_want = cb.fused_core_stack_plain(*stack_args, p=cs.P)
-        block_want = cb.fused_core_block_plain(*block_args, p=cs.P)
-    run, plain = draws_setup(dev) if draws else (None, None)
+        if onepass:
+            stack_want = cb.fused_core_stack_onepass_plain(*stack_args,
+                                                           p=cs.P)
+            block_want = cb.fused_core_block_onepass_plain(*block_args,
+                                                           p=cs.P)
+        else:
+            stack_want = cb.fused_core_stack_plain(*stack_args, p=cs.P)
+            block_want = cb.fused_core_block_plain(*block_args, p=cs.P)
+    run, plain = draws_setup(dev, accurate) if draws else (None, None)
+    print(f"mode: {'one-pass (accurate=False)' if onepass else '3xTF32'}",
+          flush=True)
 
     load = _build.load
     try:
-        for turn, order in enumerate((names, names[::-1])):
+        if before:
+            print("accurate=True bit for bit before's on phase 3's cases: "
+                  + "; ".join(same_as_before(libs, dev)), flush=True)
+        timed = [n for n in names if not (onepass and n == "before")]
+        for turn, order in enumerate((timed, timed[::-1])):
             for name in order:
                 lib = types.SimpleNamespace(lib=libs[name][0])
                 _build.load = lambda lib=lib: lib
