@@ -12,12 +12,14 @@ non-zero and prints no result line):
    of the library counts the HMMA.1688.F32.TF32 instructions of each
    slab, flash, fused-core, ensemble attention and fused-conv GEMM kernel
    and fails if one has none (they run their products on the tensor
-   cores; the fused core's one-pass instances instead have bf16 MMAs,
-   HMMA.16816.F32.BF16, and no TF32 one, its 3xTF32 instances no bf16
-   one); ptxas' lines of both fused-core kernels (each mode's instance)
-   and of every GN kernel (staged and streamed), where a spill fails; the bf16 MMAs (HMMA.16816.F32.BF16) of the bf16 fused
-   conv's GEMMs, and ptxas' lines of every bf16 GN and fused-conv kernel,
-   where a spill fails;
+   cores; the fused core's 3xTF32 kernels also have no bf16 MMA); the
+   fused core's one-pass kernels (csrc/core_onepass.cu) Hopper's bf16
+   warpgroup MMAs (HGMMA.*.F32.BF16) and no mma.sync (HMMA) of any
+   kind; ptxas' lines of the fused-core kernels of both modes and of
+   every GN kernel (staged and streamed), where a spill fails; the bf16
+   warpgroup MMAs of the bf16 fused conv's GEMMs and slab kernels, and
+   ptxas' lines of every bf16 GN, fused-conv and slab kernel, where a
+   spill fails;
 3. kernels: fused_core_stack and fused_core_block at full width (D=128,
    nb=4, P=29, Lk=147) and at the kernels' limits (P=17 with Lk=61, P=32
    with Lk=256), every weight non-zero, in both modes: accurate=True
@@ -27,8 +29,10 @@ non-zero and prints no result line):
    (rms error within 0.8-1.25x of the plain one-pass version's, max error
    <= 5e-2 * max(1, max|exact|), the stack's outputs bf16 values); reruns
    bit-identical in both modes, timed with CUDA events in both modes with
-   their share of the TF32 MMA rate or of the bf16 bound; one JSON line
-   {"kernels": [...]};
+   their share of the TF32 MMA rate or of the bf16 bound (the one-pass
+   kernels with their weights packed once, as the main path packs them);
+   the one-pass kernels' shared memory a block and resident blocks an
+   SM; one JSON line {"kernels": [...]};
 4. main path: the configs[3] posterior ensemble (CondUNet at
    DDIM_ENSEMBLE's full width, random weights from a seed carried over by
    params_from_jax, 8 conditions x 1000 members, DDIM-50, eta=0) through
@@ -472,6 +476,9 @@ TENSOR_CORE_KERNEL = re.compile(
     r"|core_(?:stack|block)_kernel|block_self_kernel|folded_cross_kernel"
     r"|tap3_gemm_kernel|conv_dw_kernel)[IE]")
 CORE_KERNELS = ("core_stack_kernel", "core_block_kernel")
+# the fused core's one-pass kernels (csrc/core_onepass.cu, wgmma and TMA)
+CORE_ONEPASS_KERNELS = ("core_stack_wgmma_kernel",
+                        "core_block_wgmma_kernel")
 ENSEMBLE_KERNELS = ("block_self_kernel", "folded_cross_kernel")
 CONV_KERNELS = ("tap3_gemm_kernel", "conv_dw_kernel")
 GN_KERNELS = ("gn_fwd_staged_kernel", "gn_bwd_staged_kernel",
@@ -513,11 +520,10 @@ def sass_counts(path, kernel_of, instruction: str):
 def check_tensor_cores(path) -> None:
     """Phase 2: the TF32 MMAs (HMMA.1688.F32.TF32) in the SASS of each
     slab, flash, 3xTF32 fused-core, ensemble attention and fused-conv
-    kernel of the built library, and the fused core's one-pass instances
-    (template argument 1) on bf16 MMAs (HMMA.16816.F32.BF16) alone;
-    raises where a kernel lacks its MMAs or has the other mode's, or
-    where a fused-core instance, ensemble or fused-conv kernel is
-    missing. Logs and returns where the toolkit has no cuobjdump."""
+    kernel of the built library, and no bf16 MMA (HMMA.16816.F32.BF16) in
+    the fused core's; raises where a kernel lacks its MMAs, a fused-core
+    kernel has bf16 ones, or a fused-core, ensemble or fused-conv kernel
+    is missing. Logs and returns where the toolkit has no cuobjdump."""
     def kernel_of(line):
         fn = TENSOR_CORE_KERNEL.search(line)
         return None if fn is None else fn.group(1)
@@ -529,23 +535,18 @@ def check_tensor_cores(path) -> None:
     bf16 = sass_counts(path, kernel_of, "HMMA.16816.F32.BF16")
     log("sass: HMMA.1688.F32.TF32 per tensor-core kernel: " + "; ".join(
         f"{k} {n}" for k, n in sorted(counts.items())))
-    log("sass: HMMA.16816.F32.BF16 in the fused core's instances: " +
+    log("sass: HMMA.16816.F32.BF16 in the fused core's 3xTF32 kernels: " +
         "; ".join(f"{k} {n}" for k, n in sorted(bf16.items())
                   if k.startswith(CORE_KERNELS)))
-    onepass = [f"{k}<1>" for k in CORE_KERNELS]
-    bare = [k for k, n in counts.items() if n == 0 and k not in onepass]
+    bare = [k for k, n in counts.items() if n == 0]
     bare += [k for k in CORE_KERNELS + ENSEMBLE_KERNELS + CONV_KERNELS
              if not any(name.startswith(k) for name in counts)]
-    bare += [k for k in onepass + [f"{k}<0>" for k in CORE_KERNELS]
-             if k not in counts]
     if not counts or bare:
         raise RuntimeError(f"kernels without TF32 MMAs, or missing: {bare}")
-    wrong = [k for k in onepass if counts[k] or not bf16[k]]
-    wrong += [k for k in counts if k.startswith(CORE_KERNELS)
-              and k not in onepass and bf16[k]]
+    wrong = [k for k in counts if k.startswith(CORE_KERNELS) and bf16[k]]
     if wrong:
-        raise RuntimeError(f"fused-core instances with the other mode's "
-                           f"MMAs or without their own: {wrong}")
+        raise RuntimeError(f"3xTF32 fused-core kernels with bf16 MMAs: "
+                           f"{wrong}")
 
 
 def check_no_spill(report: str, kernels) -> None:
@@ -614,12 +615,22 @@ def check_kernels(cb, dev, card: str) -> dict:
     kernel timed in both modes with its share of the TF32 MMA rate (3 MMAs
     a product) or of the bf16 bound. Returns {name: record}, the one-pass
     mode's under name + "_onepass"."""
+    occ = cb.onepass_occupancy()
+    log(f"one-pass core kernels: {occ['smem_bytes']} bytes of shared "
+        f"memory a block of {occ['threads']} threads; resident blocks an "
+        f"SM: stack {occ['stack_blocks_per_sm']}, block "
+        f"{occ['block_blocks_per_sm']}")
     gen = torch.Generator(device=dev).manual_seed(SEED)
     results = {}
     for name, b, r, p, lk in KERNEL_CASES:
         stack = name == "fused_core_stack"
         nb = NB if stack else 1
         a = core_inputs(gen, b, r, nb, dev, p, lk)
+        # the one-pass kernels read bf16 copies packed once, as
+        # models/mega.py::mega_weights packs them once a run
+        packed = cb.pack_core_weights(a["ws"] if stack else
+                                      {key: val[0] for key, val in
+                                       a["ws"].items()})
         if stack:
             args = (a["x"], a["mods"], a["k"], a["v"], a["ws"], a["lift_w"],
                     a["lift_b"], a["pos_emb"], a["on_scale"], a["on_bias"],
@@ -638,7 +649,8 @@ def check_kernels(cb, dev, card: str) -> dict:
             out_bytes = a["x3"].numel() * 4
         ins = [t for arg in args for t in
                (arg.values() if isinstance(arg, dict) else [arg])]
-        kernel = lambda acc: wrapper(*args, p=p, chunk=r, accurate=acc)
+        kernel = lambda acc: wrapper(*args, p=p, chunk=r, accurate=acc,
+                                     packed=packed)
         plain = lambda: plain_fn(*args, p=p)
         onepass_plain = lambda: onepass_fn(*args, p=p)
         tag = f"{name} B={b} R={r} P={p} Lk={lk}"
@@ -2233,12 +2245,14 @@ SLAB_BF16_WANT = {"slab_attention_fwd": 0, "slab_attention_bwd": 0,
 SLAB_BF16_CASES = SLAB_CASES + [(2, 200, 128, 2), (1, 256, 128, 2)]
 
 
-def check_bf16_tensor_cores(path, report: str,
-                            kernels=SLAB_BF16_KERNELS) -> None:
+def check_bf16_tensor_cores(path, report: str, kernels=SLAB_BF16_KERNELS,
+                            label: str = "bf16 slab kernels",
+                            mma_sync="HMMA.16816") -> None:
     """Phase 2: Hopper's bf16 warpgroup MMAs (HGMMA.*.F32.BF16) in the
     SASS of every instance of `kernels` (the bf16 slab kernels, dh 32 and
-    64), and no mma.sync (HMMA.16816) in them; raises where one of them
-    has no instance, or an instance has no HGMMA or has an HMMA.16816.
+    64; or the fused core's one-pass kernels), and no mma.sync
+    (`mma_sync`: HMMA.16816, or a pattern) in them; raises where one of
+    them has no instance, or an instance has no HGMMA or has an mma.sync.
     Logs the counts and ptxas' wgmma remarks on them (a serialised wgmma
     pipeline). Logs and returns where the toolkit has no cuobjdump."""
     def kernel_of(line):
@@ -2246,21 +2260,21 @@ def check_bf16_tensor_cores(path, report: str,
 
     hgmma = sass_counts(path, kernel_of, HGMMA_BF16)
     if hgmma is None:
-        log("sass: no cuobjdump; the bf16 slab wgmma check is not made")
+        log(f"sass: no cuobjdump; the {label}' wgmma check is not made")
         return
-    hmma = sass_counts(path, kernel_of, "HMMA.16816")
-    log("sass: HGMMA.*.F32.BF16 / HMMA.16816 per bf16 slab kernel: " +
+    hmma = sass_counts(path, kernel_of, mma_sync)
+    log(f"sass: HGMMA.*.F32.BF16 / mma.sync per kernel of the {label}: " +
         "; ".join(f"{k} {n} / {hmma[k]}" for k, n in sorted(hgmma.items())))
     remarks = [line.strip() for line in report.splitlines()
                if re.search(r"\(C75\d\d\)", line)
                and any(k in line for k in kernels)]
-    log("ptxas wgmma remarks on the bf16 slab kernels: "
+    log(f"ptxas wgmma remarks on the {label}: "
         + (" | ".join(remarks) or "none"))
     bad = [k for k, n in hgmma.items() if n == 0 or hmma[k]]
     bad += [k for k in kernels if not any(n.startswith(k) for n in hgmma)]
     if bad:
-        raise RuntimeError(f"bf16 slab kernels without HGMMA, with mma.sync "
-                           f"or missing: {bad}")
+        raise RuntimeError(f"{label} without HGMMA, with mma.sync or "
+                           f"missing: {bad}")
 
 
 def graph_ms(fn, launches: int = 20, reps: int = 5, stream=None) -> float:
@@ -5300,7 +5314,11 @@ def main() -> int:
         if "registers" in line or "Compiling entry" in line
         or "bytes stack frame" in line))
     check_tensor_cores(kernels.path)
-    check_no_spill(kernels.report, CORE_KERNELS + GN_KERNELS)
+    check_bf16_tensor_cores(kernels.path, kernels.report,
+                            CORE_ONEPASS_KERNELS, "one-pass core kernels",
+                            re.compile(r"HMMA\."))
+    check_no_spill(kernels.report, CORE_KERNELS + CORE_ONEPASS_KERNELS
+                   + GN_KERNELS)
     check_wgmma(kernels.path, kernels.report)
     check_bf16_tensor_cores(kernels.path, kernels.report)
     check_no_spill(kernels.report, CONV_BF16_KERNELS + GN_BF16_KERNELS
@@ -5629,8 +5647,8 @@ def main() -> int:
                 "gn_silu_conv3_bwd_bf16": "ertdx/ops/conv.py:109"}
     sources = {"fused_core_stack": "ertdx_torch/csrc/core_block.cu",
                "fused_core_block": "ertdx_torch/csrc/core_block.cu",
-               "fused_core_stack_onepass": "ertdx_torch/csrc/core_block.cu",
-               "fused_core_block_onepass": "ertdx_torch/csrc/core_block.cu",
+               "fused_core_stack_onepass": "ertdx_torch/csrc/core_onepass.cu",
+               "fused_core_block_onepass": "ertdx_torch/csrc/core_onepass.cu",
                "slab_attention_fwd": "ertdx_torch/csrc/slab_attn.cu",
                "slab_attention_bwd": "ertdx_torch/csrc/slab_attn.cu",
                "block_self_attention": "ertdx_torch/csrc/ensemble_attn.cu",

@@ -1,5 +1,5 @@
 // Fused CoreBlock kernels for the posterior-ensemble denoiser core (sm_90a;
-// every large product on the tensor cores, in one of two modes).
+// every large product on the tensor cores in 3xTF32: `accurate=True`).
 //
 // Replaces the TPU kernels of ertdx/ops/core_block.py:
 //   * core_stack_kernel  <- fused_core_stack (_core_stack_kernel): lift and
@@ -12,22 +12,10 @@
 // D -> 4D -> D with tanh-GELU, each with its residual add. LayerNorm eps is
 // 1e-6; AdaLN rows (scale, shift) x 3 arrive per condition (shared t).
 //
-// The two modes are JAX's (ertdx/ops/core_block.py::_dot), chosen at
-// compile time (the ONEPASS template argument; one C entry point each):
-//   * ONEPASS (`accurate=False`, JAX's default): each product is one bf16
-//     mma.sync m16n8k16 with float32 accumulation, every operand rounded
-//     to bf16 to nearest even as its fragment is loaded (bf16mma.cuh):
-//     the operands JAX's _dot receives, i.e. q after the 1/sqrt(D) scale,
-//     the normalised probabilities, K and V as they arrive. The stack
-//     kernel also rounds what JAX's one-hot relayout products round: the
-//     chains' x before the lift, pos_emb, the head's tokens and weights,
-//     and eps plus the head bias, so every output of the one-pass stack
-//     is a bf16 value.
-//   * TF32X3 (`accurate=True`): each product on the 3xTF32 tile of
-//     tf32x3.cuh, fp32-class (JAX's accurate mode is bf16_3x).
-// Only the products' inner loop (chunk_mma) and the stack's lift and head
-// differ between them; tiles, warps, the cp.async ring and the softmax,
-// LayerNorm and GELU code are shared.
+// The mode is JAX's `accurate=True` (ertdx/ops/core_block.py::_dot):
+// each product on the 3xTF32 tile of tf32x3.cuh, fp32-class (JAX's
+// accurate mode is bf16_3x). JAX's default one-pass mode runs on
+// core_onepass.cu's wgmma kernels.
 //
 // What bounds it on an H100: operations. Per row and block it does
 // 2 D (14 D + 2 P + 2 Lk) flops on 4 bytes in and out per token, so at the
@@ -49,17 +37,15 @@
 //     through every block of the stack; device memory sees only the
 //     compact x in and eps out (stack) or the slab in and out (block).
 //   * Every product (the six projections, the self-attention's q k^T and
-//     P v, the cross logits q K^T and P V) runs on warp-level mma.sync: in
-//     TF32X3 m16n8k8, each operand split into TF32 hi and lo, three MMAs a
+//     P v, the cross logits q K^T and P V) runs on warp-level mma.sync
+//     m16n8k8, each operand split into TF32 hi and lo, three MMAs a
 //     product (one TF32 rounding misses phase 3's gate:
-//     tests/test_torch_core_tf32x3.py); in ONEPASS one bf16 m16n8k16. A
-//     block is 16 warps (one block an SM: 206 KB of shared memory, 128
-//     registers a thread); they split each 64 x 128 output into 32 x 16
-//     parts, which measured faster than 8 warps of 16 x 64 or 32 x 32
-//     (PERF.md; tools/core_ab.py). In TF32X3 every operand read from
-//     shared memory takes k in the order 0 2 4 6 1 3 5 7, so a fragment's
-//     two k values are one 8-byte load; a bf16 fragment's pairs (2t, 2t+1)
-//     are one 8-byte load as they stand.
+//     tests/test_torch_core_tf32x3.py). A block is 16 warps (one block
+//     an SM: 206 KB of shared memory, 128 registers a thread); they split
+//     each 64 x 128 output into 32 x 16 parts, which measured faster than
+//     8 warps of 16 x 64 or 32 x 32 (PERF.md; tools/core_ab.py). Every
+//     operand read from shared memory takes k in the order 0 2 4 6 1 3 5
+//     7, so a fragment's two k values are one 8-byte load.
 //   * The B operands (weights, K, V; 14 nb D^2 floats = 3.7 MB of weights
 //     at nb=4, which the 50 MB L2 holds) stream through a double-buffered
 //     ring of 32-deep chunks by cp.async: while the MMAs run on one chunk
@@ -91,7 +77,6 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "bf16mma.cuh"
 #include "tf32x3.cuh"
 
 namespace {
@@ -217,38 +202,17 @@ __device__ __forceinline__ void zero(float (&acc)[MT][NT][4]) {
 }
 
 // part += columns [k0, k0 + KC) of A times a KC-deep B chunk in shared
-// memory, for the warp's part of the output: with ONEPASS two bf16 k
-// steps of 16, else on the 3xTF32 tile. A is a shared tile with row
-// stride lda = 8 (mod 32); B(k, n) = Bs[k ldb + n], or with NTB
-// Bs[n ldb + k]. In TF32X3 two k steps at a time: the whole chunk
+// memory, for the warp's part of the output, on the 3xTF32 tile. A is a
+// shared tile with row stride lda = 8 (mod 32); B(k, n) = Bs[k ldb + n],
+// or with NTB Bs[n ldb + k]. Two k steps at a time: the whole chunk
 // unrolled needs more than the 128 registers a thread has and spills.
-template <bool NTB, bool ONEPASS>
+template <bool NTB>
 __device__ __forceinline__ void chunk_mma(float (&part)[MT][NT][4],
                                           const float* A, int lda, int k0,
                                           const float* Bs, int ldb) {
   using namespace tf32x3;
   const int lane = threadIdx.x & 31;
   const int m0 = warp_row0(), c0 = warp_col0();
-  if constexpr (ONEPASS) {
-#pragma unroll
-    for (int kk = 0; kk < KC; kk += 16) {
-      uint32_t a[MT][4];
-#pragma unroll
-      for (int i = 0; i < MT; ++i)
-        bf16mma::load_a_f32(a[i], A, lda, m0 + 16 * i, k0 + kk, lane);
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        uint32_t f[2];
-        if (NTB)
-          bf16mma::load_b_nt_f32(f, Bs, ldb, c0 + 8 * j, kk, lane);
-        else
-          bf16mma::load_b_nn_f32(f, Bs, ldb, kk, c0 + 8 * j, lane);
-#pragma unroll
-        for (int i = 0; i < MT; ++i) bf16mma::mma(part[i][j], a[i], f);
-      }
-    }
-    return;
-  }
 #pragma unroll 2
   for (int kk = 0; kk < KC; kk += 8) {
     FragA a[MT];
@@ -289,7 +253,7 @@ __device__ __forceinline__ void add_part(float (&acc)[MT][NT][4],
 // this epilogue and what follows it run. Each chunk starts with a
 // barrier, which also orders the caller's shared-memory writes before it;
 // there is none at the end, so the epilogue must not write A.
-template <bool NTB, bool ONEPASS>
+template <bool NTB>
 __device__ void gemm(Tile& t, const float* A, int lda, const BSrc& b,
                      const BSrc& next, float (&acc)[MT][NT][4]) {
   zero(acc);
@@ -308,8 +272,7 @@ __device__ void gemm(Tile& t, const float* A, int lda, const BSrc& b,
     if (!idle) {
       float part[MT][NT][4];
       zero(part);
-      chunk_mma<NTB, ONEPASS>(part, A, lda, ch * KC, cur,
-                              NTB ? LDK : LDW);
+      chunk_mma<NTB>(part, A, lda, ch * KC, cur, NTB ? LDK : LDW);
       add_part(acc, part);
     }
     t.slot ^= 1;
@@ -319,15 +282,14 @@ __device__ void gemm(Tile& t, const float* A, int lda, const BSrc& b,
 // acc = A B with B resident in shared memory (the tile's own k or v, row
 // stride ldb), K a multiple of KC: B(k, n) = Bs[k ldb + n], or with NTB
 // Bs[n ldb + k]. No barrier: the caller orders the writes of A and B.
-template <bool NTB, bool ONEPASS>
+template <bool NTB>
 __device__ void tile_product(const float* A, int lda, const float* Bs,
                              int ldb, int K, float (&acc)[MT][NT][4]) {
   zero(acc);
   for (int k0 = 0; k0 < K; k0 += KC) {
     float part[MT][NT][4];
     zero(part);
-    chunk_mma<NTB, ONEPASS>(part, A, lda, k0,
-                            NTB ? Bs + k0 : Bs + k0 * ldb, ldb);
+    chunk_mma<NTB>(part, A, lda, k0, NTB ? Bs + k0 : Bs + k0 * ldb, ldb);
     add_part(acc, part);
   }
 }
@@ -423,7 +385,6 @@ __device__ void norm_rows(const float* src, float* dst,
 // The block's first product (first_product(w)) is already in flight;
 // `after` is the product that follows the block (its chunk 0 is issued
 // by the last one here), or p == nullptr for none.
-template <bool ONEPASS>
 __device__ void core_layer(Tile& t, const float* __restrict__ mods,
                            const float* __restrict__ kc,
                            const float* __restrict__ vc, int Lk,
@@ -438,7 +399,7 @@ __device__ void core_layer(Tile& t, const float* __restrict__ mods,
   // ---- self-attention over each chain's P tokens ----
   norm_rows(t.X, t.H, mods + 0 * D, mods + 1 * D, true);
   for (int c = 0; c < 3; ++c) {   // q (pre-scaled), k, v into BIG[:, cD:]
-    gemm<false, ONEPASS>(t, t.H, LDX,
+    gemm<false>(t, t.H, LDX,
                          rowmajor(w.wqkv, 3 * D, c * D, D, D),
                          c < 2 ? rowmajor(w.wqkv, 3 * D, (c + 1) * D, D, D)
                                : rowmajor(w.wso, D, 0, D, D),
@@ -453,7 +414,7 @@ __device__ void core_layer(Tile& t, const float* __restrict__ mods,
   // masked to each chain's P keys by the softmax
   float* S = t.H;                  // (ROWS, LDS) logits; H is free now
   if (warp_col0() < ROWS)
-    tile_product<true, ONEPASS>(t.BIG, LDB, t.BIG + D, LDB, D, acc);
+    tile_product<true>(t.BIG, LDB, t.BIG + D, LDB, D, acc);
   else
     zero(acc);
   for_pairs(acc, [&](int r, int col, float v0, float v1) {
@@ -474,11 +435,11 @@ __device__ void core_layer(Tile& t, const float* __restrict__ mods,
   }
   __syncthreads();
   // a = p v
-  tile_product<false, ONEPASS>(S, LDS, t.BIG + 2 * D, LDB, ROWS, acc);
+  tile_product<false>(S, LDS, t.BIG + 2 * D, LDB, ROWS, acc);
   for_pairs(acc, [&](int r, int col, float v0, float v1) {
     store2(t.BIG + r * LDB + col, v0, v1);
   });
-  gemm<false, ONEPASS>(t, t.BIG, LDB, rowmajor(w.wso, D, 0, D, D),
+  gemm<false>(t, t.BIG, LDB, rowmajor(w.wso, D, 0, D, D),
                        rowmajor(w.wcq, D, 0, D, D), acc);
   for_pairs(acc, [&](int r, int col, float v0, float v1) {
     add2(t.X + r * LDX + col, v0 + w.bso[col], v1 + w.bso[col + 1]);
@@ -487,13 +448,13 @@ __device__ void core_layer(Tile& t, const float* __restrict__ mods,
 
   // ---- cross-attention to the condition's Lk keys ----
   norm_rows(t.X, t.H, mods + 2 * D, mods + 3 * D, true);
-  gemm<false, ONEPASS>(t, t.H, LDX, rowmajor(w.wcq, D, 0, D, D),
+  gemm<false>(t, t.H, LDX, rowmajor(w.wcq, D, 0, D, D),
                        keys_of(kc, 0, Lk), acc);
   for_pairs(acc, [&](int r, int col, float v0, float v1) {
     store2(t.BIG + r * LDB + col, v0 * scale, v1 * scale);
   });
   for (int n0 = 0; n0 < Lk; n0 += D) {  // logits q k^T into BIG[:, D:]
-    gemm<true, ONEPASS>(t, t.BIG, LDB, keys_of(kc, n0, Lk),
+    gemm<true>(t, t.BIG, LDB, keys_of(kc, n0, Lk),
                         n0 + D < Lk ? keys_of(kc, n0 + D, Lk)
                                     : rowmajor(vc, D, 0, lk_pad, Lk),
                         acc);
@@ -519,12 +480,12 @@ __device__ void core_layer(Tile& t, const float* __restrict__ mods,
     for (int j = lane; j < lk_pad; j += 32)
       row[j] = j < Lk ? row[j] * inv : 0.0f;
   }
-  gemm<false, ONEPASS>(t, t.BIG + D, LDB, rowmajor(vc, D, 0, lk_pad, Lk),
+  gemm<false>(t, t.BIG + D, LDB, rowmajor(vc, D, 0, lk_pad, Lk),
                        rowmajor(w.wco, D, 0, D, D), acc);   // p v
   for_pairs(acc, [&](int r, int col, float v0, float v1) {
     store2(t.H + r * LDX + col, v0, v1);
   });
-  gemm<false, ONEPASS>(t, t.H, LDX, rowmajor(w.wco, D, 0, D, D),
+  gemm<false>(t, t.H, LDX, rowmajor(w.wco, D, 0, D, D),
                        rowmajor(w.w1, 4 * D, 0, D, D), acc);
   for_pairs(acc, [&](int r, int col, float v0, float v1) {
     add2(t.X + r * LDX + col, v0 + w.bco[col], v1 + w.bco[col + 1]);
@@ -535,13 +496,13 @@ __device__ void core_layer(Tile& t, const float* __restrict__ mods,
   norm_rows(t.X, t.H, mods + 4 * D, mods + 5 * D, true);
   for (int c = 0; c < 4; ++c) {
     const BSrc w2c = rowmajor(w.w2 + (size_t)c * D * D, D, 0, D, D);
-    gemm<false, ONEPASS>(t, t.H, LDX, rowmajor(w.w1, 4 * D, c * D, D, D),
+    gemm<false>(t, t.H, LDX, rowmajor(w.w1, 4 * D, c * D, D, D),
                          w2c, acc);
     for_pairs(acc, [&](int r, int col, float v0, float v1) {
       store2(t.BIG + r * LDB + col, gelu_tanh(v0 + w.b1[c * D + col]),
              gelu_tanh(v1 + w.b1[c * D + col + 1]));
     });
-    gemm<false, ONEPASS>(t, t.BIG, LDB, w2c,
+    gemm<false>(t, t.BIG, LDB, w2c,
                          c < 3 ? rowmajor(w.w1, 4 * D, (c + 1) * D, D, D)
                                : after,
                          acc);
@@ -597,14 +558,6 @@ struct StackArgs {
   int R, P, nb, Lk;
 };
 
-// x rounded to bf16 where ONEPASS (JAX's one-hot relayout products of
-// the stack round their operands), else x.
-template <bool ONEPASS>
-__device__ __forceinline__ float relayout(float x) {
-  return ONEPASS ? bf16mma::round_bf16(x) : x;
-}
-
-template <bool ONEPASS>
 __global__ void __launch_bounds__(THREADS)
 core_stack_kernel(const StackArgs a) {
   extern __shared__ __align__(16) float smem[];
@@ -619,8 +572,7 @@ core_stack_kernel(const StackArgs a) {
   for (int e = threadIdx.x; e < ROWS * D; e += THREADS) {  // lift + pos
     const int r = e / D, c = e % D;
     t.X[r * LDX + c] =
-        r < nrows ? relayout<ONEPASS>(a.x[row0 + r]) * a.lw[c] + a.lb[c] +
-                        relayout<ONEPASS>(a.pe[(r % a.P) * D + c])
+        r < nrows ? a.x[row0 + r] * a.lw[c] + a.lb[c] + a.pe[(r % a.P) * D + c]
                   : 0.0f;
   }
   __syncthreads();
@@ -628,22 +580,18 @@ core_stack_kernel(const StackArgs a) {
     const size_t kv = ((size_t)b * a.nb + i) * a.Lk * D;
     const BSrc after = i + 1 < a.nb ? first_product(layer_at(a.w, i + 1))
                                     : BSrc{nullptr, 0, 0, 0, 0, false};
-    core_layer<ONEPASS>(t, a.mods + ((size_t)b * a.nb * 6 + 6 * i) * D,
-                        a.k + kv, a.v + kv, a.Lk, layer_at(a.w, i), after);
+    core_layer(t, a.mods + ((size_t)b * a.nb * 6 + 6 * i) * D, a.k + kv,
+               a.v + kv, a.Lk, layer_at(a.w, i), after);
   }
   norm_rows(t.X, t.H, a.ons, a.onb, false);  // out-norm, then the head
   __syncthreads();
   const int lane = threadIdx.x & 31;
-  float4 hw = *reinterpret_cast<const float4*>(a.hw + lane * 4);
-  hw = make_float4(relayout<ONEPASS>(hw.x), relayout<ONEPASS>(hw.y),
-                   relayout<ONEPASS>(hw.z), relayout<ONEPASS>(hw.w));
+  const float4 hw = *reinterpret_cast<const float4*>(a.hw + lane * 4);
   for (int r = threadIdx.x >> 5; r < nrows; r += WARPS) {
     const float4 h = *reinterpret_cast<const float4*>(t.H + r * LDX + lane * 4);
-    const float s = warp_sum(relayout<ONEPASS>(h.x) * hw.x +
-                             relayout<ONEPASS>(h.y) * hw.y +
-                             relayout<ONEPASS>(h.z) * hw.z +
-                             relayout<ONEPASS>(h.w) * hw.w);
-    if (lane == 0) a.out[row0 + r] = relayout<ONEPASS>(s + a.hb[0]);
+    const float s = warp_sum(h.x * hw.x + h.y * hw.y + h.z * hw.z +
+                             h.w * hw.w);
+    if (lane == 0) a.out[row0 + r] = s + a.hb[0];
   }
 }
 
@@ -657,7 +605,6 @@ struct BlockArgs {
   int R, P, Lk;
 };
 
-template <bool ONEPASS>
 __global__ void __launch_bounds__(THREADS)
 core_block_kernel(const BlockArgs a) {
   extern __shared__ __align__(16) float smem[];
@@ -678,10 +625,9 @@ core_block_kernel(const BlockArgs a) {
     *reinterpret_cast<float4*>(t.X + r * LDX + c) = val;
   }
   __syncthreads();
-  core_layer<ONEPASS>(t, a.mods + (size_t)b * 6 * D,
-                      a.k + (size_t)b * a.Lk * D,
-                      a.v + (size_t)b * a.Lk * D, a.Lk, a.w,
-                      BSrc{nullptr, 0, 0, 0, 0, false});
+  core_layer(t, a.mods + (size_t)b * 6 * D, a.k + (size_t)b * a.Lk * D,
+             a.v + (size_t)b * a.Lk * D, a.Lk, a.w,
+             BSrc{nullptr, 0, 0, 0, 0, false});
   for (int e = threadIdx.x; e < nrows * D / 4; e += THREADS) {
     const int r = e / (D / 4), c = (e % (D / 4)) * 4;
     *reinterpret_cast<float4*>(a.out + (row0 + r) * D + c) =
@@ -706,7 +652,7 @@ int launch(void (*kernel)(Args), const Args& a, int B, void* stream) {
   return (int)cudaGetLastError();
 }
 
-int core_stack(bool onepass, const float* x, const float* mods,
+int core_stack(const float* x, const float* mods,
                const float* k, const float* v, const LayerW& w,
                const float* lw, const float* lb, const float* pe,
                const float* ons, const float* onb, const float* hw,
@@ -718,11 +664,10 @@ int core_stack(bool onepass, const float* x, const float* mods,
   a.lw = lw; a.lb = lb; a.pe = pe; a.ons = ons; a.onb = onb;
   a.hw = hw; a.hb = hb; a.out = out;
   a.R = R; a.P = P; a.nb = nb; a.Lk = Lk;
-  return launch(onepass ? core_stack_kernel<true> : core_stack_kernel<false>,
-                a, B, stream);
+  return launch(core_stack_kernel, a, B, stream);
 }
 
-int core_block(bool onepass, const float* x, const float* mods,
+int core_block(const float* x, const float* mods,
                const float* k, const float* v, const LayerW& w, float* out,
                int B, int R, int P, int Lk, void* stream) {
   if (!shape_ok(B, R, P, Lk)) return (int)cudaErrorInvalidValue;
@@ -730,14 +675,13 @@ int core_block(bool onepass, const float* x, const float* mods,
   a.x = x; a.mods = mods; a.k = k; a.v = v; a.w = w;
   a.out = out;
   a.R = R; a.P = P; a.Lk = Lk;
-  return launch(onepass ? core_block_kernel<true> : core_block_kernel<false>,
-                a, B, stream);
+  return launch(core_block_kernel, a, B, stream);
 }
 
 }  // namespace
 
-// The entry points: ertdx_core_stack / ertdx_core_block run TF32X3
-// (`accurate=True`), the _onepass ones ONEPASS, with the same arguments.
+// The entry points (`accurate=True`); the one-pass ones are in
+// core_onepass.cu.
 extern "C" {
 
 int ertdx_core_stack(const float* x, const float* mods, const float* k,
@@ -749,21 +693,7 @@ int ertdx_core_stack(const float* x, const float* mods, const float* k,
                      const float* onb, const float* hw, const float* hb,
                      float* out, int B, int R, int P, int nb, int Lk,
                      void* stream) {
-  return core_stack(false, x, mods, k, v,
-                    LayerW{wqkv, wso, bso, wcq, wco, bco, w1, b1, w2, b2},
-                    lw, lb, pe, ons, onb, hw, hb, out, B, R, P, nb, Lk,
-                    stream);
-}
-
-int ertdx_core_stack_onepass(
-    const float* x, const float* mods, const float* k, const float* v,
-    const float* wqkv, const float* wso, const float* bso, const float* wcq,
-    const float* wco, const float* bco, const float* w1, const float* b1,
-    const float* w2, const float* b2, const float* lw, const float* lb,
-    const float* pe, const float* ons, const float* onb, const float* hw,
-    const float* hb, float* out, int B, int R, int P, int nb, int Lk,
-    void* stream) {
-  return core_stack(true, x, mods, k, v,
+  return core_stack(x, mods, k, v,
                     LayerW{wqkv, wso, bso, wcq, wco, bco, w1, b1, w2, b2},
                     lw, lb, pe, ons, onb, hw, hb, out, B, R, P, nb, Lk,
                     stream);
@@ -775,18 +705,7 @@ int ertdx_core_block(const float* x, const float* mods, const float* k,
                      const float* bco, const float* w1, const float* b1,
                      const float* w2, const float* b2, float* out, int B,
                      int R, int P, int Lk, void* stream) {
-  return core_block(false, x, mods, k, v,
-                    LayerW{wqkv, wso, bso, wcq, wco, bco, w1, b1, w2, b2},
-                    out, B, R, P, Lk, stream);
-}
-
-int ertdx_core_block_onepass(
-    const float* x, const float* mods, const float* k, const float* v,
-    const float* wqkv, const float* wso, const float* bso, const float* wcq,
-    const float* wco, const float* bco, const float* w1, const float* b1,
-    const float* w2, const float* b2, float* out, int B, int R, int P,
-    int Lk, void* stream) {
-  return core_block(true, x, mods, k, v,
+  return core_block(x, mods, k, v,
                     LayerW{wqkv, wso, bso, wcq, wco, bco, w1, b1, w2, b2},
                     out, B, R, P, Lk, stream);
 }

@@ -1,22 +1,23 @@
 // Hopper's warpgroup tensor-core product and tensor memory accelerator
-// for the bf16 GEMMs of the fused GN+SiLU+conv3 (gn_conv.cu) and the bf16
-// slab attention (slab_attn_bf16.cu): hand-written PTX wrappers, in the
+// for the bf16 GEMMs of the fused GN+SiLU+conv3 (gn_conv.cu), the bf16
+// slab attention (slab_attn_bf16.cu) and the fused core's one-pass kernels
+// (core_onepass.cu): hand-written PTX wrappers, in the
 // idiom of bf16mma.cuh and tf32x3.cuh. sm_90a only
 // (wgmma exists for that target alone). Device code, and the host code
 // that encodes a TMA tensor map.
 //
-// * wgmma.mma_async m64n64k16 and m64n32k16, f32 += bf16 x bf16, in the
-//   RS form: A (64 x 16) from registers, B (16 x N) from shared memory by
-//   a matrix descriptor. Four warps issue it together; warp w of the
-//   warpgroup holds rows 16 w .. 16 w + 15 of A and of the accumulator, in the
-//   mma.m16n8k16 layouts (bf16mma.cuh) repeated along N: with lane = 4 g
-//   + t, accumulator register 4 i + e is row g + 8 (e >> 1), column 8 i +
-//   2 t + (e & 1). The product is asynchronous: fence before the first
-//   wgmma that reads registers written since (`fence`, and `fence_regs`
-//   so that the compiler keeps its own accesses on the right side),
-//   `commit` the issued ones as a group, `wait<N>` until at most N groups
-//   are in flight. Until then neither the accumulator nor A's registers
-//   may be touched. 989 TFLOP/s dense on an H100 SXM.
+// * wgmma.mma_async m64n128k16, m64n64k16 and m64n32k16, f32 += bf16 x bf16,
+//   in the RS form: A (64 x 16) from registers, B (16 x N) from shared memory
+//   by a matrix descriptor. Four warps issue it together; warp w of the
+//   warpgroup holds rows 16 w .. 16 w + 15 of A and of the accumulator, in
+//   the mma.m16n8k16 layouts (bf16mma.cuh) repeated along N: with lane = 4 g
+//   + t, accumulator register 4 i + e is row g + 8 (e >> 1), column 8 i + 2 t
+//   + (e & 1). The product is asynchronous: fence before the first wgmma that
+//   reads registers written since (`fence`, and `fence_regs` so that the
+//   compiler keeps its own accesses on the right side), `commit` the issued
+//   ones as a group, `wait<N>` until at most N groups are in flight. Until
+//   then neither the accumulator nor A's registers may be touched. 989
+//   TFLOP/s dense on an H100 SXM.
 // * Matrix descriptors for 64- and 128-byte swizzled tiles (`desc`).
 //   K-major (B(k, n) at row n, k contiguous; tnspB = 0): rows of the
 //   swizzle's width, SBO = the stride of 8-row groups (8 x the row bytes),
@@ -252,8 +253,48 @@ __device__ __forceinline__ void mma_rs_n32(float (&d)[16],
         "r"(1));
 }
 
-// The RS product by the accumulator's width: 32 registers a thread are
-// N = 64, 16 are N = 32.
+// d (64 x 128, float32) += a (64 x 16 bf16, registers) b (16 x 128 bf16,
+// shared memory by descriptor); the accumulator layout of mma_rs_n64
+// repeated to 16 n tiles. The fused core's projections (core_onepass.cu)
+// take it with a K-major b (128 rows of the swizzled weight tile).
+template <int TNSP_B>
+__device__ __forceinline__ void mma_rs_n128(float (&d)[64],
+                                            const uint32_t (&a)[4],
+                                            uint64_t b) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %70, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, %69;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "n"(TNSP_B),
+        "r"(1));
+}
+
+// The RS product by the accumulator's width: 64 registers a thread are
+// N = 128, 32 are N = 64, 16 are N = 32.
 template <int TNSP_B>
 __device__ __forceinline__ void mma_rs(float (&d)[32], const uint32_t (&a)[4],
                                        uint64_t b) {
@@ -263,6 +304,11 @@ template <int TNSP_B>
 __device__ __forceinline__ void mma_rs(float (&d)[16], const uint32_t (&a)[4],
                                        uint64_t b) {
   mma_rs_n32<TNSP_B>(d, a, b);
+}
+template <int TNSP_B>
+__device__ __forceinline__ void mma_rs(float (&d)[64], const uint32_t (&a)[4],
+                                       uint64_t b) {
+  mma_rs_n128<TNSP_B>(d, a, b);
 }
 
 // ---- host: TMA tensor maps ----------------------------------------------

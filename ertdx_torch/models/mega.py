@@ -35,7 +35,8 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.core_block import (WEIGHT_KEYS, _ln, fused_core_block,
-                              fused_core_stack, kernel_supports)
+                              fused_core_stack, kernel_supports,
+                              pack_core_weights)
 from ..parallel.mesh import (DATA_AXIS, MODEL_AXIS, all_gather_cat,
                              full_param)
 from .common import get_timestep_embedding
@@ -81,14 +82,18 @@ def extract_core_weights(model, i: int) -> dict:
 def mega_weights(model) -> dict:
     """Every weight the fused path reads, gathered once per run (whole,
     where tensor parallelism holds a column shard: the kernels take every
-    weight, as GSPMD replicates a pallas_call's operands)."""
+    weight, as GSPMD replicates a pallas_call's operands), with the
+    one-pass kernels' bf16 copies of the blocks' matrices ("packed",
+    `pack_core_weights`: rounded once a run)."""
     blocks = [extract_core_weights(model, i)
               for i in range(model.num_blocks)]
     d = model.hidden_dim
+    stack = {key: torch.stack([w[key] for w in blocks])
+             for key in WEIGHT_KEYS}
     return {
         "blocks": blocks,
-        "stack": {key: torch.stack([w[key] for w in blocks])
-                  for key in WEIGHT_KEYS},
+        "stack": stack,
+        "packed": pack_core_weights(stack),
         "lift_w": full_param(model.lift, "weight").detach().reshape(
             1, d).contiguous(),
         "lift_b": model.lift.bias.detach().reshape(1, d),
@@ -191,14 +196,15 @@ def mega_denoise_ensemble(model, x, t, cond_ctx, n_real: int, *, p: int,
             x.reshape(bsz * n_chunks, chunk, p).contiguous(), mods, k, v,
             w["stack"], w["lift_w"], w["lift_b"], w["pos_emb"],
             w["on_scale"], w["on_bias"], w["head_w"], w["head_b"],
-            p=p, chunk=chunk, accurate=accurate)
+            p=p, chunk=chunk, accurate=accurate, packed=w["packed"])
         return out.reshape(n, p)
 
     tokens = x[..., None] @ w["lift_w"] + w["lift_b"] + w["pos_emb"][None]
     x3 = tokens.reshape(bsz * n_chunks, chunk * p, d)
     for i, (mods, k, v) in enumerate(per):
         x3 = fused_core_block(x3, mods.contiguous(), k, v, w["blocks"][i],
-                              p=p, chunk=chunk, accurate=accurate)
+                              p=p, chunk=chunk, accurate=accurate,
+                              packed=w["packed"][i:i + 1])
     tokens = x3.reshape(n, p, d)
     tokens = _ln(tokens) * w["on_scale"] + w["on_bias"]
     return (tokens @ w["head_w"] + w["head_b"])[..., 0]

@@ -53,9 +53,10 @@ SIGNATURES = {
     "ertdx_gn_conv3_bwd_bf16":
         [_P] * 12 + [_I] * 6 + [_F] + [_I] * 6 + [_P],
     "ertdx_core_stack": [_P] * 22 + [_I] * 5 + [_P],
-    "ertdx_core_stack_onepass": [_P] * 22 + [_I] * 5 + [_P],
+    "ertdx_core_stack_onepass": [_P] * 17 + [_I] * 7 + [_P],
     "ertdx_core_block": [_P] * 15 + [_I] * 4 + [_P],
-    "ertdx_core_block_onepass": [_P] * 15 + [_I] * 4 + [_P],
+    "ertdx_core_block_onepass": [_P] * 10 + [_I] * 6 + [_P],
+    "ertdx_core_onepass_occupancy": [_P],
     "ertdx_slab_fwd": [_P] * 2 + [_I] * 4 + [_P],
     "ertdx_slab_bwd": [_P] * 5 + [_I] * 4 + [_P],
     "ertdx_slab_blocks_per_sm": [_I, _I, _P],

@@ -4,7 +4,8 @@
 out-norm -> head) and `fused_core_block` (one CoreBlock over
 condition-major chain slabs) port the TPU kernels of
 ertdx/ops/core_block.py:281-518 to the hand-written CUDA kernels of
-csrc/core_block.cu. Argument layouts are the JAX package's:
+csrc/core_block.cu (`accurate=True`) and csrc/core_onepass.cu
+(`accurate=False`). Argument layouts are the JAX package's:
 
     x     (B*n_chunks, chunk, P) compact chains         [stack]
     x3    (B*n_chunks, chunk*P, D) chain slabs          [block]
@@ -23,7 +24,11 @@ and each mode has its kernel and its plain version:
   stack also rounds what JAX's one-hot relayout products round (the
   chains' x, pos_emb, the head's tokens and weights, eps plus the head
   bias), so every output of the one-pass stack is a bf16 value. The
-  kernels run each product as one bf16 mma.sync m16n8k16.
+  kernels run each product as bf16 wgmma on Hopper, B operands by TMA:
+  the weights from bf16 copies rounded once a run (`pack_core_weights`,
+  which `models/mega.py::mega_weights` makes; a wrapper given none packs
+  its own), K and V rounded once a call; 128-row blocks of two
+  warpgroups, each warpgroup whole chains (`tile_plan`).
 * `accurate=True`: the float32 function; the kernels run each product
   in 3xTF32 (three TF32 MMAs, fp32-class, at least as exact as JAX's
   bf16_3x).
@@ -36,7 +41,9 @@ of both modes, `onepass_launches` those of the one-pass kernels alone.
 """
 from __future__ import annotations
 
+import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -48,6 +55,15 @@ LN_EPS = 1e-6
 KERNEL_D = 128
 KERNEL_P_MAX = 32
 KERNEL_LK_MAX = 256
+# the packed weight tiles of a CoreBlock, in the order the one-pass
+# kernels take them (csrc/core_onepass.cu): the k, v and q columns of
+# wqkv, wso, wcq, wco, then w1's and w2's D-wide chunks in turns
+PACK_ORDER = ("wqkv_k", "wqkv_v", "wqkv_q", "wso", "wcq", "wco",
+              "w1_0", "w2_0", "w1_1", "w2_1", "w1_2", "w2_2", "w1_3", "w2_3")
+# rows of a one-pass warpgroup, warpgroups a block (csrc/core_onepass.cu:
+# WG_ROWS, WARPGROUPS)
+WG_ROWS = 64
+WARPGROUPS = 2
 
 launches = {"fused_core_stack": 0, "fused_core_block": 0}
 onepass_launches = {"fused_core_stack": 0, "fused_core_block": 0}
@@ -167,6 +183,68 @@ def fused_core_stack_onepass_plain(x, mods, k, v, ws, lift_w, lift_b,
 
 
 # ---------------------------------------------------------------------------
+# the one-pass kernels' operands and tiling
+# ---------------------------------------------------------------------------
+
+def bf16_copy(a: torch.Tensor) -> torch.Tensor:
+    """`round_bf16(a)` as a torch.bfloat16 tensor, bit for bit (its upper
+    16 bits; a NaN keeps its sign, which a cast would drop)."""
+    bits = round_bf16(a.to(torch.float32)).view(torch.int32) >> 16
+    return bits.to(torch.int16).view(torch.bfloat16)
+
+
+def pack_core_weights(ws) -> torch.Tensor:
+    """The one-pass kernels' weights: (nb, 14, D, D) bfloat16, tile j of
+    block i the (in, out) matrix PACK_ORDER[j] of block i transposed to
+    K-major (row n, column k: W[k, n]), each value `round_bf16` of the
+    float32 weight, which is what JAX's one-pass `_dot` multiplies. TMA
+    reads each tile in two boxes of 64 columns and swizzles them by 128
+    bytes on the way into shared memory. `ws` holds JAX's stacks (leading
+    nb) or one block's matrices; computed once a run by
+    `models/mega.py::mega_weights`."""
+    w = {key: ws[key] if ws["wso"].dim() == 3 else ws[key][None]
+         for key in ("wqkv", "wso", "wcq", "wco", "w1", "w2")}
+    d = w["wso"].shape[-1]
+
+    def cols(m, c):
+        return m[..., c * d:(c + 1) * d]
+
+    tiles = [cols(w["wqkv"], 1), cols(w["wqkv"], 2), cols(w["wqkv"], 0),
+             w["wso"], w["wcq"], w["wco"]]
+    for c in range(4):
+        tiles += [cols(w["w1"], c), w["w2"][:, c * d:(c + 1) * d]]
+    return bf16_copy(torch.stack(tiles, dim=1).transpose(-1, -2)
+                     ).contiguous()
+
+
+class TilePlan(NamedTuple):
+    """How the one-pass kernels cut a condition's R chains of P tokens: a
+    warpgroup holds `cpw` = floor(64 / P) whole chains, a block two
+    warpgroups, a condition `tiles` blocks (the grid is B x tiles).
+    Warpgroup wg of block `tile` takes the chains from (tile WARPGROUPS +
+    wg) cpw, at most cpw of them, none past R."""
+    cpw: int
+    tiles: int
+
+
+def tile_plan(r: int, p: int) -> TilePlan:
+    """The one-pass kernels' tiling of R chains of P tokens (1 <= P <=
+    64)."""
+    cpw = WG_ROWS // p
+    return TilePlan(cpw, -(-r // (WARPGROUPS * cpw)))
+
+
+def onepass_occupancy() -> dict:
+    """The one-pass kernels' dynamic shared memory a block, resident
+    blocks an SM and threads a block, as the card reports them."""
+    out = (ctypes.c_int * 4)()
+    _build.raise_on(_build.load().lib.ertdx_core_onepass_occupancy(out),
+                    "ertdx_core_onepass_occupancy")
+    return {"smem_bytes": out[0], "stack_blocks_per_sm": out[1],
+            "block_blocks_per_sm": out[2], "threads": out[3]}
+
+
+# ---------------------------------------------------------------------------
 # wrappers
 # ---------------------------------------------------------------------------
 
@@ -215,12 +293,34 @@ def _same_device(tensors) -> None:
         raise ValueError("the kernel's tensors must share one CUDA device")
 
 
+def _check_packed(packed: torch.Tensor, nb: int, d: int) -> None:
+    if packed.dtype != torch.bfloat16:
+        raise TypeError(f"packed: the kernel takes bfloat16, got "
+                        f"{packed.dtype}")
+    if tuple(packed.shape) != (nb, len(PACK_ORDER), d, d):
+        raise ValueError(f"packed: shape {tuple(packed.shape)}, the kernel "
+                         f"expects {(nb, len(PACK_ORDER), d, d)}")
+    if not packed.is_contiguous() or packed.data_ptr() % 16:
+        raise ValueError("packed: the kernel takes contiguous 16-byte "
+                         "aligned data")
+
+
+def _onepass_operands(k, v, ws, packed, nb: int, d: int):
+    """The one-pass kernels' bf16 operands: K and V rounded (once a call),
+    the packed weights (`packed`, or packed here from ws)."""
+    if packed is None:
+        packed = pack_core_weights(ws)
+    _check_packed(packed, nb, d)
+    return bf16_copy(k), bf16_copy(v), packed
+
+
 def fused_core_stack(x, mods, k, v, ws, lift_w, lift_b, pos_emb, on_scale,
                      on_bias, head_w, head_b, *, p: int, chunk: int,
-                     accurate: bool = False):
+                     accurate: bool = False, packed=None):
     """The whole denoiser core, (B*n_chunks, chunk, P) chains -> eps of the
     same shape, in the mode `accurate` selects. One CUDA launch on the
-    current stream."""
+    current stream. `packed`: `pack_core_weights(ws)`, which the one-pass
+    kernel reads in place of ws's matrices (packed here where None)."""
     tensors = [x, mods, k, v, *(ws[key] for key in WEIGHT_KEYS), lift_w,
                lift_b, pos_emb, on_scale, on_bias, head_w, head_b]
     if _on_cpu(tensors):
@@ -255,21 +355,30 @@ def fused_core_stack(x, mods, k, v, ws, lift_w, lift_b, pos_emb, on_scale,
     _check("head_b", head_b, (1, 1))
     out = torch.empty_like(x)
     lib = _build.load().lib
-    entry = lib.ertdx_core_stack if accurate else lib.ertdx_core_stack_onepass
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = entry(*(t.data_ptr() for t in tensors), out.data_ptr(), b, r,
-                   p, nb, lk, stream)
+        if accurate:
+            rc = lib.ertdx_core_stack(*(t.data_ptr() for t in tensors),
+                                      out.data_ptr(), b, r, p, nb, lk, stream)
+        else:
+            kb, vb, packed = _onepass_operands(k, v, ws, packed, nb, d)
+            _same_device([x, packed])
+            plan = tile_plan(r, p)
+            rc = lib.ertdx_core_stack_onepass(*(t.data_ptr() for t in (
+                x, mods, kb, vb, packed, ws["bso"], ws["bco"], ws["b1"],
+                ws["b2"], lift_w, lift_b, pos_emb, on_scale, on_bias, head_w,
+                head_b, out)), b, r, p, nb, lk, plan.cpw, plan.tiles, stream)
     _build.raise_on(rc, "fused_core_stack")
     _count("fused_core_stack", accurate)
     return out
 
 
 def fused_core_block(x3, mods, k, v, w, *, p: int, chunk: int,
-                     accurate: bool = False):
+                     accurate: bool = False, packed=None):
     """One CoreBlock over (B*n_chunks, chunk*P, D) condition-major chain
     slabs, in the mode `accurate` selects. One CUDA launch on the current
-    stream."""
+    stream. `packed`: `pack_core_weights(w)`, (1, 14, D, D), as for
+    `fused_core_stack`."""
     tensors = [x3, mods, k, v, *(w[key] for key in WEIGHT_KEYS)]
     if _on_cpu(tensors):
         plain = (fused_core_block_plain if accurate
@@ -293,11 +402,18 @@ def fused_core_block(x3, mods, k, v, w, *, p: int, chunk: int,
     _check_weights(w, 1, d, stacked=False)
     out = torch.empty_like(x3)
     lib = _build.load().lib
-    entry = lib.ertdx_core_block if accurate else lib.ertdx_core_block_onepass
     with torch.cuda.device(x3.device):
         stream = torch.cuda.current_stream(x3.device).cuda_stream
-        rc = entry(*(t.data_ptr() for t in tensors), out.data_ptr(), b, r,
-                   p, lk, stream)
+        if accurate:
+            rc = lib.ertdx_core_block(*(t.data_ptr() for t in tensors),
+                                      out.data_ptr(), b, r, p, lk, stream)
+        else:
+            kb, vb, packed = _onepass_operands(k, v, w, packed, 1, d)
+            _same_device([x3, packed])
+            plan = tile_plan(r, p)
+            rc = lib.ertdx_core_block_onepass(*(t.data_ptr() for t in (
+                x3, mods, kb, vb, packed, w["bso"], w["bco"], w["b1"],
+                w["b2"], out)), b, r, p, lk, plan.cpw, plan.tiles, stream)
     _build.raise_on(rc, "fused_core_block")
     _count("fused_core_block", accurate)
     return out

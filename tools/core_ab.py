@@ -4,7 +4,8 @@
     python3 tools/core_ab.py [--onepass] [--draws] [--before PATH]
                              [name ...]
 
-Builds ertdx_torch/csrc/core_block.cu as it stands ("base") and in the
+Builds ertdx_torch/csrc/core_block.cu (the 3xTF32 kernels) and
+core_onepass.cu (the one-pass kernels) as they stand ("base") and in the
 variants of VARIANTS below, each a list of exact text substitutions in
 core_block.cu or (prefix "H:") tf32x3.cuh, one nvcc per variant, all
 started together, into build/core_ab/. Then, in turns (the variants in
@@ -12,19 +13,30 @@ order, then in reverse), times fused_core_stack at B=8, R=1000 and
 fused_core_block at B=2, R=1000 (chip_smoke.py's phase-3 inputs, CUDA
 events) and prints each variant's max abs error against the plain
 version and whether a rerun is bit-identical. The mode is the 3xTF32
-one (accurate=True; the VARIANTS change its products), or with
---onepass the one-pass mode (accurate=False, JAX's default), against
-its plain one-pass version. With --draws it also runs phase 4's
-configs[3] DDIM-50 ensemble in that mode through each variant and prints
-the draws' gaps to the plain module path. --before PATH builds an
-earlier core_block.cu (e.g. the parent's: `git show
-HEAD~1:ertdx_torch/csrc/core_block.cu > build/parent/core_block.cu`) as
-the variant "before" (alone with base where no variant is named), times
-it in the 3xTF32 mode and says whether this tree's accurate=True output
-is bit for bit before's on every case of chip_smoke.py's phase 3. The "diag_" variants compute wrong results on
-purpose: they remove one kind of work to show its cost. A variant whose
-build spills is reported and timed all the same. Nothing here is
-imported by the port; it needs nvcc and a card.
+one (accurate=True; the VARIANTS change its products, the "onepass_"
+ones the one-pass kernels'), or with
+--onepass the one-pass mode (accurate=False, JAX's default; its weights
+packed once, as the main path packs them), against its plain one-pass
+version, with the rms error against the float64 function beside the
+plain one-pass version's and the share of the bf16 bound. With --draws
+it also runs phase 4's configs[3] DDIM-50 ensemble in that mode through
+each variant and prints the draws' gaps to the plain module path.
+
+--before PATH builds an earlier tree's core kernels as the variant
+"before" (alone with base where no variant is named): PATH is a
+core_block.cu, or a directory of an earlier csrc (e.g. the parent's:
+`git archive HEAD~1 ertdx_torch/csrc | tar -x -C build/parent`, PATH
+build/parent/ertdx_torch/csrc), whose sources of this tree's names
+replace this tree's, with its own headers. It says whether this tree's
+accurate=True output is bit for bit before's on every case of
+chip_smoke.py's phase 3, and times before in the mode asked for: with
+--onepass the earlier tree's one-pass entry points, called with their
+own float32 arguments (PARENT_ONEPASS; the mma.sync one-pass kernels of
+the tree before the wgmma ones), in turns beside this tree's. The
+"diag_" variants compute wrong results on purpose: they remove one kind
+of work to show its cost. A variant whose build spills is reported and
+timed all the same. Nothing here is imported by the port; it needs nvcc
+and a card.
 """
 from __future__ import annotations
 
@@ -49,16 +61,17 @@ OUT = os.path.join(ROOT, "build", "core_ab")
 
 _PART = """      float part[MT][NT][4];
       zero(part);
-      chunk_mma<NTB, ONEPASS>(part, A, lda, ch * KC, cur,
-                              NTB ? LDK : LDW);
+      chunk_mma<NTB>(part, A, lda, ch * KC, cur, NTB ? LDK : LDW);
       add_part(acc, part);"""
 _TILE_PART = """    float part[MT][NT][4];
     zero(part);
-    chunk_mma<NTB, ONEPASS>(part, A, lda, k0,
-                            NTB ? Bs + k0 : Bs + k0 * ldb, ldb);
+    chunk_mma<NTB>(part, A, lda, k0, NTB ? Bs + k0 : Bs + k0 * ldb, ldb);
     add_part(acc, part);"""
 _MMA3 = "      for (int i = 0; i < MT; ++i) mma3(part[i][j], a[i], f);"
 _TILES = "constexpr int WM = 32, WN = 16;"
+_PROJ = """#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+    wg::mma_rs<0>(acc, a[kk], kmajor(tile, BOX, 0, kk));"""
 _UNROLL = "#pragma unroll 2\n  for (int kk = 0; kk < KC; kk += 8) {"
 _BNN = """  split(p[0], f.hi[0], f.lo[0]);
   split(p[ld], f.hi[1], f.lo[1]);"""
@@ -67,9 +80,9 @@ VARIANTS = {
     # how a product's k steps add up (base: each 32-deep chunk from zero,
     # added in fp32)
     "acc_on_mma": [
-        (_PART, "      chunk_mma<NTB, ONEPASS>(acc, A, lda, ch * KC, cur, "
+        (_PART, "      chunk_mma<NTB>(acc, A, lda, ch * KC, cur, "
                 "NTB ? LDK : LDW);"),
-        (_TILE_PART, "    chunk_mma<NTB, ONEPASS>(acc, A, lda, k0, NTB ? "
+        (_TILE_PART, "    chunk_mma<NTB>(acc, A, lda, k0, NTB ? "
                      "Bs + k0 : Bs + k0 * ldb, ldb);")],
     "acc_per_step": [
         (_MMA3, "      for (int i = 0; i < MT; ++i) "
@@ -90,7 +103,22 @@ VARIANTS = {
     "no_idle_skip": [
         ("const bool idle = NTB && b.n0 + warp_col0() >= b.valid;",
          "const bool idle = false;")],
+    # the one-pass kernels (time with --onepass): each projection as two
+    # m64n64k16 products over the weight tile's two 64-row halves (base:
+    # one m64n128k16)
+    "onepass_proj_n64": [
+        ("core_onepass.cu:" + _PROJ, """  float (&lo)[32] = *reinterpret_cast<float (*)[32]>(&acc[0]);
+  float (&hi)[32] = *reinterpret_cast<float (*)[32]>(&acc[32]);
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    wg::mma_rs<0>(lo, a[kk], kmajor(tile, BOX, 0, kk));
+    wg::mma_rs<0>(hi, a[kk], kmajor(tile, BOX, 64, kk));
+  }""")],
     # diagnostics: wrong results, one kind of work removed
+    "diag_onepass_no_proj_mma": [
+        ("core_onepass.cu:" + _PROJ, """#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+    acc[kk] += __uint_as_float(a[kk][0] & 0x007fffffu);""")],
     "diag_no_mma": [
         (_MMA3, "      for (int i = 0; i < MT; ++i) part[i][j][0] += "
                 "__uint_as_float(a[i].lo[0] + a[i].hi[1] + f.lo[0] + "
@@ -105,7 +133,16 @@ VARIANTS = {
 }
 
 
-def build(names, source="core_block.cu", variants=None,
+# the C signatures of the one-pass entry points of the tree before the
+# wgmma kernels (core_block.cu's mma.sync instances): the 3xTF32 entry
+# points' float32 arguments
+PARENT_ONEPASS = {"ertdx_core_stack_onepass":
+                  _build.SIGNATURES["ertdx_core_stack"],
+                  "ertdx_core_block_onepass":
+                  _build.SIGNATURES["ertdx_core_block"]}
+
+
+def build(names, source=("core_block.cu", "core_onepass.cu"), variants=None,
           entry_points=("ertdx_core_stack", "ertdx_core_block",
                         "ertdx_core_stack_onepass",
                         "ertdx_core_block_onepass"), out=OUT,
@@ -119,9 +156,10 @@ def build(names, source="core_block.cu", variants=None,
     the first source, or to tf32x3.cuh with the prefix "H:", or to any
     other source or header named as a prefix ("gn_common.cuh:..."). The
     variant "before" takes the file at the path `before` for the first
-    source, or, where `before` is a directory, every source and header
-    found there by name. Used by tools/ensemble_ab.py, tools/conv_ab.py
-    and tools/gn_ab.py too."""
+    source (and builds it alone), or, where `before` is a directory,
+    every source and header found there by name (and builds the sources
+    found there). Used by tools/ensemble_ab.py, tools/conv_ab.py and
+    tools/gn_ab.py too."""
     variants = VARIANTS if variants is None else variants
     sources = [source] if isinstance(source, str) else list(source)
     files = {f: open(os.path.join(CSRC, f)).read()
@@ -130,11 +168,14 @@ def build(names, source="core_block.cu", variants=None,
     procs = {}
     for name in names:
         text = dict(files)
+        built = sources
         if name == "before" and os.path.isdir(before):
             text.update({f: open(os.path.join(before, f)).read()
                          for f in os.listdir(before) if f in text})
+            built = [f for f in sources if f in os.listdir(before)]
         elif name == "before":
             text[sources[0]] = open(before).read()
+            built = sources[:1]
         for old, new in ([] if name in ("base", "before")
                          else variants[name]):
             target, sep, rest = old.partition(":")
@@ -156,7 +197,7 @@ def build(names, source="core_block.cu", variants=None,
             [_build._nvcc(), *_build.ARCH_FLAGS, "-std=c++17", "-O3",
              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o",
              os.path.join(d, "lib.so"),
-             *[os.path.join(d, f) for f in sources]],
+             *[os.path.join(d, f) for f in built]],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs = {}
     for name, proc in procs.items():
@@ -222,6 +263,32 @@ def same_as_before(libs, dev) -> list:
     return out
 
 
+def parent_onepass(lib, stack: bool, args, p: int):
+    """The earlier tree's one-pass kernel (PARENT_ONEPASS) on `args`, the
+    wrappers' arguments, called as its wrapper called it."""
+    if stack:
+        x, mods, k, v, ws, *rest = args
+        tensors = [x, mods, k, v, *(ws[key] for key in cb.WEIGHT_KEYS),
+                   *rest]
+        fn, nb = lib.ertdx_core_stack_onepass, ws["wqkv"].shape[0]
+    else:
+        x, mods, k, v, w = args
+        tensors = [x, mods, k, v, *(w[key] for key in cb.WEIGHT_KEYS)]
+        fn = lib.ertdx_core_block_onepass
+    out = torch.empty_like(x)
+    b, lk = mods.shape[0], k.shape[1]
+    rr = x.shape[0] // b * (x.shape[1] if stack else x.shape[1] // p)
+    stream = torch.cuda.current_stream().cuda_stream
+    ints = (b, rr, p, nb, lk) if stack else (b, rr, p, lk)
+    _build.raise_on(fn(*(t.data_ptr() for t in tensors), out.data_ptr(),
+                       *ints, stream), "parent one-pass kernel")
+    return out
+
+
+def rms(a) -> float:
+    return float(a.double().square().mean().sqrt())
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("core_ab: no CUDA device", file=sys.stderr)
@@ -238,32 +305,43 @@ def main() -> int:
     dev = torch.device("cuda")
     t0 = time.perf_counter()
     libs = build(names, before=before)
+    if before:
+        for fn, argtypes in PARENT_ONEPASS.items():
+            if hasattr(libs["before"][0], fn):
+                getattr(libs["before"][0], fn).argtypes = argtypes
     print(f"built {len(libs)} variants in {time.perf_counter() - t0:.1f} s"
           f"; {cs.card_line()}", flush=True)
     for name, (_, report) in libs.items():
         print(f"ptxas {name}: " + "; ".join(
             f"{k}: " + " | ".join(cs.ptxas_lines(report, k))
-            for k in cs.CORE_KERNELS))
+            for k in cs.CORE_KERNELS + cs.CORE_ONEPASS_KERNELS))
 
     gen = torch.Generator(device=dev).manual_seed(cs.SEED)
     a = cs.core_inputs(gen, 8, 1000, cs.NB, dev)
     stack_args = (a["x"], a["mods"], a["k"], a["v"], a["ws"], a["lift_w"],
                   a["lift_b"], a["pos_emb"], a["on_scale"], a["on_bias"],
                   a["head_w"], a["head_b"])
+    stack_packed = cb.pack_core_weights(a["ws"])
+    flops = {"stack": cs.NB * 8 * 1000 * cs.P * 2 * cs.D * (
+        14 * cs.D + 2 * cs.P + 2 * cs.LK)}
     a = cs.core_inputs(gen, 2, 1000, 1, dev)
     block_args = (a["x3"], a["mods"][:, :6].contiguous(), a["k"], a["v"],
                   {key: val[0].contiguous() for key, val in a["ws"].items()})
+    block_packed = cb.pack_core_weights(block_args[4])
+    flops["block"] = 2 * 1000 * cs.P * 2 * cs.D * (
+        14 * cs.D + 2 * cs.P + 2 * cs.LK)
     accurate = not onepass
-    stack = lambda: cb.fused_core_stack(*stack_args, p=cs.P, chunk=1000,
-                                        accurate=accurate)
-    block = lambda: cb.fused_core_block(*block_args, p=cs.P, chunk=1000,
-                                        accurate=accurate)
+    stack_exact = block_exact = None
     with torch.no_grad():
         if onepass:
             stack_want = cb.fused_core_stack_onepass_plain(*stack_args,
                                                            p=cs.P)
             block_want = cb.fused_core_block_onepass_plain(*block_args,
                                                            p=cs.P)
+            stack_exact = cb.fused_core_stack_plain(
+                *cs._double(stack_args), p=cs.P)
+            block_exact = cb.fused_core_block_plain(
+                *cs._double(block_args), p=cs.P)
         else:
             stack_want = cb.fused_core_stack_plain(*stack_args, p=cs.P)
             block_want = cb.fused_core_block_plain(*block_args, p=cs.P)
@@ -271,26 +349,58 @@ def main() -> int:
     print(f"mode: {'one-pass (accurate=False)' if onepass else '3xTF32'}",
           flush=True)
 
+    def runners(name):
+        lib = libs[name][0]
+        if name == "before" and onepass:
+            return (lambda: parent_onepass(lib, True, stack_args, cs.P),
+                    lambda: parent_onepass(lib, False, block_args, cs.P))
+        kw = {"accurate": accurate}
+        if onepass:
+            return (lambda: cb.fused_core_stack(
+                        *stack_args, p=cs.P, chunk=1000,
+                        packed=stack_packed, **kw),
+                    lambda: cb.fused_core_block(
+                        *block_args, p=cs.P, chunk=1000,
+                        packed=block_packed, **kw))
+        return (lambda: cb.fused_core_stack(*stack_args, p=cs.P, chunk=1000,
+                                            **kw),
+                lambda: cb.fused_core_block(*block_args, p=cs.P, chunk=1000,
+                                            **kw))
+
+    def error_text(got, want, exact) -> str:
+        if not onepass:
+            return f"error {float((got - want).abs().max()):.3e}"
+        return (f"rms error vs float64 {rms(got - exact):.3e} (plain "
+                f"one-pass {rms(want - exact):.3e}), max "
+                f"{float((got - exact).abs().max()):.3e}")
+
     load = _build.load
     try:
         if before:
             print("accurate=True bit for bit before's on phase 3's cases: "
                   + "; ".join(same_as_before(libs, dev)), flush=True)
-        timed = [n for n in names if not (onepass and n == "before")]
-        for turn, order in enumerate((timed, timed[::-1])):
+        for turn, order in enumerate((names, names[::-1])):
             for name in order:
                 lib = types.SimpleNamespace(lib=libs[name][0])
                 _build.load = lambda lib=lib: lib
+                stack, block = runners(name)
                 with torch.no_grad():
                     got, again, got_b = stack(), stack(), block()
                     torch.cuda.synchronize()
                     stack_ms, block_ms = cs.time_ms(stack), cs.time_ms(block)
-                line = (f"[{turn}] {name}: stack {stack_ms:.3f} ms, error "
-                        f"{float((got - stack_want).abs().max()):.3e}, "
+                bound = {k: f / cs.PEAK_BF16_FLOPS * 1e3
+                         for k, f in flops.items()}
+                share = (f"; share of the bf16 bound stack "
+                         f"{100 * bound['stack'] / stack_ms:.1f} %, block "
+                         f"{100 * bound['block'] / block_ms:.1f} %"
+                         if onepass else "")
+                line = (f"[{turn}] {name}: stack {stack_ms:.3f} ms, "
+                        f"{error_text(got, stack_want, stack_exact)}, "
                         f"rerun bit-identical {torch.equal(got, again)}; "
-                        f"block {block_ms:.3f} ms, error "
-                        f"{float((got_b - block_want).abs().max()):.3e}")
-                if draws and turn == 0:
+                        f"block {block_ms:.3f} ms, "
+                        f"{error_text(got_b, block_want, block_exact)}"
+                        + share)
+                if draws and turn == 0 and name != "before":
                     u = run()
                     line += "; draws vs plain du %.3e dmean %.3e dstd %.3e" % (
                         float((u - plain).abs().max()),
