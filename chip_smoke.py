@@ -10,9 +10,12 @@ non-zero and prints no result line):
 2. build: nvcc compiles ertdx_torch/csrc/*.cu (ertdx_torch/ops/_build.py)
    and prints ptxas' register and shared-memory report; `cuobjdump -sass`
    of the library counts the HMMA.1688.F32.TF32 instructions of each
-   slab, flash, fused-core, ensemble attention and fused-conv GEMM kernel
-   and fails if one has none (they run their products on the tensor
-   cores; the fused core's 3xTF32 kernels also have no bf16 MMA); the
+   slab, flash, 3xTF32 fused-core and fused-conv GEMM kernel and fails if
+   one has none (they run their products on the tensor cores; the fused
+   core's 3xTF32 kernels also have no bf16 MMA); the ensemble attention
+   pair's one-pass kernels (csrc/ensemble_attn.cu) bf16 mma.sync
+   (HMMA.16816.F32.BF16) and no TF32 MMA in every instance, and no spill
+   in ptxas' lines; the
    fused core's one-pass kernels (csrc/core_onepass.cu) Hopper's bf16
    warpgroup MMAs (HGMMA.*.F32.BF16) and no mma.sync (HMMA) of any
    kind; ptxas' lines of the fused-core kernels of both modes and of
@@ -61,25 +64,36 @@ non-zero and prints no result line):
    as well. (b) ertdx_torch.train.train for 2
    epochs on 400 examples into a temporary directory, its best and last
    checkpoints read back through the port's reader;
-8. ensemble kernels: block_self_attention and folded_cross_attention (both
-   on 3xTF32 tensor cores) at the per-block path's shapes (N=2000 chains
-   of P=29; B=2 conditions of Lq=29,000 folded queries against Lk=147
-   keys; D=128), at a small and at an odd shape and at the cross gate's
-   edges (Lk=173 at D=128, Lk=256 at D=64), held against the plain
-   version (1e-4 * max(1, max|plain|)), reruns bit-identical, ptxas'
-   spill line of both kernels (a spill fails), timed beside the plain
-   version and F.scaled_dot_product_attention with one head (the
-   yardstick), with TFLOP/s and the share of the bound;
+8. ensemble kernels: block_self_attention and folded_cross_attention in
+   JAX's one-pass mode (one bf16 mma.sync pass a product, float32 sums)
+   at the per-block path's shapes (N=2000 chains of P=29; B=2 conditions
+   of Lq=29,000 folded queries against Lk=147 keys; D=128), at a small
+   and at an odd shape and at the cross gate's edges (Lk=173 at D=128,
+   Lk=256 at D=64), each in float32 and in bf16 (q, k and v chunks of
+   one fused projection, loaded as they are), held against the float32
+   function computed in float64 (rms error within 0.8-1.25x of the plain
+   one-pass version's, max error <= 5e-2 * max(1, max|exact|)), the
+   output in the input's dtype, reruns bit-identical; the first case of
+   each kernel and dtype timed (CUDA events, CUDA-graph replay and
+   profiler device time, every profiled kernel the one-pass kernel, at
+   most one a call) beside
+   the plain one-pass version and F.scaled_dot_product_attention with
+   one head in the same dtype (the yardstick), with the share of the
+   bound at 4 or 2 bytes a value;
 9. the rest of serving: DDIM_ENSEMBLE's CondUNet with uncond_prob=0.1, a
    v-parameterisation and ensemble_pallas=True, random weights (null
    context included) through params_from_jax, 2 conditions x 1000
    members, i.e. 2000 chains, below the fused-core threshold, so the
    per-block path runs on the ensemble kernels: (a) pd-4 guided at 2.0,
    (b) DPM++-15 unguided, (c) ancestral over T=500 guided at 2.0 on the
-   interval (0, 0.5), each with exact launch counts and held against the
-   same run with ensemble_pallas=False from the same draws (max |du|,
-   |dmean|, |dstd| <= 1e-3); (d) posterior_over_dataset over 3 conditions
-   in batches of 2 (pd-4, inverse on the device);
+   interval (0, 0.5), each with exact launch counts, its ensemble mean
+   and std within 5e-2 * max(1, |.|) of the same run with
+   ensemble_pallas=False from the same draws, the draws' max gap
+   printed; (e) one denoiser call of the kernel path under phase 8's
+   rule against the float32 plain path, the path with both attentions
+   in the plain one-pass version setting the rms yardstick; (d)
+   posterior_over_dataset over 3 conditions in batches of 2 (pd-4,
+   inverse on the device);
 10. GN and fused-conv kernels: groupnorm_silu's and gn_silu_conv3's CUDA
    forward and backward at the fused encoder arm's shapes (GN at the
    stem, (256, 587, 128), and at (256, 294, 256); the fused conv at (256,
@@ -180,7 +194,11 @@ non-zero and prints no result line):
    gap between two plain computations of the model; (e) one
    bf16 b256 step of the flash arm (the float32 flash kernels on upcast
    copies) against use_pallas off under (b)'s gates, one flash forward,
-   dQ and dK/dV;
+   dQ and dK/dV; (f) a bf16 ensemble_pallas model from random weights,
+   2 x 1000 members by DDIM-50 on the per-block path, its bf16 q, k and
+   v loaded by the one-pass ensemble kernels: 200 launches of each, the
+   draws within the band or twice the gap between two plain
+   computations, ms a DDIM step with the kernels on and off;
 17. the user path through the port's CLI (ertdx_torch/cli.py) at
    V5E8_DP's full width in bf16, everything made from a seed in a
    temporary directory: (a) generate-design --n 400, equal to
@@ -290,8 +308,9 @@ Every kernel's entry in the kernels line has `bound_ms`, the least time
 the card could take: the bytes at 3.35 TB/s or the operations at the
 fastest rate of their class, 3xTF32 on the tensor cores for float32
 matrix products (the fp32 pipe for GroupNorm, which has none), the bf16
-tensor cores' 989 TFLOP/s for the bf16 kernels and the fused core's
-one-pass mode (its `_onepass` entries); for the flash kernels
+tensor cores' 989 TFLOP/s for the bf16 kernels, the fused core's
+one-pass mode (its `_onepass` entries) and the one-pass ensemble pair
+(at 4 bytes a float32 value, 2 a bf16 one); for the flash kernels
 only the keys the mask needs. Beside it `bound_tc_ms` (the 3xTF32 time;
 null for GroupNorm) and `bound_fp32_ms` (the fp32 pipe's). The last line of
 stdout is {"ok": true, "device": {...}}. The build goes
@@ -468,18 +487,21 @@ def kernel_names(fn, calls: int = 3) -> str:
                                                  key=lambda kv: -kv[1][0]))
 
 
-# a kernel that runs its products on the tensor cores, in a mangled symbol:
-# the slab and flash attention kernels, the fused core's two, the ensemble
-# attention pair and the fused conv's GEMMs
+# a kernel that runs its products on the 3xTF32 tensor-core tile, in a
+# mangled symbol: the slab and flash attention kernels, the fused core's
+# two and the fused conv's GEMMs
 TENSOR_CORE_KERNEL = re.compile(
     r"\d((?:slab|flash)_(?:fwd|bwd_dq|bwd_dkv)_kernel"
-    r"|core_(?:stack|block)_kernel|block_self_kernel|folded_cross_kernel"
-    r"|tap3_gemm_kernel|conv_dw_kernel)[IE]")
+    r"|core_(?:stack|block)_kernel|tap3_gemm_kernel|conv_dw_kernel)[IE]")
 CORE_KERNELS = ("core_stack_kernel", "core_block_kernel")
 # the fused core's one-pass kernels (csrc/core_onepass.cu, wgmma and TMA)
 CORE_ONEPASS_KERNELS = ("core_stack_wgmma_kernel",
                         "core_block_wgmma_kernel")
-ENSEMBLE_KERNELS = ("block_self_kernel", "folded_cross_kernel")
+# the ensemble attention pair in JAX's one-pass mode (csrc/ensemble_attn.cu,
+# bf16 mma.sync), each templated on float and bf16 operands
+ENSEMBLE_KERNELS = ("block_self_onepass_kernel",
+                    "folded_cross_onepass_kernel")
+ENSEMBLE_NAMES = ("block_self_attention", "folded_cross_attention")
 CONV_KERNELS = ("tap3_gemm_kernel", "conv_dw_kernel")
 GN_KERNELS = ("gn_fwd_staged_kernel", "gn_bwd_staged_kernel",
               "gn_stats_staged_kernel", "gn_fwd_stream_kernel",
@@ -491,6 +513,9 @@ LAUNCH_LABELS = {"gn_stats": "statistics", "gn_affine": "table",
                  "gn_bwd": "GN backward"}
 
 
+_SASS: dict = {}          # the library's SASS by path, disassembled once
+
+
 def sass_counts(path, kernel_of, instruction: str):
     """{kernel<template args>: the count of `instruction` (a string, or a
     compiled pattern) in its SASS} for each kernel of the library at
@@ -500,8 +525,11 @@ def sass_counts(path, kernel_of, instruction: str):
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     if not os.path.exists(tool):
         return None
-    sass = subprocess.run([tool, "-sass", str(path)], capture_output=True,
-                          text=True, check=True).stdout
+    if str(path) not in _SASS:
+        _SASS[str(path)] = subprocess.run(
+            [tool, "-sass", str(path)], capture_output=True, text=True,
+            check=True).stdout
+    sass = _SASS[str(path)]
     counts, name = {}, None
     for line in sass.splitlines():
         if "Function : " in line:
@@ -519,11 +547,11 @@ def sass_counts(path, kernel_of, instruction: str):
 
 def check_tensor_cores(path) -> None:
     """Phase 2: the TF32 MMAs (HMMA.1688.F32.TF32) in the SASS of each
-    slab, flash, 3xTF32 fused-core, ensemble attention and fused-conv
-    kernel of the built library, and no bf16 MMA (HMMA.16816.F32.BF16) in
-    the fused core's; raises where a kernel lacks its MMAs, a fused-core
-    kernel has bf16 ones, or a fused-core, ensemble or fused-conv kernel
-    is missing. Logs and returns where the toolkit has no cuobjdump."""
+    slab, flash, 3xTF32 fused-core and fused-conv kernel of the built
+    library, and no bf16 MMA (HMMA.16816.F32.BF16) in the fused core's;
+    raises where a kernel lacks its MMAs, a fused-core kernel has bf16
+    ones, or a fused-core or fused-conv kernel is missing. Logs and
+    returns where the toolkit has no cuobjdump."""
     def kernel_of(line):
         fn = TENSOR_CORE_KERNEL.search(line)
         return None if fn is None else fn.group(1)
@@ -539,7 +567,7 @@ def check_tensor_cores(path) -> None:
         "; ".join(f"{k} {n}" for k, n in sorted(bf16.items())
                   if k.startswith(CORE_KERNELS)))
     bare = [k for k, n in counts.items() if n == 0]
-    bare += [k for k in CORE_KERNELS + ENSEMBLE_KERNELS + CONV_KERNELS
+    bare += [k for k in CORE_KERNELS + CONV_KERNELS
              if not any(name.startswith(k) for name in counts)]
     if not counts or bare:
         raise RuntimeError(f"kernels without TF32 MMAs, or missing: {bare}")
@@ -547,6 +575,37 @@ def check_tensor_cores(path) -> None:
     if wrong:
         raise RuntimeError(f"3xTF32 fused-core kernels with bf16 MMAs: "
                            f"{wrong}")
+
+
+def check_bf16_mma_sync(path, report: str, kernels=ENSEMBLE_KERNELS,
+                        label: str = "one-pass ensemble kernels") -> None:
+    """Phase 2: bf16 mma.sync (HMMA.16816.F32.BF16) and no TF32 MMA
+    (HMMA.1688) in the SASS of every instance of `kernels` (float and bf16
+    operands apart), and no spill in ptxas' lines; raises where an instance
+    lacks the bf16 MMAs or has TF32 ones, or a kernel is missing. Logs the
+    SASS check's absence where the toolkit has no cuobjdump."""
+    check_no_spill(report, kernels)
+
+    def kernel_of(line):
+        name = next((k for k in kernels if k in line), None)
+        if name is None:
+            return None
+        return name + ("[bf16]" if "__nv_bfloat16" in line else "[f32]")
+
+    bf16 = sass_counts(path, kernel_of, "HMMA.16816.F32.BF16")
+    if bf16 is None:
+        log(f"sass: no cuobjdump; the {label}' bf16 MMA check is not made")
+        return
+    tf32 = sass_counts(path, kernel_of, "HMMA.1688")
+    log(f"sass: HMMA.16816.F32.BF16 / HMMA.1688 per instance of the {label}"
+        f": " + "; ".join(f"{k} {n} / {tf32[k]}"
+                          for k, n in sorted(bf16.items())))
+    bad = [k for k, n in bf16.items() if n == 0 or tf32[k]]
+    bad += [f"{k}[{t}]" for k in kernels for t in ("f32", "bf16")
+            if not any(n.startswith(f"{k}[{t}]") for n in bf16)]
+    if bad:
+        raise RuntimeError(f"{label} without bf16 MMAs, with TF32 ones or "
+                           f"missing: {bad}")
 
 
 def check_no_spill(report: str, kernels) -> None:
@@ -588,9 +647,12 @@ def onepass_gate(tag, got, onepass_plain, exact, stack: bool) -> dict:
          "max_err_exact": float((got - exact).abs().max()),
          "max_abs_err": float((got - onepass_plain).abs().max())}
     band = 5e-2 * max(1.0, float(exact.abs().max()))
-    ratio = r["rms_err_exact"] / max(r["plain_rms_err_exact"], 1e-300)
+    # both exact (one key: the output is v, a bf16 value) count as equal
+    ratio = (r["rms_err_exact"] / r["plain_rms_err_exact"]
+             if r["plain_rms_err_exact"] else
+             1.0 if r["rms_err_exact"] == 0.0 else math.inf)
     bf16 = not stack or not bool((got.view(torch.int32) & 0xFFFF).any())
-    log(f"{tag} one-pass: rms error vs float64 {r['rms_err_exact']:.3e} "
+    log(f"{tag} one-pass: rms error vs exact {r['rms_err_exact']:.3e} "
         f"(plain one-pass {r['plain_rms_err_exact']:.3e}, ratio "
         f"{ratio:.4f}, gate 0.8-1.25); max error {r['max_err_exact']:.3e} "
         f"(band {band:.3e}); max|kernel - plain one-pass| "
@@ -816,94 +878,114 @@ def check_slab(sa, dev) -> dict:
     return results
 
 
-def check_ensemble(ea, dev, report: str, card: str) -> dict:
-    """Phase 8: ptxas' spill line of both ensemble kernels (a spill
-    fails); the kernels against their plain version, reruns bit-identical;
-    timed at the per-block path's shapes with TFLOP/s and the share of the
-    bound. q, k and v are chunks of one fused projection, as the model
-    passes them."""
+def check_ensemble(ea, dev, card: str) -> dict:
+    """Phase 8: the one-pass ensemble kernels at SELF_CASES and
+    CROSS_CASES, in float32 and in bf16, q, k and v chunks of one fused
+    projection as the model passes them: each under `onepass_gate`
+    against the float32 function computed in float64 (the plain one-pass
+    version setting the rms yardstick), its output in the input's dtype,
+    reruns bit-identical; the first case of each kernel and dtype timed
+    (CUDA events over back-to-back wrapper calls, which the host's ~40 us
+    a call can set; CUDA-graph replay and profiler device time; every
+    kernel the profiler records is the one-pass kernel, at most one a
+    call) beside the plain one-pass version, the float32 plain version
+    and one-head SDPA in the same dtype, with the share of the bound at 4
+    or 2 bytes a value.
+    Returns {name: record}, the bf16 ones under name + "_bf16"."""
     import torch.nn.functional as F
 
-    for kernel in ENSEMBLE_KERNELS:
-        lines = ptxas_lines(report, kernel)
-        log(f"ptxas {kernel}: " + " | ".join(lines))
-        spills = [int(n) for line in lines for n in
-                  re.findall(r"(\d+) bytes spill", line)]
-        if not lines or any(spills):
-            raise RuntimeError(f"{kernel}: no ptxas report or it spills")
     gen = torch.Generator(device=dev).manual_seed(SEED + 80)
     results = {}
     cases = ([("block_self_attention", c) for c in SELF_CASES]
              + [("folded_cross_attention", c) for c in CROSS_CASES])
-    for name, case in cases:
-        if name == "block_self_attention":
-            n, p, d = case
-            if not ea.block_self_ok(n, p, d):
-                raise RuntimeError(f"self gate refuses {case}")
-            q, k, v = torch.randn(n, p, 3 * d, generator=gen,
-                                  device=dev).chunk(3, dim=-1)
-            kernel = lambda: ea.block_self_attention_fwd(q, k, v)
-            flops, nbytes = 4 * n * p * p * d, 4 * (4 * n * p * d)
-            shape = f"N={n} P={p} D={d}"
-        else:
-            b, lq, lk, d = case
-            if not ea.folded_cross_ok(b, lq, lk, d):
-                raise RuntimeError(f"cross gate refuses {case}")
-            q = torch.randn(b, lq, d, generator=gen, device=dev)
-            k, v = torch.randn(b, lk, 2 * d, generator=gen,
-                               device=dev).chunk(2, dim=-1)
-            kernel = lambda: ea.folded_cross_attention_fwd(q, k, v)
-            flops = 4 * b * lq * lk * d
-            nbytes = 4 * (2 * b * lq * d + 2 * b * lk * d)
-            shape = f"B={b} Lq={lq} Lk={lk} D={d}"
-        plain = lambda: ea.reference_attention(q, k, v)
-        with torch.no_grad():
-            got = kernel()
-            again = kernel()
-            torch.cuda.synchronize()
-            want = plain()
-            torch.cuda.synchronize()
-        if not torch.isfinite(got).all():
-            raise RuntimeError(f"{name} {shape}: non-finite output")
-        err = float((got - want).abs().max())
-        scale = float(want.abs().max())
-        tol = 1e-4 * max(1.0, scale)
-        same = torch.equal(got, again)
-        log(f"{name} {shape}: max_abs_err={err:.3e} max|plain|={scale:.4f} "
-            f"tol={tol:.3e}; rerun bit-identical: {same}")
-        if not err <= tol:
-            raise RuntimeError(f"{name} {shape}: error {err} > {tol}")
-        if not same:
-            raise RuntimeError(f"{name} {shape}: a rerun differs")
-        entry = results.setdefault(name, {"max_abs_err": 0.0})
-        entry["max_abs_err"] = max(entry["max_abs_err"], err)
-        if case not in (SELF_CASES[0], CROSS_CASES[0]):
-            continue
-        sdpa = lambda: F.scaled_dot_product_attention(
-            q[:, None], k[:, None], v[:, None])[:, 0]
-        with torch.no_grad():
-            lib_err = float((sdpa() - want).abs().max())
-            ms = time_ms(kernel)
-            plain_ms = time_ms(plain)
-            lib_ms = time_ms(sdpa)
-            records, _ = kernel_records(lambda: [kernel() for _ in range(10)])
-            dev_ms = sum(e.time_range.elapsed_us() for e in records) / 10e3
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(20):
-                kernel()
-            host_us = (time.perf_counter() - t0) / 20 * 1e6
-            torch.cuda.synchronize()
-        bd = bound(flops, nbytes)
-        entry.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **bd,
-                     shape=shape)
-        log(f"{name} {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"SDPA {lib_ms:.4f} ms (max|d| vs plain {lib_err:.2e}), "
-            f"{bound_text(bd, flops, nbytes)}, achieved "
-            f"{flops / ms / 1e9:.2f} TFLOP/s, "
-            f"{100 * bd['bound_ms'] / ms:.1f} % of the bound; "
-            f"profiler device time {dev_ms:.4f} ms a launch, host time "
-            f"{host_us:.1f} us a wrapper call; {card}")
+    for dtype, suffix in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
+        size = torch.finfo(dtype).bits // 8
+        for name, case in cases:
+            if name == "block_self_attention":
+                n, p, d = case
+                if not ea.block_self_ok(n, p, d):
+                    raise RuntimeError(f"self gate refuses {case}")
+                q, k, v = torch.randn(n, p, 3 * d, generator=gen,
+                                      device=dev).to(dtype).chunk(3, dim=-1)
+                kernel = lambda: ea.block_self_attention_fwd(q, k, v)
+                flops, nbytes = 4 * n * p * p * d, size * 4 * n * p * d
+                shape = f"N={n} P={p} D={d}"
+            else:
+                b, lq, lk, d = case
+                if not ea.folded_cross_ok(b, lq, lk, d):
+                    raise RuntimeError(f"cross gate refuses {case}")
+                q = torch.randn(b, lq, d, generator=gen,
+                                device=dev).to(dtype)
+                k, v = torch.randn(b, lk, 2 * d, generator=gen,
+                                   device=dev).to(dtype).chunk(2, dim=-1)
+                kernel = lambda: ea.folded_cross_attention_fwd(q, k, v)
+                flops = 4 * b * lq * lk * d
+                nbytes = size * (2 * b * lq * d + 2 * b * lk * d)
+                shape = f"B={b} Lq={lq} Lk={lk} D={d}"
+            tag = f"{name}{suffix} {shape}"
+            onepass = lambda: ea.reference_attention_onepass(q, k, v)
+            with torch.no_grad():
+                got = kernel()
+                again = kernel()
+                torch.cuda.synchronize()
+                want = onepass()
+                exact = ea.reference_attention(q.double(), k.double(),
+                                               v.double())
+                torch.cuda.synchronize()
+            same = torch.equal(got, again)
+            log(f"{tag}: output {got.dtype}, rerun bit-identical: {same}")
+            if got.dtype != dtype or not same:
+                raise RuntimeError(f"{tag}: wrong dtype or a rerun differs")
+            gate = onepass_gate(tag, got, want, exact, stack=False)
+            entry = results.setdefault(name + suffix, {})
+            for key, val in gate.items():
+                entry[key] = max(entry.get(key, 0.0), val)
+            if case not in (SELF_CASES[0], CROSS_CASES[0]):
+                continue
+            sdpa = lambda: F.scaled_dot_product_attention(
+                q[:, None], k[:, None], v[:, None])[:, 0]
+            which = ENSEMBLE_KERNELS[name != "block_self_attention"]
+            with torch.no_grad():
+                lib_err = float((sdpa().double() - exact).abs().max())
+                ms = time_ms(kernel)
+                plain_ms = time_ms(onepass)
+                plain32_ms = time_ms(lambda: ea.reference_attention(q, k, v))
+                lib_ms = time_ms(sdpa)
+                dev_graph_ms = graph_ms(kernel)
+                lib_graph_ms = graph_ms(sdpa)
+                records, _ = kernel_records(lambda: [kernel()
+                                                     for _ in range(10)])
+                dev_ms = sum(e.time_range.elapsed_us()
+                             for e in records) / 10e3
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(20):
+                    kernel()
+                host_us = (time.perf_counter() - t0) / 20 * 1e6
+                torch.cuda.synchronize()
+            others = sorted({e.name[:80] for e in records
+                             if which not in e.name})
+            log(f"{tag}: {len(records)} kernel records over 10 wrapper "
+                f"calls, other kernels: {others or 'none'}")
+            if not records or len(records) > 10 or others:
+                raise RuntimeError(f"{tag}: a wrapper call launched more "
+                                   f"than its kernel")
+            bd = bound(flops, nbytes, tc_rate=PEAK_BF16_FLOPS)
+            entry.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **bd,
+                         shape=shape, tflops=flops / ms / 1e9,
+                         graph_ms=dev_graph_ms,
+                         library_graph_ms=lib_graph_ms,
+                         bound_share=bd["bound_ms"] / dev_graph_ms)
+            log(f"{tag}: kernel {ms:.4f} ms by events, {dev_graph_ms:.4f} "
+                f"ms of device time (CUDA-graph replay; profiler "
+                f"{dev_ms:.4f}), plain one-pass {plain_ms:.4f} ms, float32 "
+                f"plain {plain32_ms:.4f} ms, SDPA in {str(dtype)[6:]} "
+                f"{lib_ms:.4f} ms by events, {lib_graph_ms:.4f} device (max "
+                f"error vs float64 {lib_err:.2e}), "
+                f"{bound_text(bd, flops, nbytes)}, device time "
+                f"{100 * bd['bound_ms'] / dev_graph_ms:.1f} % of the bound, "
+                f"{flops / dev_graph_ms / 1e9:.2f} TFLOP/s; host time "
+                f"{host_us:.1f} us a wrapper call; {card}")
     return results
 
 
@@ -913,12 +995,15 @@ def set_ensemble_pallas(model, on: bool) -> None:
 
 
 def check_serving(ea, cb, dev, card) -> int:
-    """Phase 9: the guided v-model on the per-block path, every sampler;
-    returns the ensemble kernels' launches over its kernel-path runs."""
+    """Phase 9: the guided v-model on the per-block path, every sampler,
+    each run's ensemble moments against ensemble_pallas=False; one
+    denoiser call under phase 8's one-pass rule; returns the ensemble
+    kernels' launches over its kernel-path runs."""
     from ertdx_torch import configs, sample
     from ertdx_torch.configs import SampleConfig
     from ertdx_torch.diffusion import schedule_from_config
     from ertdx_torch.models import build_model
+    from ertdx_torch.models import condunet as condunet_mod
     from ertdx_torch.models.mega import MIN_TOTAL_CHAINS
     from ertdx_torch.params import ParameterSpace
     from ertdx_torch.transforms import MinMaxScaler
@@ -984,21 +1069,38 @@ def check_serving(ea, cb, dev, card) -> int:
         set_ensemble_pallas(model, True)
         if tuple(u.shape) != (r, b, p) or not torch.isfinite(u).all():
             raise RuntimeError(f"{tag}: wrong shape or non-finite draws")
-        du = float((u - u_plain).abs().max())
-        dmean = float((u.mean(0) - u_plain.mean(0)).abs().max())
-        dstd = float((u.std(0) - u_plain.std(0)).abs().max())
         log(f"{tag}: {calls} denoiser calls, launches {counts}; kernel path "
             f"{run_s:.3f} s ({run_s / calls * 1e3:.3f} ms per denoiser "
             f"call), plain path {plain_s:.3f} s ({plain_s / calls * 1e3:.3f} "
-            f"ms per call; {card}); max|du|={du:.3e} max|dmean|={dmean:.3e} "
-            f"max|dstd|={dstd:.3e} max|u|={float(u_plain.abs().max()):.4f}")
-        if not (du <= 1e-3 and dmean <= 1e-3 and dstd <= 1e-3):
-            raise RuntimeError(f"{tag}: kernel path disagrees with the plain "
-                               "path")
+            f"ms per call; {card})")
+        moments_gap(f"{tag}, one-pass kernels vs ensemble_pallas=False", u,
+                    u_plain)
 
     with torch.no_grad():
         ctx = model.encode_condition(cond[:b])
         t_mid = torch.full((b * r,), big_t // 2, device=dev)
+        call = lambda: model.denoise_ensemble(x_T, t_mid, ctx, r)
+        ea.reset_launches()
+        got = call()
+        launched = dict(ea.launches)
+        set_ensemble_pallas(model, False)
+        exact = call()
+        set_ensemble_pallas(model, True)
+        patched = {name: getattr(condunet_mod, name)
+                   for name in ("block_self_attention",
+                                "folded_cross_attention")}
+        try:
+            for name in patched:
+                setattr(condunet_mod, name, ea.reference_attention_onepass)
+            onepass = call()
+        finally:
+            for name, fn in patched.items():
+                setattr(condunet_mod, name, fn)
+        torch.cuda.synchronize()
+        if launched != {name: nb for name in ea.launches}:
+            raise RuntimeError(f"(e) the denoiser call launched {launched}")
+        onepass_gate("(e) one denoiser call (t = T/2) against the float32 "
+                     "plain path", got, onepass, exact, stack=False)
         for on in (True, False):
             set_ensemble_pallas(model, on)
             device_profile(lambda: model.denoise_ensemble(x_T, t_mid, ctx, r),
@@ -1111,8 +1213,9 @@ KERNEL_GROUPS = (("GN and fused conv (this port)",
                  ("slab attention (this port)", ("slab_",)),
                  ("flash attention (this port)",
                   ("(anonymous namespace)::flash_",)),
-                 ("ensemble attention (this port)", ("block_self_kernel",
-                                                     "folded_cross_kernel")),
+                 ("ensemble attention (this port)",
+                  ("block_self_onepass_kernel",
+                   "folded_cross_onepass_kernel")),
                  ("convolution", ("conv", "implicit", "fprop", "dgrad",
                                   "wgrad", "winograd", "nchwtonhwc",
                                   "nhwctonchw")),
@@ -3258,16 +3361,16 @@ def check_bf16_ensemble_serving(ea, cb, dev, card) -> int:
     """Phase 16 (f): a bf16 configs[3] model with `ensemble_pallas` (random
     non-zero weights) serving DDIM-50 to SERVE_CONDS x SERVE_MEMBERS
     chains, below the fused core's threshold: the per-block path, its
-    bf16 q, k, v through the ensemble kernels as float32 copies, exactly
-    one launch of each kernel per block and DDIM step and no fused-core
-    launch. Against the same run with `ensemble_pallas` off (the plain
-    bf16 attention, JAX's reference dtypes): the draws within the JAX
-    package's bf16 band (5e-2, tests/test_ops.py:568-571) or within twice
-    the gap between two plain computations of the same model (the plain
-    path, and the ensemble branch with its attention computed in float32
-    from the same bf16 inputs and rounded once, the kernels'
-    arithmetic), both on the band's measure max(|du| - 5e-2 |u_plain|).
-    Returns the launches of each kernel."""
+    bf16 q, k, v loaded as they are by the one-pass ensemble kernels,
+    exactly one launch of each kernel per block and DDIM step and no
+    fused-core launch. Against the same run with `ensemble_pallas` off
+    (the plain bf16 attention, JAX's reference dtypes): the draws within
+    the JAX package's bf16 band (5e-2, tests/test_ops.py:568-571) or
+    within twice the gap between two plain computations of the same model
+    (the plain path, and the ensemble branch with its attention computed
+    in float32 from the same bf16 inputs and rounded once), both on the
+    band's measure max(|du| - 5e-2 |u_plain|); ms a DDIM step with the
+    kernels on and off. Returns the launches of each kernel."""
     from ertdx_torch import configs, sample
     from ertdx_torch.diffusion import schedule_from_config
     from ertdx_torch.models import build_model
@@ -3308,7 +3411,7 @@ def check_bf16_ensemble_serving(ea, cb, dev, card) -> int:
     got = {**ea.launches, **cb.launches}
     u_plain, plain_s = run(False)
     # the branch's attention in float32 from the same bf16 inputs, rounded
-    # once: a second plain computation of the kernels' arithmetic
+    # once: a second plain computation of the model
     patched = {}
     for name in ("block_self_attention", "folded_cross_attention"):
         patched[name] = getattr(condunet_mod, name)
@@ -3328,11 +3431,12 @@ def check_bf16_ensemble_serving(ea, cb, dev, card) -> int:
     want = {"block_self_attention": steps * nb,
             "folded_cross_attention": steps * nb,
             "fused_core_stack": 0, "fused_core_block": 0}
-    step_ms = run_s / steps * 1e3
+    step_ms, plain_step_ms = run_s / steps * 1e3, plain_s / steps * 1e3
     du = float((u - u_plain).abs().max())
     log(f"bf16 ensemble_pallas model ({b} x {r}, DDIM-{steps}, per-block "
-        f"path): {run_s:.3f} s on the ensemble kernels ({step_ms:.3f} ms "
-        f"per DDIM step), {plain_s:.3f} s with them off ({card}); "
+        f"path): {run_s:.3f} s on the one-pass ensemble kernels "
+        f"({step_ms:.3f} ms per DDIM step), {plain_s:.3f} s with them off "
+        f"({plain_step_ms:.3f} ms per DDIM step; {card}); "
         f"launches {got}; the draws max|du|={du:.3e} "
         f"max(|du| - 5e-2 |u_plain|)={gap:.3e}, the float32-attention "
         f"plain computation against the plain path {spread:.3e} (gate "
@@ -5319,6 +5423,7 @@ def main() -> int:
                             re.compile(r"HMMA\."))
     check_no_spill(kernels.report, CORE_KERNELS + CORE_ONEPASS_KERNELS
                    + GN_KERNELS)
+    check_bf16_mma_sync(kernels.path, kernels.report)
     check_wgmma(kernels.path, kernels.report)
     check_bf16_tensor_cores(kernels.path, kernels.report)
     check_no_spill(kernels.report, CONV_BF16_KERNELS + GN_BF16_KERNELS
@@ -5435,9 +5540,9 @@ def main() -> int:
         f"{100 * share:.2f} %")
     phase("training path", t0)
 
-    # 8. ensemble attention kernels against their plain version
+    # 8. the one-pass ensemble attention kernels, float32 and bf16
     t0 = time.perf_counter()
-    ensemble = check_ensemble(ea, dev, kernels.report, card)
+    ensemble = check_ensemble(ea, dev, card)
     phase("ensemble kernels", t0)
 
     # 9. the rest of serving on the per-block path
@@ -5528,7 +5633,7 @@ def main() -> int:
             counts=counts16, rule=fused_bf16_rule, label="bf16 fused arm")
         check_bf16_fused_serving(counts16, cb, dev, card)
         flash16_ms = check_bf16_flash_step(at, dev, card)
-        check_bf16_ensemble_serving(ea, cb, dev, card)
+        ens16_launches = check_bf16_ensemble_serving(ea, cb, dev, card)
         log(f"bf16 ms per b256 train step ({card}): the fused arm "
             f"{fused16_ms['kernel_step_ms']:.3f} (its plain path "
             f"{fused16_ms['plain_step_ms']:.3f}), phase 15's slab arm "
@@ -5618,6 +5723,8 @@ def main() -> int:
                 **train_launches,
                 "block_self_attention": serve_launches,
                 "folded_cross_attention": serve_launches,
+                "block_self_attention_bf16": ens16_launches,
+                "folded_cross_attention_bf16": ens16_launches,
                 **fused_launches, **flash_launches,
                 **{k: v for k, v in bf16_launches.items()
                    if k.endswith("_bf16")},
@@ -5630,8 +5737,11 @@ def main() -> int:
                 "fused_core_block_onepass": "ertdx/ops/core_block.py:281",
                 "slab_attention_fwd": "ertdx/ops/slab_attn.py:147",
                 "slab_attention_bwd": "ertdx/ops/slab_attn.py:184",
-                "block_self_attention": "ertdx/ops/ensemble_attn.py:151",
-                "folded_cross_attention": "ertdx/ops/ensemble_attn.py:262",
+                "block_self_attention": "ertdx/ops/ensemble_attn.py:89",
+                "folded_cross_attention": "ertdx/ops/ensemble_attn.py:187",
+                "block_self_attention_bf16": "ertdx/ops/ensemble_attn.py:89",
+                "folded_cross_attention_bf16":
+                "ertdx/ops/ensemble_attn.py:187",
                 "groupnorm_silu_fwd": "ertdx/ops/groupnorm.py:47",
                 "groupnorm_silu_bwd": "ertdx/ops/groupnorm.py:95",
                 "gn_silu_conv3_fwd": "ertdx/ops/conv.py:49",
@@ -5651,8 +5761,8 @@ def main() -> int:
                "fused_core_block_onepass": "ertdx_torch/csrc/core_onepass.cu",
                "slab_attention_fwd": "ertdx_torch/csrc/slab_attn.cu",
                "slab_attention_bwd": "ertdx_torch/csrc/slab_attn.cu",
-               "block_self_attention": "ertdx_torch/csrc/ensemble_attn.cu",
-               "folded_cross_attention": "ertdx_torch/csrc/ensemble_attn.cu",
+               **{name + dt: "ertdx_torch/csrc/ensemble_attn.cu"
+                  for name in ENSEMBLE_NAMES for dt in ("", "_bf16")},
                "groupnorm_silu_fwd": "ertdx_torch/csrc/groupnorm.cu",
                "groupnorm_silu_bwd": "ertdx_torch/csrc/groupnorm.cu",
                "gn_silu_conv3_fwd": "ertdx_torch/csrc/gn_conv.cu",
@@ -5665,8 +5775,13 @@ def main() -> int:
                "groupnorm_silu_bwd_bf16": "ertdx_torch/csrc/groupnorm.cu",
                "gn_silu_conv3_fwd_bf16": "ertdx_torch/csrc/gn_conv.cu",
                "gn_silu_conv3_bwd_bf16": "ertdx_torch/csrc/gn_conv.cu"}
+    # the kernel function of the entries whose source holds several
+    functions = {name + dt: fn for name, fn in
+                 zip(ENSEMBLE_NAMES, ENSEMBLE_KERNELS)
+                 for dt in ("", "_bf16")}
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": sources[name],
+         **({"kernel": functions[name]} if name in functions else {}),
          "replaces": replaces[name], "launches": launches[name],
          "max_abs_err": r["max_abs_err"], "ms": r["ms"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

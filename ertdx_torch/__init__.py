@@ -11,8 +11,9 @@ in JAX, with no kernel of their own (JAX runs them outside Pallas). The
 CondUNet serves posterior ensembles with every sampler
 of the JAX package (ancestral, DDIM, pd, DPM-Solver++), with and without
 classifier-free guidance, on the fused-core kernels of
-`csrc/core_block.cu` or, below their chain threshold, on the per-block
-path with the ensemble-attention kernels of `csrc/ensemble_attn.cu`; and
+`csrc/core_block.cu` and `csrc/core_onepass.cu` or, below their chain
+threshold, on the per-block path with the one-pass ensemble-attention
+kernels of `csrc/ensemble_attn.cu` (float32 or bf16 loads); and
 it trains the CondUNet with the encoder's slab attention kernels of
 `csrc/slab_attn.cu` and, in the fused-encoder arm (`pallas_gn`,
 `pallas_conv_min_width`), the GroupNorm+SiLU and GN+SiLU+conv3 kernels of

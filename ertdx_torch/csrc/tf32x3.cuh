@@ -1,6 +1,6 @@
 // The 3xTF32 tensor-core tile of the attention kernels, forward and
-// backward (slab_attn.cu, flash_attn.cu, ensemble_attn.cu), of the fused
-// denoiser core (core_block.cu) and of the fused conv's GEMMs
+// backward (slab_attn.cu, flash_attn.cu), of the fused denoiser core's
+// accurate mode (core_block.cu) and of the fused conv's GEMMs
 // (gn_conv.cu). Device code only; sm_80 and later, built for sm_90a.
 //
 // An fp32 product a b runs on the TF32 tensor cores as

@@ -22,8 +22,9 @@ self-attention reads the fused QKV slab through ops/slab_attn.py
 (`attn_slab`) or runs the flash kernels of ops/attention.py on the
 padded, masked sequence (the length gate, or `flash_min_logits`), and
 with `ensemble_pallas` the core's attention at ensemble chain counts goes
-through ops/ensemble_attn.py (the CUDA kernels on the card), each with
-the JAX dispatch rule. The encoder's GroupNorm+SiLU goes through
+through ops/ensemble_attn.py (on the card its CUDA kernels, which compute
+JAX's kernels' one-pass function: one bf16 pass a product, the q, k and v
+of either dtype loaded as they are), each with the JAX dispatch rule. The encoder's GroupNorm+SiLU goes through
 ops/groupnorm.py with `pallas_gn`, and its ResBlocks at or above
 `pallas_conv_min_width` channels (all, with `pallas_conv`) fuse GN+SiLU
 with the following conv through ops/conv.py. The fused-core CUDA kernels
@@ -331,8 +332,9 @@ class CoreBlock(nn.Module):
     when the block has one head, fold > 1 and at least
     `ensemble_min_chains` chains, counted over the global batch under a
     mesh (ertdx/models/condunet.py:315-340); those
-    ops run their CUDA kernels where their shape gate takes the tensors
-    and the plain version elsewhere. Same parameters either way."""
+    ops run their CUDA kernels (JAX's one-pass function, as JAX's kernels
+    run on their chip) where their shape gate takes the tensors and the
+    float32 plain version elsewhere. Same parameters either way."""
 
     def __init__(self, dim: int, num_heads: int = 1,
                  ensemble_pallas: bool = False,

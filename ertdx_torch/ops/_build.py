@@ -63,7 +63,9 @@ SIGNATURES = {
     "ertdx_slab_fwd_bf16": [_P] * 2 + [_I] * 5 + [_P],
     "ertdx_slab_bwd_bf16": [_P] * 3 + [_I] * 5 + [_P],
     "ertdx_block_self_attn": [_P] * 4 + [_L] * 3 + [_I] * 3 + [_P],
+    "ertdx_block_self_attn_bf16": [_P] * 4 + [_L] * 3 + [_I] * 3 + [_P],
     "ertdx_folded_cross_attn": [_P] * 4 + [_L] * 3 + [_I] * 4 + [_P],
+    "ertdx_folded_cross_attn_bf16": [_P] * 4 + [_L] * 3 + [_I] * 4 + [_P],
     "ertdx_flash_fwd": [_P] * 6 + [_I] * 5 + [_F, _P],
     "ertdx_flash_bwd_dq": [_P] * 9 + [_I] * 5 + [_F, _P],
     "ertdx_flash_bwd_dkv": [_P] * 9 + [_I] * 5 + [_F, _P],

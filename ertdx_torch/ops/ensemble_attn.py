@@ -13,22 +13,31 @@ softmax(q k^T / sqrt(D)) v with one head:
 
 q, k and v may be row-strided views (the chunks of a fused QKV or KV
 projection): their last axis must be contiguous and their rows evenly
-spaced. The output is contiguous, in q's dtype.
+spaced, 16 bytes apart at least and on 16-byte boundaries. The output is
+contiguous, in q's dtype.
 
-float32 or bfloat16 operands. The kernels compute in float32: bfloat16
-q, k and v go in as float32 copies and the output is rounded to
-bfloat16, as JAX's TPU kernels load bf16, compute in float32 and write
-q's dtype (ertdx/ops/ensemble_attn.py:101-111, :193-201). The plain
-version follows JAX's reference on either dtype (logits in float32,
-probabilities in v's dtype, ertdx/ops/attention.py:36-46).
+The kernels compute JAX's kernels' function as they run on their chip:
+every product at `Precision.DEFAULT` (ertdx/ops/ensemble_attn.py:59),
+i.e. ONE bf16 pass with float32 accumulation. Its operands are rounded
+to bf16 to nearest even where JAX's kernel body rounds them
+(`reference_attention_onepass`): q scaled by 1/sqrt(D) in float32, then
+rounded; k and v rounded; the softmax in float32 over the unpadded keys,
+normalised, then rounded for P V. float32 and bfloat16 q, k, v (one dtype
+for all three) are loaded as they are, with no copy; the output is
+written in q's dtype, as JAX's `out.astype(o_ref.dtype)`. JAX's kernel
+has no float32 mode, so neither has the port's: `ensemble_pallas` is the
+only switch, as in JAX.
 
 On a CUDA tensor that the port's gate (`block_self_ok`,
 `folded_cross_ok`) takes, the forward launches the kernel, and a failed
 build or launch raises; on a CPU tensor, or where the gate is false, the
-plain version runs, as JAX's `_bsa_fwd` / `_fca_fwd` take their XLA
-reference off the TPU. The backward is autograd of the plain version, as
-JAX's custom VJPs recompute in XLA (:163-168, :274-279). `launches`
-counts kernel launches only.
+float32 plain version `reference_attention` runs, as JAX's `_bsa_fwd` /
+`_fca_fwd` take their XLA reference off the TPU. The one-pass plain
+version is the kernels' oracle on the card and the port's side of the
+CPU tests against JAX's patched kernels; the main path never calls it.
+The backward is autograd of the float32 plain version, as JAX's custom
+VJPs recompute in XLA (:163-168, :274-279). `launches` counts kernel
+launches only.
 """
 from __future__ import annotations
 
@@ -37,15 +46,14 @@ import math
 import torch
 
 from . import _build
+from .core_block import mm_onepass, round_bf16
 
-# what the CUDA kernels take (csrc/ensemble_attn.cu: D, P <= 32 keys per
-# warp pass, Lk <= 256 keys padded to a bucket of 8-key tiles, K and V of
-# one condition and at least one warp's 16 q rows in shared memory)
+# what the CUDA kernels take (csrc/ensemble_attn.cu): D, a chain's P <= 32
+# rows (self), and the keys of one condition (cross), which the kernel
+# pads to a bucket of 8-key tiles (8, 16, 19, 24 and, at D = 64 only, 32)
 KERNEL_DIMS = (64, 128)
 KERNEL_P_MAX = 32
-KERNEL_LK_MAX = 256
-SMEM_LIMIT = 232448          # bytes of shared memory a block may use
-CROSS_KEY_TILES = (8, 16, 19, 24, 32)
+KERNEL_LK_MAX = {64: 256, 128: 192}
 
 launches = {"block_self_attention": 0, "folded_cross_attention": 0}
 
@@ -53,15 +61,6 @@ launches = {"block_self_attention": 0, "folded_cross_attention": 0}
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
-
-
-def _cross_smem_bytes(lk: int, d: int) -> int:
-    """The least shared memory of one cross-attention block: K and V rows
-    of D + 4 floats, padded with zero rows to the bucket of 8-key tiles
-    that Lk falls in, and one warp's 16 q rows; a block takes as many
-    warps (up to 8) as fit (csrc/ensemble_attn.cu::cross_smem_bytes)."""
-    tiles = next(n for n in CROSS_KEY_TILES if 8 * n >= lk)
-    return 4 * (2 * 8 * tiles + 16) * (d + 4)
 
 
 def block_self_ok(n: int, p: int, d: int) -> bool:
@@ -72,17 +71,16 @@ def block_self_ok(n: int, p: int, d: int) -> bool:
 
 def folded_cross_ok(b: int, lq: int, lk: int, d: int) -> bool:
     """Whether the cross-attention kernel takes (B, Lq, D) x (B, Lk, D):
-    one condition's K and V must fit a block's shared memory."""
+    one condition's keys within the kernel's largest key bucket."""
     return (b >= 1 and lq >= 1 and d in KERNEL_DIMS
-            and 1 <= lk <= KERNEL_LK_MAX
-            and _cross_smem_bytes(lk, d) <= SMEM_LIMIT)
+            and 1 <= lk <= KERNEL_LK_MAX[d])
 
 
 def reference_attention(q: torch.Tensor, k: torch.Tensor,
                         v: torch.Tensor) -> torch.Tensor:
-    """The plain version of both kernels: softmax(q k^T / sqrt(D)) v over
-    the last two axes, per chain (self) or per condition (cross), as
-    ertdx/ops/attention.py:36-47 with one head: the logits accumulated,
+    """The float32 plain version of both kernels: softmax(q k^T / sqrt(D))
+    v over the last two axes, per chain (self) or per condition (cross),
+    as ertdx/ops/attention.py:36-47 with one head: the logits accumulated,
     scaled and softmaxed in float32 (or wider), the probabilities cast to
     v's dtype for the product with v. The float32 function on float32."""
     scale = 1.0 / math.sqrt(q.shape[-1])
@@ -91,20 +89,51 @@ def reference_attention(q: torch.Tensor, k: torch.Tensor,
     return torch.matmul(torch.softmax(logits, dim=-1).to(v.dtype), v)
 
 
+def onepass_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """The operands of JAX's one-pass products, float32 tensors of bf16
+    values: q times float32(1/sqrt(D)), then rounded (the scale is applied
+    before the rounding: at D = 128 it is no power of two); k and v
+    rounded (on bf16 inputs, their values)."""
+    scale = torch.tensor(1.0 / math.sqrt(q.shape[-1]), dtype=torch.float32,
+                         device=q.device)
+    return (round_bf16(q.float() * scale), round_bf16(k.float()),
+            round_bf16(v.float()))
+
+
+def onepass_probs(qs: torch.Tensor, kr: torch.Tensor) -> torch.Tensor:
+    """JAX's probabilities from one-pass operands: the logits summed in
+    float32, the softmax in float32 (max subtracted, exp, divided by the
+    sum), then rounded to bf16 for P V."""
+    s = mm_onepass(qs, kr.transpose(-1, -2))
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    return round_bf16(e / e.sum(dim=-1, keepdim=True))
+
+
+def reference_attention_onepass(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor) -> torch.Tensor:
+    """The one-pass plain version of both kernels, JAX's function on its
+    chip (ertdx/ops/ensemble_attn.py:101-111, :193-201 at DEFAULT): the
+    rounded operands (`onepass_operands`), the rounded probabilities
+    (`onepass_probs`), P V summed in float32, the output in q's dtype."""
+    qs, kr, vr = onepass_operands(q, k, v)
+    return mm_onepass(onepass_probs(qs, kr), vr).to(q.dtype)
+
+
 def _row_stride(name: str, t: torch.Tensor) -> int:
     """The row stride of a (X, Y, D) tensor whose rows are evenly spaced
-    with a contiguous last axis; raises otherwise."""
+    with a contiguous last axis, 16-byte rows on 16-byte boundaries;
+    raises otherwise."""
     x, y, d = t.shape
     ld = t.stride(1) if y > 1 else (t.stride(0) if x > 1 else d)
     if (t.stride(2) != 1 or ld < d or (x > 1 and t.stride(0) != y * ld)
-            or ld % 4 or t.data_ptr() % 16):
+            or (ld * t.element_size()) % 16 or t.data_ptr() % 16):
         raise ValueError(f"{name}: the kernel takes rows of D contiguous "
-                         f"floats at an even stride (a multiple of 4, "
+                         f"values at an even stride (16-byte rows, "
                          f"16-byte aligned), got strides {t.stride()}")
     return ld
 
 
-def _check_cuda(name: str, t: torch.Tensor, shape, device) -> int:
+def _check_cuda(name: str, t: torch.Tensor, shape, device, dtype) -> int:
     if t.device.type != "cuda":
         raise ValueError(f"{name}: the kernel takes CUDA tensors, got "
                          f"{t.device}")
@@ -113,75 +142,67 @@ def _check_cuda(name: str, t: torch.Tensor, shape, device) -> int:
     if t.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{name}: the kernel takes float32 or bfloat16, "
                         f"got {t.dtype}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: {t.dtype}, the kernel takes q, k and v "
+                        f"of one dtype ({dtype})")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, the kernel "
                          f"expects {tuple(shape)}")
-    return _row_stride(name, t) if t.dtype == torch.float32 else 0
+    return _row_stride(name, t)
 
 
-def _upcast(q, k, v):
-    """float32 copies of bfloat16 operands, with their row strides: the
-    kernels load float32 (JAX's kernels load bf16 and compute in
-    float32)."""
-    q, k, v = (t.to(torch.float32, memory_format=torch.contiguous_format)
-               for t in (q, k, v))
-    return q, k, v, [_row_stride(n, t) for n, t in zip("qkv", (q, k, v))]
+def _entry(name: str, dtype: torch.dtype):
+    lib = _build.load().lib
+    return getattr(lib, name + ("_bf16" if dtype == torch.bfloat16 else ""))
 
 
 def block_self_attention_fwd(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor) -> torch.Tensor:
-    """The self-attention kernel: q, k, v (N, P, D) -> (N, P, D) in q's
-    dtype. One launch on the current stream."""
+    """The self-attention kernel: q, k, v (N, P, D), float32 or bfloat16,
+    -> (N, P, D) in q's dtype. One launch on the current stream."""
     n, p, d = q.shape
     if not block_self_ok(n, p, d):
         raise ValueError(f"block self-attention kernel does not take "
                          f"N={n}, P={p}, D={d}")
-    lds = [_check_cuda(name, t, (n, p, d), q.device)
+    lds = [_check_cuda(name, t, (n, p, d), q.device, q.dtype)
            for name, t in (("q", q), ("k", k), ("v", v))]
-    dtype = q.dtype
-    if {t.dtype for t in (q, k, v)} != {torch.float32}:
-        q, k, v, lds = _upcast(q, k, v)
-    out = torch.empty(n, p, d, device=q.device, dtype=torch.float32)
-    lib = _build.load().lib
+    out = torch.empty(n, p, d, device=q.device, dtype=q.dtype)
+    fn = _entry("ertdx_block_self_attn", q.dtype)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.ertdx_block_self_attn(q.data_ptr(), k.data_ptr(),
-                                       v.data_ptr(), out.data_ptr(), *lds,
-                                       n, p, d, stream)
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                *lds, n, p, d, stream)
     _build.raise_on(rc, "block_self_attention")
     launches["block_self_attention"] += 1
-    return out.to(dtype)
+    return out
 
 
 def folded_cross_attention_fwd(q: torch.Tensor, k: torch.Tensor,
                                v: torch.Tensor) -> torch.Tensor:
-    """The cross-attention kernel: q (B, Lq, D), k, v (B, Lk, D) ->
-    (B, Lq, D) in q's dtype. One launch on the current stream."""
+    """The cross-attention kernel: q (B, Lq, D), k, v (B, Lk, D), float32
+    or bfloat16, -> (B, Lq, D) in q's dtype. One launch on the current
+    stream."""
     b, lq, d = q.shape
     lk = k.shape[1]
     if not folded_cross_ok(b, lq, lk, d):
         raise ValueError(f"folded cross-attention kernel does not take "
                          f"B={b}, Lq={lq}, Lk={lk}, D={d}")
-    ldq = _check_cuda("q", q, (b, lq, d), q.device)
-    ldk = _check_cuda("k", k, (b, lk, d), q.device)
-    ldv = _check_cuda("v", v, (b, lk, d), q.device)
-    dtype = q.dtype
-    if {t.dtype for t in (q, k, v)} != {torch.float32}:
-        q, k, v, (ldq, ldk, ldv) = _upcast(q, k, v)
-    out = torch.empty(b, lq, d, device=q.device, dtype=torch.float32)
-    lib = _build.load().lib
+    ldq = _check_cuda("q", q, (b, lq, d), q.device, q.dtype)
+    ldk = _check_cuda("k", k, (b, lk, d), q.device, q.dtype)
+    ldv = _check_cuda("v", v, (b, lk, d), q.device, q.dtype)
+    out = torch.empty(b, lq, d, device=q.device, dtype=q.dtype)
+    fn = _entry("ertdx_folded_cross_attn", q.dtype)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.ertdx_folded_cross_attn(q.data_ptr(), k.data_ptr(),
-                                         v.data_ptr(), out.data_ptr(), ldq,
-                                         ldk, ldv, b, lq, lk, d, stream)
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                ldq, ldk, ldv, b, lq, lk, d, stream)
     _build.raise_on(rc, "folded_cross_attention")
     launches["folded_cross_attention"] += 1
-    return out.to(dtype)
+    return out
 
 
 class _KernelAttention(torch.autograd.Function):
-    """Forward on a CUDA kernel; backward by autograd of the plain
+    """Forward on a CUDA kernel; backward by autograd of the float32 plain
     version, recomputed from the saved inputs."""
 
     @staticmethod

@@ -219,109 +219,122 @@ def test_slab_gate_false_runs_the_plain_version(cuda):
                                           dtype=torch.float64), 1)
 
 
-def _ensemble_inputs(dev, shape_q, shape_kv, seed, fused=True):
-    """q, k, v on the card; with `fused` they are row-strided chunks of
-    one projection, as the model passes them."""
+def _ensemble_inputs(dev, shape_q, shape_kv, seed, fused=True,
+                     dtype=torch.float32):
+    """q, k, v on the card in `dtype`; with `fused` they are row-strided
+    chunks of one projection, as the model passes them."""
     g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(dtype)
+
     if fused and shape_q == shape_kv:
-        return torch.randn(*shape_q[:-1], 3 * shape_q[-1], generator=g,
-                           device=dev).chunk(3, dim=-1)
-    q = torch.randn(*shape_q, generator=g, device=dev)
+        return rnd(*shape_q[:-1], 3 * shape_q[-1]).chunk(3, dim=-1)
+    q = rnd(*shape_q)
     if fused:
-        k, v = torch.randn(*shape_kv[:-1], 2 * shape_kv[-1], generator=g,
-                           device=dev).chunk(2, dim=-1)
+        k, v = rnd(*shape_kv[:-1], 2 * shape_kv[-1]).chunk(2, dim=-1)
     else:
-        k, v = (torch.randn(*shape_kv, generator=g, device=dev)
-                for _ in range(2))
+        k, v = rnd(*shape_kv), rnd(*shape_kv)
     return q, k, v
 
 
+def _onepass_rule(got, q, k, v):
+    """chip_smoke.py phase 8's rule for a one-pass kernel: its rms error
+    against the float32 function computed in float64 within 0.8-1.25x of
+    the plain one-pass version's, its max error at most 5e-2 x max(1,
+    max|exact|) (JAX's bf16 band); the output in q's dtype."""
+    from ertdx_torch.ops import ensemble_attn as ea
+
+    assert got.dtype == q.dtype and torch.isfinite(got).all()
+    exact = ea.reference_attention(q.double(), k.double(), v.double())
+    plain = ea.reference_attention_onepass(q, k, v)
+    err, plain_err = got.double() - exact, plain.double() - exact
+    if _rms(plain_err) == 0.0:           # one key: the output is v, exact
+        assert _rms(err) == 0.0
+    else:
+        assert 0.8 <= _rms(err) / _rms(plain_err) <= 1.25
+    assert float(err.abs().max()) <= 5e-2 * max(1.0,
+                                                 float(exact.abs().max()))
+
+
+DTYPES = [torch.float32, torch.bfloat16]
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
 @pytest.mark.parametrize("n,p,d,fused", [
     (2000, 29, 128, True),     # the per-block path's shape
     (5, 32, 128, False),       # every lane a key
     (7, 1, 64, True),          # one token
     (3, 17, 64, False),
     (1, 29, 128, True),        # one chain
-    (5000, 29, 64, True),      # many chains a block
+    (5000, 29, 64, True),      # many chains a warp
 ])
-def test_block_self_kernel_matches_plain(cuda, n, p, d, fused):
+def test_block_self_kernel_matches_plain(cuda, n, p, d, fused, dtype):
     from ertdx_torch.ops import ensemble_attn as ea
 
-    q, k, v = _ensemble_inputs(cuda, (n, p, d), (n, p, d), n + p, fused)
+    q, k, v = _ensemble_inputs(cuda, (n, p, d), (n, p, d), n + p, fused,
+                               dtype)
     ea.reset_launches()
     got = ea.block_self_attention(q, k, v)
     again = ea.block_self_attention(q, k, v)
     torch.cuda.synchronize()
     assert ea.launches["block_self_attention"] == 2
-    want = ea.reference_attention(q, k, v)
-    assert float((got - want).abs().max()) <= \
-        1e-4 * max(1.0, float(want.abs().max()))
+    _onepass_rule(got, q, k, v)
     assert torch.equal(got, again)
 
 
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
 @pytest.mark.parametrize("b,lq,lk,d,fused", [
     (2, 29 * 1000, 147, 128, True),   # the per-block path's shape
     (1, 13, 256, 64, False),          # the most keys; a ragged row group
     (3, 1, 1, 128, True),
     (2, 29 * 7, 61, 128, False),
-    (1, 29 * 3, 173, 128, True),      # the old gate's edge at D = 128
+    (1, 29 * 3, 173, 128, True),      # the gate's edge at D = 128
     (2, 40, 256, 64, True),           # and at D = 64
     (2, 29 * 5, 147, 128, True),      # Lq not a multiple of 16
     (2, 7, 147, 128, False),          # Lq below one 16-row tile
 ])
-def test_folded_cross_kernel_matches_plain(cuda, b, lq, lk, d, fused):
+def test_folded_cross_kernel_matches_plain(cuda, b, lq, lk, d, fused,
+                                           dtype):
     from ertdx_torch.ops import ensemble_attn as ea
 
-    q, k, v = _ensemble_inputs(cuda, (b, lq, d), (b, lk, d), lq + lk, fused)
+    q, k, v = _ensemble_inputs(cuda, (b, lq, d), (b, lk, d), lq + lk, fused,
+                               dtype)
     ea.reset_launches()
     got = ea.folded_cross_attention(q, k, v)
     again = ea.folded_cross_attention(q, k, v)
     torch.cuda.synchronize()
     assert ea.launches["folded_cross_attention"] == 2
-    want = ea.reference_attention(q, k, v)
-    assert float((got - want).abs().max()) <= \
-        1e-4 * max(1.0, float(want.abs().max()))
+    _onepass_rule(got, q, k, v)
     assert torch.equal(got, again)
 
 
-@pytest.mark.parametrize("kind,shape_q,shape_kv", [
-    ("self", (2000, 29, 128), (2000, 29, 128)),    # the per-block path's
-    ("self", (7, 17, 64), (7, 17, 64)),
-    ("cross", (2, 29 * 1000, 128), (2, 147, 128)),
-    ("cross", (3, 40, 64), (3, 61, 64)),
-])
-def test_ensemble_kernels_on_bf16_operands(cuda, kind, shape_q, shape_kv):
-    """bf16 q, k, v (chunks of a fused projection) go through the float32
-    kernels as float32 copies, the output in bf16: against the plain
-    version computed in float32 from the same bf16 inputs within one bf16
-    rounding of the output (2^-8 x max(1, max|plain|)); reruns
-    bit-identical, one launch a call."""
+@pytest.mark.parametrize("kind", ["self", "cross"])
+def test_ensemble_kernels_load_bf16_without_a_copy(cuda, kind):
+    """bf16 q, k, v (chunks of a fused projection) go to the kernel as
+    they are: every kernel the profiler records over 5 wrapper calls is
+    the one-pass kernel, at most one a call, and the output is bf16."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     from ertdx_torch.ops import ensemble_attn as ea
 
-    g = torch.Generator(device=cuda).manual_seed(shape_q[1] + 3)
-    d = shape_q[-1]
-
-    def rnd(*shape):
-        return torch.randn(*shape, generator=g, device=cuda).bfloat16()
-
-    if kind == "self":
-        q, k, v = rnd(*shape_q[:-1], 3 * d).chunk(3, dim=-1)
-    else:
-        q = rnd(*shape_q)
-        k, v = rnd(*shape_kv[:-1], 2 * d).chunk(2, dim=-1)
-    fn = ea.block_self_attention if kind == "self" else \
-        ea.folded_cross_attention
-    name = "block_self_attention" if kind == "self" else \
-        "folded_cross_attention"
-    ea.reset_launches()
-    got = fn(q, k, v)
-    again = fn(q, k, v)
+    shapes = ((2000, 29, 128),) * 2 if kind == "self" else \
+        ((2, 29 * 1000, 128), (2, 147, 128))
+    q, k, v = _ensemble_inputs(cuda, *shapes, 9, True, torch.bfloat16)
+    fn = ea.block_self_attention_fwd if kind == "self" else \
+        ea.folded_cross_attention_fwd
+    assert fn(q, k, v).dtype == torch.bfloat16
     torch.cuda.synchronize()
-    assert ea.launches[name] == 2 and got.dtype == torch.bfloat16
-    want = ea.reference_attention(q.float(), k.float(), v.float())
-    assert float((got.float() - want).abs().max()) <= \
-        2.0 ** -8 * max(1.0, float(want.abs().max()))
-    assert torch.equal(got, again)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            fn(q, k, v)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    assert 1 <= len(names) <= 5
+    assert all("onepass_kernel" in name for name in names), names
 
 
 def test_ensemble_gate_false_runs_the_plain_version(cuda):
@@ -348,16 +361,23 @@ def test_ensemble_kernels_refuse_what_they_do_not_take(cuda):
     q = torch.randn(4, 29, 128, device=cuda)
     with pytest.raises(TypeError, match="float32"):
         ea.block_self_attention_fwd(q.double(), q.double(), q.double())
+    with pytest.raises(TypeError, match="one dtype"):
+        ea.block_self_attention_fwd(q, q.bfloat16(), q)
     with pytest.raises(ValueError, match="stride"):
         bad = torch.randn(4, 128, 29, device=cuda).transpose(1, 2)
         ea.block_self_attention_fwd(q, bad, q)
+    with pytest.raises(ValueError, match="stride"):      # bf16 rows of
+        qb = torch.randn(4, 29, 132, device=cuda).bfloat16()   # 264 bytes
+        ea.block_self_attention_fwd(*(qb[..., :128],) * 3)
     with pytest.raises(ValueError, match="CUDA"):
         ea.folded_cross_attention_fwd(q, q.cpu(), q)
 
 
 def test_per_block_path_runs_on_the_ensemble_kernels(cuda):
     """A guided pd run below the fused-core threshold goes through the
-    ensemble kernels: 2 passes x 2 steps x 2 blocks launches of each."""
+    ensemble kernels: 2 passes x 2 steps x 2 blocks launches of each; the
+    ensemble's mean and std within 5e-2 x max(1, |.|) of the plain path's
+    (a one-pass result is not held elementwise)."""
     from ertdx_torch import sample
     from ertdx_torch.configs import SampleConfig
     from ertdx_torch.diffusion import get_diffusion_schedule
@@ -381,8 +401,10 @@ def test_per_block_path_runs_on_the_ensemble_kernels(cuda):
         blk.ensemble_pallas = False
     u_plain = sample.posterior_ensemble(model, cond, sch, 100, scfg,
                                         x_T=x_t)
-    np.testing.assert_allclose(u.cpu().numpy(), u_plain.cpu().numpy(),
-                               atol=1e-4, rtol=1e-4)
+    assert torch.isfinite(u).all()
+    for stat in (lambda a: a.mean(0), lambda a: a.std(0)):
+        a, b = stat(u), stat(u_plain)
+        assert float(((a - b).abs() / b.abs().clamp(min=1.0)).max()) <= 5e-2
 
 
 def _close(got, want):
