@@ -369,7 +369,7 @@ class CoreBlock(nn.Module):
                  and global_rows(b) >= self.ensemble_min_chains)
         q, k, v = self.qkv(self.ada1(x, cvec)).chunk(3, dim=-1)
         if fused:
-            a = block_self_attention(q, k, v)
+            a = block_self_attention(q, k, v, global_n=global_rows(b))
         else:
             a = self._unheads(attention(self._heads(q), self._heads(k),
                                         self._heads(v)))

@@ -26,6 +26,16 @@ The kernels' numeric mode is the model's `ensemble_mega_accurate`, as
 in JAX (ertdx/models/mega.py:116-132): False, the default, runs JAX's
 one-pass mode (each product one bf16 pass, float32 accumulation), True
 the float32 function (3xTF32 on the card); see ops/core_block.py.
+
+In the one-pass mode JAX's gate chooses the function (`mega_route`): where
+JAX, evaluated as on its TPU (`tpu_mega_plan`), plans its kernels, the
+port computes their one-pass function, on the CUDA kernels where they
+take the core's shape and on the plain one-pass version on the card where
+they do not (warned once per shape); where JAX plans none, the module
+path computes the float32 function, as JAX's XLA path. With
+`accurate=True` the kernels run wherever they take the shape: both paths
+compute the float32 function there. On the CPU nothing changes: the
+module path runs.
 """
 from __future__ import annotations
 
@@ -34,9 +44,13 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..ops._build import route, warn_onepass_plain
 from ..ops.core_block import (WEIGHT_KEYS, _ln, fused_core_block,
-                              fused_core_stack, kernel_supports,
-                              pack_core_weights)
+                              fused_core_block_onepass_plain,
+                              fused_core_stack,
+                              fused_core_stack_onepass_plain,
+                              kernel_supports, pack_core_weights,
+                              pick_block_chunk, pick_stack_outer)
 from ..parallel.mesh import (DATA_AXIS, MODEL_AXIS, all_gather_cat,
                              full_param)
 from .common import get_timestep_embedding
@@ -105,30 +119,14 @@ def mega_weights(model) -> dict:
     }
 
 
-def mega_plan(model, n_real: int, batch: int = 1,
-              cond_len: Optional[int] = None, device=None,
-              mesh=None) -> Optional[dict]:
-    """The fused-core plan, or None for the plain module path.
-
-    Requires the `ensemble_mega` flag, a single-head core (float32 or
-    bfloat16: both run the kernels on float32 inputs), tensors on a CUDA
-    device,
-    at least MIN_TOTAL_CHAINS chains PER DEVICE, and a core shape the
-    CUDA kernels
-    take (ops/core_block.kernel_supports: D=128, P <= 32,
-    Lk <= 256), which replaces the TPU's VMEM estimators. The one-launch
-    stack kernel is always preferred; the per-block kernel stays
-    reachable through `mega_denoise_ensemble(stack=False)`, the
-    per-block variant and A/B comparator. With a mesh the condition batch
-    must divide the data axis and the model axis must be 1
-    (ertdx/models/mega.py:103-111): conditions then shard over `data`,
-    each rank running the kernel on its own. `accurate` is the model's
-    `ensemble_mega_accurate`: the kernels' numeric mode."""
+def _local_batch(model, n_real: int, batch: int, mesh) -> Optional[int]:
+    """The gate's terms that JAX's and the port's plans share: the
+    `ensemble_mega` flag, a single-head core, a mesh whose data axis the
+    condition batch divides and whose model axis is 1, and at least
+    MIN_TOTAL_CHAINS chains a device. The conditions a device, or None."""
     if not getattr(model, "ensemble_mega", False):
         return None
     if getattr(model, "core_heads", 0) != 1:
-        return None
-    if device is None or torch.device(device).type != "cuda":
         return None
     if mesh is not None:
         n_d = mesh.shape[DATA_AXIS]
@@ -137,12 +135,90 @@ def mega_plan(model, n_real: int, batch: int = 1,
         batch //= n_d
     if n_real * batch < MIN_TOTAL_CHAINS:
         return None
-    p, d, nb = model.param_dim, model.hidden_dim, model.num_blocks
-    lk = cond_token_len(model, cond_len) if cond_len is not None else 256
-    if not kernel_supports(p, d, lk):
+    return batch
+
+
+def _lk(model, cond_len: Optional[int]) -> int:
+    # an unknown length: two padded lane groups, as JAX assumes
+    return cond_token_len(model, cond_len) if cond_len is not None else 256
+
+
+def tpu_mega_plan(model, n_real: int, batch: int = 1,
+                  cond_len: Optional[int] = None,
+                  mesh=None) -> Optional[dict]:
+    """JAX's `mega_plan` (ertdx/models/mega.py:67-133) as it decides on its
+    TPU, without the backend term: {"stack": True, "chunk": tile} where
+    its whole-core kernel's VMEM estimate fits, else {"stack": False,
+    "chunk": chunk} where the per-block kernel's does, else None (JAX runs
+    the module path). The estimates are of a TPU core's VMEM
+    (ops/core_block.py::pick_stack_outer, pick_block_chunk); here they say
+    which function JAX computes, not what the CUDA kernels take. JAX's
+    dtype term reads the port's `compute_dtype` (a port model computes in
+    float32 or bfloat16, both of which JAX plans)."""
+    if _local_batch(model, n_real, batch, mesh) is None \
+            or model.compute_dtype not in (torch.float32, torch.bfloat16) \
+            or model.hidden_dim % 128:
         return None
-    return {"p": p, "d": d, "num_blocks": nb, "chunk": n_real,
-            "accurate": bool(model.ensemble_mega_accurate), "stack": True}
+    p, d, nb = model.param_dim, model.hidden_dim, model.num_blocks
+    accurate = bool(model.ensemble_mega_accurate)
+    lk = _lk(model, cond_len)
+    outer = pick_stack_outer(n_real, p, d, nb, lk, accurate)
+    if outer:
+        return {"stack": True, "chunk": outer}
+    chunk = pick_block_chunk(n_real, p, d, lk, accurate)
+    return {"stack": False, "chunk": chunk} if chunk else None
+
+
+def mega_route(model, n_real: int, batch: int = 1,
+               cond_len: Optional[int] = None, device=None,
+               mesh=None) -> str:
+    """Which path the ensemble's core takes: "kernel" (the CUDA kernels),
+    "onepass_plain" (the plain one-pass version on the card) or "float32"
+    (the per-block module path, float32 products).
+
+    In JAX's one-pass mode (`ensemble_mega_accurate=False`) JAX's gate
+    chooses the function (`tpu_mega_plan`): where it plans its kernels the
+    port computes their one-pass function, on the CUDA kernels where
+    `kernel_supports` takes the core's shape, else on the plain one-pass
+    version; where it plans none, the module path, as JAX's. With
+    `accurate=True` both paths compute the float32 function, and the
+    kernels run wherever they take the shape. CPU tensors take the module
+    path."""
+    if device is None or _local_batch(model, n_real, batch, mesh) is None:
+        return "float32"
+    accurate = bool(model.ensemble_mega_accurate)
+    return route(device, accurate,
+                 accurate or tpu_mega_plan(model, n_real, batch, cond_len,
+                                           mesh) is not None,
+                 kernel_supports(model.param_dim, model.hidden_dim,
+                                 _lk(model, cond_len)))
+
+
+def mega_plan(model, n_real: int, batch: int = 1,
+              cond_len: Optional[int] = None, device=None,
+              mesh=None) -> Optional[dict]:
+    """The fused-core plan, or None for the plain module path, as
+    `mega_route` decides. The plan's variant is JAX's: the one-launch
+    stack where JAX plans its stack kernel (and always with
+    `accurate=True`), one launch per block where JAX plans its per-block
+    kernel; "plain": True where the route is "onepass_plain" (warned once
+    per shape). The kernels tile R themselves, so the chunk is R. With a
+    mesh each rank runs the kernel on its own conditions (the batch
+    divides the data axis). `accurate` is the model's
+    `ensemble_mega_accurate`: the kernels' numeric mode."""
+    route = mega_route(model, n_real, batch, cond_len, device, mesh)
+    if route == "float32":
+        return None
+    p, d, nb = model.param_dim, model.hidden_dim, model.num_blocks
+    accurate = bool(model.ensemble_mega_accurate)
+    stack = accurate or tpu_mega_plan(model, n_real, batch, cond_len,
+                                      mesh)["stack"]
+    plan = {"p": p, "d": d, "num_blocks": nb, "chunk": n_real,
+            "accurate": accurate, "stack": stack}
+    if route == "onepass_plain":
+        warn_onepass_plain("fused core", (n_real, p, d, _lk(model, cond_len)))
+        plan["plain"] = True
+    return plan
 
 
 def _cvec_silu(model, t, cond_vec, d):
@@ -165,7 +241,8 @@ def _block_mods_kv(w, sc, cond_tokens):
 def mega_denoise_ensemble(model, x, t, cond_ctx, n_real: int, *, p: int,
                           d: int, num_blocks: int, chunk: int,
                           accurate: bool = False, stack: bool = True,
-                          weights: Optional[dict] = None):
+                          weights: Optional[dict] = None,
+                          plain: bool = False):
     """(B*n_real, P) condition-major chains -> eps_hat on the fused core.
 
     stack=True runs lift -> all blocks -> head as ONE kernel launch;
@@ -173,7 +250,8 @@ def mega_denoise_ensemble(model, x, t, cond_ctx, n_real: int, *, p: int,
     head in plain PyTorch (float32 in both modes). `accurate` selects the
     kernels' mode (False: one bf16 pass a product, JAX's default).
     `weights` (from `mega_weights`) saves regathering them at every
-    step."""
+    step. `plain` computes the one-pass mode's plain versions in place of
+    the kernels, on any device (`mega_plan`'s "onepass_plain" route)."""
     w = weights if weights is not None else mega_weights(model)
     # a bfloat16 model hands over a bf16 context: the kernel side computes
     # in float32, so cast once here (ertdx/models/mega.py:167-173)
@@ -192,19 +270,27 @@ def mega_denoise_ensemble(model, x, t, cond_ctx, n_real: int, *, p: int,
             bsz * num_blocks, lk, d)
         v = torch.stack([v for _, _, v in per], dim=1).reshape(
             bsz * num_blocks, lk, d)
-        out = fused_core_stack(
-            x.reshape(bsz * n_chunks, chunk, p).contiguous(), mods, k, v,
-            w["stack"], w["lift_w"], w["lift_b"], w["pos_emb"],
-            w["on_scale"], w["on_bias"], w["head_w"], w["head_b"],
-            p=p, chunk=chunk, accurate=accurate, packed=w["packed"])
+        args = (x.reshape(bsz * n_chunks, chunk, p).contiguous(), mods, k, v,
+                w["stack"], w["lift_w"], w["lift_b"], w["pos_emb"],
+                w["on_scale"], w["on_bias"], w["head_w"], w["head_b"])
+        if plain:
+            out = fused_core_stack_onepass_plain(*args, p=p)
+        else:
+            out = fused_core_stack(*args, p=p, chunk=chunk,
+                                   accurate=accurate, packed=w["packed"])
         return out.reshape(n, p)
 
     tokens = x[..., None] @ w["lift_w"] + w["lift_b"] + w["pos_emb"][None]
     x3 = tokens.reshape(bsz * n_chunks, chunk * p, d)
     for i, (mods, k, v) in enumerate(per):
-        x3 = fused_core_block(x3, mods.contiguous(), k, v, w["blocks"][i],
-                              p=p, chunk=chunk, accurate=accurate,
-                              packed=w["packed"][i:i + 1])
+        if plain:
+            x3 = fused_core_block_onepass_plain(x3, mods, k, v,
+                                                w["blocks"][i], p=p)
+        else:
+            x3 = fused_core_block(x3, mods.contiguous(), k, v,
+                                  w["blocks"][i], p=p, chunk=chunk,
+                                  accurate=accurate,
+                                  packed=w["packed"][i:i + 1])
     tokens = x3.reshape(n, p, d)
     tokens = _ln(tokens) * w["on_scale"] + w["on_bias"]
     return (tokens @ w["head_w"] + w["head_b"])[..., 0]

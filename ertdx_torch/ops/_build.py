@@ -15,7 +15,9 @@ includes PyTorch's headers, and neither ninja nor
 `torch.utils.cpp_extension` is used. A failed build raises with nvcc's
 output; nothing falls back to the plain versions. `check_cuda` and
 `raise_on` are the argument and launch-error checks the kernel wrappers
-share.
+share; `route` is the rule of the one-pass dispatchers, and
+`warn_onepass_plain` the warning of the shape gates that send JAX's
+one-pass function to its plain version on the card.
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ import os
 import shutil
 import subprocess
 import time
+import warnings
 from pathlib import Path
 
 import torch
@@ -62,6 +65,8 @@ SIGNATURES = {
     "ertdx_slab_blocks_per_sm": [_I, _I, _P],
     "ertdx_slab_fwd_bf16": [_P] * 2 + [_I] * 5 + [_P],
     "ertdx_slab_bwd_bf16": [_P] * 3 + [_I] * 5 + [_P],
+    "ertdx_slab_fwd_onepass": [_P] * 2 + [_I] * 5 + [_P],
+    "ertdx_slab_bwd_onepass": [_P] * 3 + [_I] * 5 + [_P],
     "ertdx_block_self_attn": [_P] * 4 + [_L] * 3 + [_I] * 3 + [_P],
     "ertdx_block_self_attn_bf16": [_P] * 4 + [_L] * 3 + [_I] * 3 + [_P],
     "ertdx_folded_cross_attn": [_P] * 4 + [_L] * 3 + [_I] * 4 + [_P],
@@ -204,3 +209,41 @@ def raise_on(rc: int, name: str) -> None:
     """Raise if a launch returned a CUDA error code."""
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
+
+
+def route(device, accurate: bool, jax_takes: bool, port_takes: bool) -> str:
+    """The one-pass dispatchers' route: "kernel", "onepass_plain" or
+    "float32". A CPU tensor gets the float32 plain version, as JAX's path
+    off its TPU. With `accurate` (the float32 function) the CUDA kernel
+    runs where the port's gate takes the shape (`port_takes`), else the
+    float32 plain version. Otherwise JAX's gate as on its TPU
+    (`jax_takes`) chooses the function: where it takes its kernel, the
+    one-pass function, on the CUDA kernel where the port's gate takes the
+    shape and on the plain one-pass version on the card where it does not;
+    where it refuses, the float32 plain version, as JAX's XLA reference."""
+    if torch.device(device).type != "cuda":
+        return "float32"
+    if not accurate and not jax_takes:
+        return "float32"
+    if port_takes:
+        return "kernel"
+    return "float32" if accurate else "onepass_plain"
+
+
+_onepass_plain_warned: set = set()
+
+
+def warn_onepass_plain(op: str, shape: tuple) -> None:
+    """Warn, once per (op, shape), that a CUDA call runs the plain one-pass
+    version: JAX's gate takes its kernel there, so the port computes that
+    kernel's one-pass function, but the port's kernel does not take the
+    shape. A shape gate, not a fallback on failure: a kernel that fails to
+    build or launch still raises."""
+    key = (op, tuple(shape))
+    if key in _onepass_plain_warned:
+        return
+    _onepass_plain_warned.add(key)
+    warnings.warn(f"{op}: {tuple(shape)} is a shape JAX's kernel takes and "
+                  f"the CUDA kernel does not; running the plain one-pass "
+                  f"version on the card (20-25x slower than a kernel)",
+                  stacklevel=3)

@@ -83,6 +83,91 @@ def kernel_supports(p: int, d: int, lk: int) -> bool:
 
 
 # ---------------------------------------------------------------------------
+# JAX's TPU plan (ertdx/ops/core_block.py:160-279), copied so that
+# models/mega.py::tpu_mega_plan can tell where JAX runs its kernels. The
+# estimates are of a TPU core's VMEM; they choose the function, not a
+# launch of this port.
+# ---------------------------------------------------------------------------
+
+MAX_SINGLE_TILE = 12
+TPU_CORE_VMEM_BUDGET = 16 * 2 ** 20
+
+
+def chunk_candidates(n_real: int, p: int) -> list:
+    """JAX's valid chains-per-tile values, best first: the divisors of R
+    that are 8-divisible within the p-aware row cap, then the small ones
+    (at most MAX_SINGLE_TILE, and 384 // p) that fill 128 rows or cover R
+    whole."""
+    cap8 = min(n_real, 64, max(1, 2048 // p))
+    cap_small = min(MAX_SINGLE_TILE, max(1, 384 // p))
+    div = [c for c in range(1, n_real + 1) if n_real % c == 0]
+    eights = [c for c in div if c % 8 == 0 and c <= cap8]
+    smalls = [c for c in div if c % 8 and c <= cap_small
+              and (c * p >= 128 or c == n_real)]
+    return sorted(eights, reverse=True) + sorted(smalls, reverse=True)
+
+
+def pick_chunk(n_real: int, p: int) -> int:
+    cands = chunk_candidates(n_real, p)
+    return cands[0] if cands else 0
+
+
+def stack_vmem_bytes(p: int, d: int, nb: int, lk: int, chunk: int,
+                     accurate: bool = False, outer: int = 0) -> int:
+    """JAX's VMEM estimate of its stack kernel (bytes, float32)."""
+    outer = outer or pick_chunk(chunk, p)
+    if outer == 0:
+        return 1 << 62
+    tile = 8 if outer % 8 == 0 else outer
+    lkp = -(-lk // 128) * 128
+    rows_o, rows_t = outer * p, tile * p
+    fixed = 4 * (2 * chunk * p + 6 * nb * d + 2 * nb * lkp * d
+                 + 14 * nb * d * d + 8 * nb * d + 2 * p * d + 6 * d)
+    act = 4 * (rows_o * (outer + p) + 4 * rows_o * d + rows_o * 4 * d
+               + 2 * rows_t * rows_t + 2 * rows_o * lkp + 3 * rows_t * d)
+    if accurate:
+        act += 4 * 2 * (rows_o * d + 4 * d * d)
+    return fixed + act
+
+
+def block_vmem_bytes(p: int, d: int, lk: int, chunk: int,
+                     accurate: bool = False) -> int:
+    """JAX's VMEM estimate of its per-block kernel (bytes, float32)."""
+    if chunk == 0:
+        return 1 << 62
+    tile = 8 if chunk % 8 == 0 else chunk
+    lkp = -(-lk // 128) * 128
+    rows, rows_t = chunk * p, tile * p
+    fixed = 4 * (14 * d * d + 8 * d + 6 * d + 2 * lkp * d)
+    slabs = 4 * 3 * rows * d
+    act = 4 * (rows * 5 * d + 2 * rows * lkp + 2 * rows_t * rows_t
+               + 3 * rows_t * d)
+    if accurate:
+        act += 4 * 2 * (rows * d + 4 * d * d)
+    return fixed + slabs + act
+
+
+def pick_stack_outer(n_real: int, p: int, d: int, nb: int, lk: int,
+                     accurate: bool = False) -> int:
+    """JAX's stack tile: the first candidate within the budget, or 0."""
+    for c in chunk_candidates(n_real, p):
+        if stack_vmem_bytes(p, d, nb, lk, n_real, accurate,
+                            outer=c) <= TPU_CORE_VMEM_BUDGET:
+            return c
+    return 0
+
+
+def pick_block_chunk(n_real: int, p: int, d: int, lk: int,
+                     accurate: bool = False) -> int:
+    """JAX's per-block chunk: the first candidate within the budget, or
+    0."""
+    for c in chunk_candidates(n_real, p):
+        if block_vmem_bytes(p, d, lk, c, accurate) <= TPU_CORE_VMEM_BUDGET:
+            return c
+    return 0
+
+
+# ---------------------------------------------------------------------------
 # plain PyTorch versions
 # ---------------------------------------------------------------------------
 

@@ -28,16 +28,22 @@ written in q's dtype, as JAX's `out.astype(o_ref.dtype)`. JAX's kernel
 has no float32 mode, so neither has the port's: `ensemble_pallas` is the
 only switch, as in JAX.
 
-On a CUDA tensor that the port's gate (`block_self_ok`,
-`folded_cross_ok`) takes, the forward launches the kernel, and a failed
-build or launch raises; on a CPU tensor, or where the gate is false, the
-float32 plain version `reference_attention` runs, as JAX's `_bsa_fwd` /
-`_fca_fwd` take their XLA reference off the TPU. The one-pass plain
-version is the kernels' oracle on the card and the port's side of the
-CPU tests against JAX's patched kernels; the main path never calls it.
-The backward is autograd of the float32 plain version, as JAX's custom
-VJPs recompute in XLA (:163-168, :274-279). `launches` counts kernel
-launches only.
+JAX's gate chooses the function, the port's gate only the route
+(`block_self_route`, `folded_cross_route`). Where JAX's gate, evaluated
+as on its TPU (`tpu_block_self_attention_ok`,
+`tpu_folded_cross_attention_ok`: copies of ertdx/ops/ensemble_attn.py:
+62-87, 145-148, 240-258 without the backend term), takes its kernel, a
+CUDA tensor gets the kernel's one-pass function: the CUDA kernel where
+the port's gate (`block_self_ok`, `folded_cross_ok`) takes the shape, and
+a failed build or launch raises; else the plain one-pass version
+`reference_attention_onepass` on the card, warned once per shape. Where
+JAX's gate refuses, the float32 plain version `reference_attention` runs,
+as JAX's XLA reference, and so it does on a CPU tensor, as JAX's
+`_bsa_fwd` / `_fca_fwd` off the TPU. The one-pass plain version is also
+the kernels' oracle on the card and the port's side of the CPU tests
+against JAX's patched kernels. The backward is autograd of the float32
+plain version, as JAX's custom VJPs recompute in XLA (:163-168,
+:274-279). `launches` counts kernel launches only.
 """
 from __future__ import annotations
 
@@ -54,6 +60,11 @@ from .core_block import mm_onepass, round_bf16
 KERNEL_DIMS = (64, 128)
 KERNEL_P_MAX = 32
 KERNEL_LK_MAX = {64: 256, 128: 192}
+
+# JAX's TPU gates (ertdx/ops/ensemble_attn.py:56-87, 240-258): 8-chain
+# chunks, and the VMEM budget of one program's slabs
+TPU_CHUNK_CHAINS = 8
+TPU_SELF_VMEM_BYTES = 6 * 2 ** 20
 
 launches = {"block_self_attention": 0, "folded_cross_attention": 0}
 
@@ -74,6 +85,68 @@ def folded_cross_ok(b: int, lq: int, lk: int, d: int) -> bool:
     one condition's keys within the kernel's largest key bucket."""
     return (b >= 1 and lq >= 1 and d in KERNEL_DIMS
             and 1 <= lk <= KERNEL_LK_MAX[d])
+
+
+def tpu_self_groups_per_program(n_chains: int, p: int, d: int) -> int:
+    """JAX's `_self_groups_per_program`: the 8-chain chunks one TPU
+    program takes, 0 where the chains are no multiple of 8 or one chunk's
+    slabs and logit tile exceed the VMEM budget."""
+    if n_chains % TPU_CHUNK_CHAINS:
+        return 0
+    rows = TPU_CHUNK_CHAINS * p
+    chunk_bytes = 4 * (rows * d) * 4 + rows * rows * 4
+    if chunk_bytes > TPU_SELF_VMEM_BYTES:
+        return 0
+    g_cap = TPU_SELF_VMEM_BYTES // chunk_bytes
+    g = 1
+    total = n_chains // TPU_CHUNK_CHAINS
+    for cand in range(1, min(g_cap, total) + 1):
+        if total % cand == 0:
+            g = cand
+    return g
+
+
+def tpu_block_self_attention_ok(n: int, p: int, d: int) -> bool:
+    """JAX's `block_self_attention_ok` as on its TPU."""
+    return d % 128 == 0 and tpu_self_groups_per_program(n, p, d) > 0
+
+
+def tpu_cross_block_q(lq: int, cap: int = 1024) -> int:
+    """JAX's `_cross_block_q`: the largest multiple of 8 up to `cap` that
+    divides Lq, or 0."""
+    best = 0
+    for cand in range(8, min(cap, lq) + 1, 8):
+        if lq % cand == 0:
+            best = cand
+    return best
+
+
+def tpu_folded_cross_attention_ok(b: int, lq: int, lk: int, d: int) -> bool:
+    """JAX's `folded_cross_attention_ok` as on its TPU."""
+    bq = tpu_cross_block_q(lq)
+    if bq <= 0:
+        return False
+    lkp = -(-lk // 128) * 128
+    vmem = (2 * lkp * d + 2 * bq * d + bq * lkp) * 4
+    return d % 128 == 0 and vmem <= TPU_SELF_VMEM_BYTES
+
+
+def block_self_route(n: int, p: int, d: int, device,
+                     global_n: int | None = None) -> str:
+    """"kernel", "onepass_plain" or "float32" for (N, P, D) chains on
+    `device` (module docstring). JAX's gate counts the chains of the
+    global batch: under a mesh the caller passes them as `global_n` (by
+    default N)."""
+    return _build.route(device, False, tpu_block_self_attention_ok(
+        n if global_n is None else global_n, p, d), block_self_ok(n, p, d))
+
+
+def folded_cross_route(b: int, lq: int, lk: int, d: int, device) -> str:
+    """"kernel", "onepass_plain" or "float32" for (B, Lq, D) queries
+    against (B, Lk, D) keys on `device` (module docstring)."""
+    return _build.route(device, False,
+                        tpu_folded_cross_attention_ok(b, lq, lk, d),
+                        folded_cross_ok(b, lq, lk, d))
 
 
 def reference_attention(q: torch.Tensor, k: torch.Tensor,
@@ -201,6 +274,15 @@ def folded_cross_attention_fwd(q: torch.Tensor, k: torch.Tensor,
     return out
 
 
+def _float32_grads(ctx, g):
+    """dq, dk, dv of the float32 plain version, from the saved inputs."""
+    q, k, v = ctx.saved_tensors
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        out = reference_attention(*leaves)
+        return torch.autograd.grad(out, leaves, g)
+
+
 class _KernelAttention(torch.autograd.Function):
     """Forward on a CUDA kernel; backward by autograd of the float32 plain
     version, recomputed from the saved inputs."""
@@ -212,30 +294,48 @@ class _KernelAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v = ctx.saved_tensors
-        with torch.enable_grad():
-            leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
-            out = reference_attention(*leaves)
-            grads = torch.autograd.grad(out, leaves, g)
-        return (None, *grads)
+        return (None, *_float32_grads(ctx, g))
+
+
+class _OnepassPlainAttention(torch.autograd.Function):
+    """Forward on the plain one-pass version; backward as the kernels'."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        ctx.save_for_backward(q, k, v)
+        return reference_attention_onepass(q, k, v)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _float32_grads(ctx, g)
+
+
+def _dispatch(route: str, op: str, kernel, q, k, v) -> torch.Tensor:
+    if route == "kernel":
+        return _KernelAttention.apply(kernel, q, k, v)
+    if route == "onepass_plain":
+        _build.warn_onepass_plain(op, tuple(q.shape) + (k.shape[-2],))
+        return _OnepassPlainAttention.apply(q, k, v)
+    return reference_attention(q, k, v)
 
 
 def block_self_attention(q: torch.Tensor, k: torch.Tensor,
-                         v: torch.Tensor) -> torch.Tensor:
-    """Per-chain self-attention over (N, P, D), with a gradient: the CUDA
-    kernel on a CUDA tensor the gate takes, else the plain version."""
+                         v: torch.Tensor,
+                         global_n: int | None = None) -> torch.Tensor:
+    """Per-chain self-attention over (N, P, D), with a gradient, on the
+    route `block_self_route` gives (`global_n`: the chains of the global
+    batch under a mesh)."""
     n, p, d = q.shape
-    if q.device.type == "cpu" or not block_self_ok(n, p, d):
-        return reference_attention(q, k, v)
-    return _KernelAttention.apply(block_self_attention_fwd, q, k, v)
+    return _dispatch(block_self_route(n, p, d, q.device, global_n),
+                     "block_self_attention", block_self_attention_fwd,
+                     q, k, v)
 
 
 def folded_cross_attention(q: torch.Tensor, k: torch.Tensor,
                            v: torch.Tensor) -> torch.Tensor:
     """(B, Lq, D) folded queries against per-condition (B, Lk, D) keys and
-    values, with a gradient: the CUDA kernel on a CUDA tensor the gate
-    takes, else the plain version."""
+    values, with a gradient, on the route `folded_cross_route` gives."""
     b, lq, d = q.shape
-    if q.device.type == "cpu" or not folded_cross_ok(b, lq, k.shape[1], d):
-        return reference_attention(q, k, v)
-    return _KernelAttention.apply(folded_cross_attention_fwd, q, k, v)
+    return _dispatch(folded_cross_route(b, lq, k.shape[1], d, q.device),
+                     "folded_cross_attention", folded_cross_attention_fwd,
+                     q, k, v)

@@ -241,7 +241,7 @@ def test_condunet_onepass_branch_matches_jax(monkeypatch, num_blocks, b, r):
         want = jax_call()
     calls = []
     for name in ("block_self_attention", "folded_cross_attention"):
-        monkeypatch.setattr(tcu, name, lambda *a: calls.append(1)
+        monkeypatch.setattr(tcu, name, lambda *a, **_: calls.append(1)
                             or ea.reference_attention_onepass(*a))
     with torch.no_grad():
         tctx = tm.encode_condition(t32(cond))

@@ -178,6 +178,8 @@ def test_posterior_ensemble_runs_on_the_kernel(cuda):
     (1, 256, 128, 2),    # the longest L the kernels take
 ])
 def test_slab_kernels_match_plain(cuda, b, l, c, nh):
+    """The 3xTF32 kernels, which `accurate=True` runs (the float32
+    function), against the plain version."""
     from ertdx_torch.ops import slab_attn as sa
 
     g = torch.Generator(device=cuda).manual_seed(b * 100 + l)
@@ -185,10 +187,11 @@ def test_slab_kernels_match_plain(cuda, b, l, c, nh):
     do = torch.randn(b, l, c, generator=g, device=cuda)
     sa.reset_launches()
     z = qkv.clone().requires_grad_(True)
-    out = sa.slab_attention(z, nh)
+    out = sa.slab_attention(z, nh, accurate=True)
     out.backward(do)
     torch.cuda.synchronize()
     assert sa.launches == {"slab_attention_fwd": 1, "slab_attention_bwd": 1}
+    assert not any(sa.launches_onepass.values())
     want = sa.reference_slab_attention(qkv, nh)
     dwant = sa.reference_slab_attention_backward(qkv, do, nh)
     assert float((out.detach() - want).abs().max()) <= \
@@ -205,13 +208,25 @@ def test_slab_kernels_match_plain(cuda, b, l, c, nh):
 
 
 def test_slab_gate_false_runs_the_plain_version(cuda):
+    """Past the kernels' gate the plain versions run: the plain one-pass
+    one where JAX's gate takes its kernel (L > 256), warned; the float32
+    one with accurate=True and where JAX's gate refuses (C=2048 at L=256,
+    past its VMEM budget)."""
     from ertdx_torch.ops import slab_attn as sa
 
     sa.reset_launches()
     qkv = torch.randn(2, 300, 3 * 64, device=cuda)     # L > 256
-    out = sa.slab_attention(qkv, 1)
-    assert sa.launches["slab_attention_fwd"] == 0
-    assert torch.allclose(out, sa.reference_slab_attention(qkv, 1))
+    with pytest.warns(UserWarning, match="plain one-pass"):
+        out = sa.slab_attention(qkv, 1)
+    assert torch.equal(out, sa.reference_slab_attention_onepass(qkv, 1))
+    assert torch.equal(sa.slab_attention(qkv, 1, accurate=True),
+                       sa.reference_slab_attention(qkv, 1))
+    wide = torch.randn(2, 256, 3 * 2048, device=cuda)  # past JAX's VMEM
+    assert torch.equal(sa.slab_attention(wide, 4),
+                       sa.reference_slab_attention(wide, 4))
+    assert not any(n for counts in (sa.launches, sa.launches_onepass,
+                                    sa.launches_bf16)
+                   for n in counts.values())
     with pytest.raises(ValueError, match="do not take"):
         sa.slab_attention_fwd(qkv, 1)
     with pytest.raises(TypeError, match="float32"):
@@ -260,6 +275,17 @@ def _onepass_rule(got, q, k, v):
 DTYPES = [torch.float32, torch.bfloat16]
 
 
+def _dispatched(route, via, kernel_out, q, k, v):
+    """The dispatcher's output on its route: the kernel's bit for bit, the
+    plain one-pass version's, or the float32 plain version's."""
+    from ertdx_torch.ops import ensemble_attn as ea
+
+    want = {"kernel": kernel_out,
+            "onepass_plain": ea.reference_attention_onepass(q, k, v),
+            "float32": ea.reference_attention(q, k, v)}[route]
+    assert torch.equal(via, want), route
+
+
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
 @pytest.mark.parametrize("n,p,d,fused", [
     (2000, 29, 128, True),     # the per-block path's shape
@@ -270,17 +296,22 @@ DTYPES = [torch.float32, torch.bfloat16]
     (5000, 29, 64, True),      # many chains a warp
 ])
 def test_block_self_kernel_matches_plain(cuda, n, p, d, fused, dtype):
+    """The kernel wrapper under the one-pass rule; the dispatcher on its
+    route (`block_self_route`: the kernel where JAX's gate and the port's
+    take the shape, the float32 plain version where JAX's refuses)."""
     from ertdx_torch.ops import ensemble_attn as ea
 
     q, k, v = _ensemble_inputs(cuda, (n, p, d), (n, p, d), n + p, fused,
                                dtype)
     ea.reset_launches()
-    got = ea.block_self_attention(q, k, v)
-    again = ea.block_self_attention(q, k, v)
+    got = ea.block_self_attention_fwd(q, k, v)
+    again = ea.block_self_attention_fwd(q, k, v)
     torch.cuda.synchronize()
     assert ea.launches["block_self_attention"] == 2
     _onepass_rule(got, q, k, v)
     assert torch.equal(got, again)
+    _dispatched(ea.block_self_route(n, p, d, cuda),
+                ea.block_self_attention(q, k, v), got, q, k, v)
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
@@ -301,12 +332,14 @@ def test_folded_cross_kernel_matches_plain(cuda, b, lq, lk, d, fused,
     q, k, v = _ensemble_inputs(cuda, (b, lq, d), (b, lk, d), lq + lk, fused,
                                dtype)
     ea.reset_launches()
-    got = ea.folded_cross_attention(q, k, v)
-    again = ea.folded_cross_attention(q, k, v)
+    got = ea.folded_cross_attention_fwd(q, k, v)
+    again = ea.folded_cross_attention_fwd(q, k, v)
     torch.cuda.synchronize()
     assert ea.launches["folded_cross_attention"] == 2
     _onepass_rule(got, q, k, v)
     assert torch.equal(got, again)
+    _dispatched(ea.folded_cross_route(b, lq, lk, d, cuda),
+                ea.folded_cross_attention(q, k, v), got, q, k, v)
 
 
 @pytest.mark.parametrize("kind", ["self", "cross"])
@@ -338,18 +371,22 @@ def test_ensemble_kernels_load_bf16_without_a_copy(cuda, kind):
 
 
 def test_ensemble_gate_false_runs_the_plain_version(cuda):
+    """Past the kernels' gates the plain versions run: the float32 one
+    where JAX's gate refuses too (4 chains, no multiple of 8), the plain
+    one-pass one, warned, where JAX's takes its kernel (Lk = 300)."""
     from ertdx_torch.ops import ensemble_attn as ea
 
     ea.reset_launches()
     q = torch.randn(4, 33, 128, device=cuda)          # P > 32
     out = ea.block_self_attention(q, q, q)
     qc, kc = torch.randn(1, 40, 128, device=cuda), \
-        torch.randn(1, 300, 128, device=cuda)         # Lk > 256
-    outc = ea.folded_cross_attention(qc, kc, kc)
+        torch.randn(1, 300, 128, device=cuda)         # Lk > 192
+    with pytest.warns(UserWarning, match="plain one-pass"):
+        outc = ea.folded_cross_attention(qc, kc, kc)
     assert ea.launches == {"block_self_attention": 0,
                            "folded_cross_attention": 0}
-    assert torch.allclose(out, ea.reference_attention(q, q, q))
-    assert torch.allclose(outc, ea.reference_attention(qc, kc, kc))
+    assert torch.equal(out, ea.reference_attention(q, q, q))
+    assert torch.equal(outc, ea.reference_attention_onepass(qc, kc, kc))
 
 
 def test_ensemble_kernels_refuse_what_they_do_not_take(cuda):
@@ -377,7 +414,10 @@ def test_per_block_path_runs_on_the_ensemble_kernels(cuda):
     """A guided pd run below the fused-core threshold goes through the
     ensemble kernels: 2 passes x 2 steps x 2 blocks launches of each; the
     ensemble's mean and std within 5e-2 x max(1, |.|) of the plain path's
-    (a one-pass result is not held elementwise)."""
+    (a one-pass result is not held elementwise). 96 members: 96 x 29
+    folded queries have a q-block JAX's cross kernel takes (100 x 29 has
+    no multiple of 8 dividing it, so JAX, and the port, run that cross
+    attention in float32)."""
     from ertdx_torch import sample
     from ertdx_torch.configs import SampleConfig
     from ertdx_torch.diffusion import get_diffusion_schedule
@@ -391,15 +431,15 @@ def test_per_block_path_runs_on_the_ensemble_kernels(cuda):
     cond = torch.randn(2, 96, 4, device=cuda)
     scfg = SampleConfig(sampler="pd", pd_steps=2, guidance_scale=2.0)
     sch = get_diffusion_schedule(20)
-    x_t = torch.randn(2 * 100, 29, device=cuda)
+    x_t = torch.randn(2 * 96, 29, device=cuda)
     ea.reset_launches()
-    u = sample.posterior_ensemble(model, cond, sch, 100, scfg, x_T=x_t)
+    u = sample.posterior_ensemble(model, cond, sch, 96, scfg, x_T=x_t)
     torch.cuda.synchronize()
     assert ea.launches == {"block_self_attention": 8,
                            "folded_cross_attention": 8}
     for blk in model.blocks:
         blk.ensemble_pallas = False
-    u_plain = sample.posterior_ensemble(model, cond, sch, 100, scfg,
+    u_plain = sample.posterior_ensemble(model, cond, sch, 96, scfg,
                                         x_T=x_t)
     assert torch.isfinite(u).all()
     for stat in (lambda a: a.mean(0), lambda a: a.std(0)):
@@ -710,10 +750,12 @@ def test_attention_backwards_take_misaligned_views(cuda):
     do = torch.randn(2, 147, 256, generator=g, device=cuda)
     sa.reset_launches()
     z = _misaligned(qkv).requires_grad_(True)
-    sa.slab_attention(z, 4).backward(_misaligned(do))
+    sa.slab_attention(z, 4, accurate=True).backward(_misaligned(do))
     torch.cuda.synchronize()
     assert sa.launches == {"slab_attention_fwd": 1, "slab_attention_bwd": 1}
     _close(z.grad, sa.reference_slab_attention_backward(qkv, do, 4))
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        sa.slab_attention_bwd_onepass(_misaligned(qkv), do, 4)
     with pytest.raises(ValueError, match="16-byte aligned"):
         sa.slab_attention_bwd(_misaligned(qkv), do, 4)
 
@@ -749,12 +791,17 @@ def test_attention_forwards_take_misaligned_views(cuda):
     qkv = torch.randn(2, 147, 3 * 256, generator=g, device=cuda)
     with pytest.raises(ValueError, match="16-byte aligned"):
         sa.slab_attention_fwd(_misaligned(qkv), 4)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        sa.slab_attention_fwd_onepass(_misaligned(qkv), 4)
     sa.reset_launches()
     with torch.no_grad():
-        out = sa.slab_attention(_misaligned(qkv), 4)
+        out = sa.slab_attention(_misaligned(qkv), 4, accurate=True)
+        one = sa.slab_attention(_misaligned(qkv), 4)
     torch.cuda.synchronize()
     assert sa.launches["slab_attention_fwd"] == 1
+    assert sa.launches_onepass["slab_attention_fwd_onepass"] == 1
     _close(out, sa.reference_slab_attention(qkv, 4))
+    assert torch.equal(one, sa.slab_attention_fwd_onepass(qkv, 4))
 
     q, k, v, _, mask = _flash_inputs(cuda, 2, 4, 256, 64, 147, (1,), 6)
     for i in range(4):
@@ -887,6 +934,51 @@ def test_flash_cross_attention_on_the_kernels(cuda, masked):
 # persistent blocks' ragged last wave)
 SLAB_BF16_CASES = [(3, 147, 256, 4), (2, 65, 256, 8), (2, 1, 64, 1),
                    (2, 200, 128, 2), (1, 256, 128, 2), (300, 147, 256, 4)]
+
+
+def _slab_onepass_rule(got, onepass, exact):
+    """chip_smoke.py phase 3's one-pass rule: the rms error against the
+    float32 function in float64 within 0.8-1.25x the plain one-pass
+    version's, the max error within 5e-2 x max(1, max|exact|)."""
+    err, own = (_rms(t.double() - exact) for t in (got, onepass))
+    # both exact (one key: the output is v) count as equal
+    ratio = err / own if own else (1.0 if err == 0.0 else math.inf)
+    assert 0.8 <= ratio <= 1.25, ratio
+    assert float((got.double() - exact).abs().max()) <= 5e-2 * max(
+        1.0, float(exact.abs().max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,l,c,nh", SLAB_BF16_CASES)
+def test_slab_onepass_kernels_match_plain(cuda, b, l, c, nh, dtype):
+    """The one-pass kernels through slab_attention (JAX's function: one
+    launch each of the slab's dtype), forward and backward, under the
+    one-pass rule; reruns bit-identical."""
+    from ertdx_torch.ops import slab_attn as sa
+
+    g = torch.Generator(device=cuda).manual_seed(b * 100 + l + 9)
+    qkv = torch.randn(b, l, 3 * c, generator=g, device=cuda).to(dtype)
+    do = torch.randn(b, l, c, generator=g, device=cuda).to(dtype)
+    sa.reset_launches()
+    z = qkv.clone().requires_grad_(True)
+    out = sa.slab_attention(z, nh)
+    out.backward(do)
+    torch.cuda.synchronize()
+    bf16 = dtype == torch.bfloat16
+    assert not any(sa.launches.values())
+    assert set(sa.launches_bf16.values()) == {1 if bf16 else 0}
+    assert set(sa.launches_onepass.values()) == {0 if bf16 else 1}
+    assert out.dtype == z.grad.dtype == dtype
+    _slab_onepass_rule(out.detach(),
+                       sa.reference_slab_attention_onepass(qkv, nh),
+                       sa.reference_slab_attention(qkv.double(), nh))
+    _slab_onepass_rule(z.grad, sa.reference_slab_attention_onepass_backward(
+        qkv, do, nh), sa.reference_slab_attention_backward(
+        qkv.double(), do.double(), nh))
+    fwd = sa.slab_attention_fwd_bf16 if bf16 else sa.slab_attention_fwd_onepass
+    bwd = sa.slab_attention_bwd_bf16 if bf16 else sa.slab_attention_bwd_onepass
+    assert torch.equal(fwd(qkv, nh), out.detach())
+    assert torch.equal(bwd(qkv, do, nh), z.grad)
 
 
 def _bf16_gate(got, want32, plain_bf16):

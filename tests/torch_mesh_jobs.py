@@ -267,9 +267,9 @@ def dp_posterior(ctx):
             calls = {"ensemble": 0, "flash": 0}
             self_attn, flash = cu.block_self_attention, cu.flash_attention
 
-            def count_self(*a, _f=self_attn):
+            def count_self(*a, _f=self_attn, **kw):
                 calls["ensemble"] += 1
-                return _f(*a)
+                return _f(*a, **kw)
 
             def count_flash(*a, _f=flash):
                 calls["flash"] += 1

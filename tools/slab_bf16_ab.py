@@ -12,7 +12,9 @@ sources and headers replace today's by name (the parent's mma.sync
 kernels need its bf16mma.cuh: `git archive HEAD~1 ertdx_torch/csrc | tar
 -x -C build/parent` before the copy goes to the card, which has no .git;
 PATH build/parent/ertdx_torch/csrc), called through its own entry points
-(a float32 lse / delta scratch for its two-launch backward). Then, in
+(a float32 lse / delta scratch for its two-launch backward; an earlier
+source whose entry points take the ring's depth, as today's, is called
+as today's). Then, in
 turns (the variants in order, then in reverse), at chip_smoke.py's
 phase-15 shape (B=256, L=147, C=256, H=4, bf16) it times
 the forward and the backward two ways: CUDA events around 5 calls
@@ -63,11 +65,11 @@ VARIANTS = {
                 ("constexpr bool FWD_WIDE = true,",
                  "constexpr bool FWD_WIDE = false,")],
     # the backward's query tiles walk the keys 64 at a time (base: 32):
-    # both passes, the dQ pass alone, the forward's pass alone
+    # both passes, the dQ pass alone, the lse and delta pass alone
     "dq_wide": [("DQ_WIDE = false,", "DQ_WIDE = true,")],
     "dqc_wide": [("      chunks<DQ_WIDE>(Lp,", "      chunks<true>(Lp,")],
-    "att_wide": [("        Attend<DH, DQ_WIDE> at;",
-                  "        Attend<DH, true> at;")],
+    "att_wide": [("      RowStats<DH, SCALE, DQ_WIDE, true> rs;",
+                  "      RowStats<DH, SCALE, true, true> rs;")],
     # both kernels on two warpgroups (base: three)
     "wg2": [("constexpr int FWD_WARPGROUPS = 3, BWD_WARPGROUPS = 3;",
              "constexpr int FWD_WARPGROUPS = 2, BWD_WARPGROUPS = 2;")],
@@ -120,7 +122,10 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = core_ab.build(names, "slab_attn_bf16.cu", VARIANTS, ENTRY_POINTS,
                          OUT, before)
-    if before:
+    # an earlier source with today's entry points (a ring's depth)
+    ringed = bool(before) and "int stages" in open(os.path.join(
+        before, "slab_attn_bf16.cu")).read()
+    if before and not ringed:
         for fn, sig in BEFORE_SIGNATURES.items():
             getattr(libs["before"][0], fn).argtypes = sig
     card = cs.card_line()
@@ -150,7 +155,8 @@ def main() -> int:
     def calls(lib, name, fwd_stages, bwd_stages):
         def fwd():
             out = torch.empty(b, l, c, device=dev, dtype=torch.bfloat16)
-            extra = () if name == "before" else (fwd_stages,)
+            extra = () if name == "before" and not ringed else \
+                (fwd_stages,)
             rc = lib.ertdx_slab_fwd_bf16(
                 qkv.data_ptr(), out.data_ptr(), b, l, nh, dh, *extra,
                 torch.cuda.current_stream().cuda_stream)
@@ -159,7 +165,7 @@ def main() -> int:
 
         def bwd():
             dqkv = torch.empty_like(qkv)
-            if name == "before":
+            if name == "before" and not ringed:
                 scratch = torch.empty(2, b, nh, l, device=dev)
                 mid = (scratch[0].data_ptr(), scratch[1].data_ptr())
                 tail = ()
