@@ -10,9 +10,9 @@ non-zero and prints no result line):
 2. build: nvcc compiles ertdx_torch/csrc/*.cu (ertdx_torch/ops/_build.py)
    and prints ptxas' register and shared-memory report; `cuobjdump -sass`
    of the library counts the HMMA.1688.F32.TF32 instructions of each
-   slab, flash, 3xTF32 fused-core and fused-conv GEMM kernel and fails if
-   one has none (they run their products on the tensor cores; the fused
-   core's 3xTF32 kernels also have no bf16 MMA); the ensemble attention
+   slab, flash and 3xTF32 fused-core kernel and fails if one has none
+   (they run their products on the tensor cores; the fused core's 3xTF32
+   kernels also have no bf16 MMA); the ensemble attention
    pair's one-pass kernels (csrc/ensemble_attn.cu) bf16 mma.sync
    (HMMA.16816.F32.BF16) and no TF32 MMA in every instance, and no spill
    in ptxas' lines; the
@@ -20,7 +20,9 @@ non-zero and prints no result line):
    warpgroup MMAs (HGMMA.*.F32.BF16) and no mma.sync (HMMA) of any
    kind; ptxas' lines of the fused-core kernels of both modes and of
    every GN kernel (staged and streamed), where a spill fails; the bf16
-   warpgroup MMAs of the bf16 fused conv's GEMMs, and of the one-pass
+   warpgroup MMAs (HGMMA.*.F32.BF16) and no mma.sync (HMMA) of any kind
+   in every instance of the fused conv's three GEMMs on a float32 and on
+   a bf16 x (forward, dh, dW), and of the one-pass
    slab kernels with no mma.sync of any kind in all eight instances
    (float32 and bf16 slabs, dh 32 and 64, forward and backward), and
    ptxas' lines of every bf16 GN, fused-conv and one-pass slab kernel,
@@ -115,20 +117,25 @@ non-zero and prints no result line):
    (256, 587, 128 -> 128, as pallas_conv=True runs it), a 128 -> 256 conv
    and odd shapes, GN also at the condition's length (2, 4693, 128; the
    streamed kernels) and on x = 1000 + N(0, 1), each case's GN launch
-   plan logged (staged or streamed) and the GN kernels' GB/s,
-   each output (dx, dgamma, dbeta, dW, db) held against the plain version
-   (1e-4 * max(1, max|plain|)), reruns of the forward and the backward
-   bit-identical, ptxas' spill line of both fused-conv kernels (a spill
-   fails), timed (CUDA events and profiler device time, the backward's
-   launch by launch) beside the plain version and the unfused library
-   composition (F.group_norm + F.silu, + F.conv1d; cuDNN and TF32 off), a
-   yardstick only: no single PyTorch call computes either function, with
-   TFLOP/s and the share of the bound;
+   plan logged (staged or streamed) and the GN kernels' GB/s; GN's
+   outputs held against the plain version (1e-4 * max(1, max|plain|));
+   the float32 fused conv's (JAX's one-pass function on the bf16 wgmma
+   GEMMs) by the one-pass and same-function rules against the plain
+   one-pass version and the float32 function in float64, db elementwise
+   (1e-4 * max(1, max|plain|)); reruns of the forward and the backward
+   bit-identical, ptxas' lines of the fused conv's kernels (a spill
+   fails), timed (CUDA events, the conv also by CUDA-graph replay, and
+   profiler device time, the backward's launch by launch) beside the
+   plain versions and the unfused library composition (F.group_norm +
+   F.silu, + F.conv1d; cuDNN and TF32 off), a yardstick only: no single
+   PyTorch call computes either function, with TFLOP/s and the share of
+   the bound;
 11. the fused-encoder training arm: V5E8_DP as phase 7 with pallas_gn=True
    and pallas_conv_min_width=256, random weights from a seed through
    params_from_jax. (a) 5 train_steps against the same 5 with every
-   kernel switched off (the slab on its plain one-pass version; phase
-   7's rule), exactly 2/2/6/6 GN forward/backward and fused-conv
+   kernel switched off (the slab and the fused conv on their plain
+   one-pass versions; phase 7's spread and graft rules), exactly 2/2/6/6
+   GN forward/backward and fused-conv
    forward/backward launches and one one-pass slab forward and backward
    per step, ms per step of both paths and a profile of one step of
    each. (b) train() for 2 epochs on 400
@@ -321,11 +328,12 @@ non-zero and prints no result line):
 22. the one-pass gates on the card: where JAX's gate takes its kernel
    and the port's kernel does not (folded cross attention at Lk=300 and
    D=128, block self attention at P=40, the slab at dh=128, the fused
-   core at Lk=300 through mega_plan and mega_denoise_ensemble), the plain
-   one-pass version runs with no kernel launch and a warning, under the
-   one-pass rule against the float32 function (the core's against its
-   float32 module path, its outputs bf16 values); a shape JAX refuses
-   (self attention at D=64) runs the float32 plain version bit for bit,
+   conv at Cout=12, the fused core at Lk=300 through mega_plan and
+   mega_denoise_ensemble), the plain one-pass version runs with no kernel
+   launch and a warning, under the one-pass rule against the float32
+   function (the core's against its float32 module path, its outputs
+   bf16 values); a shape JAX refuses (self attention at D=64), and the
+   fused conv on CPU tensors, run the float32 plain version bit for bit,
    with no launch and no warning.
 
 Every kernel's entry in the kernels line has `bound_ms`, the least time
@@ -333,8 +341,9 @@ the card could take: the bytes at 3.35 TB/s or the operations at the
 fastest rate of their class, 3xTF32 on the tensor cores for float32
 matrix products (the fp32 pipe for GroupNorm, which has none), the bf16
 tensor cores' 989 TFLOP/s for the bf16 kernels, the fused core's
-one-pass mode (its `_onepass` entries), the one-pass ensemble pair
-and the one-pass slab pair (at 4 bytes a float32 value, 2 a bf16 one);
+one-pass mode (its `_onepass` entries), the one-pass ensemble pair,
+the one-pass slab pair and the fused conv on a float32 x (at 4 bytes a
+float32 value, 2 a bf16 one);
 for the flash kernels
 only the keys the mask needs. Beside it `bound_tc_ms` (the 3xTF32 time;
 null for GroupNorm) and `bound_fp32_ms` (the fp32 pipe's). The last line of
@@ -529,11 +538,11 @@ def kernel_names(fn, calls: int = 3) -> str:
 
 
 # a kernel that runs its products on the 3xTF32 tensor-core tile, in a
-# mangled symbol: the slab and flash attention kernels, the fused core's
-# two and the fused conv's GEMMs
+# mangled symbol: the slab and flash attention kernels and the fused
+# core's two
 TENSOR_CORE_KERNEL = re.compile(
     r"\d((?:slab|flash)_(?:fwd|bwd_dq|bwd_dkv)_kernel"
-    r"|core_(?:stack|block)_kernel|tap3_gemm_kernel|conv_dw_kernel)[IE]")
+    r"|core_(?:stack|block)_kernel)[IE]")
 CORE_KERNELS = ("core_stack_kernel", "core_block_kernel")
 # the fused core's one-pass kernels (csrc/core_onepass.cu, wgmma and TMA)
 CORE_ONEPASS_KERNELS = ("core_stack_wgmma_kernel",
@@ -543,14 +552,13 @@ CORE_ONEPASS_KERNELS = ("core_stack_wgmma_kernel",
 ENSEMBLE_KERNELS = ("block_self_onepass_kernel",
                     "folded_cross_onepass_kernel")
 ENSEMBLE_NAMES = ("block_self_attention", "folded_cross_attention")
-CONV_KERNELS = ("tap3_gemm_kernel", "conv_dw_kernel")
 GN_KERNELS = ("gn_fwd_staged_kernel", "gn_bwd_staged_kernel",
               "gn_stats_staged_kernel", "gn_fwd_stream_kernel",
               "gn_bwd_stream_kernel", "gn_stats_stream_kernel")
 # what the fused conv backward's launches compute, by kernel name
 LAUNCH_LABELS = {"gn_stats": "statistics", "gn_affine": "table",
-                 "conv_dw": "dW", "sum_rows": "sum", "tap3_gemm": "dh",
-                 "tap3_wgmma": "dh",
+                 "round_colsum": "bf16(g) and db", "conv_dw": "dW",
+                 "sum_rows": "sum", "tap3_wgmma": "dh",
                  "gn_bwd": "GN backward"}
 
 
@@ -588,11 +596,11 @@ def sass_counts(path, kernel_of, instruction: str):
 
 def check_tensor_cores(path) -> None:
     """Phase 2: the TF32 MMAs (HMMA.1688.F32.TF32) in the SASS of each
-    slab, flash, 3xTF32 fused-core and fused-conv kernel of the built
-    library, and no bf16 MMA (HMMA.16816.F32.BF16) in the fused core's;
-    raises where a kernel lacks its MMAs, a fused-core kernel has bf16
-    ones, or a fused-core or fused-conv kernel is missing. Logs and
-    returns where the toolkit has no cuobjdump."""
+    slab, flash and 3xTF32 fused-core kernel of the built library, and no
+    bf16 MMA (HMMA.16816.F32.BF16) in the fused core's; raises where a
+    kernel lacks its MMAs, a fused-core kernel has bf16 ones, or a
+    fused-core kernel is missing. Logs and returns where the toolkit has
+    no cuobjdump."""
     def kernel_of(line):
         fn = TENSOR_CORE_KERNEL.search(line)
         return None if fn is None else fn.group(1)
@@ -608,7 +616,7 @@ def check_tensor_cores(path) -> None:
         "; ".join(f"{k} {n}" for k, n in sorted(bf16.items())
                   if k.startswith(CORE_KERNELS)))
     bare = [k for k, n in counts.items() if n == 0]
-    bare += [k for k in CORE_KERNELS + CONV_KERNELS
+    bare += [k for k in CORE_KERNELS
              if not any(name.startswith(k) for name in counts)]
     if not counts or bare:
         raise RuntimeError(f"kernels without TF32 MMAs, or missing: {bare}")
@@ -1432,15 +1440,17 @@ def noise_level(a, b, ga, gb) -> float:
 
 
 def graft_steps(label, grafted, kernel, plain, kg, pg, kl, pl, run,
-                tol: float) -> None:
+                tol: float, noise_tol: float = 1e-5) -> None:
     """Train `grafted` (an untrained copy of the plain model) with the
     kernel path's step-1 gradient `kg` at the entries that `kernel` and
     `plain` end more than 1e-5 apart, its own everywhere else; log the
     loss gaps a step against both paths. Raises unless those entries'
-    step-1 gradients are rounding noise (under 1e-5 of their leaf's
-    largest on both paths) and the grafted path's loss stays within `tol`
-    x max(1, loss) of the kernel path's at every step: apart from them the
-    kernel path trains as the plain one-pass path does."""
+    step-1 gradients are rounding noise (under `noise_tol` of their leaf's
+    largest on both paths: 1e-5, or what two plain computations of the
+    same function move, see compare_bf16_train_paths) and the grafted
+    path's loss stays within `tol` x max(1, loss) of the kernel path's at
+    every step: apart from them the kernel path trains as the plain
+    one-pass path does."""
     moved = {name: (a.detach() - b.detach()).abs() > 1e-5
              for (name, a), b in zip(kernel.named_parameters(),
                                      plain.parameters())}
@@ -1469,11 +1479,12 @@ def graft_steps(label, grafted, kernel, plain, kg, pg, kl, pl, run,
         f"plain path with the kernel path's step-1 gradient at the {n} "
         f"entries they end > 1e-5 apart (of "
         f"{sum(p.numel() for p in plain.parameters())}; step-1 gradients "
-        f"at most {noise:.1e} of their leaf's largest) vs plain "
+        f"at most {noise:.1e} of their leaf's largest, gate "
+        f"{noise_tol:.1e}) vs plain "
         f"{gaps(gl, pl)}, vs kernel {gaps(gl, kl)} (tol {tol:.1e} x "
         f"max(1, loss))")
-    if noise > 1e-5 or any(abs(a - c) > tol * max(1.0, abs(c))
-                           for a, c in zip(gl, kl)):
+    if noise > noise_tol or any(abs(a - c) > tol * max(1.0, abs(c))
+                                for a, c in zip(gl, kl)):
         raise RuntimeError(f"{label}: the kernel path differs from the "
                            f"plain path by more than noise-level "
                            f"gradients")
@@ -1606,6 +1617,19 @@ def onepass_plain_slab(second: bool = False):
         return lambda qkv, nh: sa.SlabOnepassPlain.apply(
             qkv.double(), nh).to(qkv.dtype)
     return lambda qkv, nh: sa.SlabOnepassPlain.apply(qkv, nh)
+
+
+def onepass_plain_conv(second: bool = False):
+    """The plain one-pass fused conv (`GNSiLUConv3OnepassPlain`) as a
+    model's plain fused conv (models/condunet.py's
+    `reference_gn_silu_conv3`); with `second` the same function computed
+    again in float64 from the same float32 inputs (the same rounding
+    points, other sums): the spread of two plain one-pass computations."""
+    from ertdx_torch.ops import conv as cv
+    if second:
+        return lambda x, *a: cv.GNSiLUConv3OnepassPlain.apply(
+            x.double(), *[t.double() for t in a[:4]], *a[4:]).to(x.dtype)
+    return cv.GNSiLUConv3OnepassPlain.apply
 
 
 LOG2E = 1.4426950408889634
@@ -1955,25 +1979,17 @@ def check_train_entry(sa, dev) -> dict:
 
 
 def check_gn_conv(gn, cv, dev, report: str, card: str) -> dict:
-    """Phase 10: ptxas' spill line of both fused-conv kernels (a spill
-    fails); the GN and fused-conv kernels, forward and backward, against
-    their plain versions, reruns bit-identical, the GN kernels' launch
-    plan (staged or streamed) at each case; timed at the large shapes,
-    the fused conv's backward launch by launch, with TFLOP/s and the
-    share of the bound, and the GN kernels' GB/s at every case."""
+    """Phase 10: the GN kernels, forward and backward, against their plain
+    versions (1e-4 x max(1, max|plain|)), reruns bit-identical, the launch
+    plan (staged or streamed) at each case, timed at the large shapes and
+    their GB/s at every case; then the fused conv (`check_conv`)."""
     import torch.nn.functional as F
-
-    check_no_spill(report, CONV_KERNELS)
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 100)
     eps = 1e-5
 
     def rnd(*shape, scale=1.0, shift=0.0):
         return torch.randn(*shape, generator=gen, device=dev) * scale + shift
-
-    def lib_gn(x, gamma, beta):        # (B, C, L) view in and out
-        return F.silu(F.group_norm(x.transpose(1, 2), GROUPS, gamma, beta,
-                                   eps))
 
     def grad_of(fn, ins, g):
         leaves = [t.detach().requires_grad_(True) for t in ins]
@@ -1982,58 +1998,26 @@ def check_gn_conv(gn, cv, dev, report: str, card: str) -> dict:
                                            retain_graph=True)
 
     results = {}
-    cases = ([("gn", c) for c in GN_CASES]
-             + [("conv", c) for c in CONV_CASES])
-    for kind, case in cases:
-        if kind == "gn":
-            b, l, c, mean = case
-            cout = c
-            x = rnd(b, l, c, scale=2.0 if mean < 100 else 1.0, shift=mean)
-            ins = (x, rnd(c, scale=0.3, shift=1.0), rnd(c, scale=0.3))
-            dy = rnd(b, l, c)
-            names = ("groupnorm_silu_fwd", "groupnorm_silu_bwd")
-            fwd = lambda: gn.groupnorm_silu_fwd(*ins, GROUPS)
-            bwd = lambda: gn.groupnorm_silu_bwd(*ins, dy, GROUPS)
-            plain = lambda *a: gn.reference_groupnorm_silu(*a, GROUPS)
-            lib = lambda xx, ga, be: lib_gn(xx, ga, be).transpose(1, 2)
-            grads = ("dx", "dgamma", "dbeta")
-            n = b * l * c
-            # ~10 operations a value forward (two statistics passes,
-            # normalise, affine, SiLU), ~30 backward; bytes: x (and dy)
-            # read once, y (dx) written once
-            work = {names[0]: (10 * n, 4 * (2 * n + 2 * c)),
-                    names[1]: (30 * n, 4 * (3 * n + 4 * c))}
-            shape = f"B={b} L={l} C={c}" + (f" mean {mean:g}"
-                                            if mean >= 100 else "")
-            plans = {name: gn.launch_plan(l, c, GROUPS, k)
-                     for name, k in zip(names, ("fwd", "bwd"))}
-        else:
-            b, l, c, cout = case
-            x = rnd(b, l, c)
-            ins = (x, rnd(c, scale=0.3, shift=1.0), rnd(c, scale=0.3),
-                   rnd(3, c, cout, scale=1.0 / math.sqrt(3 * c)),
-                   rnd(cout, scale=0.3))
-            dy = rnd(b, l, cout)
-            names = ("gn_silu_conv3_fwd", "gn_silu_conv3_bwd")
-            fwd = lambda: cv.gn_silu_conv3_fwd(*ins, GROUPS)
-            bwd = lambda: cv.gn_silu_conv3_bwd(*ins[:4], dy, GROUPS)
-            plain = lambda *a: cv.reference_gn_silu_conv3(*a, GROUPS)
-            # explicit pad and contiguous weight: with padding=1 cuDNN
-            # picked FFT algorithms at L=147 (200 ms a backward)
-            lib = lambda xx, ga, be, ww, bb: F.conv1d(
-                F.pad(lib_gn(xx, ga, be), (1, 1)),
-                ww.permute(2, 1, 0).contiguous(), bb).transpose(1, 2)
-            grads = ("dx", "dgamma", "dbeta", "dW", "db")
-            prod = 2 * b * l * 3 * c * cout
-            nx, ny, nw = b * l * c, b * l * cout, 3 * c * cout
-            work = {names[0]: (prod, 4 * (nx + 2 * c + nw + cout + ny)),
-                    names[1]: (2 * prod, 4 * (nx + ny + 2 * c + nw
-                                              + nx + 2 * c + nw + cout))}
-            shape = f"B={b} L={l} C={c} Cout={cout}"
-            plans = {"gn_silu_conv3 statistics":
-                     gn.launch_plan(l, c, GROUPS, "stats"),
-                     "gn_silu_conv3 GN backward":
-                     gn.launch_plan(l, c, GROUPS, "bwd")}
+    names = ("groupnorm_silu_fwd", "groupnorm_silu_bwd")
+    for b, l, c, mean in GN_CASES:
+        x = rnd(b, l, c, scale=2.0 if mean < 100 else 1.0, shift=mean)
+        ins = (x, rnd(c, scale=0.3, shift=1.0), rnd(c, scale=0.3))
+        dy = rnd(b, l, c)
+        fwd = lambda: gn.groupnorm_silu_fwd(*ins, GROUPS)
+        bwd = lambda: gn.groupnorm_silu_bwd(*ins, dy, GROUPS)
+        plain = lambda *a: gn.reference_groupnorm_silu(*a, GROUPS)
+        lib = lambda xx, ga, be: F.silu(F.group_norm(
+            xx.transpose(1, 2), GROUPS, ga, be, eps)).transpose(1, 2)
+        n = b * l * c
+        # ~10 operations a value forward (two statistics passes,
+        # normalise, affine, SiLU), ~30 backward; bytes: x (and dy) read
+        # once, y (dx) written once
+        work = {names[0]: (10 * n, 4 * (2 * n + 2 * c)),
+                names[1]: (30 * n, 4 * (3 * n + 4 * c))}
+        shape = f"B={b} L={l} C={c}" + (f" mean {mean:g}" if mean >= 100
+                                        else "")
+        plans = {name: gn.launch_plan(l, c, GROUPS, k)
+                 for name, k in zip(names, ("fwd", "bwd"))}
         log(f"{shape}: launch plans " + "; ".join(
             f"{name} {p.path} ({p.threads} threads, {p.smem_bytes} bytes "
             "of shared memory)" for name, p in plans.items()))
@@ -2048,7 +2032,8 @@ def check_gn_conv(gn, cv, dev, report: str, card: str) -> dict:
         dwant = grad_of(plain, ins, dy)()
         torch.cuda.synchronize()
         checks = [(names[0], "y", got, want)] + [
-            (names[1], g, a, w) for g, a, w in zip(grads, dgot, dwant)]
+            (names[1], g, a, w)
+            for g, a, w in zip(("dx", "dgamma", "dbeta"), dgot, dwant)]
         for name, out, a, w in checks:
             if a.shape != w.shape or not torch.isfinite(a).all():
                 raise RuntimeError(f"{name} {shape} {out}: wrong shape or "
@@ -2063,18 +2048,17 @@ def check_gn_conv(gn, cv, dev, report: str, card: str) -> dict:
                                    f"{tol}")
             entry = results.setdefault(name, {"max_abs_err": 0.0})
             entry["max_abs_err"] = max(entry["max_abs_err"], err)
-        if b < 256:
-            if kind == "gn":            # the kernels alone, for GB/s
-                for name, kernel in zip(names, (fwd, bwd)):
-                    with torch.no_grad():
-                        ms = time_ms(kernel)
-                    flops, nbytes = work[name]
-                    bd = bound(flops, nbytes, products=False)
-                    log(f"{name} {shape} ({plans[name].path}): kernel "
-                        f"{ms:.4f} ms, {nbytes / ms / 1e6:.1f} GB/s, "
-                        f"bound {bd['bound_ms']:.4f} ms, "
-                        f"{100 * bd['bound_ms'] / ms:.1f} % of the bound; "
-                        f"{card}")
+        if b < 256:                     # the kernels alone, for GB/s
+            for name, kernel in zip(names, (fwd, bwd)):
+                with torch.no_grad():
+                    ms = time_ms(kernel)
+                flops, nbytes = work[name]
+                bd = bound(flops, nbytes, products=False)
+                log(f"{name} {shape} ({plans[name].path}): kernel "
+                    f"{ms:.4f} ms, {nbytes / ms / 1e6:.1f} GB/s, "
+                    f"bound {bd['bound_ms']:.4f} ms, "
+                    f"{100 * bd['bound_ms'] / ms:.1f} % of the bound; "
+                    f"{card}")
             continue
         lib_err = float((lib(*ins) - want).abs().max())
         timed = {names[0]: (fwd, lambda: plain(*ins), lambda: lib(*ins)),
@@ -2090,26 +2074,165 @@ def check_gn_conv(gn, cv, dev, report: str, card: str) -> dict:
                     lambda: [kernel() for _ in range(10)])
             dev_ms = sum(e.time_range.elapsed_us() for e in records) / 10e3
             flops, nbytes = work[name]
-            # GroupNorm does no matrix product
-            bd = bound(flops, nbytes,
-                       products=not name.startswith("groupnorm"))
-            path = f" ({plans[name].path})" if name in plans else ""
-            log(f"{name} {shape}{path}: kernel {ms:.4f} ms (profiler device "
-                f"{dev_ms:.4f} ms), "
-                f"plain {plain_ms:.4f} ms, library composition "
-                f"{lib_ms:.4f} ms (its forward vs plain: max|d| "
-                f"{lib_err:.2e}), {bound_text(bd, flops, nbytes)}, achieved "
-                f"{flops / ms / 1e9:.2f} TFLOP/s, {nbytes / ms / 1e6:.1f} "
-                f"GB/s, {100 * bd['bound_ms'] / ms:.1f} % of the bound; "
-                f"{card}")
-            if name == "gn_silu_conv3_bwd":
-                log(f"{name} {shape}, launch by launch: "
-                    + launch_times(kernel))
+            bd = bound(flops, nbytes, products=False)   # no product
+            log(f"{name} {shape} ({plans[name].path}): kernel {ms:.4f} ms "
+                f"(profiler device {dev_ms:.4f} ms), plain {plain_ms:.4f} "
+                f"ms, library composition {lib_ms:.4f} ms (its forward vs "
+                f"plain: max|d| {lib_err:.2e}), "
+                f"{bound_text(bd, flops, nbytes)}, "
+                f"{nbytes / ms / 1e6:.1f} GB/s, "
+                f"{100 * bd['bound_ms'] / ms:.1f} % of the bound; {card}")
             entry = results[name]
             if "ms" not in entry:       # the first large case: the path's
                 entry.update(ms=ms, plain_ms=plain_ms, library_ms=None,
                              composition_ms=lib_ms, device_ms=dev_ms, **bd,
                              shape=shape)
+    results.update(check_conv(cv, gn, dev, report, card))
+    return results
+
+
+def check_conv(cv, gn, dev, report: str, card: str) -> dict:
+    """Phase 10, the fused conv on a float32 x: ptxas' lines of its wgmma
+    GEMMs (a spill fails); at CONV_CASES the forward and backward kernels
+    (JAX's one-pass function) held to the plain one-pass version by the
+    one-pass and the same-function rules (`onepass_gate`) against the
+    float32 function computed in float64, db elementwise (1e-4 x max(1,
+    max|plain|): a plain sum of the float32 g, no product), reruns
+    bit-identical; at B = 256 timed by CUDA events, CUDA-graph replay and
+    profiler device time (the backward launch by launch) beside the
+    plain one-pass version, the float32 plain version and the unfused
+    library composition (F.group_norm + F.silu, + F.conv1d; cuDNN and
+    TF32 off; a yardstick only: no single PyTorch call computes the
+    function), with TFLOP/s and the share of the bound at 989 TFLOP/s and
+    4 bytes a float32 value."""
+    import torch.nn.functional as F
+
+    check_no_spill(report, CONV_BF16_KERNELS + ("round_colsum_kernel",))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 101)
+    names = ("gn_silu_conv3_fwd", "gn_silu_conv3_bwd")
+    grads = ("dx", "dgamma", "dbeta", "dW", "db")
+
+    def rnd(*shape, scale=1.0, shift=0.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale + shift
+
+    def lib(xx, ga, be, ww, bb):
+        # explicit pad and contiguous weight: with padding=1 cuDNN picked
+        # FFT algorithms at L=147 (200 ms a backward)
+        h = F.silu(F.group_norm(xx.transpose(1, 2), GROUPS, ga, be, 1e-5))
+        return F.conv1d(F.pad(h, (1, 1)), ww.permute(2, 1, 0).contiguous(),
+                        bb).transpose(1, 2)
+
+    def grad_of(fn, ins, g):
+        leaves = [t.detach().requires_grad_(True) for t in ins]
+        out = fn(*leaves)
+        return lambda: torch.autograd.grad(out, leaves, g,
+                                           retain_graph=True)
+
+    results = {}
+    for b, l, c, cout in CONV_CASES:
+        x = rnd(b, l, c)
+        ins = (x, rnd(c, scale=0.3, shift=1.0), rnd(c, scale=0.3),
+               rnd(3, c, cout, scale=1.0 / math.sqrt(3 * c)),
+               rnd(cout, scale=0.3))
+        dy = rnd(b, l, cout)
+        shape = f"B={b} L={l} C={c} Cout={cout}"
+        fwd = lambda: cv.gn_silu_conv3_fwd(*ins, GROUPS)
+        bwd = lambda: cv.gn_silu_conv3_bwd(*ins[:4], dy, GROUPS)
+        onepass_fwd = lambda: cv.reference_gn_silu_conv3_onepass(*ins,
+                                                                 GROUPS)
+        onepass_bwd = lambda: cv.reference_gn_silu_conv3_onepass_backward(
+            *ins, dy, GROUPS)
+        plans = {"statistics": gn.launch_plan(l, c, GROUPS, "stats"),
+                 "GN backward": gn.launch_plan(l, c, GROUPS, "bwd")}
+        log(f"gn_silu_conv3 {shape}: launch plans " + "; ".join(
+            f"{name} {p.path} ({p.threads} threads, {p.smem_bytes} bytes "
+            "of shared memory)" for name, p in plans.items()))
+        with torch.no_grad():
+            got, dgot = fwd(), bwd()
+            again, dagain = fwd(), bwd()
+            torch.cuda.synchronize()
+            if not (torch.equal(got, again) and all(
+                    torch.equal(a, w) for a, w in zip(dgot, dagain))):
+                raise RuntimeError(f"gn_silu_conv3 {shape}: a rerun differs")
+            onepass, donepass = onepass_fwd(), onepass_bwd()
+        ins64 = [t.double() for t in ins]
+        exact = cv.reference_gn_silu_conv3(*ins64, GROUPS)
+        dexact = cv.reference_gn_silu_conv3_backward(*ins64, dy.double(),
+                                                     GROUPS)
+        checks = [(names[0], "y", got, onepass, exact)] + [
+            (names[1], g, a, o, e)
+            for g, a, o, e in zip(grads, dgot, donepass, dexact)]
+        for name, out, a, o, e in checks:
+            if (a.shape != o.shape or a.dtype != torch.float32
+                    or not torch.isfinite(a).all()):
+                raise RuntimeError(f"{name} {shape} {out}: wrong shape, "
+                                   "dtype or non-finite")
+            entry = results.setdefault(name, {"max_abs_err": 0.0})
+            if out == "db":             # a plain float32 sum
+                err = float((a - o).abs().max())
+                tol = 1e-4 * max(1.0, float(o.abs().max()))
+                log(f"{name} {shape} db: max_abs_err={err:.3e} against the "
+                    f"plain one-pass version's float32 sum, tol={tol:.3e}")
+                if not err <= tol:
+                    raise RuntimeError(f"{name} {shape} db: error {err} > "
+                                       f"{tol}")
+            else:
+                gate = onepass_gate(f"{name} {shape} {out}", a, o, e,
+                                    stack=False)
+                err = gate["max_abs_err"]
+                if out in ("y", "dW"):  # the kernels line's, first case
+                    for key in ("rms_err_exact", "plain_rms_err_exact",
+                                "max_err_exact", "rms_gap_plain"):
+                        entry.setdefault(key, gate[key])
+            entry["max_abs_err"] = max(entry["max_abs_err"], err)
+        if b < 256:
+            continue
+        prod = 2 * b * l * 3 * c * cout
+        nx, ny, nw = b * l * c, b * l * cout, 3 * c * cout
+        # bytes: x (and g) read once, y (dx) written once, 4 a value;
+        # the parameters and their gradients
+        work = {names[0]: (prod, 4 * (nx + ny + 2 * c + nw + cout)),
+                names[1]: (2 * prod, 4 * (nx + ny + nx + 4 * c + 2 * nw
+                                          + cout))}
+        float32_fwd = lambda: cv.reference_gn_silu_conv3(*ins, GROUPS)
+        timed = {names[0]: (fwd, onepass_fwd, float32_fwd,
+                            lambda: lib(*ins)),
+                 names[1]: (bwd, onepass_bwd,
+                            grad_of(lambda *a: cv.reference_gn_silu_conv3(
+                                *a, GROUPS), ins, dy),
+                            grad_of(lib, ins, dy))}
+        for name, (kernel, plain_fn, f32_fn, lib_fn) in timed.items():
+            with torch.no_grad() if name == names[0] else \
+                    torch.enable_grad():
+                ms = time_ms(kernel)
+                g_ms = graph_ms(kernel)
+                plain_ms = time_ms(plain_fn)
+                f32_ms = time_ms(f32_fn)
+                lib_ms = time_ms(lib_fn)
+                records, _ = kernel_records(
+                    lambda: [kernel() for _ in range(10)])
+            dev_ms = sum(e.time_range.elapsed_us() for e in records) / 10e3
+            flops, nbytes = work[name]
+            bd = bound(flops, nbytes, tc_rate=PEAK_BF16_FLOPS)
+            log(f"{name} {shape} (float32, one-pass): kernel {ms:.4f} ms by "
+                f"events, {g_ms:.4f} ms by CUDA-graph replay (profiler "
+                f"device {dev_ms:.4f} ms), plain one-pass {plain_ms:.4f} "
+                f"ms, float32 plain {f32_ms:.4f} ms, library composition "
+                f"{lib_ms:.4f} ms, bound {bd['bound_ms']:.4f} ms "
+                f"({bd['bound_by']}: {flops:.3e} flops at 989 TFLOP/s, "
+                f"{nbytes:.3e} bytes), {flops / g_ms / 1e9:.2f} TFLOP/s and "
+                f"{100 * bd['bound_ms'] / g_ms:.1f} % of the bound by graph "
+                f"replay ({flops / ms / 1e9:.2f}, "
+                f"{100 * bd['bound_ms'] / ms:.1f} % by events); {card}")
+            if name == names[1]:
+                log(f"{name} {shape}, launch by launch: "
+                    + launch_times(kernel))
+            entry = results[name]
+            if "ms" not in entry:       # the first large case: the path's
+                entry.update(ms=ms, graph_ms=g_ms, plain_ms=plain_ms,
+                             float32_plain_ms=f32_ms, library_ms=None,
+                             composition_ms=lib_ms, device_ms=dev_ms, **bd,
+                             shape=shape, tflops=flops / g_ms / 1e9)
     return results
 
 
@@ -2329,7 +2452,10 @@ def set_kernels(model, on: bool) -> None:
 
 def check_fused_training(counts, dev, card) -> dict:
     """Phase 11 (a): the fused arm's kernel path against its plain path,
-    5 train steps."""
+    5 train steps, the plain slab and fused conv on their plain one-pass
+    versions (`GNSiLUConv3OnepassPlain`): phase 7's spread and graft
+    rules, exactly 2/2/6/6 GN and fused-conv launches and one one-pass
+    slab forward and backward a step."""
     from ertdx_torch import configs
     from ertdx_torch.models import build_model
     from ertdx_torch.models.condunet import FusedGNConv, GNSiLU
@@ -2354,9 +2480,10 @@ def check_fused_training(counts, dev, card) -> dict:
                                                    for m in gns):
         raise RuntimeError("the fused arm's encoder is not 6 fused convs "
                            "and 2 GN pairs")
-    # the plain path: every kernel off, the slab's plain version the plain
-    # one-pass one (the kernel path's slab computes JAX's one-pass
-    # function), so phase 7's spread rule holds the slab's bf16 ulps
+    # the plain path: every kernel off, the slab's and the fused conv's
+    # plain versions the plain one-pass ones (the kernel path computes
+    # JAX's one-pass functions), so phase 7's spread rule holds their bf16
+    # ulps and its graft rule the noise-level entries Adam moves by lr
     plain = copy.deepcopy(kernel)
     set_kernels(plain, False)
     plain.encoder.attn.slab = True
@@ -2364,15 +2491,20 @@ def check_fused_training(counts, dev, card) -> dict:
             "gn_silu_conv3_fwd": 6, "gn_silu_conv3_bwd": 6,
             **SLAB_ONEPASS_STEP}
     from ertdx_torch.models import condunet as condunet_mod
-    saved = condunet_mod.reference_slab_attention
+    saved = (condunet_mod.reference_slab_attention,
+             condunet_mod.reference_gn_silu_conv3)
     condunet_mod.reference_slab_attention = onepass_plain_slab()
+    condunet_mod.reference_gn_silu_conv3 = onepass_plain_conv()
     try:
         return compare_bf16_train_paths(
             "fused arm", cfg, kernel, plain, counts, want, SEED + 112, card,
-            {"reference_slab_attention": onepass_plain_slab(second=True)},
-            "the plain one-pass slab in float64", ulp_floor=False)
+            {"reference_slab_attention": onepass_plain_slab(second=True),
+             "reference_gn_silu_conv3": onepass_plain_conv(second=True)},
+            "the plain one-pass slab and fused conv in float64",
+            ulp_floor=False, graft=True)
     finally:
-        condunet_mod.reference_slab_attention = saved
+        (condunet_mod.reference_slab_attention,
+         condunet_mod.reference_gn_silu_conv3) = saved
 
 
 def compare_train_paths(label, cfg, kernel, plain, counts, want, seed,
@@ -3137,7 +3269,11 @@ def compare_bf16_train_paths(label, cfg, kernel, plain, counts, want, seed,
     logged and returned, and set no tolerance. With `graft` a copy of
     `plain` trains the same steps with the kernel path's step-1 gradient
     in place of its own at the entries that the two paths end more than
-    1e-5 apart, and its loss gaps to both paths are logged (no gate).
+    1e-5 apart, and `graft_steps`' gates apply: those entries' step-1
+    gradients at most max(1e-5, 2 x those of the entries that `plain`
+    and its `patched` copy end apart: rounding noise of the same
+    function), the grafted path's loss within max(1e-5, 10 x run to run)
+    of the kernel path's.
     Exactly `want` launches (by `counts`) a step; ms a step of both
     paths, peak memory and a profile of one step of each; returns the ms
     a step of both."""
@@ -3244,8 +3380,10 @@ def compare_bf16_train_paths(label, cfg, kernel, plain, counts, want, seed,
     _log_param_gaps(f"{label} kernel vs plain", kernel, plain, kg, pg)
     log(f"{label} kernel vs plain: {_moved_entries(kernel, plain, kg, pg)}")
     if graft:
+        spread_noise = noise_level(plain32, plain, pg32, pg)
         graft_steps(label, grafted, kernel, plain, kg, pg, kl, pl, run,
-                    max(1e-5, 10 * rr["loss"]))
+                    max(1e-5, 10 * rr["loss"]),
+                    max(1e-5, 2 * spread_noise))
     if not (float(kp.max()) <= flip_bound + 1e-6 and k_share <= share_limit):
         raise RuntimeError(f"{label} kernel-path parameters disagree with "
                            "the plain path")
@@ -3431,44 +3569,55 @@ def check_bf16_serving(sa, cb, ckdir, dev, card, fp32_step_ms) -> None:
 # 16. bfloat16: V5E8_DP's fused-encoder arm in its own dtype
 # ---------------------------------------------------------------------------
 
-# the bf16 GN and fused-conv kernels, by the part of their symbol that
-# names them: the conv's GEMMs (bf16 MMAs) and every bf16 instantiation
-# of the GN kernels (units of 8 values or one; staged and streamed)
+# the fused conv's GEMMs (csrc/gn_conv.cu, bf16 wgmma) by the part of
+# their symbol that names them, on a float32 and on a bf16 x
 CONV_BF16_KERNELS = ("tap3_wgmma_kernel", "conv_dw_wgmma_kernel")
-# the bf16 fused conv's three GEMMs on Hopper's wgmma, by the SASS name and
-# template arguments of their instances: the forward (GN, not WT), dh (WT)
-# and dW
-WGMMA_GEMMS = {"forward": "tap3_wgmma_kernel<1,0,", "dh":
-               "tap3_wgmma_kernel<0,1,", "dW": "conv_dw_wgmma_kernel"}
+# its GEMMs' instances by the SASS name, the A (x) type as the first
+# template argument and the ints after it: the forward (GN, not WT) on
+# each x, dh (WT; bf16(g) on either x) and dW on each x
+WGMMA_GEMMS = {"forward f32": "tap3_wgmma_kernel[f32]<1,0,",
+               "forward bf16": "tap3_wgmma_kernel[bf16]<1,0,",
+               "dh": "tap3_wgmma_kernel[bf16]<0,1,",
+               "dW f32": "conv_dw_wgmma_kernel[f32]",
+               "dW bf16": "conv_dw_wgmma_kernel[bf16]"}
 HGMMA_BF16 = re.compile(r"HGMMA\.\S*\.F32\.BF16")
 
 
 def check_wgmma(path, report: str) -> None:
     """Phase 2: Hopper's bf16 warpgroup MMAs (HGMMA.*.F32.BF16) in the
-    SASS of every instance of the bf16 fused conv's three GEMMs, and no
-    mma.sync (HMMA.16816) in them; raises where one of the three has no
-    instance, an instance has no HGMMA or has an HMMA.16816. Logs the
-    counts and ptxas' wgmma remarks (a serialised wgmma pipeline). Logs
-    and returns where the toolkit has no cuobjdump."""
+    SASS of every instance of the fused conv's three GEMMs, on a float32
+    and on a bf16 x (the A type is the template's first argument: `If`
+    in the symbol for float), and no mma.sync (HMMA of any kind: no TF32,
+    no bf16 mma.sync) in them; raises where one of WGMMA_GEMMS has no
+    instance, an instance has no HGMMA or has an HMMA. Logs the counts
+    and ptxas' wgmma remarks (a serialised wgmma pipeline). Logs and
+    returns where the toolkit has no cuobjdump."""
     def kernel_of(line):
-        return next((k for k in CONV_BF16_KERNELS if k in line), None)
+        name = next((k for k in CONV_BF16_KERNELS if k in line), None)
+        if name is None:
+            return None
+        return name + ("[f32]" if f"{name}If" in line else "[bf16]")
 
     hgmma = sass_counts(path, kernel_of, HGMMA_BF16)
     if hgmma is None:
         log("sass: no cuobjdump; the wgmma check is not made")
         return
-    hmma = sass_counts(path, kernel_of, "HMMA.16816")
-    log("sass: HGMMA.*.F32.BF16 / HMMA.16816 per bf16 conv GEMM: " +
+    hmma = sass_counts(path, kernel_of, re.compile(r"HMMA\."))
+    log("sass: HGMMA.*.F32.BF16 / HMMA per fused-conv GEMM instance: " +
         "; ".join(f"{k} {n} / {hmma[k]}" for k, n in sorted(hgmma.items())))
     remarks = [line.strip() for line in report.splitlines()
-               if "wgmma" in line.lower() and "ptxas" in line.lower()]
-    log("ptxas wgmma remarks: " + (" | ".join(remarks) or "none"))
+               if re.search(r"\(C75\d\d\)", line)
+               and any(k in line for k in CONV_BF16_KERNELS)]
+    log("ptxas wgmma remarks on the fused-conv GEMMs: "
+        + (" | ".join(remarks) or "none"))
     bad = [k for k, n in hgmma.items() if n == 0 or hmma[k]]
     bad += [name for name, key in WGMMA_GEMMS.items()
             if not any(k.startswith(key) for k in hgmma)]
     if bad:
-        raise RuntimeError(f"bf16 conv GEMMs without HGMMA, with mma.sync or "
-                           f"missing: {bad}")
+        raise RuntimeError(f"fused-conv GEMMs without HGMMA, with mma.sync "
+                           f"or missing: {bad}")
+
+
 GN_BF16_KERNELS = tuple(
     f"gn_{k}_staged_kernelILi{w}E13__nv_bfloat16"
     for k in ("fwd", "bwd", "stats") for w in (8, 1)) + tuple(
@@ -3517,7 +3666,8 @@ def check_gn_conv_bf16(gn, cv, dev, card: str) -> dict:
     8e-3 x max(1, max|plain|)) (phase 15 (a)'s rule), reruns
     bit-identical, each case's launch plan; timed at B = 256 (CUDA events
     and profiler device time) beside the float32 kernels on the same
-    values, the bf16 plain version and the bf16 library composition
+    values (the conv's: the one-pass kernels, the bf16 kernels' function
+    on a float32 x), the bf16 plain version and the bf16 library composition
     (F.group_norm + F.silu, + F.conv1d; a yardstick only), with GB/s and
     the share of the bound at 2 bytes a bf16 value and 989 TFLOP/s."""
     import torch.nn.functional as F
@@ -3665,8 +3815,10 @@ def check_gn_conv_bf16(gn, cv, dev, card: str) -> dict:
             bd = bound(flops, nbytes, products=kind == "conv",
                        tc_rate=PEAK_BF16_FLOPS)
             path = f" ({plans[name].path})" if name in plans else ""
+            f32_kind = "one-pass " if kind == "conv" else ""
             log(f"{name} {shape}{path}: kernel {ms:.4f} ms (profiler device "
-                f"{dev_ms:.4f} ms), the float32 kernel(s) {f32_ms:.4f} ms, "
+                f"{dev_ms:.4f} ms), the float32 {f32_kind}kernel(s) "
+                f"{f32_ms:.4f} ms, "
                 f"bf16 plain {plain_ms:.4f} ms, bf16 library composition "
                 f"{lib_ms:.4f} ms, bound {bd['bound_ms']:.4f} ms "
                 f"({bd['bound_by']}: {flops:.3e} flops at 989 TFLOP/s, "
@@ -5918,15 +6070,71 @@ def _gate_call(tag: str, route: str, fn):
     return got
 
 
-def check_gates(ea, sa, cb, dev, card: str) -> None:
+def check_conv_gate(cv, dev) -> None:
+    """Phase 22, the fused conv: at Cout = 12 (JAX's kernel takes it, the
+    wgmma kernels take multiples of 8) gn_silu_conv3 runs the plain
+    one-pass version on the card, warned, with no launch, forward and
+    backward bit for bit `GNSiLUConv3OnepassPlain`'s and under the
+    one-pass rule against the float32 function in float64; the same
+    inputs on the CPU run the float32 plain version bit for bit."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 221)
+
+    def rnd(*shape, scale=1.0, shift=0.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale + shift
+
+    b, l, c, cout = 4, 147, 64, 12
+    ins = (rnd(b, l, c), rnd(c, scale=0.3, shift=1.0), rnd(c, scale=0.3),
+           rnd(3, c, cout, scale=1.0 / math.sqrt(3 * c)),
+           rnd(cout, scale=0.3))
+    dy = rnd(b, l, cout)
+    route = cv.conv_route(b, l, c, cout, GROUPS, dev)
+    leaves = [t.detach().requires_grad_(True) for t in ins]
+
+    def conv_step():
+        out = cv.gn_silu_conv3(*leaves, GROUPS)
+        out.backward(dy)
+        return out.detach()
+
+    got = _gate_call(f"fused conv B={b} L={l} C={c} Cout={cout}", route,
+                     conv_step)
+    onepass = cv.reference_gn_silu_conv3_onepass(*ins, GROUPS)
+    donepass = cv.reference_gn_silu_conv3_onepass_backward(*ins, dy, GROUPS)
+    ins64 = [t.double() for t in ins]
+    exact = cv.reference_gn_silu_conv3(*ins64, GROUPS)
+    dexact = cv.reference_gn_silu_conv3_backward(*ins64, dy.double(),
+                                                 GROUPS)
+    same = [torch.equal(got, onepass)] + [
+        torch.equal(leaf.grad, d) for leaf, d in zip(leaves, donepass)]
+    onepass_gate("gates: fused conv Cout=12 y", got, onepass, exact,
+                 stack=False)
+    for name, leaf, d, e in zip(("dx", "dgamma", "dbeta", "dW"), leaves,
+                                donepass, dexact):
+        onepass_gate(f"gates: fused conv Cout=12 {name}", leaf.grad, d, e,
+                     stack=False)
+    cpu = [t.cpu() for t in ins]
+    cpu_route = cv.conv_route(b, l, c, cout, GROUPS, "cpu")
+    on_cpu = _gate_call("fused conv on CPU tensors", cpu_route,
+                        lambda: cv.gn_silu_conv3(*cpu, GROUPS))
+    f32 = torch.equal(on_cpu, cv.reference_gn_silu_conv3(*cpu, GROUPS))
+    log(f"gates: fused conv routes {route} (card) and {cpu_route} (CPU); "
+        f"the card's forward and gradients the plain one-pass version's "
+        f"bit for bit: {same}; the CPU's the float32 plain version's: "
+        f"{f32}")
+    if (route, cpu_route) != ("onepass_plain", "float32") or \
+            not all(same) or not f32:
+        raise RuntimeError("gates: the fused conv's routes are not JAX's")
+
+
+def check_gates(ea, sa, cb, cv, dev, card: str) -> None:
     """Phase 22: the one-pass gates on the card. One shape of each kernel
     family where JAX's gate takes its kernel and the port's kernel does
     not (cross attention with Lk=300 at D=128, self attention at P=40, the
-    slab at dh=128, the fused core at Lk=300 through `mega_plan` and
-    `mega_denoise_ensemble`) runs the plain one-pass version with no
-    kernel launch, warned, and passes the one-pass rule against the float32
-    function (in float64; the core's against its float32 module path); a
-    shape JAX refuses (self attention at D=64) runs the float32 plain
+    slab at dh=128, the fused conv at Cout=12, the fused core at Lk=300
+    through `mega_plan` and `mega_denoise_ensemble`) runs the plain
+    one-pass version with no kernel launch, warned, and passes the
+    one-pass rule against the float32 function (in float64; the core's
+    against its float32 module path); a shape JAX refuses (self attention
+    at D=64) and the fused conv on CPU tensors run the float32 plain
     version bit for bit, with no launch and no warning."""
     from ertdx_torch.models import mega
 
@@ -5987,6 +6195,7 @@ def check_gates(ea, sa, cb, dev, card: str) -> None:
                      stack=False)
     if route != "onepass_plain":
         raise RuntimeError(f"gates: the slab at dh=128 takes route {route}")
+    check_conv_gate(cv, dev)
 
     cfg, model, _, _ = serving_setup(dev)
     cond_len = 9600                           # 300 condition tokens
@@ -6430,7 +6639,7 @@ def main() -> int:
     # port's do not run the plain one-pass version, a JAX-refused one the
     # float32 plain version
     t0 = time.perf_counter()
-    check_gates(ea, sa, cb, dev, card)
+    check_gates(ea, sa, cb, cv, dev, card)
     phase("one-pass gates", t0)
 
     launches = {"fused_core_stack": main_launches["fused_core_stack"],
@@ -6497,6 +6706,16 @@ def main() -> int:
     functions = {name + dt: fn for name, fn in
                  zip(ENSEMBLE_NAMES, ENSEMBLE_KERNELS)
                  for dt in ("", "_bf16")}
+    functions.update({
+        "gn_silu_conv3_fwd": "tap3_wgmma_kernel<float, true, false, ...>",
+        "gn_silu_conv3_bwd": "round_colsum_kernel, conv_dw_wgmma_kernel"
+                             "<float>, tap3_wgmma_kernel<bf16, false, "
+                             "true, ...>",
+        "gn_silu_conv3_fwd_bf16": "tap3_wgmma_kernel<bf16, true, false, "
+                                  "...>",
+        "gn_silu_conv3_bwd_bf16": "conv_dw_wgmma_kernel<bf16>, "
+                                  "tap3_wgmma_kernel<bf16, false, true, "
+                                  "...>"})
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": sources[name],
          **({"kernel": functions[name]} if name in functions else {}),

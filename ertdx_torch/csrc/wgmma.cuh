@@ -33,9 +33,10 @@
 // * TMA: `cp.async.bulk.tensor` 2-D and 3-D loads into shared memory,
 //   completing on an mbarrier with a transaction count; out-of-range
 //   elements, negative coordinates included, land as zeros. Tensor maps
-//   are encoded on the host (`bf16_map`) by cuTensorMapEncodeTiled,
-//   reached through cudaGetDriverEntryPoint(ByVersion) so the library
-//   needs no -lcuda, and passed as __grid_constant__ kernel parameters.
+//   are encoded on the host (`tensor_map`, `bf16_map`) by
+//   cuTensorMapEncodeTiled, reached through
+//   cudaGetDriverEntryPoint(ByVersion) so the library needs no -lcuda,
+//   and passed as __grid_constant__ kernel parameters.
 //   With a 64- or 128-byte swizzle the box's inner extent is the
 //   swizzle's width, and TMA writes 16-byte chunk c of row r at chunk c ^
 //   (r >> 1 & 3) (64-byte rows) or c ^ (r & 7) (128-byte rows): what
@@ -340,25 +341,36 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A tensor map of a bf16 tensor of `rank` (2 or 3) dimensions, innermost
-// first (`dims`), with the byte strides of dimensions 1.. (`strides`,
-// multiples of 16), loaded in boxes of `box` elements with the given
-// swizzle; out-of-range elements are read as zeros. The base must start
-// on a 16-byte boundary.
-inline cudaError_t bf16_map(CUtensorMap* map, const void* base, int rank,
-                            const cuuint64_t* dims,
-                            const cuuint64_t* strides, const cuuint32_t* box,
-                            CUtensorMapSwizzle swizzle) {
+// A tensor map of a tensor of element `type` and `rank` (2 or 3)
+// dimensions, innermost first (`dims`), with the byte strides of
+// dimensions 1.. (`strides`, multiples of 16), loaded in boxes of `box`
+// elements with the given swizzle; out-of-range elements are read as
+// zeros. The base must start on a 16-byte boundary.
+inline cudaError_t tensor_map(CUtensorMap* map, CUtensorMapDataType type,
+                              const void* base, int rank,
+                              const cuuint64_t* dims,
+                              const cuuint64_t* strides,
+                              const cuuint32_t* box,
+                              CUtensorMapSwizzle swizzle) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
   if (reinterpret_cast<uintptr_t>(base) % 16) return cudaErrorInvalidValue;
   const cuuint32_t ones[3] = {1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                        (cuuint32_t)rank, const_cast<void*>(base), dims,
-                        strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+  const CUresult r = fn(map, type, (cuuint32_t)rank, const_cast<void*>(base),
+                        dims, strides, box, ones,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// tensor_map of a bf16 tensor
+inline cudaError_t bf16_map(CUtensorMap* map, const void* base, int rank,
+                            const cuuint64_t* dims,
+                            const cuuint64_t* strides, const cuuint32_t* box,
+                            CUtensorMapSwizzle swizzle) {
+  return tensor_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, rank, dims,
+                    strides, box, swizzle);
 }
 
 }  // namespace wg

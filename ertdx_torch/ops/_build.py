@@ -49,7 +49,7 @@ SIGNATURES = {
     "ertdx_gn_silu_fwd": [_P] * 4 + [_I] * 4 + [_F] + [_I] * 3 + [_P],
     "ertdx_gn_silu_bwd": [_P] * 7 + [_I] * 4 + [_F] + [_I] * 3 + [_P],
     "ertdx_gn_conv3_fwd": [_P] * 7 + [_I] * 5 + [_F] + [_I] * 3 + [_P],
-    "ertdx_gn_conv3_bwd": [_P] * 12 + [_I] * 6 + [_F] + [_I] * 6 + [_P],
+    "ertdx_gn_conv3_bwd": [_P] * 14 + [_I] * 7 + [_F] + [_I] * 6 + [_P],
     "ertdx_gn_silu_fwd_bf16": [_P] * 4 + [_I] * 4 + [_F] + [_I] * 3 + [_P],
     "ertdx_gn_silu_bwd_bf16": [_P] * 7 + [_I] * 4 + [_F] + [_I] * 3 + [_P],
     "ertdx_gn_conv3_fwd_bf16": [_P] * 7 + [_I] * 5 + [_F] + [_I] * 3 + [_P],

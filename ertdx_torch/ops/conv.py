@@ -1,5 +1,5 @@
-"""Fused GroupNorm + SiLU + Conv1d(k=3): wrappers, plain version, launch
-counts.
+"""Fused GroupNorm + SiLU + Conv1d(k=3): wrappers, plain versions, launch
+counts, route.
 
 `gn_silu_conv3` ports the TPU kernels of ertdx/ops/conv.py
 (`_gn_silu_conv3_kernel` :49-82, `_gn_silu_conv3_bwd_kernel` :109-180)
@@ -12,29 +12,35 @@ to the hand-written CUDA kernels of csrc/gn_conv.cu:
     backward              dx, dgamma, dbeta, dW (3, C, Cout), db (Cout,),
                           all summed over the batch in the kernels
 
-On CUDA tensors the forward and backward launch their kernels (the
-kernels take Cout a multiple of 4, B up to 65535 and x, beta, w, bias
-and g starting on 16-byte boundaries, which they stage with cp.async; the
-wrappers raise on anything else, and the autograd path copies a
-misaligned operand); on CPU tensors both are the plain version under
-autograd. A failed build or launch raises: nothing falls back. Channels
-not divisible by the groups raise ValueError on every device, as in JAX
-(:237-243). `launches` counts the float32 kernels' launches and
-`launches_bf16` the bfloat16 kernels', and nothing else.
+The TPU kernels run their tap products at DEFAULT precision (one bf16 MXU
+pass a product, ertdx/ops/conv.py:15-17; no precision argument at
+:79-81, :153-161, :166-171) and their GroupNorm statistics at HIGHEST.
+That one-pass function is what a CUDA tensor gets, float32 or bfloat16:
+float32 statistics and GN+SiLU, h rounded to bf16 (to nearest even), the
+weight rounded to bf16 once a call (here, before the launch, into the
+forward's K-major (3, Cout, C) copy), one pass of Hopper's bf16 wgmma a
+product with float32 sums, the bias added in float32 and y in x's dtype;
+the backward's dW from bf16(h) and bf16(g), db the float32 sum of g as it
+comes (:150), dh = bf16(g) bf16(w)^T taps in float32 (:166-171), then the
+GN backward in float32, dx in x's dtype; dgamma, dbeta, dW and db
+float32. `reference_gn_silu_conv3_onepass` and its backward are that
+function written out (`GNSiLUConv3OnepassPlain` under autograd), the
+kernels' oracle.
 
-The kernels dispatch on x's dtype. A bfloat16 x (a bf16 model's
-encoder) runs the bf16 kernels of csrc/gn_conv.cu, the TPU kernel's
-arithmetic (its taps at DEFAULT precision, one bf16 MXU pass a product,
-ertdx/ops/conv.py:15-17): float32 statistics and GN+SiLU, h rounded to
-bf16, the weight rounded to bf16 once a call (here, before the launch,
-into the forward's K-major (3, Cout, C) copy), one pass of Hopper's
-bf16 wgmma a product with float32 accumulation, the bias added in
-float32 and y rounded once to bf16; the backward's dh stays float32
-(:166-171) and dx comes out in bf16; dgamma, dbeta, dW and db are float32.
-They take C and Cout multiples of 8. The plain version follows JAX's
-reference dtype rule on any input (h in x's dtype, the weight cast to
-h's dtype and the bias to the product's, :42-46): on float32 it is the
-float32 function.
+The route (`conv_route`, on `_build.route`): JAX's kernel takes every
+shape whose channels the groups divide (its gate is only `use_pallas`
+on its TPU, :247, :258); channels the groups do not divide raise
+ValueError on every device, as in JAX (:237-243). A CPU tensor gets the
+float32 plain version (`reference_gn_silu_conv3`), what JAX's path
+computes off its TPU. A CUDA tensor runs the kernels where they take the
+shape (C and Cout multiples of 8, B up to 65535; x, beta, w, bias and g
+on 16-byte boundaries, which the autograd path copies to), else the plain
+one-pass version on the card, warned once per shape. A failed build or
+launch raises: nothing falls back. `launches` counts the float32 kernels'
+launches and `launches_bf16` the bfloat16 kernels', and nothing else.
+The plain version follows JAX's reference dtype rule on any input (h in
+x's dtype, the weight cast to h's dtype and the bias to the product's,
+:42-46): on float32 it is the float32 function.
 """
 from __future__ import annotations
 
@@ -42,11 +48,13 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from .groupnorm import check_groups, launch_plan, reference_groupnorm_silu
+from .core_block import round_bf16
+from .groupnorm import (check_groups, launch_plan, reference_groupnorm_silu,
+                        reference_groupnorm_silu_backward)
 
 launches = {"gn_silu_conv3_fwd": 0, "gn_silu_conv3_bwd": 0}
 launches_bf16 = {"gn_silu_conv3_fwd_bf16": 0, "gn_silu_conv3_bwd_bf16": 0}
-MAX_BATCH = 65535          # the GEMM grid's z dimension
+MAX_BATCH = 65535          # the kernels' batch limit (conv_shape_ok)
 
 
 def reset_launches() -> None:
@@ -83,6 +91,86 @@ def reference_gn_silu_conv3_backward(x, gamma, beta, w, bias, g,
         return torch.autograd.grad(out, leaves, g)
 
 
+def reference_gn_silu_conv3_onepass(x, gamma, beta, w, bias,
+                                    num_groups: int,
+                                    eps: float = 1e-5) -> torch.Tensor:
+    """The TPU kernel's one-pass forward (ertdx/ops/conv.py:49-82 at
+    DEFAULT precision): GN+SiLU in float32, h and w rounded to bf16, the
+    exact products summed in float32, the bias added in float32, y in x's
+    dtype. A float64 x keeps float64 (the same roundings, other sums)."""
+    ct = torch.promote_types(x.dtype, torch.float32)
+    h = reference_groupnorm_silu(x.to(ct), gamma.to(ct), beta.to(ct),
+                                 num_groups, eps)
+    hp = F.pad(round_bf16(h), (0, 0, 1, 1))
+    wq = round_bf16(w.to(ct))
+    length = x.shape[1]
+    # the three shifted products, added as JAX's kernel adds them (:79-81)
+    y = (hp[:, :length] @ wq[0] + hp[:, 1:length + 1] @ wq[1]
+         + hp[:, 2:] @ wq[2])
+    return (y + bias.to(ct)).to(x.dtype)
+
+
+def reference_gn_silu_conv3_onepass_backward(x, gamma, beta, w, bias, g,
+                                             num_groups: int,
+                                             eps: float = 1e-5):
+    """(dx, dgamma, dbeta, dW, db) of the TPU kernel's one-pass backward
+    (ertdx/ops/conv.py:109-180), written out: dW[k] = sum shift_k(bf16(h))^T
+    bf16(g) and dh = the taps of bf16(g) bf16(w)^T, each summed in
+    float32; db the float32 sum of g; then the SiLU chain rule and the GN
+    backward in float32 from dh. dx in x's dtype, the rest float32 (a
+    float64 x: float64 throughout)."""
+    b, length, c = x.shape
+    ct = torch.promote_types(x.dtype, torch.float32)
+    xf, gf, gamma, beta = x.to(ct), g.to(ct), gamma.to(ct), beta.to(ct)
+    h = reference_groupnorm_silu(xf, gamma, beta, num_groups, eps)
+    hp = F.pad(round_bf16(h), (0, 0, 1, 1))
+    gq = round_bf16(gf)
+    wq = round_bf16(w.to(ct))
+    rows = gq.reshape(-1, gq.shape[-1])
+    dw = torch.stack([hp[:, k:k + length].reshape(-1, c).T @ rows
+                      for k in range(3)])
+    gp = F.pad(gq, (0, 0, 1, 1))
+    dh = (gp[:, 2:] @ wq[0].T + gq @ wq[1].T + gp[:, :length] @ wq[2].T)
+    dx, dgamma, dbeta = reference_groupnorm_silu_backward(
+        xf, gamma, beta, dh, num_groups, eps)
+    return dx.to(x.dtype), dgamma, dbeta, dw, gf.sum(dim=(0, 1))
+
+
+class GNSiLUConv3OnepassPlain(torch.autograd.Function):
+    """The plain one-pass version with its explicit backward, as JAX's
+    custom VJP runs its own backward kernel: the kernels' oracle, and the
+    route of a CUDA shape JAX's kernel takes and the port's do not."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, w, bias, num_groups, eps):
+        ctx.num_groups, ctx.eps = num_groups, eps
+        ctx.save_for_backward(x, gamma, beta, w, bias)
+        return reference_gn_silu_conv3_onepass(x, gamma, beta, w, bias,
+                                               num_groups, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        grads = reference_gn_silu_conv3_onepass_backward(
+            *ctx.saved_tensors, g, ctx.num_groups, ctx.eps)
+        return (*grads, None, None)
+
+
+def conv_route(b: int, l: int, c: int, cout: int, num_groups: int,
+               device) -> str:
+    """Where gn_silu_conv3 computes (`_build.route`'s rule): "kernel",
+    "onepass_plain" or "float32". JAX's kernel takes every shape whose
+    channels the groups divide (`check_groups` raises on the rest); the
+    port's kernels take C and Cout multiples of 8 and B <= MAX_BATCH."""
+    check_groups(c, num_groups)
+    return _build.route(device, False, True, kernels_take(b, c, cout))
+
+
+def kernels_take(b: int, c: int, cout: int) -> bool:
+    """The kernels' shape check (csrc/gn_conv.cu::conv_shape_ok, beside
+    the groups): C and Cout multiples of 8, B <= MAX_BATCH."""
+    return c % 8 == 0 and cout % 8 == 0 and cout > 0 and b <= MAX_BATCH
+
+
 def _checked(x, gamma, beta, w, num_groups, bias=None, g=None):
     if x.dim() != 3 or w.dim() != 3:
         raise ValueError(f"x (B, L, C) and w (3, C, Cout) expected, got "
@@ -93,13 +181,11 @@ def _checked(x, gamma, beta, w, num_groups, bias=None, g=None):
     b, l, c = x.shape
     cout = w.shape[-1]
     check_groups(c, num_groups)
-    mult = 4 if x.dtype == torch.float32 else 8
-    if cout % mult or c % mult or b > MAX_BATCH:
-        raise ValueError(f"the fused conv kernels take C and Cout each a "
-                         f"multiple of {mult} on "
-                         f"{str(x.dtype).replace('torch.', '')} and B <= "
-                         f"{MAX_BATCH}, got C={c}, Cout={cout}, B={b}")
     _build.check_cuda("x", x, (b, l, c), x.dtype)
+    if not kernels_take(b, c, cout):
+        raise ValueError(f"the fused conv kernels take C and Cout each a "
+                         f"multiple of 8 and B <= {MAX_BATCH}, got C={c}, "
+                         f"Cout={cout}, B={b}")
     _build.check_cuda("gamma", gamma, (c,))
     _build.check_cuda("beta", beta, (c,))
     _build.check_cuda("w", w, (3, c, cout))
@@ -127,14 +213,12 @@ def _entry(x, name: str):
         f"gn_silu_conv3_{name}{suffix}"
 
 
-def _kernel_weight(w, x, forward: bool):
-    """w as the kernels read it: float32 for a float32 x. For a bf16 x
-    rounded to bf16 once (to nearest even), as the TPU's one-pass MXU
-    product rounds its operand, in the K-major layout of the wgmma GEMMs'
-    B operand, (3, N, K): the forward's as (3, Cout, C), w[j] transposed,
-    in the same one pass that rounds it; dh's is w's own (3, C, Cout)."""
-    if x.dtype == torch.float32:
-        return w
+def _kernel_weight(w, forward: bool):
+    """w as the kernels read it: rounded to bf16 once (to nearest even),
+    as the TPU's one-pass MXU product rounds its operand, in the K-major
+    layout of the wgmma GEMMs' B operand, (3, N, K): the forward's as (3,
+    Cout, C), w[j] transposed, in the same one pass that rounds it; dh's
+    is w's own (3, C, Cout)."""
     if not forward:
         return w.to(torch.bfloat16)
     wk = torch.empty(w.shape[0], w.shape[2], w.shape[1], device=w.device,
@@ -159,7 +243,7 @@ def gn_silu_conv3_fwd(x, gamma, beta, w, bias, num_groups: int,
     out = torch.empty(b, l, cout, device=x.device, dtype=x.dtype)
     stats = torch.empty(stats_floats(b, num_groups, c), device=x.device,
                         dtype=torch.float32)
-    wk = _kernel_weight(w, x, forward=True)
+    wk = _kernel_weight(w, forward=True)
     entry, counts, name = _entry(x, "fwd")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -182,13 +266,20 @@ def dw_splits(b: int, c: int, cout: int, sms: int) -> int:
     return max(1, min(b, sms // tiles))
 
 
+def db_splits(m: int, sms: int) -> int:
+    """How many blocks round a float32 g to bf16 and sum db's partials
+    over its m = B L rows: one an SM, each at least 64 rows."""
+    return max(1, min(sms, -(-m // 64)))
+
+
 def gn_silu_conv3_bwd(x, gamma, beta, w, g, num_groups: int,
                       eps: float = 1e-5):
     """The backward kernels: (dx, dgamma, dbeta, dW, db) for upstream
     gradient g (B, L, Cout) in x's dtype; dx in x's dtype, the rest
     float32. Seven launches on the current stream (statistics and their
     per-channel table, dW partials, their sum, dh, the GN backward and
-    its sum over B), counted as one backward."""
+    its sum over B), and on a float32 x two more first (bf16(g) with db's
+    partials, and their sum), counted as one backward."""
     b, l, c, cout = _checked(x, gamma, beta, w, num_groups, g=g)
     dev = x.device
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -201,16 +292,23 @@ def gn_silu_conv3_bwd(x, gamma, beta, w, g, num_groups: int,
     dx, dgb, dwb = torch.empty_like(x), empty(2, c), empty(nw)
     stats, dh = empty(stats_floats(b, num_groups, c)), empty(b, l, c)
     part_w, part_gn = empty(splits, nw), empty(b, 2, c)
-    wk = _kernel_weight(w, x, forward=False)
+    wk = _kernel_weight(w, forward=False)
     size = x.element_size()
     entry, counts, name = _entry(x, "bwd")
+    scratch, pieces = (), ()
+    if x.dtype == torch.float32:    # bf16(g) and db's partials
+        pieces = (db_splits(b * l, sms),)
+        gq = torch.empty(b, l, cout, device=dev, dtype=torch.bfloat16)
+        part_db = empty(*pieces, cout)
+        scratch = (gq.data_ptr(), part_db.data_ptr())
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = entry(
             x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), wk.data_ptr(),
             g.data_ptr(), dx.data_ptr(), dgb.data_ptr(), dwb.data_ptr(),
             stats.data_ptr(), dh.data_ptr(), part_w.data_ptr(),
-            part_gn.data_ptr(), b, l, c, cout, num_groups, splits, eps,
+            part_gn.data_ptr(), *scratch, b, l, c, cout, num_groups,
+            splits, *pieces, eps,
             *launch_plan(l, c, num_groups, "stats", size).args(),
             *launch_plan(l, c, num_groups, "bwd", size, 4).args(), stream)
     _build.raise_on(rc, name)
@@ -239,13 +337,20 @@ class _GNSiLUConv3(torch.autograd.Function):
 def gn_silu_conv3(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                   w: torch.Tensor, bias: torch.Tensor, num_groups: int,
                   eps: float = 1e-5) -> torch.Tensor:
-    """conv3_SAME(silu(GN(x)), w) + bias with a gradient, in x's dtype:
-    the CUDA kernels on a CUDA tensor (float32 or bfloat16), the plain
-    version on a CPU tensor."""
-    check_groups(x.shape[-1], num_groups)
-    if x.device.type == "cpu":
+    """conv3_SAME(silu(GN(x)), w) + bias with a gradient, in x's dtype, by
+    `conv_route`: the CUDA kernels (the TPU kernel's one-pass function) on
+    a CUDA tensor of a shape they take, the plain one-pass version, warned,
+    on one they do not, the float32 plain version on a CPU tensor."""
+    b, l, c = x.shape
+    cout = w.shape[-1]
+    route = conv_route(b, l, c, cout, num_groups, x.device)
+    if route == "float32":
         return reference_gn_silu_conv3(x, gamma, beta, w, bias, num_groups,
                                        eps)
+    if route == "onepass_plain":
+        _build.warn_onepass_plain("gn_silu_conv3", (b, l, c, cout))
+        return GNSiLUConv3OnepassPlain.apply(x, gamma, beta, w, bias,
+                                             num_groups, eps)
     c16 = _build.contiguous16
     return _GNSiLUConv3.apply(c16(x), gamma.contiguous(), c16(beta), c16(w),
                               c16(bias), num_groups, eps)

@@ -4,9 +4,11 @@ kernels.
 Inputs come from a seeded numpy generator. JAX runs its Pallas kernels in
 interpret mode on the CPU (`gn_silu_conv3_interpret`,
 `gn_silu_conv3_backward_interpret`); the port runs its CPU path, the
-plain version (GN+SiLU then a SAME `F.conv1d`) under autograd, which is
-also what its CUDA kernels are held against on the card. The shapes
-include Cout != C and the edge rows at L=1 and L=2.
+plain version (GN+SiLU then a SAME `F.conv1d`) under autograd: the
+float32 function, which JAX's path computes off its TPU (the CUDA
+kernels compute the TPU kernel's one-pass function,
+tests/test_torch_conv_onepass.py). The shapes include Cout != C and the
+edge rows at L=1 and L=2.
 
 Tolerances: the output and dx at 1e-5 x max(1, max|ref|); dgamma, dbeta,
 dW and db at 1e-4 x max(1, max|ref|), because each is a sum over B x L

@@ -1,8 +1,8 @@
-"""The plan of the bf16 fused conv's wgmma GEMMs (csrc/gn_conv.cu,
-namespace bf), on the CPU.
+"""The plan of the fused conv's wgmma GEMMs (csrc/gn_conv.cu, which a
+float32 and a bf16 x both run), on the CPU.
 
 The kernels run only on a card (tests/test_torch_gpu.py, chip_smoke.py
-phases 2 and 16). What their design moved into Python, and the index
+phases 2, 10 and 16). What their design moved into Python, and the index
 arithmetic of the design, are checked here:
 
 * the weights as the wrapper hands them (`ops/conv.py::_kernel_weight`):
@@ -39,15 +39,14 @@ def _rng_arrays(seed, *shapes):
 @pytest.mark.parametrize("forward", [True, False])
 def test_kernel_weights_are_k_major(forward):
     w = torch.from_numpy(_rng_arrays(1, (3, 24, 40))[0].astype(np.float32))
-    x16 = torch.zeros(2, 5, 24, dtype=torch.bfloat16)
-    wk = cv._kernel_weight(w, x16, forward=forward)
+    wk = cv._kernel_weight(w, forward=forward)
     assert wk.dtype == torch.bfloat16 and wk.is_contiguous()
     want = (w.transpose(1, 2) if forward else w).to(torch.bfloat16)
     assert wk.shape == want.shape == ((3, 40, 24) if forward else
                                       (3, 24, 40))
     assert torch.equal(wk, want)
-    # float32 kernels read w as it is
-    assert cv._kernel_weight(w, x16.float(), forward=forward) is w
+    # a float32 x's kernels read the same bf16 weights (one-pass products)
+    assert torch.equal(cv._kernel_weight(w.double(), forward=forward), want)
 
 
 def _tap_gemm(a, b3, l, reverse):

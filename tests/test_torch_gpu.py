@@ -521,8 +521,54 @@ def test_groupnorm_takes_misaligned_views(cuda):
         gn.groupnorm_silu_bwd(x, gamma, beta, _misaligned(dy), 8)
 
 
+def _conv_onepass_rule(got, onepass, exact):
+    """The one-pass rule (chip_smoke.py's `onepass_gate`): the rms error
+    against the float32 function in float64 within 0.8-1.25x the plain
+    one-pass version's, the max error within 5e-2 x max(1, max|exact|),
+    and the same-function rule, the rms gap to the plain one-pass version
+    under 1/4 of its error."""
+    err, own = _rms(got.double() - exact), _rms(onepass.double() - exact)
+    gap = _rms(got.double() - onepass.double())
+    ratio = err / own if own else (1.0 if err == 0.0 else math.inf)
+    assert 0.8 <= ratio <= 1.25, ratio
+    assert gap <= 0.25 * own, (gap, own)
+    assert float((got.double() - exact).abs().max()) <= 5e-2 * max(
+        1.0, float(exact.abs().max()))
+
+
+def _conv_inputs(dev, b, l, c, cout, g_shift=0.0):
+    g = torch.Generator(device=dev).manual_seed(b * l + c + cout)
+    x = torch.randn(b, l, c, generator=g, device=dev)
+    gamma = 1 + 0.3 * torch.randn(c, generator=g, device=dev)
+    beta = 0.3 * torch.randn(c, generator=g, device=dev)
+    w = torch.randn(3, c, cout, generator=g, device=dev) / math.sqrt(3 * c)
+    bias = torch.randn(cout, generator=g, device=dev)
+    dy = torch.randn(b, l, cout, generator=g, device=dev)
+    if g_shift:
+        dy = g_shift + 1e-3 * dy
+    return (x, gamma, beta, w, bias), dy
+
+
+def _hold_conv_onepass(cv, ins, dy, out, grads):
+    """out and grads (dx, dgamma, dbeta, dW, db) of the float32 kernels
+    against the plain one-pass version under the one-pass rule, db
+    elementwise (a plain float32 sum, no product)."""
+    ins64 = [t.double() for t in ins]
+    _conv_onepass_rule(out, cv.reference_gn_silu_conv3_onepass(*ins, 8),
+                       cv.reference_gn_silu_conv3(*ins64, 8))
+    onepass = cv.reference_gn_silu_conv3_onepass_backward(*ins, dy, 8)
+    exact = cv.reference_gn_silu_conv3_backward(*ins64, dy.double(), 8)
+    for name, a, o, e in zip(("dx", "dgamma", "dbeta", "dW", "db"), grads,
+                             onepass, exact):
+        assert a.shape == o.shape and a.dtype == torch.float32, name
+        if name == "db":
+            _close(a, o)
+        else:
+            _conv_onepass_rule(a, o, e)
+
+
 @pytest.mark.parametrize("b,l,c,cout", [
-    (2, 37, 16, 16), (3, 61, 64, 72), (2, 1, 8, 4), (2, 2, 16, 8),
+    (2, 37, 16, 16), (3, 61, 64, 72), (2, 1, 8, 8), (2, 2, 16, 8),
     (4, 147, 256, 256), (2, 294, 128, 256),
     # a 128-row tile over several batch rows; one row past a tile; K not a
     # multiple of the 32-channel stage (C=24, 8 groups of 3, the GN
@@ -531,29 +577,65 @@ def test_groupnorm_takes_misaligned_views(cuda):
     # the GN backward streamed beside staged statistics; both streamed
     (1, 1900, 128, 64), (1, 4000, 128, 64)])
 def test_conv_kernels_match_plain(cuda, b, l, c, cout):
+    """The float32 kernels compute the TPU kernel's one-pass function:
+    held to the plain one-pass version by the one-pass and same-function
+    rules (db elementwise), one launch each, reruns bit-identical."""
     from ertdx_torch.ops import conv as cv
 
-    g = torch.Generator(device=cuda).manual_seed(b * l + c + cout)
-    x = torch.randn(b, l, c, generator=g, device=cuda)
-    gamma = 1 + 0.3 * torch.randn(c, generator=g, device=cuda)
-    beta = 0.3 * torch.randn(c, generator=g, device=cuda)
-    w = torch.randn(3, c, cout, generator=g, device=cuda) / math.sqrt(3 * c)
-    bias = torch.randn(cout, generator=g, device=cuda)
-    dy = torch.randn(b, l, cout, generator=g, device=cuda)
+    ins, dy = _conv_inputs(cuda, b, l, c, cout)
     cv.reset_launches()
-    got = cv.gn_silu_conv3_fwd(x, gamma, beta, w, bias, 8)
-    dgot = cv.gn_silu_conv3_bwd(x, gamma, beta, w, dy, 8)
+    got = cv.gn_silu_conv3_fwd(*ins, 8)
+    dgot = cv.gn_silu_conv3_bwd(*ins[:4], dy, 8)
     torch.cuda.synchronize()
     assert cv.launches == {"gn_silu_conv3_fwd": 1, "gn_silu_conv3_bwd": 1}
-    _close(got, cv.reference_gn_silu_conv3(x, gamma, beta, w, bias, 8))
-    want = cv.reference_gn_silu_conv3_backward(x, gamma, beta, w, bias, dy,
-                                               8)
-    for a, wt in zip(dgot, want):
-        assert a.shape == wt.shape
-        _close(a, wt)
-    assert torch.equal(got, cv.gn_silu_conv3_fwd(x, gamma, beta, w, bias, 8))
-    again = cv.gn_silu_conv3_bwd(x, gamma, beta, w, dy, 8)
+    assert not any(cv.launches_bf16.values())
+    _hold_conv_onepass(cv, ins, dy, got, dgot)
+    assert torch.equal(got, cv.gn_silu_conv3_fwd(*ins, 8))
+    again = cv.gn_silu_conv3_bwd(*ins[:4], dy, 8)
     assert all(torch.equal(a, wt) for a, wt in zip(dgot, again))
+
+
+def test_conv_kernels_sum_db_from_the_float32_g(cuda):
+    """g = 1.001 + 1e-3 N(0, 1): bf16(g) is about 1.0, so a db summed from
+    the rounded g would be 1e-3 of it off; the kernels' db is the float32
+    sum within 1e-4 x max(1, max|db|), and a sum of bf16(g) is not."""
+    from ertdx_torch.ops import conv as cv
+    from ertdx_torch.ops.core_block import round_bf16
+
+    ins, dy = _conv_inputs(cuda, 4, 147, 256, 256, g_shift=1.001)
+    dgot = cv.gn_silu_conv3_bwd(*ins[:4], dy, 8)
+    want = dy.sum(dim=(0, 1))
+    _close(dgot[4], want)
+    rounded = round_bf16(dy).sum(dim=(0, 1))
+    assert float((rounded - want).abs().max()) > \
+        1e-4 * max(1.0, float(want.abs().max()))
+    _hold_conv_onepass(cv, ins, dy, cv.gn_silu_conv3_fwd(*ins, 8), dgot)
+
+
+def test_conv_route_runs_the_plain_onepass_version(cuda):
+    """Cout = 12: JAX's kernel takes it, the wgmma kernels do not (not a
+    multiple of 8), so gn_silu_conv3 runs the plain one-pass version on
+    the card, warned once, with no launch; the wrappers refuse it."""
+    from ertdx_torch.ops import _build
+    from ertdx_torch.ops import conv as cv
+
+    ins, dy = _conv_inputs(cuda, 2, 37, 16, 12)
+    assert cv.conv_route(2, 37, 16, 12, 8, cuda) == "onepass_plain"
+    _build._onepass_plain_warned.discard(("gn_silu_conv3", (2, 37, 16, 12)))
+    leaves = [t.clone().requires_grad_(True) for t in ins]
+    cv.reset_launches()
+    with pytest.warns(UserWarning, match="plain one-pass"):
+        out = cv.gn_silu_conv3(*leaves, 8)
+    out.backward(dy)
+    torch.cuda.synchronize()
+    assert not any(cv.launches.values())
+    assert torch.equal(out.detach(),
+                       cv.reference_gn_silu_conv3_onepass(*ins, 8))
+    for leaf, want in zip(leaves, cv.reference_gn_silu_conv3_onepass_backward(
+            *ins, dy, 8)):
+        assert torch.equal(leaf.grad, want)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        cv.gn_silu_conv3_fwd(*ins, 8)
 
 
 def test_gn_conv_kernels_refuse_what_they_do_not_take(cuda):
@@ -571,7 +653,7 @@ def test_gn_conv_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="CUDA"):
         gn.groupnorm_silu_fwd(x, one.cpu(), one, 8)
     w = torch.randn(3, 16, 6, device=cuda)
-    with pytest.raises(ValueError, match="multiple of 4"):
+    with pytest.raises(ValueError, match="multiple of 8"):
         cv.gn_silu_conv3_fwd(x, one, one, w, torch.zeros(6, device=cuda), 8)
     with pytest.raises(ValueError, match="contiguous"):
         w = torch.randn(3, 8, 16, device=cuda).transpose(1, 2)
@@ -581,26 +663,19 @@ def test_gn_conv_kernels_refuse_what_they_do_not_take(cuda):
 def test_conv_kernels_take_misaligned_views(cuda):
     from ertdx_torch.ops import conv as cv
 
-    # the GEMMs stage x, beta, w, bias and g with 16-byte cp.async: the
-    # autograd path copies a misaligned operand, the wrappers refuse it
-    g = torch.Generator(device=cuda).manual_seed(12)
-    x = torch.randn(2, 37, 32, generator=g, device=cuda)
-    gamma = 1 + 0.3 * torch.randn(32, generator=g, device=cuda)
-    beta = 0.3 * torch.randn(32, generator=g, device=cuda)
-    w = torch.randn(3, 32, 16, generator=g, device=cuda) / math.sqrt(96)
-    bias = torch.randn(16, generator=g, device=cuda)
-    dy = torch.randn(2, 37, 16, generator=g, device=cuda)
-    leaves = [_misaligned(t).requires_grad_(True)
-              for t in (x, gamma, beta, w, bias)]
+    # the kernels read x, w and g by TMA and beta and bias as 16-byte
+    # vectors: the autograd path copies a misaligned operand, the wrappers
+    # refuse it
+    ins, dy = _conv_inputs(cuda, 2, 37, 32, 16)
+    x, gamma, beta, w, bias = ins
+    leaves = [_misaligned(t).requires_grad_(True) for t in ins]
     cv.reset_launches()
     out = cv.gn_silu_conv3(*leaves, 8)
     out.backward(_misaligned(dy))
     torch.cuda.synchronize()
     assert cv.launches == {"gn_silu_conv3_fwd": 1, "gn_silu_conv3_bwd": 1}
-    _close(out, cv.reference_gn_silu_conv3(x, gamma, beta, w, bias, 8))
-    for leaf, want in zip(leaves, cv.reference_gn_silu_conv3_backward(
-            x, gamma, beta, w, bias, dy, 8)):
-        _close(leaf.grad, want)
+    _hold_conv_onepass(cv, ins, dy, out.detach(),
+                       [leaf.grad for leaf in leaves])
     with pytest.raises(ValueError, match="16-byte aligned"):
         cv.gn_silu_conv3_fwd(_misaligned(x), gamma, beta, w, bias, 8)
     with pytest.raises(ValueError, match="16-byte aligned"):
@@ -611,11 +686,15 @@ def test_fused_encoder_trains_on_the_gn_kernels(cuda):
     """A small CondUNet with pallas_gn and pallas_conv_min_width: one train
     step launches each GN kernel twice (the stem's two GNSiLU) and each
     conv kernel four times (two fused ResBlocks), and agrees with the same
-    step with every use_pallas off."""
+    step with every use_pallas off and the fused convs on the plain
+    one-pass version (the function the conv kernels compute): the loss
+    within 1e-5, each gradient by the same-function rule, its rms gap
+    under 1/4 of the rms gap between that step and the all-float32 one."""
     import copy
 
     from ertdx_torch import train
     from ertdx_torch.diffusion import get_diffusion_schedule
+    from ertdx_torch.models import condunet
     from ertdx_torch.models.condunet import CondUNet, init_params
     from ertdx_torch.ops import conv as cv
     from ertdx_torch.ops import groupnorm as gn
@@ -628,25 +707,38 @@ def test_fused_encoder_trains_on_the_gn_kernels(cuda):
     for mod in plain.modules():
         if hasattr(mod, "use_pallas"):
             mod.use_pallas = False
+    plain32 = copy.deepcopy(plain)
     g = torch.Generator(device=cuda).manual_seed(1)
     x0 = torch.randn(8, 29, generator=g, device=cuda)
     cond = torch.randn(8, 96, 4, generator=g, device=cuda)
     t = torch.randint(0, 50, (8,), generator=g, device=cuda)
     noise = torch.randn(8, 29, generator=g, device=cuda)
     ab = get_diffusion_schedule(50).alpha_bar
+
+    def step(m):
+        return float(train.train_step(m, train.create_optimizer(m, 1e-4),
+                                      x0, cond, t, noise, alpha_bar=ab,
+                                      lr=1e-4))
+
     gn.reset_launches()
     cv.reset_launches()
-    losses = [train.train_step(m, train.create_optimizer(m, 1e-4), x0, cond,
-                               t, noise, alpha_bar=ab, lr=1e-4)
-              for m in (model, plain)]
+    loss = step(model)
     torch.cuda.synchronize()
     assert gn.launches == {"groupnorm_silu_fwd": 2, "groupnorm_silu_bwd": 2}
     assert cv.launches == {"gn_silu_conv3_fwd": 4, "gn_silu_conv3_bwd": 4}
-    assert abs(float(losses[0]) - float(losses[1])) <= 1e-5 * max(
-        1.0, float(losses[1]))
-    for (name, a), (_, b) in zip(model.named_parameters(),
-                                 plain.named_parameters()):
-        _close(a.grad, b.grad)
+    saved = condunet.reference_gn_silu_conv3
+    condunet.reference_gn_silu_conv3 = cv.GNSiLUConv3OnepassPlain.apply
+    try:
+        loss_plain = step(plain)
+    finally:
+        condunet.reference_gn_silu_conv3 = saved
+    step(plain32)
+    assert abs(loss - loss_plain) <= 1e-5 * max(1.0, loss_plain)
+    for (name, a), (_, b), (_, b32) in zip(model.named_parameters(),
+                                           plain.named_parameters(),
+                                           plain32.named_parameters()):
+        own = _rms(b.grad - b32.grad)
+        assert _rms(a.grad - b.grad) <= 0.25 * own, name
 
 
 # (B, H, L, Dh, valid keys, rows with every key masked): the encoder's
