@@ -11,7 +11,8 @@ in JAX, with no kernel of their own (JAX runs them outside Pallas). The
 CondUNet serves posterior ensembles with every sampler
 of the JAX package (ancestral, DDIM, pd, DPM-Solver++), with and without
 classifier-free guidance, on the fused-core kernels of
-`csrc/core_block.cu` and `csrc/core_onepass.cu` or, below their chain
+`csrc/core_onepass.cu` (JAX's one-pass mode and its bf16_3x
+`accurate=True`) or, below their chain
 threshold, on the per-block path with the one-pass ensemble-attention
 kernels of `csrc/ensemble_attn.cu` (float32 or bf16 loads); and
 it trains the CondUNet with the encoder's slab attention kernels of

@@ -51,7 +51,7 @@ class ModelConfig:
     ensemble_mega_accurate: bool = False  # the fused core's numeric mode
                                    # (ops/core_block.py): False, JAX's
                                    # default, one bf16 pass a product;
-                                   # True the float32 function (3xTF32)
+                                   # True JAX's bf16_3x (three passes)
     attn_flash_min_logits: int = 0  # encoder flash attention (ops/
                                     # attention.py) once b h lp^2 reaches
                                     # it; 0 = only at lp >= 1024

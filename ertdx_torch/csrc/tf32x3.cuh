@@ -1,7 +1,7 @@
 // The 3xTF32 tensor-core tile of the attention kernels, forward and
-// backward (slab_attn.cu, flash_attn.cu), of the fused denoiser core's
-// accurate mode (core_block.cu) and of the fused conv's GEMMs
-// (gn_conv.cu). Device code only; sm_80 and later, built for sm_90a.
+// backward: the slab's `accurate=True` (slab_attn.cu, JAX's HIGHEST) and
+// the flash kernels (flash_attn.cu). Device code only; sm_80 and later,
+// built for sm_90a.
 //
 // An fp32 product a b runs on the TF32 tensor cores as
 //     a b ~ a_lo b_hi + a_hi b_lo + a_hi b_hi,   a = a_hi + a_lo,

@@ -1,6 +1,6 @@
 // Hopper's warpgroup tensor-core product and tensor memory accelerator
 // for the bf16 GEMMs of the fused GN+SiLU+conv3 (gn_conv.cu), the bf16
-// slab attention (slab_attn_bf16.cu) and the fused core's one-pass kernels
+// slab attention (slab_attn_bf16.cu) and the fused core in both modes
 // (core_onepass.cu): hand-written PTX wrappers, in the
 // idiom of bf16mma.cuh and tf32x3.cuh. sm_90a only
 // (wgmma exists for that target alone). Device code, and the host code
@@ -8,7 +8,8 @@
 //
 // * wgmma.mma_async m64n128k16, m64n64k16 and m64n32k16, f32 += bf16 x bf16,
 //   in the RS form: A (64 x 16) from registers, B (16 x N) from shared memory
-//   by a matrix descriptor. Four warps issue it together; warp w of the
+//   by a matrix descriptor (m64n128k16 and m64n64k16 also in the SS form,
+//   A by a descriptor too). Four warps issue it together; warp w of the
 //   warpgroup holds rows 16 w .. 16 w + 15 of A and of the accumulator, in
 //   the mma.m16n8k16 layouts (bf16mma.cuh) repeated along N: with lane = 4 g
 //   + t, accumulator register 4 i + e is row g + 8 (e >> 1), column 8 i + 2 t
@@ -310,6 +311,78 @@ template <int TNSP_B>
 __device__ __forceinline__ void mma_rs(float (&d)[64], const uint32_t (&a)[4],
                                        uint64_t b) {
   mma_rs_n128<TNSP_B>(d, a, b);
+}
+
+// The SS form: A (64 x 16 bf16) from shared memory by a descriptor as
+// well, K-major (tnspA = 0; the descriptor of a K-major B: rows of A's 64
+// rows instead of B's N); d (64 x N, float32) += a b. N = 64 (d[32]) and
+// N = 128 (d[64]), b K-major (TNSP_B = 0) or MN-major (1).
+template <int TNSP_B>
+__device__ __forceinline__ void mma_ss_n64(float (&d)[32], uint64_t a,
+                                           uint64_t b) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, %35;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(1), "n"(TNSP_B));
+}
+
+template <int TNSP_B>
+__device__ __forceinline__ void mma_ss_n128(float (&d)[64], uint64_t a,
+                                            uint64_t b) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, %67;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(1), "n"(TNSP_B));
+}
+
+// The SS product by the accumulator's width.
+template <int TNSP_B>
+__device__ __forceinline__ void mma_ss(float (&d)[32], uint64_t a,
+                                       uint64_t b) {
+  mma_ss_n64<TNSP_B>(d, a, b);
+}
+template <int TNSP_B>
+__device__ __forceinline__ void mma_ss(float (&d)[64], uint64_t a,
+                                       uint64_t b) {
+  mma_ss_n128<TNSP_B>(d, a, b);
 }
 
 // ---- host: TMA tensor maps ----------------------------------------------

@@ -25,17 +25,16 @@ is float32 from the float32 parameters.
 The kernels' numeric mode is the model's `ensemble_mega_accurate`, as
 in JAX (ertdx/models/mega.py:116-132): False, the default, runs JAX's
 one-pass mode (each product one bf16 pass, float32 accumulation), True
-the float32 function (3xTF32 on the card); see ops/core_block.py.
+JAX's bf16_3x (three bf16 passes a product, hi and lo parts); both on
+bf16 wgmma on the card, see ops/core_block.py.
 
-In the one-pass mode JAX's gate chooses the function (`mega_route`): where
-JAX, evaluated as on its TPU (`tpu_mega_plan`), plans its kernels, the
-port computes their one-pass function, on the CUDA kernels where they
-take the core's shape and on the plain one-pass version on the card where
-they do not (warned once per shape); where JAX plans none, the module
-path computes the float32 function, as JAX's XLA path. With
-`accurate=True` the kernels run wherever they take the shape: both paths
-compute the float32 function there. On the CPU nothing changes: the
-module path runs.
+In both modes JAX's gate chooses the function (`mega_route`): where JAX,
+evaluated as on its TPU (`tpu_mega_plan`, which reads the mode), plans
+its kernels, the port computes their function in the model's mode, on
+the CUDA kernels where they take the core's shape and on the mode's plain
+version on the card where they do not (warned once per shape); where JAX
+plans none, the module path computes the float32 function, as JAX's XLA
+path. On the CPU nothing changes: the module path runs.
 """
 from __future__ import annotations
 
@@ -46,11 +45,10 @@ import torch.nn.functional as F
 
 from ..ops._build import route, warn_onepass_plain
 from ..ops.core_block import (WEIGHT_KEYS, _ln, fused_core_block,
-                              fused_core_block_onepass_plain,
-                              fused_core_stack,
-                              fused_core_stack_onepass_plain,
-                              kernel_supports, pack_core_weights,
-                              pick_block_chunk, pick_stack_outer)
+                              fused_core_stack, kernel_supports, kv_operands,
+                              pack_core_weights, pack_core_weights_3x,
+                              pick_block_chunk, pick_stack_outer,
+                              plain_versions)
 from ..parallel.mesh import (DATA_AXIS, MODEL_AXIS, all_gather_cat,
                              full_param)
 from .common import get_timestep_embedding
@@ -97,17 +95,19 @@ def mega_weights(model) -> dict:
     """Every weight the fused path reads, gathered once per run (whole,
     where tensor parallelism holds a column shard: the kernels take every
     weight, as GSPMD replicates a pallas_call's operands), with the
-    one-pass kernels' bf16 copies of the blocks' matrices ("packed",
-    `pack_core_weights`: rounded once a run)."""
+    kernels' bf16 copies of the blocks' matrices in the model's mode,
+    rounded once a run: the one-pass kernels' ("packed",
+    `pack_core_weights`), or for a model in JAX's accurate mode the
+    bf16_3x kernels' hi and lo copies ("packed_3x",
+    `pack_core_weights_3x`)."""
     blocks = [extract_core_weights(model, i)
               for i in range(model.num_blocks)]
     d = model.hidden_dim
     stack = {key: torch.stack([w[key] for w in blocks])
              for key in WEIGHT_KEYS}
-    return {
+    out = {
         "blocks": blocks,
         "stack": stack,
-        "packed": pack_core_weights(stack),
         "lift_w": full_param(model.lift, "weight").detach().reshape(
             1, d).contiguous(),
         "lift_b": model.lift.bias.detach().reshape(1, d),
@@ -117,6 +117,11 @@ def mega_weights(model) -> dict:
         "head_w": model.head.weight.detach().reshape(d, 1).contiguous(),
         "head_b": model.head.bias.detach().reshape(1, 1),
     }
+    if getattr(model, "ensemble_mega_accurate", False):
+        out["packed_3x"] = pack_core_weights_3x(stack)
+    else:
+        out["packed"] = pack_core_weights(stack)
+    return out
 
 
 def _local_batch(model, n_real: int, batch: int, mesh) -> Optional[int]:
@@ -173,23 +178,21 @@ def mega_route(model, n_real: int, batch: int = 1,
                cond_len: Optional[int] = None, device=None,
                mesh=None) -> str:
     """Which path the ensemble's core takes: "kernel" (the CUDA kernels),
-    "onepass_plain" (the plain one-pass version on the card) or "float32"
+    "onepass_plain" (the plain version of the model's mode on the card:
+    one-pass, or bf16_3x with `ensemble_mega_accurate`) or "float32"
     (the per-block module path, float32 products).
 
-    In JAX's one-pass mode (`ensemble_mega_accurate=False`) JAX's gate
-    chooses the function (`tpu_mega_plan`): where it plans its kernels the
-    port computes their one-pass function, on the CUDA kernels where
-    `kernel_supports` takes the core's shape, else on the plain one-pass
-    version; where it plans none, the module path, as JAX's. With
-    `accurate=True` both paths compute the float32 function, and the
-    kernels run wherever they take the shape. CPU tensors take the module
-    path."""
+    JAX's gate chooses the function (`tpu_mega_plan`, in the model's mode
+    `ensemble_mega_accurate`): where it plans its kernels the port
+    computes their function in that mode, JAX's one-pass or bf16_3x, on
+    the CUDA kernels where `kernel_supports` takes the core's shape, else
+    on the mode's plain version; where it plans none, the module path, as
+    JAX's. CPU tensors take the module path."""
     if device is None or _local_batch(model, n_real, batch, mesh) is None:
         return "float32"
-    accurate = bool(model.ensemble_mega_accurate)
-    return route(device, accurate,
-                 accurate or tpu_mega_plan(model, n_real, batch, cond_len,
-                                           mesh) is not None,
+    return route(device, False,
+                 tpu_mega_plan(model, n_real, batch, cond_len, mesh)
+                 is not None,
                  kernel_supports(model.param_dim, model.hidden_dim,
                                  _lk(model, cond_len)))
 
@@ -199,24 +202,24 @@ def mega_plan(model, n_real: int, batch: int = 1,
               mesh=None) -> Optional[dict]:
     """The fused-core plan, or None for the plain module path, as
     `mega_route` decides. The plan's variant is JAX's: the one-launch
-    stack where JAX plans its stack kernel (and always with
-    `accurate=True`), one launch per block where JAX plans its per-block
-    kernel; "plain": True where the route is "onepass_plain" (warned once
-    per shape). The kernels tile R themselves, so the chunk is R. With a
-    mesh each rank runs the kernel on its own conditions (the batch
-    divides the data axis). `accurate` is the model's
-    `ensemble_mega_accurate`: the kernels' numeric mode."""
+    stack where JAX plans its stack kernel, one launch per block where
+    JAX plans its per-block kernel; "plain": True where the route is
+    "onepass_plain" (warned once per shape).
+    The kernels tile R themselves, so the chunk is R. With a mesh each
+    rank runs the kernel on its own conditions (the batch divides the
+    data axis). `accurate` is the model's `ensemble_mega_accurate`: the
+    kernels' numeric mode."""
     route = mega_route(model, n_real, batch, cond_len, device, mesh)
     if route == "float32":
         return None
     p, d, nb = model.param_dim, model.hidden_dim, model.num_blocks
     accurate = bool(model.ensemble_mega_accurate)
-    stack = accurate or tpu_mega_plan(model, n_real, batch, cond_len,
-                                      mesh)["stack"]
+    stack = tpu_mega_plan(model, n_real, batch, cond_len, mesh)["stack"]
     plan = {"p": p, "d": d, "num_blocks": nb, "chunk": n_real,
             "accurate": accurate, "stack": stack}
-    if route == "onepass_plain":
-        warn_onepass_plain("fused core", (n_real, p, d, _lk(model, cond_len)))
+    if route != "kernel":
+        warn_onepass_plain("fused core", (n_real, p, d, _lk(model, cond_len)),
+                           "bf16_3x" if accurate else "one-pass")
         plan["plain"] = True
     return plan
 
@@ -230,67 +233,101 @@ def _cvec_silu(model, t, cond_vec, d):
     return F.silu(F.linear(h, full_param(m2, "weight"), m2.bias) + cond_vec)
 
 
-def _block_mods_kv(w, sc, cond_tokens):
-    """(B, 6, D) AdaLN rows and (B, Lk, D) cross K/V for one block."""
-    mods = torch.stack([m for wk, bk in w["ada"]
+def _block_mods(w, sc):
+    """(B, 6, D) AdaLN rows for one block."""
+    return torch.stack([m for wk, bk in w["ada"]
                         for m in (sc @ wk + bk).chunk(2, dim=-1)], dim=1)
-    k, v = (cond_tokens @ w["wkv"]).chunk(2, dim=-1)
-    return mods, k.contiguous(), v.contiguous()
+
+
+def mega_cross_kv(weights: dict, cond_ctx, *, stack: bool, accurate: bool,
+                  operands: bool = True) -> dict:
+    """Every block's cross K and V for one context, `cond_tokens @ wkv`,
+    which a reverse chain's steps share: made once a run (the sampler
+    does so for each context it denoises with) and handed to
+    `mega_denoise_ensemble` as `cross`. For the stack (`stack`) K and V
+    are (B*nb, Lk, D), block-major within a condition; for the per-block
+    kernel a list of (B, Lk, D), one a block. With `operands`, also the
+    kernels' operands of them in the mode `accurate` selects
+    (`kv_operands`: bf16 copies, or hi and lo parts)."""
+    cond_tokens = cond_ctx[0].to(torch.float32)
+    kv = [(cond_tokens @ wb["wkv"]).chunk(2, dim=-1)
+          for wb in weights["blocks"]]
+    if stack:
+        bsz, lk, d = cond_tokens.shape[0], cond_tokens.shape[1], \
+            kv[0][0].shape[-1]
+        k, v = (torch.stack([z[j] for z in kv], dim=1).reshape(
+            bsz * len(kv), lk, d) for j in (0, 1))
+        ops = kv_operands(k, v, accurate) if operands else None
+    else:
+        k, v = ([z[j].contiguous() for z in kv] for j in (0, 1))
+        ops = ([kv_operands(kb, vb, accurate) for kb, vb in zip(k, v)]
+               if operands else None)
+    return {"stack": stack, "accurate": accurate, "k": k, "v": v,
+            "operands": ops}
 
 
 def mega_denoise_ensemble(model, x, t, cond_ctx, n_real: int, *, p: int,
                           d: int, num_blocks: int, chunk: int,
                           accurate: bool = False, stack: bool = True,
                           weights: Optional[dict] = None,
-                          plain: bool = False):
+                          plain: bool = False,
+                          cross: Optional[dict] = None):
     """(B*n_real, P) condition-major chains -> eps_hat on the fused core.
 
     stack=True runs lift -> all blocks -> head as ONE kernel launch;
     stack=False launches one kernel per block, with lift, out-norm and
     head in plain PyTorch (float32 in both modes). `accurate` selects the
-    kernels' mode (False: one bf16 pass a product, JAX's default).
-    `weights` (from `mega_weights`) saves regathering them at every
-    step. `plain` computes the one-pass mode's plain versions in place of
-    the kernels, on any device (`mega_plan`'s "onepass_plain" route)."""
+    kernels' mode (False: one bf16 pass a product, JAX's default; True:
+    bf16_3x). `weights` (from `mega_weights`) and `cross` (from
+    `mega_cross_kv` for this context, this `stack` and this `accurate`)
+    save remaking them at every step. `plain` computes the mode's plain
+    versions in place of the kernels, on any device (`mega_plan`'s plain
+    routes)."""
     w = weights if weights is not None else mega_weights(model)
     # a bfloat16 model hands over a bf16 context: the kernel side computes
     # in float32, so cast once here (ertdx/models/mega.py:167-173)
     cond_tokens, cond_vec = (z.to(torch.float32) for z in cond_ctx)
+    if cross is None:
+        cross = mega_cross_kv(w, cond_ctx, stack=stack, accurate=accurate,
+                              operands=not plain and cond_tokens.is_cuda)
+    elif (cross["stack"], cross["accurate"]) != (stack, accurate):
+        raise ValueError(f"cross K/V made for stack={cross['stack']}, "
+                         f"accurate={cross['accurate']}; the call asks for "
+                         f"stack={stack}, accurate={accurate}")
     x = x.to(torch.float32)
     bsz = cond_tokens.shape[0]
     n = x.shape[0]
     n_chunks = n_real // chunk
     sc = _cvec_silu(model, t, cond_vec, d)
-    per = [_block_mods_kv(wb, sc, cond_tokens) for wb in w["blocks"]]
+    mods = [_block_mods(wb, sc) for wb in w["blocks"]]
+    plain_stack, plain_block = plain_versions(accurate)
+    packed = w.get("packed_3x" if accurate else "packed")
+    ops = cross["operands"]
 
     if stack:
-        mods = torch.cat([m for m, _, _ in per], dim=1).contiguous()
-        lk = cond_tokens.shape[1]
-        k = torch.stack([k for _, k, _ in per], dim=1).reshape(
-            bsz * num_blocks, lk, d)
-        v = torch.stack([v for _, _, v in per], dim=1).reshape(
-            bsz * num_blocks, lk, d)
-        args = (x.reshape(bsz * n_chunks, chunk, p).contiguous(), mods, k, v,
+        args = (x.reshape(bsz * n_chunks, chunk, p).contiguous(),
+                torch.cat(mods, dim=1).contiguous(), cross["k"], cross["v"],
                 w["stack"], w["lift_w"], w["lift_b"], w["pos_emb"],
                 w["on_scale"], w["on_bias"], w["head_w"], w["head_b"])
         if plain:
-            out = fused_core_stack_onepass_plain(*args, p=p)
+            out = plain_stack(*args, p=p)
         else:
             out = fused_core_stack(*args, p=p, chunk=chunk,
-                                   accurate=accurate, packed=w["packed"])
+                                   accurate=accurate, packed=packed, kv=ops)
         return out.reshape(n, p)
 
     tokens = x[..., None] @ w["lift_w"] + w["lift_b"] + w["pos_emb"][None]
     x3 = tokens.reshape(bsz * n_chunks, chunk * p, d)
-    for i, (mods, k, v) in enumerate(per):
+    for i, (m, k, v) in enumerate(zip(mods, cross["k"], cross["v"])):
         if plain:
-            x3 = fused_core_block_onepass_plain(x3, mods, k, v,
-                                                w["blocks"][i], p=p)
+            x3 = plain_block(x3, m, k, v, w["blocks"][i], p=p)
         else:
-            x3 = fused_core_block(x3, mods.contiguous(), k, v,
+            x3 = fused_core_block(x3, m.contiguous(), k, v,
                                   w["blocks"][i], p=p, chunk=chunk,
                                   accurate=accurate,
-                                  packed=w["packed"][i:i + 1])
+                                  packed=None if packed is None
+                                  else packed[i:i + 1],
+                                  kv=None if ops is None else ops[i])
     tokens = x3.reshape(n, p, d)
     tokens = _ln(tokens) * w["on_scale"] + w["on_bias"]
     return (tokens @ w["head_w"] + w["head_b"])[..., 0]

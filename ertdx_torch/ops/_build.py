@@ -55,11 +55,12 @@ SIGNATURES = {
     "ertdx_gn_conv3_fwd_bf16": [_P] * 7 + [_I] * 5 + [_F] + [_I] * 3 + [_P],
     "ertdx_gn_conv3_bwd_bf16":
         [_P] * 12 + [_I] * 6 + [_F] + [_I] * 6 + [_P],
-    "ertdx_core_stack": [_P] * 22 + [_I] * 5 + [_P],
     "ertdx_core_stack_onepass": [_P] * 17 + [_I] * 7 + [_P],
-    "ertdx_core_block": [_P] * 15 + [_I] * 4 + [_P],
+    "ertdx_core_stack_bf16x3": [_P] * 17 + [_I] * 7 + [_P],
     "ertdx_core_block_onepass": [_P] * 10 + [_I] * 6 + [_P],
+    "ertdx_core_block_bf16x3": [_P] * 10 + [_I] * 6 + [_P],
     "ertdx_core_onepass_occupancy": [_P],
+    "ertdx_core_bf16x3_occupancy": [_P],
     "ertdx_slab_fwd": [_P] * 2 + [_I] * 4 + [_P],
     "ertdx_slab_bwd": [_P] * 5 + [_I] * 4 + [_P],
     "ertdx_slab_blocks_per_sm": [_I, _I, _P],
@@ -233,17 +234,19 @@ def route(device, accurate: bool, jax_takes: bool, port_takes: bool) -> str:
 _onepass_plain_warned: set = set()
 
 
-def warn_onepass_plain(op: str, shape: tuple) -> None:
-    """Warn, once per (op, shape), that a CUDA call runs the plain one-pass
-    version: JAX's gate takes its kernel there, so the port computes that
-    kernel's one-pass function, but the port's kernel does not take the
+def warn_onepass_plain(op: str, shape: tuple,
+                       function: str = "one-pass") -> None:
+    """Warn, once per (op, shape, function), that a CUDA call runs the
+    plain version of JAX's `function` ("one-pass", or the fused core's
+    "bf16_3x"): JAX's gate takes its kernel there, so the port computes
+    that kernel's function, but the port's kernel does not take the
     shape. A shape gate, not a fallback on failure: a kernel that fails to
     build or launch still raises."""
-    key = (op, tuple(shape))
+    key = (op, tuple(shape), function)
     if key in _onepass_plain_warned:
         return
     _onepass_plain_warned.add(key)
     warnings.warn(f"{op}: {tuple(shape)} is a shape JAX's kernel takes and "
-                  f"the CUDA kernel does not; running the plain one-pass "
+                  f"the CUDA kernel does not; running the plain {function} "
                   f"version on the card (20-25x slower than a kernel)",
                   stacklevel=3)

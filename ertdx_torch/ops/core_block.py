@@ -4,8 +4,8 @@
 out-norm -> head) and `fused_core_block` (one CoreBlock over
 condition-major chain slabs) port the TPU kernels of
 ertdx/ops/core_block.py:281-518 to the hand-written CUDA kernels of
-csrc/core_block.cu (`accurate=True`) and csrc/core_onepass.cu
-(`accurate=False`). Argument layouts are the JAX package's:
+csrc/core_onepass.cu, on Hopper's bf16 wgmma and TMA in both of JAX's
+modes. Argument layouts are the JAX package's:
 
     x     (B*n_chunks, chunk, P) compact chains         [stack]
     x3    (B*n_chunks, chunk*P, D) chain slabs          [block]
@@ -23,15 +23,24 @@ and each mode has its kernel and its plain version:
   rounded to bf16 to nearest even (`round_bf16`, `mm_onepass`). The
   stack also rounds what JAX's one-hot relayout products round (the
   chains' x, pos_emb, the head's tokens and weights, eps plus the head
-  bias), so every output of the one-pass stack is a bf16 value. The
-  kernels run each product as bf16 wgmma on Hopper, B operands by TMA:
-  the weights from bf16 copies rounded once a run (`pack_core_weights`,
-  which `models/mega.py::mega_weights` makes; a wrapper given none packs
-  its own), K and V rounded once a call; 128-row blocks of two
-  warpgroups, each warpgroup whole chains (`tile_plan`).
-* `accurate=True`: the float32 function; the kernels run each product
-  in 3xTF32 (three TF32 MMAs, fp32-class, at least as exact as JAX's
-  bf16_3x).
+  bias), so every output of the one-pass stack is a bf16 value.
+* `accurate=True`: JAX's bf16_3x, a_hi b_hi + a_lo b_hi + a_hi b_lo with
+  hi = bf16(a) and lo = bf16(a - hi) (`split_hilo`, `mm_3x`): JAX's
+  `_hilo` split, its lo parts rounded by the TPU's one-pass DEFAULT
+  products, about 1.3e-5 a product against float32's 1e-7. The stack's
+  one-hot relayouts leave x, pos_emb and eps plus the head bias as hi +
+  bf16(v - hi) (`round3`), and its head is a bf16_3x dot.
+
+Both modes' kernels run each pass as bf16 wgmma on Hopper, B operands by
+TMA: the weights from bf16 copies rounded once a run (`pack_core_weights`
+and, with their lo parts, `pack_core_weights_3x`, which `models/mega.py::
+mega_weights` makes; a wrapper given none packs its own), K and V
+rounded, or split, once a run (`kv_operands`, which `models/mega.py::
+mega_cross_kv` calls; a wrapper given none makes its own); 128-row
+blocks of two warpgroups, each warpgroup whole chains (`tile_plan`).
+The float32 plain versions (`fused_core_stack_plain`,
+`fused_core_block_plain`) stay as the exact function the tests measure
+both modes against.
 
 A wrapper given CPU tensors computes the plain PyTorch version of the
 mode asked for; given CUDA tensors it launches that mode's kernel or
@@ -51,12 +60,12 @@ import torch.nn.functional as F
 from . import _build
 
 LN_EPS = 1e-6
-# what the CUDA kernels take (csrc/core_block.cu: D, P_MAX, LK_MAX)
+# what the CUDA kernels take (csrc/core_onepass.cu: D, P_MAX, LK_MAX)
 KERNEL_D = 128
 KERNEL_P_MAX = 32
 KERNEL_LK_MAX = 256
-# the packed weight tiles of a CoreBlock, in the order the one-pass
-# kernels take them (csrc/core_onepass.cu): the k, v and q columns of
+# the packed weight tiles of a CoreBlock, in the order the kernels'
+# packs hold them (csrc/core_onepass.cu): the k, v and q columns of
 # wqkv, wso, wcq, wco, then w1's and w2's D-wide chunks in turns
 PACK_ORDER = ("wqkv_k", "wqkv_v", "wqkv_q", "wso", "wcq", "wco",
               "w1_0", "w2_0", "w1_1", "w2_1", "w1_2", "w2_2", "w1_3", "w2_3")
@@ -191,6 +200,37 @@ def mm_onepass(a, b):
     return round_bf16(a) @ round_bf16(b)
 
 
+def _ftz(a: torch.Tensor) -> torch.Tensor:
+    """a with every subnormal value a zero of its sign."""
+    return torch.where(a.abs() < torch.finfo(a.dtype).tiny, a * 0, a)
+
+
+def split_hilo(a: torch.Tensor):
+    """(hi, lo) = (bf16(a), bf16(a - hi)), in a's dtype: JAX's `_hilo(a)`
+    with its lo part rounded as the TPU's one-pass product rounds it, bit
+    for bit. XLA computes a - hi with subnormal operands and results
+    flushed to zeros of their sign (on the TPU and on the CPU), and so
+    does this (the kernels' sub.ftz)."""
+    hi = round_bf16(a)
+    return hi, round_bf16(_ftz(_ftz(a) - _ftz(hi)))
+
+
+def round3(a: torch.Tensor) -> torch.Tensor:
+    """hi + lo of `split_hilo(a)`: what a bf16_3x product with a one-hot
+    matrix (JAX's relayouts in the stack) leaves of a."""
+    hi, lo = split_hilo(a)
+    return hi + lo
+
+
+def mm_3x(a, b):
+    """a @ b as JAX's `_dot(accurate=True)` computes it on the TPU,
+    bf16_3x: ah bh + al bh + ah bl from `split_hilo` of each operand,
+    three float32 sums of exact products added in that order."""
+    ah, al = split_hilo(a)
+    bh, bl = split_hilo(b)
+    return ah @ bh + al @ bh + ah @ bl
+
+
 def _block_plain(x, mods, k, v, w, p: int, mm=torch.matmul):
     """One CoreBlock on (B, R*P, D) condition-major rows, every product
     through mm."""
@@ -230,10 +270,19 @@ def fused_core_block_onepass_plain(x3, mods, k, v, w, *, p: int):
     return _block(x3, mods, k, v, w, p, mm_onepass)
 
 
+def fused_core_block_3x_plain(x3, mods, k, v, w, *, p: int):
+    return _block(x3, mods, k, v, w, p, mm_3x)
+
+
+# a stack mode's products and what its one-hot relayouts leave of a value
+_STACK_MODES = {"float32": (torch.matmul, lambda a: a),
+                "onepass": (mm_onepass, round_bf16),
+                "bf16x3": (mm_3x, round3)}
+
+
 def _stack(x, mods, k, v, ws, lift_w, lift_b, pos_emb, on_scale, on_bias,
-           head_w, head_b, p: int, onepass: bool):
-    mm, rnd = ((mm_onepass, round_bf16) if onepass
-               else (torch.matmul, lambda a: a))
+           head_w, head_b, p: int, mode: str):
+    mm, rnd = _STACK_MODES[mode]
     g, chunk, _ = x.shape
     b = mods.shape[0]
     nb = ws["wqkv"].shape[0]
@@ -257,36 +306,50 @@ def _stack(x, mods, k, v, ws, lift_w, lift_b, pos_emb, on_scale, on_bias,
 def fused_core_stack_plain(x, mods, k, v, ws, lift_w, lift_b, pos_emb,
                            on_scale, on_bias, head_w, head_b, *, p: int):
     return _stack(x, mods, k, v, ws, lift_w, lift_b, pos_emb, on_scale,
-                  on_bias, head_w, head_b, p, onepass=False)
+                  on_bias, head_w, head_b, p, "float32")
 
 
 def fused_core_stack_onepass_plain(x, mods, k, v, ws, lift_w, lift_b,
                                    pos_emb, on_scale, on_bias, head_w,
                                    head_b, *, p: int):
     return _stack(x, mods, k, v, ws, lift_w, lift_b, pos_emb, on_scale,
-                  on_bias, head_w, head_b, p, onepass=True)
+                  on_bias, head_w, head_b, p, "onepass")
+
+
+def fused_core_stack_3x_plain(x, mods, k, v, ws, lift_w, lift_b, pos_emb,
+                              on_scale, on_bias, head_w, head_b, *, p: int):
+    return _stack(x, mods, k, v, ws, lift_w, lift_b, pos_emb, on_scale,
+                  on_bias, head_w, head_b, p, "bf16x3")
+
+
+def plain_versions(accurate: bool) -> tuple:
+    """The plain (stack, block) versions of a mode: what a wrapper
+    computes on CPU tensors, and the kernels' oracle on the card."""
+    if accurate:
+        return fused_core_stack_3x_plain, fused_core_block_3x_plain
+    return fused_core_stack_onepass_plain, fused_core_block_onepass_plain
 
 
 # ---------------------------------------------------------------------------
 # the one-pass kernels' operands and tiling
 # ---------------------------------------------------------------------------
 
+def _bf16_bits(r: torch.Tensor) -> torch.Tensor:
+    """A float32 tensor of bf16 values as a torch.bfloat16 tensor, bit for
+    bit (its upper 16 bits; a NaN keeps its sign, which a cast would
+    drop)."""
+    return (r.view(torch.int32) >> 16).to(torch.int16).view(torch.bfloat16)
+
+
 def bf16_copy(a: torch.Tensor) -> torch.Tensor:
-    """`round_bf16(a)` as a torch.bfloat16 tensor, bit for bit (its upper
-    16 bits; a NaN keeps its sign, which a cast would drop)."""
-    bits = round_bf16(a.to(torch.float32)).view(torch.int32) >> 16
-    return bits.to(torch.int16).view(torch.bfloat16)
+    """`round_bf16(a)` as a torch.bfloat16 tensor, bit for bit."""
+    return _bf16_bits(round_bf16(a.to(torch.float32)))
 
 
-def pack_core_weights(ws) -> torch.Tensor:
-    """The one-pass kernels' weights: (nb, 14, D, D) bfloat16, tile j of
-    block i the (in, out) matrix PACK_ORDER[j] of block i transposed to
-    K-major (row n, column k: W[k, n]), each value `round_bf16` of the
-    float32 weight, which is what JAX's one-pass `_dot` multiplies. TMA
-    reads each tile in two boxes of 64 columns and swizzles them by 128
-    bytes on the way into shared memory. `ws` holds JAX's stacks (leading
-    nb) or one block's matrices; computed once a run by
-    `models/mega.py::mega_weights`."""
+def _kmajor_tiles(ws) -> torch.Tensor:
+    """(nb, 14, D, D) float32: tile j of block i the (in, out) matrix
+    PACK_ORDER[j] of block i transposed to K-major (row n, column k: W[k,
+    n]). `ws` holds JAX's stacks (leading nb) or one block's matrices."""
     w = {key: ws[key] if ws["wso"].dim() == 3 else ws[key][None]
          for key in ("wqkv", "wso", "wcq", "wco", "w1", "w2")}
     d = w["wso"].shape[-1]
@@ -298,8 +361,44 @@ def pack_core_weights(ws) -> torch.Tensor:
              w["wso"], w["wcq"], w["wco"]]
     for c in range(4):
         tiles += [cols(w["w1"], c), w["w2"][:, c * d:(c + 1) * d]]
-    return bf16_copy(torch.stack(tiles, dim=1).transpose(-1, -2)
-                     ).contiguous()
+    return torch.stack(tiles, dim=1).transpose(-1, -2).to(torch.float32)
+
+
+def pack_core_weights(ws) -> torch.Tensor:
+    """The one-pass kernels' weights: (nb, 14, D, D) bfloat16, the
+    K-major tiles of `_kmajor_tiles`, each value `round_bf16` of the
+    float32 weight, which is what JAX's one-pass `_dot` multiplies. TMA
+    reads each tile in two boxes of 64 columns and swizzles them by 128
+    bytes on the way into shared memory. Computed once a run by
+    `models/mega.py::mega_weights`."""
+    return bf16_copy(_kmajor_tiles(ws)).contiguous()
+
+
+def split_bf16(a: torch.Tensor, dim: int) -> torch.Tensor:
+    """`split_hilo(a)` as bfloat16 copies, hi then lo, stacked at `dim`."""
+    hi, lo = split_hilo(a.to(torch.float32))
+    return torch.stack([_bf16_bits(hi), _bf16_bits(lo)],
+                       dim=dim).contiguous()
+
+
+def kv_operands(k: torch.Tensor, v: torch.Tensor, accurate: bool) -> tuple:
+    """The mode's kernel operands of the cross K and V: bf16 copies
+    (`bf16_copy`), or with `accurate` their hi and lo parts
+    (`split_bf16` at dim 1). A wrapper given none makes them each call;
+    `models/mega.py::mega_cross_kv` makes them once a run, as K and V do
+    not change over a reverse chain's steps."""
+    if accurate:
+        return split_bf16(k, 1), split_bf16(v, 1)
+    return bf16_copy(k), bf16_copy(v)
+
+
+def pack_core_weights_3x(ws) -> torch.Tensor:
+    """The bf16_3x kernels' weights: (nb, 14, 2, D, D) bfloat16, tile j of
+    block i as `pack_core_weights` lays it out, its hi part (that pack's
+    values) at [i, j, 0] and its lo part, bf16(w - hi), at [i, j, 1]: what
+    JAX's `_dot(accurate=True)` multiplies on the TPU. Computed once a run
+    by `models/mega.py::mega_weights` for a model in that mode."""
+    return split_bf16(_kmajor_tiles(ws), dim=2)
 
 
 class TilePlan(NamedTuple):
@@ -319,12 +418,13 @@ def tile_plan(r: int, p: int) -> TilePlan:
     return TilePlan(cpw, -(-r // (WARPGROUPS * cpw)))
 
 
-def onepass_occupancy() -> dict:
-    """The one-pass kernels' dynamic shared memory a block, resident
-    blocks an SM and threads a block, as the card reports them."""
+def occupancy(accurate: bool = False) -> dict:
+    """The mode's kernels' dynamic shared memory a block, resident blocks
+    an SM and threads a block, as the card reports them."""
     out = (ctypes.c_int * 4)()
-    _build.raise_on(_build.load().lib.ertdx_core_onepass_occupancy(out),
-                    "ertdx_core_onepass_occupancy")
+    name = ("ertdx_core_bf16x3_occupancy" if accurate
+            else "ertdx_core_onepass_occupancy")
+    _build.raise_on(getattr(_build.load().lib, name)(out), name)
     return {"smem_bytes": out[0], "stack_blocks_per_sm": out[1],
             "block_blocks_per_sm": out[2], "threads": out[3]}
 
@@ -378,41 +478,48 @@ def _same_device(tensors) -> None:
         raise ValueError("the kernel's tensors must share one CUDA device")
 
 
-def _check_packed(packed: torch.Tensor, nb: int, d: int) -> None:
-    if packed.dtype != torch.bfloat16:
-        raise TypeError(f"packed: the kernel takes bfloat16, got "
-                        f"{packed.dtype}")
-    if tuple(packed.shape) != (nb, len(PACK_ORDER), d, d):
-        raise ValueError(f"packed: shape {tuple(packed.shape)}, the kernel "
-                         f"expects {(nb, len(PACK_ORDER), d, d)}")
-    if not packed.is_contiguous() or packed.data_ptr() % 16:
-        raise ValueError("packed: the kernel takes contiguous 16-byte "
+def _check_bf16(name: str, t: torch.Tensor, shape) -> None:
+    if t.dtype != torch.bfloat16:
+        raise TypeError(f"{name}: the kernel takes bfloat16, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, the kernel "
+                         f"expects {tuple(shape)}")
+    if not t.is_contiguous() or t.data_ptr() % 16:
+        raise ValueError(f"{name}: the kernel takes contiguous 16-byte "
                          "aligned data")
 
 
-def _onepass_operands(k, v, ws, packed, nb: int, d: int):
-    """The one-pass kernels' bf16 operands: K and V rounded (once a call),
-    the packed weights (`packed`, or packed here from ws)."""
+def _operands(k, v, ws, packed, kv, nb: int, d: int, accurate: bool):
+    """The mode's kernel's bf16 operands: K and V rounded, or with
+    `accurate` split into hi and lo parts (`kv`, or made here from k and
+    v: `kv_operands`), and the packed weights (`packed`, or packed here
+    from ws)."""
+    parts = (2,) if accurate else ()
     if packed is None:
-        packed = pack_core_weights(ws)
-    _check_packed(packed, nb, d)
-    return bf16_copy(k), bf16_copy(v), packed
+        packed = (pack_core_weights_3x if accurate else pack_core_weights)(ws)
+    _check_bf16("packed", packed, (nb, len(PACK_ORDER)) + parts + (d, d))
+    kb, vb = kv if kv is not None else kv_operands(k, v, accurate)
+    _check_bf16("k operand", kb, k.shape[:1] + parts + k.shape[1:])
+    _check_bf16("v operand", vb, v.shape[:1] + parts + v.shape[1:])
+    return kb, vb, packed
 
 
 def fused_core_stack(x, mods, k, v, ws, lift_w, lift_b, pos_emb, on_scale,
                      on_bias, head_w, head_b, *, p: int, chunk: int,
-                     accurate: bool = False, packed=None):
+                     accurate: bool = False, packed=None, kv=None):
     """The whole denoiser core, (B*n_chunks, chunk, P) chains -> eps of the
     same shape, in the mode `accurate` selects. One CUDA launch on the
-    current stream. `packed`: `pack_core_weights(ws)`, which the one-pass
-    kernel reads in place of ws's matrices (packed here where None)."""
+    current stream. `packed`: the mode's packed weights,
+    `pack_core_weights(ws)` or with `accurate` `pack_core_weights_3x(ws)`,
+    which the kernel reads in place of ws's matrices (packed here where
+    None); `kv`: the mode's operands of k and v, `kv_operands(k, v,
+    accurate)` (made here where None)."""
     tensors = [x, mods, k, v, *(ws[key] for key in WEIGHT_KEYS), lift_w,
                lift_b, pos_emb, on_scale, on_bias, head_w, head_b]
     if _on_cpu(tensors):
-        plain = (fused_core_stack_plain if accurate
-                 else fused_core_stack_onepass_plain)
-        return plain(x, mods, k, v, ws, lift_w, lift_b, pos_emb, on_scale,
-                     on_bias, head_w, head_b, p=p)
+        return plain_versions(accurate)[0](
+            x, mods, k, v, ws, lift_w, lift_b, pos_emb, on_scale, on_bias,
+            head_w, head_b, p=p)
     _same_device(tensors)
     g, chunk_, p_ = x.shape
     b = mods.shape[0]
@@ -442,33 +549,30 @@ def fused_core_stack(x, mods, k, v, ws, lift_w, lift_b, pos_emb, on_scale,
     lib = _build.load().lib
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        if accurate:
-            rc = lib.ertdx_core_stack(*(t.data_ptr() for t in tensors),
-                                      out.data_ptr(), b, r, p, nb, lk, stream)
-        else:
-            kb, vb, packed = _onepass_operands(k, v, ws, packed, nb, d)
-            _same_device([x, packed])
-            plan = tile_plan(r, p)
-            rc = lib.ertdx_core_stack_onepass(*(t.data_ptr() for t in (
-                x, mods, kb, vb, packed, ws["bso"], ws["bco"], ws["b1"],
-                ws["b2"], lift_w, lift_b, pos_emb, on_scale, on_bias, head_w,
-                head_b, out)), b, r, p, nb, lk, plan.cpw, plan.tiles, stream)
+        kb, vb, packed = _operands(k, v, ws, packed, kv, nb, d, accurate)
+        _same_device([x, packed, kb, vb])
+        plan = tile_plan(r, p)
+        entry = (lib.ertdx_core_stack_bf16x3 if accurate
+                 else lib.ertdx_core_stack_onepass)
+        rc = entry(*(t.data_ptr() for t in (
+            x, mods, kb, vb, packed, ws["bso"], ws["bco"], ws["b1"],
+            ws["b2"], lift_w, lift_b, pos_emb, on_scale, on_bias, head_w,
+            head_b, out)), b, r, p, nb, lk, plan.cpw, plan.tiles, stream)
     _build.raise_on(rc, "fused_core_stack")
     _count("fused_core_stack", accurate)
     return out
 
 
 def fused_core_block(x3, mods, k, v, w, *, p: int, chunk: int,
-                     accurate: bool = False, packed=None):
+                     accurate: bool = False, packed=None, kv=None):
     """One CoreBlock over (B*n_chunks, chunk*P, D) condition-major chain
     slabs, in the mode `accurate` selects. One CUDA launch on the current
-    stream. `packed`: `pack_core_weights(w)`, (1, 14, D, D), as for
-    `fused_core_stack`."""
+    stream. `packed`: the mode's packed weights of the block, (1, 14, D,
+    D) or with `accurate` (1, 14, 2, D, D), and `kv` the mode's operands
+    of k and v, as for `fused_core_stack`."""
     tensors = [x3, mods, k, v, *(w[key] for key in WEIGHT_KEYS)]
     if _on_cpu(tensors):
-        plain = (fused_core_block_plain if accurate
-                 else fused_core_block_onepass_plain)
-        return plain(x3, mods, k, v, w, p=p)
+        return plain_versions(accurate)[1](x3, mods, k, v, w, p=p)
     _same_device(tensors)
     g, rows, d = x3.shape
     b = mods.shape[0]
@@ -489,16 +593,14 @@ def fused_core_block(x3, mods, k, v, w, *, p: int, chunk: int,
     lib = _build.load().lib
     with torch.cuda.device(x3.device):
         stream = torch.cuda.current_stream(x3.device).cuda_stream
-        if accurate:
-            rc = lib.ertdx_core_block(*(t.data_ptr() for t in tensors),
-                                      out.data_ptr(), b, r, p, lk, stream)
-        else:
-            kb, vb, packed = _onepass_operands(k, v, w, packed, 1, d)
-            _same_device([x3, packed])
-            plan = tile_plan(r, p)
-            rc = lib.ertdx_core_block_onepass(*(t.data_ptr() for t in (
-                x3, mods, kb, vb, packed, w["bso"], w["bco"], w["b1"],
-                w["b2"], out)), b, r, p, lk, plan.cpw, plan.tiles, stream)
+        kb, vb, packed = _operands(k, v, w, packed, kv, 1, d, accurate)
+        _same_device([x3, packed, kb, vb])
+        plan = tile_plan(r, p)
+        entry = (lib.ertdx_core_block_bf16x3 if accurate
+                 else lib.ertdx_core_block_onepass)
+        rc = entry(*(t.data_ptr() for t in (
+            x3, mods, kb, vb, packed, w["bso"], w["bco"], w["b1"], w["b2"],
+            out)), b, r, p, lk, plan.cpw, plan.tiles, stream)
     _build.raise_on(rc, "fused_core_block")
     _count("fused_core_block", accurate)
     return out

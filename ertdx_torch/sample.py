@@ -36,7 +36,8 @@ from . import transforms
 from .configs import SampleConfig
 from .diffusion import (DiffusionSchedule, as_eps_denoiser, sample_ancestral,
                         sample_ddim, sample_dpmpp_2m, sample_pd)
-from .models.mega import mega_denoise_ensemble, mega_plan, mega_weights
+from .models.mega import (mega_cross_kv, mega_denoise_ensemble, mega_plan,
+                          mega_weights)
 from .parallel.mesh import (DATA_AXIS, all_gather_cat, mesh_device,
                             sharded_rows)
 from .params import ParameterSpace
@@ -195,8 +196,12 @@ def _ensemble(model, condition, schedule, r, b, p, scfg, guided, interval,
         per-block module path, or, for a model without
         `denoise_ensemble`, on the context tiled realization-major."""
         if plan is not None:
+            # the cross K/V, and their kernel operands, once a run
+            cross = mega_cross_kv(weights, ctx, stack=plan["stack"],
+                                  accurate=plan["accurate"],
+                                  operands=not plan.get("plain", False))
             return lambda x, t: mega_denoise_ensemble(
-                model, x, t, ctx, r, weights=weights, **plan)
+                model, x, t, ctx, r, weights=weights, cross=cross, **plan)
         if cond_major:
             return lambda x, t: model.denoise_ensemble(x, t, ctx, r)
         ctx_tiled = ctx.repeat(r, *([1] * (ctx.dim() - 1)))

@@ -60,6 +60,7 @@ from ertdx_torch.ops import groupnorm as gn
 from ertdx_torch.ops import slab_attn as sa
 from ertdx_torch.utils.weights import (flax_path, flax_shapes, fused_blocks,
                                        named_to_jax, params_from_jax)
+from torch_core_common import jax_accurate
 
 BF16 = torch.bfloat16
 KW = dict(param_dim=29, hidden_dim=32, cond_channels=4, base_width=16,
@@ -336,8 +337,10 @@ def test_mega_plan_accepts_bf16():
 
 def test_mega_denoise_of_a_bf16_model_matches_jax_interpret(pair):
     """As tests/test_ops.py:532-572: the bf16 model's fused-core step on
-    the CPU (the plain stack) against JAX's interpret-mode kernel from the
-    same bf16 context, and against the bf16 module path."""
+    the CPU (the plain stack, accurate=True: JAX's bf16_3x) against JAX's
+    interpret-mode kernel in that mode (its `_dot` patched to round the lo
+    parts as the TPU does, tests/torch_core_common.py) from the same bf16
+    context, and against the bf16 module path."""
     fm, params, tm = pair
     n_real, b = 8, 2
     cond, x, _ = _inputs(6, b=b, n_real=n_real)
@@ -345,9 +348,10 @@ def test_mega_denoise_of_a_bf16_model_matches_jax_interpret(pair):
     jctx = jax.jit(lambda p: fm.apply({"params": p}, cond,
                                       method=fm.encode_condition))(params)
     assert jctx[0].dtype == jnp.bfloat16
-    want = jax_mega(params, jnp.asarray(x), jnp.asarray(t), jctx, n_real,
-                    p=29, d=32, num_blocks=2, chunk=n_real, stack=True,
-                    interpret=True)
+    with jax_accurate():
+        want = jax_mega(params, jnp.asarray(x), jnp.asarray(t), jctx,
+                        n_real, p=29, d=32, num_blocks=2, chunk=n_real,
+                        accurate=True, stack=True, interpret=True)
     ctx = tuple(tbf(a) for a in jctx)
     tt = torch.from_numpy(t).long()
     cb.reset_launches()

@@ -3,10 +3,12 @@
 The port's `mega_denoise_ensemble` on CPU tensors runs the plain PyTorch
 versions of fused_core_stack / fused_core_block; the JAX package's runs
 its Pallas kernels in interpret mode. Same perturbed weights, same
-inputs, tolerance 2e-5 as tests/test_ops.py's mega parity. JAX's kernels
-compute in float32 on the CPU whatever their mode, so the port's side
-passes accurate=True (its float32 function); tests/test_torch_core_
-onepass.py holds the one-pass mode.
+inputs, tolerance 2e-5 as tests/test_ops.py's mega parity. Both sides run
+accurate=True, JAX's bf16_3x: JAX's kernels under
+tests/torch_core_common.py's patch, which rounds the lo parts as the
+TPU's passes do (on the CPU they compute in float32 whatever their
+mode); tests/test_torch_core_onepass.py holds the one-pass mode and
+tests/test_torch_core_bf16x3.py this one at full width.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import torch
 from ertdx.models.mega import mega_denoise_ensemble as jax_mega
 from ertdx_torch.models import mega
 from ertdx_torch.ops import core_block as cb
+from torch_core_common import jax_accurate
 from torch_parity_common import make_pair, t32
 
 B = 2
@@ -38,23 +41,25 @@ def _inputs(n_real, seed=3):
 @pytest.mark.parametrize("n_real", [8, 10])     # 8-chain tile, single tile
 def test_plain_core_matches_jax_interpret(n_real, stack):
     _, params, tm, x, t, ctx = _inputs(n_real)
-    want = jax_mega(params, jnp.asarray(x), jnp.asarray(t), ctx, n_real,
-                    p=29, d=32, num_blocks=2, chunk=n_real, stack=stack,
-                    interpret=True)
+    with jax_accurate():
+        want = np.asarray(jax_mega(
+            params, jnp.asarray(x), jnp.asarray(t), ctx, n_real, p=29, d=32,
+            num_blocks=2, chunk=n_real, accurate=True, stack=stack,
+            interpret=True))
     cb.reset_launches()
     with torch.no_grad():
         got = mega.mega_denoise_ensemble(
             tm, t32(x), torch.from_numpy(t).long(),
             tuple(t32(a) for a in ctx), n_real, p=29, d=32, num_blocks=2,
             chunk=n_real, accurate=True, stack=stack)
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5,
-                               atol=2e-5)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
     # CPU tensors take the plain versions: no kernel launch is counted
     assert cb.launches == {"fused_core_stack": 0, "fused_core_block": 0}
 
 
 def test_mega_matches_module_path():
-    """The fused-core path equals CondUNet.denoise_ensemble (CPU)."""
+    """The fused-core path equals CondUNet.denoise_ensemble (CPU); at
+    these widths bf16_3x stays within 2e-5 of the float32 module path."""
     n_real = 6
     _, _, tm, x, t, ctx = _inputs(n_real, seed=5)
     tctx = tuple(t32(a) for a in ctx)
@@ -84,14 +89,17 @@ def test_plain_stack_equals_blocks():
     ons, onb, hw, hb = f(1, d), f(1, d), f(d, 1), f(1, 1)
     got = cb.fused_core_stack(x, mods, k, v, ws, lw, lb, pe, ons, onb, hw,
                               hb, p=p, chunk=r, accurate=True)
-    cur = (x.reshape(b * r, p, 1) * lw + lb + pe).reshape(b, r * p, d)
+    # bf16_3x: x, pos_emb and eps plus the bias as the one-hot relayouts
+    # leave them (round3), the head's product an mm_3x
+    cur = (cb.round3(x).reshape(b * r, p, 1) * lw + lb + cb.round3(pe)
+           ).reshape(b, r * p, d)
     for i in range(nb):
         w = {key: val[i] for key, val in ws.items()}
         cur = cb.fused_core_block(cur, mods[:, 6 * i:6 * i + 6],
                                   k.reshape(b, nb, lk, d)[:, i],
                                   v.reshape(b, nb, lk, d)[:, i], w, p=p,
                                   chunk=r, accurate=True)
-    want = (cb._ln(cur) * ons + onb) @ hw + hb
+    want = cb.round3(cb.mm_3x(cb._ln(cur) * ons + onb, hw) + hb)
     np.testing.assert_allclose(got.numpy(), want.reshape(b, r, p).numpy(),
                                rtol=1e-5, atol=1e-5)
 

@@ -29,7 +29,7 @@ from ertdx.models.mega import mega_denoise_ensemble as jax_mega
 from ertdx.ops import core_block as jcb
 from ertdx_torch.models import mega
 from ertdx_torch.ops import core_block as cb
-from test_torch_core_tf32x3 import B, D, LK, NB, P, R, _inputs
+from torch_core_common import B, D, LK, NB, P, R, _inputs, jax_accurate
 from torch_parity_common import make_pair, t32
 
 BAND = 5e-2            # max error / max(1, max|exact|), JAX's bf16 band

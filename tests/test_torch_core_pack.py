@@ -155,7 +155,7 @@ def core_model():
 
 def test_mega_weights_carry_the_packed_copies(core_model):
     """mega_weights packs the blocks' matrices once a run, beside the
-    float32 stacks the 3xTF32 kernels read."""
+    float32 stacks the plain versions read."""
     w = mega.mega_weights(core_model)
     assert tuple(w["packed"].shape) == (2, len(cb.PACK_ORDER), 128, 128)
     assert torch.equal(w["packed"].view(torch.int16),

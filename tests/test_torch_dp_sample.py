@@ -14,7 +14,8 @@ and CLI on a 2-rank gloo world.
 * `posterior_over_dataset(mesh=)` against JAX's (per-batch draws);
 * `mega_denoise_ensemble_sharded` against JAX's `denoise_ensemble` (JAX's
   own test of its sharded kernel is slow-marked), at JAX's 2e-5, the
-  fused core in its float32 mode (accurate=True);
+  fused core with accurate=True (JAX's bf16_3x, within 2e-5 of the
+  float32 module path at these widths);
 * `distill(mesh=)`, `calibrate_temperature` / `calibrate_guidance(mesh=)`
   and `PosteriorService(mesh=)` against one process at 1e-6;
 * the CLI's `train` and `sample` under `python -m torch.distributed.run

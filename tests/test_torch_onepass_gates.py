@@ -207,31 +207,26 @@ def test_slab_route(shape, route, accurate_route):
 def test_core_route_and_plan(case):
     """mega_plan follows mega_route: None on the module path, the kernels'
     plan (JAX's variant) on the kernel route, that plan with "plain" on
-    the plain one-pass route (warned once per shape); with accurate=True
-    the kernels wherever they take the shape."""
+    the plain route of the mode (warned once per shape); with
+    accurate=True JAX's gate chooses as well, the plain route
+    ("onepass_plain") then running the plain bf16_3x version."""
     model, r, b, cond_len, route, variant = CORE[case]
-    model.ensemble_mega_accurate = False
-    assert mega.mega_route(model, r, b, cond_len, "cuda") == route
-    assert mega.mega_route(model, r, b, cond_len, "cpu") == "float32"
-    if route == "onepass_plain":
-        with pytest.warns(UserWarning, match="plain one-pass"):
+    for accurate in (False, True):
+        model.ensemble_mega_accurate = accurate
+        assert mega.mega_route(model, r, b, cond_len, "cuda") == route
+        assert mega.mega_route(model, r, b, cond_len, "cpu") == "float32"
+        if route == "onepass_plain":
+            with pytest.warns(UserWarning, match="plain " + (
+                    "bf16_3x" if accurate else "one-pass")):
+                plan = mega.mega_plan(model, r, b, cond_len, "cuda")
+        else:
             plan = mega.mega_plan(model, r, b, cond_len, "cuda")
-    else:
-        plan = mega.mega_plan(model, r, b, cond_len, "cuda")
-    if route == "float32":
-        assert plan is None
-    else:
-        assert plan["stack"] is (variant == "stack")
-        assert plan["chunk"] == r and plan["accurate"] is False
-        assert plan.get("plain", False) is (route == "onepass_plain")
-    model.ensemble_mega_accurate = True
-    supports = cb.kernel_supports(model.param_dim, model.hidden_dim,
-                                  mega.cond_token_len(model, cond_len))
-    enough = r * b >= mega.MIN_TOTAL_CHAINS
-    accurate = mega.mega_plan(model, r, b, cond_len, "cuda")
-    assert (accurate is not None) is (supports and enough)
-    if accurate is not None:
-        assert accurate["stack"] is True and "plain" not in accurate
+        if route == "float32":
+            assert plan is None
+        else:
+            assert plan["stack"] is (variant == "stack")
+            assert plan["chunk"] == r and plan["accurate"] is accurate
+            assert plan.get("plain", False) is (route == "onepass_plain")
     model.ensemble_mega_accurate = False
 
 

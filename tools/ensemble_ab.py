@@ -227,7 +227,8 @@ def crossover_setup(dev):
     from ertdx_torch import configs
     from ertdx_torch.diffusion import sample_ddim, schedule_from_config
     from ertdx_torch.models import build_model
-    from ertdx_torch.models.mega import mega_denoise_ensemble, mega_weights
+    from ertdx_torch.models.mega import (mega_cross_kv, mega_denoise_ensemble,
+                                         mega_weights)
     from ertdx_torch.utils.weights import flax_shapes, params_from_jax
 
     cfg = configs.DDIM_ENSEMBLE
@@ -254,10 +255,12 @@ def crossover_setup(dev):
         runs[b * r] = {
             "per_block": step(lambda x, t, ctx=ctx, r=r:
                               model.denoise_ensemble(x, t, ctx, r)),
-            "fused": step(lambda x, t, ctx=ctx, r=r: mega_denoise_ensemble(
-                model, x, t, ctx, r, p=p, d=mcfg.hidden_dim,
-                num_blocks=mcfg.num_blocks, chunk=r, stack=True,
-                weights=weights))}
+            "fused": step(lambda x, t, ctx=ctx, r=r, cross=mega_cross_kv(
+                weights, ctx, stack=True, accurate=False):
+                mega_denoise_ensemble(
+                    model, x, t, ctx, r, p=p, d=mcfg.hidden_dim,
+                    num_blocks=mcfg.num_blocks, chunk=r, stack=True,
+                    weights=weights, cross=cross))}
     return runs, model
 
 
